@@ -1,0 +1,443 @@
+"""solve_magi, the end-to-end MAGI orchestrator (port of the JAX package's
+inference/solve.py for its production path):
+
+  NLML init of (phi, sigma) -> x init by interpolation -> theta init from
+  bounds -> GP covariances -> target -> staged Gauss-Newton MAP and
+  exact-Hessian Laplace whitening (float64, host) -> C batched NUTS chains
+  under a pooled dense metric (sampling device) -> results
+
+Only ``sampler="nuts"`` with ``mass_matrix="dense-pooled"`` is ported; the
+other options raise NotImplementedError naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import MagiConfig
+from ..models.base import OdeSystem
+from ..ops.cuda_band import MAX_BANDWIDTH
+from ..ops.gp_cov import build_gp_cov
+from ..ops.kernels import parse_kernel_type
+from ..parallel.chains import run_chains
+from .nlml import default_initial_guesses, optimize_gp_hyperparameters
+from .target import MagiTarget, check_band_impl
+from .transforms import constrain_np, make_theta_transform, unconstrain
+from .whiten import (
+    build_psi_whitener,
+    build_psi_whitener_exact,
+    gauss_newton_map,
+    make_centered_whitened_vg,
+    zeta_to_psi_np,
+)
+
+logger = logging.getLogger(__name__)
+
+# Offset added to config.seed for each host numpy stream, so the streams
+# stay distinct: chain-start jitter (as in the JAX package) and the
+# step-jitter multipliers (the JAX package seeds those from its PRNG keys).
+INIT_JITTER_SEED_OFFSET = 1
+STEP_JITTER_SEED_OFFSET = 2
+
+
+class MagiError(RuntimeError):
+    pass
+
+
+@dataclasses.dataclass
+class MagiResult:
+    """(theta, x_sampled, sigma, phi, lp) plus diagnostics. Chains are
+    concatenated along the sample axis; per-chain arrays are in
+    ``diagnostics``."""
+
+    theta: np.ndarray       # (S, k)
+    x_sampled: np.ndarray   # (S, n, D)
+    sigma: np.ndarray       # (S, D)
+    phi: np.ndarray         # (2, D)
+    lp: np.ndarray          # (S,)
+    diagnostics: Dict
+
+    def keys(self):
+        return ("theta", "x_sampled", "sigma", "phi", "lp")
+
+
+def _init_x_interpolation(y_obs: np.ndarray, t_obs: np.ndarray) -> np.ndarray:
+    """Linear interpolation of the observations onto the grid, extended
+    linearly past the ends; constant for <2 observations, zeros for none."""
+    n, d = y_obs.shape
+    x0 = np.zeros((n, d))
+    for dim in range(d):
+        idx = np.flatnonzero(np.isfinite(y_obs[:, dim]))
+        if idx.size == 0:
+            logger.warning("No observations in dimension %d; x init = 0.", dim)
+            continue
+        tv, uniq = np.unique(t_obs[idx], return_index=True)
+        yv = y_obs[idx, dim][uniq]
+        if tv.size < 2:
+            x0[:, dim] = yv[0]
+            continue
+        vals = np.interp(t_obs, tv, yv)
+        left, right = t_obs < tv[0], t_obs > tv[-1]
+        if left.any():
+            vals[left] = yv[0] + (yv[1] - yv[0]) / (tv[1] - tv[0]) * (t_obs[left] - tv[0])
+        if right.any():
+            vals[right] = yv[-1] + (yv[-1] - yv[-2]) / (tv[-1] - tv[-2]) * (t_obs[right] - tv[-1])
+        x0[:, dim] = vals
+    return x0
+
+
+def _init_theta_from_bounds(system: OdeSystem) -> np.ndarray:
+    """Bounds-midpoint initialization with nudging and clamping."""
+    lb, ub = system.theta_lower_bound, system.theta_upper_bound
+    theta = np.zeros(system.theta_size)
+    for i in range(system.theta_size):
+        lo, hi = lb[i], ub[i]
+        if np.isfinite(lo) and np.isfinite(hi):
+            theta[i] = 0.5 * (lo + hi)
+        elif np.isfinite(lo):
+            theta[i] = lo + abs(lo) * 0.1 + 0.1
+        elif np.isfinite(hi):
+            theta[i] = hi - abs(hi) * 0.1 - 0.1
+        if np.isfinite(lo) and theta[i] <= lo:
+            theta[i] = lo + 1e-4 * (min(1.0, hi - lo) if np.isfinite(hi) else 1.0)
+        if np.isfinite(hi) and theta[i] >= hi:
+            theta[i] = hi - 1e-4 * (min(1.0, hi - lo) if np.isfinite(lo) else 1.0)
+        theta[i] = np.clip(theta[i], lo, hi)
+    return theta
+
+
+def _check_supported(config: MagiConfig, mesh, resume) -> None:
+    """Raise NotImplementedError for what the port does not run yet."""
+    unported = [
+        (config.sampler != "nuts", f"sampler='{config.sampler}'", "M15"),
+        (config.mass_matrix != "dense-pooled", f"mass_matrix='{config.mass_matrix}'", "M12"),
+        (not config.x_whitened, "x_whitened=False", "M12"),
+        (config.map_init_iterations > 0, "map_init_iterations > 0", "M12"),
+        (resume is not None, "resume", "M13"),
+        (config.checkpoint_path is not None, "checkpoint_path", "M13"),
+        (mesh is not None, "mesh", "M17"),
+        (config.divergence_envelope, "divergence_envelope", "M18"),
+        (config.profile_dir is not None, "profile_dir", "M10"),
+    ]
+    for hit, what, item in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to PyTorch yet (ROADMAP {item})."
+            )
+
+
+def _check_precision() -> None:
+    """Float32 contractions must stay true float32 (no TF32)."""
+    if (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.backends.cudnn.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise MagiError(
+            "TF32 is on; the MAGI operators need true float32 contractions. "
+            "Set torch.backends.cuda.matmul.allow_tf32 = False, "
+            "torch.backends.cudnn.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')."
+        )
+
+
+def resolve_band_impl(config: MagiConfig, n_times: int, n_dims: int,
+                      bandsize: int, device: torch.device) -> str:
+    """``band_impl="auto"`` by the JAX package's policy, with the TPU test
+    replaced by "the device is CUDA" and the Pallas path by "band". Its
+    thresholds were set on a TPU (ROADMAP M11)."""
+    if config.band_impl != "auto":
+        check_band_impl(config.band_impl)
+        return config.band_impl
+    on_card = device.type == "cuda"
+    dense_bytes = n_dims * 6 * n_times * n_times * 4
+    if n_times <= (512 if on_card else 1024):
+        return "dense"
+    if config.n_chains >= 8 and dense_bytes <= 2 << 30:
+        return "dense"
+    if bandsize > MAX_BANDWIDTH:
+        return "dense"
+    return "band"
+
+
+def _gn_stages(make_target_vg, gp_cov, y_obs, psi, prior_temps, theta_freeze, freeze, nd):
+    """Staged Gauss-Newton MAP: a theta-only pre-stage against the frozen
+    interpolated X (lands theta in the data basin), then full stages, first
+    at beta_obs = 1 when the target tempers the observations."""
+    stages = [prior_temps]
+    if prior_temps[2] > 1.001:
+        stages = [np.array([prior_temps[0], prior_temps[1], 1.0]), prior_temps]
+    vg_0, target_0 = make_target_vg(stages[0])
+    psi = gauss_newton_map(
+        vg_0, gp_cov, y_obs, target_0, psi, stages[0], freeze=theta_freeze,
+        n_newton=50, warn_on_cap=False,
+    )
+    budget = 200 if nd <= 1000 else 600
+    for stage_temps in stages:
+        vg_s, target_s = make_target_vg(stage_temps)
+        psi = gauss_newton_map(
+            vg_s, gp_cov, y_obs, target_s, psi, stage_temps, freeze=freeze,
+            n_newton=budget,
+        )
+    return psi
+
+
+def solve_magi(
+    y_obs: np.ndarray,
+    t_obs: np.ndarray,
+    ode_system: OdeSystem,
+    config: Optional[MagiConfig] = None,
+    initial_params: Optional[np.ndarray] = None,
+    mesh=None,
+    resume=None,
+) -> MagiResult:
+    """Solve the MAGI inference problem; see MagiConfig for the options.
+    ``initial_params`` optionally supplies Psi_0 = [vec(x); theta;
+    log(sigma)]. ``mesh`` and ``resume`` are not ported yet."""
+    config = config or MagiConfig()
+    _check_supported(config, mesh, resume)
+    _check_precision()
+    t_start = time.perf_counter()
+    phase_times = {}
+    y_obs = np.asarray(y_obs, dtype=np.float64)
+    t_obs = np.asarray(t_obs, dtype=np.float64)
+    if y_obs.ndim != 2:
+        raise MagiError(f"y_obs must be (n_times, n_dims); got {y_obs.shape}")
+    n_times, n_dims = y_obs.shape
+    if t_obs.shape != (n_times,):
+        raise MagiError("t_obs length must match y_obs rows")
+    k = ode_system.theta_size
+    nd = n_times * n_dims
+    device = config.resolved_device()
+    dtype = config.resolved_dtype()
+
+    try:
+        parse_kernel_type(config.kernel)
+    except ValueError:
+        logger.warning("Unsupported kernel type '%s'. Defaulting to matern52.", config.kernel)
+        config = dataclasses.replace(config, kernel="matern52")
+    logger.info("MAGI solve: n=%d, D=%d, k=%d, kernel=%s, device=%s, dtype=%s",
+                n_times, n_dims, k, config.kernel, device, dtype)
+
+    # --- sigma fixed or sampled ---
+    sigma_exo = np.asarray(config.sigma, dtype=np.float64) if config.sigma_provided else np.array([])
+    phi_exo = np.asarray(config.phi, dtype=np.float64) if config.phi_provided else np.zeros((2, 0))
+    sigma_is_fixed = config.sigma_is_fixed
+    if sigma_is_fixed:
+        if sigma_exo.shape != (n_dims,):
+            raise MagiError(f":sigma must have length {n_dims}; got {sigma_exo.shape}")
+        if phi_exo.shape != (2, n_dims):
+            raise MagiError(f":phi must be (2, {n_dims}) when sigma is fixed; got {phi_exo.shape}")
+    elif sigma_exo.size and not phi_exo.size:
+        logger.warning("sigma provided without phi: sigma treated as unknown and re-initialized.")
+
+    # --- phi / sigma initialization ---
+    t_phase = time.perf_counter()
+    if phi_exo.size and sigma_is_fixed:
+        phi_all, sigma_init = phi_exo, sigma_exo
+    else:
+        guesses = default_initial_guesses(y_obs, t_obs)
+        if phi_exo.size:
+            guesses[:, 0] = np.log(np.maximum(phi_exo[0], 1e-10))
+            guesses[:, 1] = np.log(np.maximum(phi_exo[1], 1e-10))
+        optimized = optimize_gp_hyperparameters(
+            y_obs, t_obs, config.kernel, initial_log_params=guesses,
+            jitter=config.jitter, max_iters=config.gp_optim_iterations,
+            ftol=config.gp_optim_ftol, gtol=config.gp_optim_gtol,
+            show_trace=config.gp_optim_show_trace,
+        )
+        phi_all = phi_exo if phi_exo.size else optimized[:, :2].T
+        sigma_init = np.maximum(optimized[:, 2], 1e-8)
+    phase_times["nlml_s"] = time.perf_counter() - t_phase
+    logger.info("phi:\n%s\ninitial sigma: %s%s", np.round(phi_all, 4),
+                np.round(sigma_init, 4), " (fixed)" if sigma_is_fixed else "")
+    if not (np.isfinite(phi_all).all() and (phi_all > 0).all()):
+        raise MagiError(f"Invalid GP hyperparameters: {phi_all}")
+
+    # --- x / theta init ---
+    if config.x_init is not None and np.asarray(config.x_init).size:
+        x_init = np.asarray(config.x_init, dtype=np.float64)
+        if x_init.shape != (n_times, n_dims):
+            raise MagiError(f":xInit must be ({n_times}, {n_dims}); got {x_init.shape}")
+    else:
+        x_init = _init_x_interpolation(y_obs, t_obs)
+    lo, hi = ode_system.theta_lower_bound, ode_system.theta_upper_bound
+    if config.theta_init is not None and len(np.atleast_1d(config.theta_init)):
+        theta_init = np.asarray(config.theta_init, dtype=np.float64)
+        if theta_init.shape != (k,):
+            raise MagiError(f":thetaInit must have length {k}")
+        if (theta_init < lo).any() or (theta_init > hi).any():
+            logger.warning("thetaInit outside bounds; clamping.")
+            theta_init = np.clip(theta_init, lo, hi)
+    else:
+        theta_init = _init_theta_from_bounds(ode_system)
+
+    # --- GP covariances: float64 on the host; the sampling copy is cast ---
+    gp_cov64 = build_gp_cov(
+        config.kernel, phi_all, t_obs, bandsize=config.band_size, complexity=2,
+        jitter=config.jitter, auto_escalate_bandsize=config.band_auto_escalate,
+    )
+    gp_cov = gp_cov64.to(dtype=dtype, device=device)
+
+    prior_temps = np.asarray(config.prior_temperature, dtype=np.float64)
+    if prior_temps.shape != (3,):
+        logger.warning("priorTemperature should be [beta_deriv, beta_level, beta_obs]; "
+                       "broadcasting scalar.")
+        prior_temps = np.full(3, float(np.atleast_1d(prior_temps)[0]))
+    band_impl = resolve_band_impl(config, n_times, n_dims, gp_cov.bandsize, device)
+    logger.info("band_impl: %s (bandsize %d)", band_impl, gp_cov.bandsize)
+
+    theta_transform = None
+    if config.theta_constrained:
+        theta_transform = make_theta_transform(lo, hi)
+
+    gp_mean = config.gp_mean
+    if isinstance(gp_mean, str):
+        if gp_mean != "observed":
+            raise MagiError(f"unknown gp_mean mode '{gp_mean}'")
+        gp_mean = np.array([
+            float(col[np.isfinite(col)].mean()) if np.isfinite(col).any() else 0.0
+            for col in y_obs.T
+        ])
+
+    def build_target(cov, temps, impl):
+        return MagiTarget.build(
+            y_obs, cov, ode_system, sigma_init, temps, sigma_is_fixed,
+            band_impl=impl, theta_transform=theta_transform, gp_mean=gp_mean,
+        )
+
+    target = build_target(gp_cov, prior_temps, band_impl)
+
+    # --- Psi_0 ---
+    if initial_params is not None:
+        psi0 = np.asarray(initial_params, dtype=np.float64).copy()
+        if psi0.shape != (target.dimension,):
+            raise MagiError(
+                f"initial_params must have length {target.dimension} "
+                f"(sigma {'fixed' if sigma_is_fixed else 'sampled'}); got {psi0.shape}"
+            )
+        th = psi0[nd : nd + k]
+        if (th < lo).any() or (th > hi).any():
+            logger.warning("theta part of initial_params outside bounds; clamping.")
+            psi0[nd : nd + k] = np.clip(th, lo, hi)
+    else:
+        parts = [x_init.T.reshape(-1), theta_init]
+        if not sigma_is_fixed:
+            parts.append(np.log(np.maximum(sigma_init, 1e-8)))
+        psi0 = np.concatenate(parts)
+    if theta_transform is not None:
+        psi0[nd : nd + k] = unconstrain(theta_transform, psi0[nd : nd + k])
+    logger.info("Sampling dimension: %d", psi0.shape[0])
+
+    # --- staged Gauss-Newton MAP on a float64 dense CPU replica ---
+    t_phase = time.perf_counter()
+    freeze = None if sigma_is_fixed else slice(nd + k, target.dimension)
+    theta_freeze = np.ones(target.dimension, dtype=bool)
+    theta_freeze[nd : nd + k] = False
+
+    def make_target_vg(stage_temps):
+        t_s = build_target(gp_cov64, stage_temps, "dense")
+        return t_s.value_and_grad_fn(), t_s
+
+    psi0 = _gn_stages(make_target_vg, gp_cov64, y_obs, psi0, prior_temps,
+                      theta_freeze, freeze, nd)
+    phase_times["gn_map_s"] = time.perf_counter() - t_phase
+
+    # --- exact-Hessian whitener at the mode (GN precision as fallback) ---
+    t_phase = time.perf_counter()
+    target_h = build_target(gp_cov64, prior_temps, "dense")
+    try:
+        whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
+    except (np.linalg.LinAlgError, RuntimeError):
+        logger.warning("exact-Hessian whitener failed; using the GN precision.")
+        whitener = build_psi_whitener(
+            gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
+        )
+    vg = make_centered_whitened_vg(target, whitener)
+    phase_times["whitener_s"] = time.perf_counter() - t_phase
+
+    # --- NUTS chains on the sampling device ---
+    n_chains = int(config.n_chains)
+    n_adapts = int(np.floor(config.niter_hmc * config.burnin_ratio))
+    zeta0 = np.zeros((n_chains, target.dimension))
+    if config.chain_init_jitter > 0 and n_chains > 1:
+        rng_init = np.random.default_rng(config.seed + INIT_JITTER_SEED_OFFSET)
+        zeta0[1:] += config.chain_init_jitter * rng_init.standard_normal(zeta0[1:].shape)
+    generator = torch.Generator(device=device).manual_seed(int(config.seed))
+    samples, info = run_chains(
+        vg,
+        torch.as_tensor(zeta0, dtype=dtype, device=device),
+        generator,
+        n_samples=config.niter_hmc,
+        n_adapts=n_adapts,
+        initial_step_size=config.step_size_factor,
+        target_accept=config.target_accept_ratio,
+        max_depth=config.max_tree_depth,
+        chunk_size=config.chunk_size,
+        progress=config.verbose,
+        mass_matrix=config.mass_matrix,
+        step_jitter=config.step_jitter,
+        step_jitter_low=config.step_jitter_low,
+        jitter_rng=np.random.default_rng(config.seed + STEP_JITTER_SEED_OFFSET),
+    )
+    phase_times["warmup_s"] = info["warmup_time_s"]
+    phase_times["sampling_s"] = info["sampling_time_s"]
+
+    # --- results ---
+    n_keep = samples.shape[1]
+    samples = zeta_to_psi_np(whitener, samples.reshape(-1, samples.shape[-1])).reshape(
+        samples.shape
+    )
+    flat = samples.reshape(n_chains * n_keep, -1)
+    x_samples = flat[:, :nd].reshape(-1, n_dims, n_times).transpose(0, 2, 1)
+    theta_samples = flat[:, nd : nd + k]
+    if theta_transform is not None:
+        theta_samples = constrain_np(theta_transform, theta_samples)
+    if sigma_is_fixed:
+        sigma_samples = np.tile(sigma_init, (flat.shape[0], 1))
+    else:
+        sigma_samples = np.exp(flat[:, nd + k :])
+    n_div = int(np.sum(info["diverging"]))
+    if n_div:
+        logger.warning("%d divergent transitions after warmup.", n_div)
+
+    diagnostics = {
+        "accept_prob": info["accept_prob"],
+        "num_leapfrog": info["num_leapfrog"],
+        "tree_depth": info["tree_depth"],
+        "diverging": info["diverging"],
+        "energy": info["energy"],
+        "step_size": info["step_size"],
+        "inv_mass": info["inv_mass"],
+        "n_divergent": n_div,
+        "n_chains": n_chains,
+        "final_psi": info["final_psi"],  # whitened zeta, as in the JAX package
+        "lp_per_chain": info["lp"],
+        "theta_per_chain": theta_samples.reshape(n_chains, n_keep, k),
+        "sampling_time_s": info["sampling_time_s"],
+        "phase_times_s": phase_times,
+        "total_time_s": time.perf_counter() - t_start,
+        "gradient_evals": float(np.sum(info["num_leapfrog"])),
+        "transitions": info["transitions"],
+        "host_syncs": info["host_syncs"],
+        "lockstep_leaves": info["lockstep_leaves"],
+        "sigma_is_fixed": sigma_is_fixed,
+        "sampler": config.sampler,
+        "band_impl": band_impl,
+        "bandsize": int(gp_cov.bandsize),
+        "device": str(device),
+        "dtype": str(dtype),
+    }
+    return MagiResult(
+        theta=theta_samples,
+        x_sampled=x_samples,
+        sigma=sigma_samples,
+        phi=np.asarray(phi_all),
+        lp=info["lp"].reshape(-1),
+        diagnostics=diagnostics,
+    )
