@@ -6,21 +6,31 @@ Drives the port's production path (``solve_magi`` on the FitzHugh-Nagumo
 bench workload: n=397, D=2, 128 NUTS chains under a pooled dense metric,
 exact-Hessian whitening, mode-centered float32 evaluation) with the
 likelihood on the band-storage layout, so every gradient evaluation runs
-the hand-written CUDA band-matvec kernel (forward and backward). Phases:
+the hand-written CUDA band-matvec kernels: the paired launch (mphi and
+GC^T on one input) and the single launch (GK^T) forward, and their two
+launches backward. Phases:
 
 1. device: the card's name and power limit; TF32 must be off;
-2. build: compile the kernel from csrc/ with nvcc;
-3. kernel: the kernel against its plain PyTorch twin at the main path's
-   shapes and at edge shapes, float64 and float32, forward and backward,
-   with CUDA-event timings;
-4. likelihood: the whitened centered value-and-grad on the card, band
-   against dense in float32, both against a float64 CPU evaluation;
-5. slice: ``solve_magi`` end to end; draws finite, recovery within the
-   bars, and the kernel launched by the main path.
+2. build: compile the kernels from csrc/ with nvcc;
+3. likelihood: the whitened centered value-and-grad on the card, band
+   against dense in float32, both against a float64 CPU evaluation, and
+   the kernel launches per value-and-grad (4);
+4. likelihood-3169: the same workload on the filllevel-5 grid (n=3169;
+   the band escalates from 80 to 160), 128 chains, band against dense,
+   eager and replayed from a CUDA graph; one chain against float64 on the
+   CPU;
+5. kernel: the single and paired kernels against their plain PyTorch
+   versions at the main path's shape, at the n=3169 shape and at edge
+   shapes (b = 0, n < 2b+1, b > 64), float64 and float32, forward and
+   backward; each timed per launch from a CUDA graph of back-to-back
+   calls beside its plain version and the dense torch.matmul;
+6. slice: ``solve_magi`` end to end; draws finite, recovery within the
+   bars, and every kernel launched by the main path.
 
-Each phase prints one line; a failed check exits non-zero. The last line is
+Each phase prints one line; a failed check exits non-zero. The line before
+the card's name is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. There is no CPU branch: without a CUDA
-device the script raises.
+device the script exits non-zero.
 """
 from __future__ import annotations
 
@@ -32,17 +42,19 @@ import time
 import numpy as np
 import torch
 
-SEED = 42
 N_CHAINS = 128
 # 400 warmup + 400 draws per chain: at ~0.8 ms per batched leapfrog step
 # (value-and-grad replayed from a CUDA graph) and ~600 batched steps per
 # iteration, ~400 s of sampling, half the script's time limit (PERF.md).
 NITER_HMC = 800
 MAIN_BANDSIZE = 40  # the band after escalation on this workload (20 -> 40)
-THETA_TRUE = np.array([0.2, 0.2, 3.0])
-SIGMA_TRUE = 0.2
+LONG_FILL, LONG_BAND_START = 5, 80  # n = 3169; the band escalates to 160
 KERNEL_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/band_matvec.cu"
 KERNEL_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/ops/pallas_band.py:52"
+# The kernels' C entry points and the ops of perf/band_timing.py they run.
+KERNELS = {"band_matvec": "single", "band_matvec_pair": "pair",
+           "band_matvec_pair_t": "pair_t"}
+LAUNCHES_PER_VG = 4
 # Tolerances: float64 agrees to rounding; float32 sums run in another order.
 TOL_F64, TOL_F32 = 1e-12, 1e-5
 TOL_VALUE, TOL_GRAD = 1e-4, 1e-3
@@ -73,28 +85,6 @@ def cuda_ms(fn, n_runs: int = 50) -> float:
     return float(np.median(times))
 
 
-def build_workload(mt, n_obs=100, t_end=20.0, fill=2, seed=SEED):
-    """bench.py's workload, generated with the port's integrators: FN at
-    the true theta, 100 noisy observations on [0, 20] (noise sd 0.2), on a
-    filllevel-2 grid (n = 397)."""
-    from manifold_constrained_gaussian_process_inference_tpu_torch.utils.integrators import (
-        integrate_system, sample_on_grid,
-    )
-
-    rng = np.random.default_rng(seed)
-    ts, xs = integrate_system(mt.FN_SYSTEM, [-1.0, 1.0], 0.0, t_end, THETA_TRUE, 4000)
-    t_obs = np.linspace(0.0, t_end, n_obs)
-    y_at_obs = sample_on_grid(ts.numpy(), xs.numpy(), t_obs) + SIGMA_TRUE * rng.normal(
-        size=(n_obs, 2)
-    )
-    ins = 2**fill - 1
-    segs = [np.linspace(t_obs[i], t_obs[i + 1], ins + 2)[:-1] for i in range(n_obs - 1)]
-    t_grid = np.concatenate(segs + [t_obs[-1:]])
-    y_grid = np.full((len(t_grid), 2), np.nan)
-    y_grid[:: ins + 1] = y_at_obs
-    return y_grid, t_grid
-
-
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,118 +104,39 @@ def phase_build(cb):
     print(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def _kernel_case(cb, twin, c, m, b, n, dtype, rng, timed=False):
-    """Kernel against twin, forward and backward, on one shape."""
-    dev = "cuda"
-    bands = torch.as_tensor(rng.normal(size=(m, 2 * b + 1, n)), dtype=dtype, device=dev)
-    bands_t = torch.as_tensor(rng.normal(size=(m, 2 * b + 1, n)), dtype=dtype, device=dev)
-    x = torch.as_tensor(rng.normal(size=(c, m, n)), dtype=dtype, device=dev)
-    g = torch.as_tensor(rng.normal(size=(c, m, n)), dtype=dtype, device=dev)
-    xr = x.clone().requires_grad_(True)
-    y = cb.band_matvec(bands, bands_t, xr, b)
-    (gx,) = torch.autograd.grad(y, xr, g)
-    torch.cuda.synchronize()
-    y_ref = twin(bands, x, b)
-    gx_ref = twin(bands_t, g, b)
-    y, gx = y.detach(), gx.detach()
-    err = max(float((y - y_ref).abs().max()), float((gx - gx_ref).abs().max()))
-    rel = max(float((y - y_ref).abs().max() / y_ref.abs().max().clamp(min=1e-300)),
-              float((gx - gx_ref).abs().max() / gx_ref.abs().max().clamp(min=1e-300)))
-    tol = TOL_F64 if dtype == torch.float64 else TOL_F32
-    check(rel <= tol, f"kernel vs twin at {(c, m, b, n)} {dtype}: rel {rel:.3e} > {tol}")
-    times = {}
-    if timed:
-        xg = x.clone().requires_grad_(True)
-
-        def fwd_bwd_kernel():
-            torch.autograd.grad(cb.band_matvec(bands, bands_t, xg, b), xg, g)
-
-        def fwd_bwd_twin():
-            torch.autograd.grad(twin(bands, xg, b), xg, g)
-
-        times = dict(
-            ms=cuda_ms(lambda: cb.band_matvec_cuda(bands, x, b)),
-            plain_ms=cuda_ms(lambda: twin(bands, x, b)),
-            fwd_bwd_ms=cuda_ms(fwd_bwd_kernel),
-            plain_fwd_bwd_ms=cuda_ms(fwd_bwd_twin),
-        )
-    return err, rel, times
-
-
-def phase_kernel(cb, twin):
-    rng = np.random.default_rng(0)
-    bandsize = MAIN_BANDSIZE
-    main = (N_CHAINS, 2, bandsize, 397)
-    edges = [(3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129), (1, 2, 64, 200), (5, 2, 40, 50)]
-    worst = {}
-    for shape in [main] + edges:
-        for dtype in (torch.float64, torch.float32):
-            _, rel, _ = _kernel_case(cb, twin, *shape, dtype, rng)
-            worst[dtype] = max(worst.get(dtype, 0.0), rel)
-    err, rel, times = _kernel_case(cb, twin, *main, torch.float32, rng, timed=True)
-    # the (M, n) form of the parity API
-    x2 = torch.as_tensor(rng.normal(size=(2, 397)), dtype=torch.float64, device="cuda")
-    bs2 = torch.as_tensor(rng.normal(size=(2, 2 * bandsize + 1, 397)), device="cuda")
-    rel2 = float((cb.band_matvec_cuda(bs2, x2, bandsize) - twin(bs2, x2, bandsize)).abs().max()
-                 / twin(bs2, x2, bandsize).abs().max())
-    check(rel2 <= TOL_F64, f"kernel (M, n) form: rel {rel2:.3e}")
-    print(f"[kernel] main shape (C,M,b,n)={main} float32 fwd+bwd max abs err {err:.3e} "
-          f"(rel {rel:.3e}); worst rel over {1 + len(edges)} shapes: float64 "
-          f"{worst[torch.float64]:.3e} (tol {TOL_F64}), float32 {worst[torch.float32]:.3e} "
-          f"(tol {TOL_F32}); fwd kernel {times['ms']:.4f} ms vs twin {times['plain_ms']:.4f} ms; "
-          f"fwd+bwd kernel {times['fwd_bwd_ms']:.4f} ms vs twin "
-          f"{times['plain_fwd_bwd_ms']:.4f} ms (CUDA events, median of 50)", flush=True)
-    return err, times
-
-
-def phase_likelihood(mt, y, t):
-    """Whitened, mode-centered value-and-grad on the card, band vs dense in
-    float32, both against float64 on the CPU, at one batch of C zetas."""
-    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.target import MagiTarget
-    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.transforms import (
-        make_theta_transform, unconstrain,
-    )
-    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
-        build_psi_whitener, make_centered_whitened_vg,
-    )
-    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.solve import (
-        _init_x_interpolation,
-    )
+def _vg_rates(vg, x):
+    """Chain-evaluations per second of vg(x), eager and replayed from a CUDA
+    graph (CUDA events, median of 20), and the graph's launches."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
         GraphedValueAndGrad,
     )
 
-    cov64 = mt.build_gp_cov("matern52", np.array([[2.0, 2.0], [1.5, 1.5]]), t,
-                            bandsize=MAIN_BANDSIZE)
-    tr = make_theta_transform(mt.FN_SYSTEM.theta_lower_bound, mt.FN_SYSTEM.theta_upper_bound)
-    sigma0 = np.array([SIGMA_TRUE, SIGMA_TRUE])
+    graphed = GraphedValueAndGrad(vg, x)
+    rates = tuple(x.shape[0] * 1e3 / cuda_ms(lambda: f(x), 20) for f in (vg, graphed))
+    return rates, graphed.kernel_launches
 
-    def target(cov, impl):
-        return MagiTarget.build(y, cov, mt.FN_SYSTEM, sigma0, (1.0, 1.0, 1.0), False,
-                                band_impl=impl, theta_transform=tr)
 
-    x0 = _init_x_interpolation(y, t)
-    center = np.concatenate([x0.T.reshape(-1), unconstrain(tr, THETA_TRUE), np.log(sigma0)])
-    t64 = target(cov64, "dense")
-    wh = build_psi_whitener(cov64, y, t64, center, (1.0, 1.0, 1.0), torch.float64)
-    zeta = np.random.default_rng(1).normal(size=(N_CHAINS, t64.dimension)) * 0.5
-    v64, g64 = make_centered_whitened_vg(t64, wh)(torch.as_tensor(zeta))
-    v64, g64 = v64.numpy(), g64.numpy()
-    cov32 = cov64.to(dtype=torch.float32, device="cuda")
-    wh32 = type(wh)(*(a.to(dtype=torch.float32, device="cuda") for a in wh))
+def phase_likelihood(y, t):
+    """Whitened, mode-centered value-and-grad on the card, band vs dense in
+    float32, both against float64 on the CPU, at one batch of C zetas."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        slice_likelihood,
+    )
+
+    lik = slice_likelihood(y, t, bandsize=MAIN_BANDSIZE)
+    zeta = np.random.default_rng(1).normal(size=(N_CHAINS, lik.dimension)) * 0.5
+    v64, g64 = (a.numpy() for a in lik.vg("dense", torch.float64, "cpu")(torch.as_tensor(zeta)))
     zeta32 = torch.as_tensor(zeta, dtype=torch.float32, device="cuda")
-    out, rates, vals = {}, {}, {}
+    out, rates, vals, launches = {}, {}, {}, {}
     for impl in ("band", "dense"):
-        vg = make_centered_whitened_vg(target(cov32, impl), wh32)
+        vg = lik.vg(impl)
         vals[impl] = vg(zeta32)
         torch.cuda.synchronize()
         v, g = (a.double().cpu().numpy() for a in vals[impl])
         check(np.isfinite(v).all() and np.isfinite(g).all(), f"{impl}: non-finite")
         out[impl] = (float(np.max(np.abs(v - v64) / np.abs(v64))),
                      float(np.max(np.abs(g - g64)) / np.max(np.abs(g64))))
-        graphed = GraphedValueAndGrad(vg, zeta32)
-        rates[impl] = tuple(1e3 * N_CHAINS / cuda_ms(lambda: f(zeta32), 20)
-                            for f in (vg, graphed))
+        rates[impl], launches[impl] = _vg_rates(vg, zeta32)
     (vb, gb), (vd, gd) = vals["band"], vals["dense"]
     band_vs_dense = (float(((vb - vd).abs() / vd.abs()).max()),
                      float((gb - gd).abs().max() / gd.abs().max()))
@@ -233,16 +144,170 @@ def phase_likelihood(mt, y, t):
         check(ev <= TOL_VALUE, f"{impl} value rel err {ev:.3e} > {TOL_VALUE}")
         check(eg <= TOL_GRAD, f"{impl} grad err {eg:.3e} > {TOL_GRAD} of max |grad|")
     check(band_vs_dense[0] <= TOL_VALUE and band_vs_dense[1] <= TOL_GRAD, "band vs dense")
-    print(f"[likelihood] C={N_CHAINS} dim={t64.dimension} bandsize={cov64.bandsize} float32 vs "
-          f"float64 CPU: band value rel {out['band'][0]:.3e} grad {out['band'][1]:.3e}; dense "
+    per_vg = launches["band"]
+    check(sum(per_vg.values()) == LAUNCHES_PER_VG and all(per_vg.values()),
+          f"kernel launches per value-and-grad {per_vg}, want {LAUNCHES_PER_VG}")
+    print(f"[likelihood] C={N_CHAINS} dim={lik.dimension} bandsize={lik.cov64.bandsize} float32 "
+          f"vs float64 CPU: band value rel {out['band'][0]:.3e} grad {out['band'][1]:.3e}; dense "
           f"value rel {out['dense'][0]:.3e} grad {out['dense'][1]:.3e}; band vs dense value "
           f"{band_vs_dense[0]:.3e} grad {band_vs_dense[1]:.3e}; value-and-grad evals/s "
           f"(chains x calls) eager / CUDA-graph replay: band {rates['band'][0]:.0f} / "
-          f"{rates['band'][1]:.0f}, dense {rates['dense'][0]:.0f} / {rates['dense'][1]:.0f}",
-          flush=True)
+          f"{rates['band'][1]:.0f}, dense {rates['dense'][0]:.0f} / {rates['dense'][1]:.0f}; "
+          f"kernel launches per value-and-grad {per_vg}", flush=True)
+    return per_vg
+
+
+def phase_likelihood_3169():
+    """Mode-centered value-and-grad of C chains at the true theta and
+    sigma on the filllevel-5 grid (n=3169), band against dense in float32
+    on the card, eager and replayed; chain 0 against float64 on the CPU."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.solve import (
+        _init_x_interpolation,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.target import (
+        MagiTarget, value_and_grad,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.models import FN_SYSTEM
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops.gp_cov import build_gp_cov
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops.likelihood import (
+        log_posterior_centered, make_centered_terms,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        PHI, SIGMA_TRUE, TEMPS, THETA_TRUE, fn_bench_workload,
+    )
+
+    y, t = fn_bench_workload(fill=LONG_FILL)
+    t0 = time.perf_counter()
+    cov64 = build_gp_cov("matern52", PHI, t, bandsize=LONG_BAND_START)
+    cov_s = time.perf_counter() - t0
+    n, b = len(t), cov64.bandsize
+    x_ref = _init_x_interpolation(y, t)
+    dx = np.random.default_rng(2).normal(size=(N_CHAINS, n, 2)) * 0.05
+    sigma = np.full(2, SIGMA_TRUE)
+
+    def make_vg(impl, dtype, device, chains):
+        cov = cov64.to(dtype=dtype, device=device)
+        target = MagiTarget.build(y, cov, FN_SYSTEM, sigma, TEMPS, True, band_impl=impl)
+        cent = make_centered_terms(target.data, x_ref, b)
+        put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        theta = put(np.tile(THETA_TRUE, (chains, 1)))
+        return value_and_grad(lambda d: log_posterior_centered(
+            d, theta, target.sigma_init, target.data, cent, FN_SYSTEM.f, b)), put
+
+    vg64, put64 = make_vg("band", torch.float64, "cpu", 1)
+    v64, g64 = (a.numpy() for a in vg64(put64(dx[:1])))
+    vals, rates, err = {}, {}, {}
+    for impl in ("band", "dense"):
+        vg, put = make_vg(impl, torch.float32, "cuda", N_CHAINS)
+        x = put(dx)
+        vals[impl] = vg(x)
+        torch.cuda.synchronize()
+        v, g = (a.double().cpu().numpy() for a in vals[impl])
+        check(np.isfinite(v).all() and np.isfinite(g).all(), f"n=3169 {impl}: non-finite")
+        err[impl] = (float(abs(v[0] - v64[0]) / abs(v64[0])),
+                     float(np.max(np.abs(g[0] - g64[0])) / np.max(np.abs(g64[0]))))
+        rates[impl], _ = _vg_rates(vg, x)
+        del vg, x
+        torch.cuda.empty_cache()
+    (vb, gb), (vd, gd) = vals["band"], vals["dense"]
+    band_vs_dense = (float(((vb - vd).abs() / vd.abs()).max()),
+                     float((gb - gd).abs().max() / gd.abs().max()))
+    for impl, (ev, eg) in err.items():
+        check(ev <= TOL_VALUE and eg <= TOL_GRAD,
+              f"n=3169 {impl} vs float64: value rel {ev:.3e}, grad {eg:.3e}")
+    check(band_vs_dense[0] <= TOL_VALUE and band_vs_dense[1] <= TOL_GRAD,
+          f"n=3169 band vs dense {band_vs_dense}")
+    print(f"[likelihood-3169] n={n} C={N_CHAINS} bandsize {LONG_BAND_START} -> {b} "
+          f"(covariances {cov_s:.1f} s, host float64); chain 0 float32 vs float64 CPU: band value "
+          f"rel {err['band'][0]:.3e} grad {err['band'][1]:.3e}, dense value rel "
+          f"{err['dense'][0]:.3e} grad {err['dense'][1]:.3e}; band vs dense value "
+          f"{band_vs_dense[0]:.3e} grad {band_vs_dense[1]:.3e}; value-and-grad evals/s (chains x "
+          f"calls) eager / CUDA-graph replay: band {rates['band'][0]:.0f} / {rates['band'][1]:.0f}, "
+          f"dense {rates['dense'][0]:.0f} / {rates['dense'][1]:.0f}", flush=True)
+
+
+def _autograd_errors(cb, plain, c, m, b, n, dtype, rng):
+    """The single and paired ops through autograd against their plain
+    versions at one shape: kernel name -> (max abs err, rel err)."""
+    put = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device="cuda")
+    bs, bst, bs2, bst2 = (put(m, 2 * b + 1, n) for _ in range(4))
+    x = put(c, m, n).requires_grad_(True)
+    g, g2 = put(c, m, n), put(c, m, n)
+    y = cb.band_matvec(bs, bst, x, b)
+    (gx,) = torch.autograd.grad(y, x, g)
+    ya, yb = cb.band_matvec_pair(bs, bst, bs2, bst2, x, b)
+    (gx2,) = torch.autograd.grad((ya, yb), x, (g, g2))
+    torch.cuda.synchronize()
+    x = x.detach()
+    pairs = {
+        "band_matvec": [(y, plain["single"](bs, x, b)), (gx, plain["single"](bst, g, b))],
+        "band_matvec_pair": list(zip((ya, yb), plain["pair"](bs, bs2, x, b))),
+        "band_matvec_pair_t": [(gx2, plain["pair_t"](bst, bst2, g, g2, b))],
+    }
+    return {
+        name: (max(float((u.detach() - w).abs().max()) for u, w in got),
+               max(float((u.detach() - w).abs().max() / w.abs().max()) for u, w in got))
+        for name, got in pairs.items()
+    }
+
+
+def phase_kernel(cb):
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops.band import (
+        band_matvec_pair_t_torch, band_matvec_pair_torch, band_storage_matvec_torch,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf import band_timing as bt
+
+    plain = {"single": band_storage_matvec_torch, "pair": band_matvec_pair_torch,
+             "pair_t": band_matvec_pair_t_torch}
+    rng = np.random.default_rng(0)
+    main, long = bt.SHAPES["main"], bt.SHAPES["long"]
+    # n < 2b+1, b = 0, n not a multiple of a tile, b at the TPU kernel's
+    # limit, b > 64 with n < 2b+1, and C not a multiple of the chain tile
+    edges = [(3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129), (1, 2, 64, 200), (5, 2, 40, 50),
+             (3, 2, 70, 150), (33, 2, 100, 170)]
+    worst, main_err = {}, {}
+    for shape in [main, long] + edges:
+        for dtype in (torch.float64, torch.float32):
+            errs = _autograd_errors(cb, plain, *shape, dtype, rng)
+            tol = TOL_F64 if dtype == torch.float64 else TOL_F32
+            for name, (abs_err, rel) in errs.items():
+                check(rel <= tol, f"{name} vs plain at {shape} {dtype}: rel {rel:.3e} > {tol}")
+                worst[dtype] = max(worst.get(dtype, 0.0), rel)
+                if shape == main and dtype == torch.float32:
+                    main_err[name] = abs_err
+    # the (M, n) form of the parity API
+    x2 = torch.as_tensor(rng.normal(size=(2, 397)), dtype=torch.float64, device="cuda")
+    bs2 = torch.as_tensor(rng.normal(size=(2, 2 * MAIN_BANDSIZE + 1, 397)), device="cuda")
+    want = band_storage_matvec_torch(bs2, x2, MAIN_BANDSIZE)
+    rel2 = float((cb.band_matvec_cuda(bs2, x2, MAIN_BANDSIZE) - want).abs().max() / want.abs().max())
+    check(rel2 <= TOL_F64, f"kernel (M, n) form: rel {rel2:.3e}")
+    timing = {}
+    for label, shape in (("main", main), ("long", long)):
+        for op, case in bt.op_cases(shape, torch.float32, rng).items():
+            fns = {"kernel": case["wrapper"], "plain": case["plain"], "library": case["library"]}
+            times = bt.time_in_turns(fns, ["kernel", "plain", "library", "kernel"])
+            timing[(label, op)] = dict(
+                ms=float(np.mean([p[0] for p in times["kernel"]])),
+                plain_ms=times["plain"][0][0], library_ms=times["library"][0][0],
+                bound_ms=case["bound"][0], bound_by=case["bound"][1],
+            )
+    cells = "; ".join(
+        f"{label} {op}: kernel {v['ms']:.5f} plain {v['plain_ms']:.5f} matmul "
+        f"{v['library_ms']:.5f} bound {v['bound_ms']:.5f} ({v['bound_by']})"
+        for (label, op), v in timing.items()
+    )
+    print(f"[kernel] single, pair and pair_t against their plain versions, forward and backward, "
+          f"at {2 + len(edges)} shapes: worst rel float64 {worst[torch.float64]:.3e} (tol "
+          f"{TOL_F64}), float32 {worst[torch.float32]:.3e} (tol {TOL_F32}); max abs err at the "
+          f"main shape float32 {main_err}; ms per launch (CUDA graph of {bt.COUNT}, CUDA events) "
+          f"at main {main} and long {long}: {cells}", flush=True)
+    return main_err, timing
 
 
 def phase_slice(mt, cb, y, t):
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        SEED, SIGMA_TRUE, THETA_TRUE,
+    )
     from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
         ess, split_rhat,
     )
@@ -254,11 +319,11 @@ def phase_slice(mt, cb, y, t):
         theta_constrained=True, target_accept_ratio=0.95, step_jitter=0.125,
         seed=SEED, chunk_size=250, band_impl="band", device="cuda", verbose=True,
     )
-    cb.LAUNCHES = 0
+    cb.reset_launches()
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
     wall = time.perf_counter() - t0
-    launches = cb.LAUNCHES
+    launches = dict(cb.KERNEL_LAUNCHES)
     d = res.diagnostics
     tpc = d["theta_per_chain"]
     ess_min = min(ess(tpc[:, :, j]) for j in range(tpc.shape[-1]))
@@ -278,14 +343,15 @@ def phase_slice(mt, cb, y, t):
           f"{d['host_syncs'] / d['transitions']:.2f}; min-theta ESS {ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.3f} (total wall); max R-hat {rhat_max:.4f}; theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
-          f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; band kernel launches "
-          f"{launches}", flush=True)
+          f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; kernel launches {launches}",
+          flush=True)
     for name in ("theta", "x_sampled", "sigma", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"non-finite {name}")
     check(res.x_sampled.shape == (N_CHAINS * (NITER_HMC // 2), 397, 2), "x_sampled shape")
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    check(launches > 0, "the main path never launched the band kernel")
+    for name in KERNELS:
+        check(launches[name] > 0, f"the main path never launched {name}")
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
@@ -297,21 +363,23 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     import manifold_constrained_gaussian_process_inference_tpu_torch as mt
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops.band import (
-        band_storage_matvec_torch,
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        fn_bench_workload,
     )
 
     smi = phase_device()
     phase_build(cb)
-    y, t = build_workload(mt)
-    phase_likelihood(mt, y, t)
-    err, times = phase_kernel(cb, band_storage_matvec_torch)
+    y, t = fn_bench_workload()
+    per_vg = phase_likelihood(y, t)
+    phase_likelihood_3169()
+    main_err, timing = phase_kernel(cb)
     launches = phase_slice(mt, cb, y, t)
-    print(json.dumps({"kernels": [{
-        "name": "band_matvec", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
-    }]}))
+    print(json.dumps({"launches_per_vg": sum(per_vg.values()), "kernels": [{
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+        "launches": launches[name], "launches_per_vg": per_vg[name],
+        "max_abs_err": main_err[name], **timing[("main", op)],
+        "long": timing[("long", op)],
+    } for name, op in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

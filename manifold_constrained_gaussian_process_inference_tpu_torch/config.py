@@ -14,8 +14,10 @@ import torch
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when one is present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card. The port's entry points run on the card unless
+    the caller asks for the CPU (``device="cpu"``); without a card,
+    ``solve_magi`` raises rather than fall back to the CPU."""
+    return torch.device("cuda")
 
 
 def default_dtype(device) -> torch.dtype:

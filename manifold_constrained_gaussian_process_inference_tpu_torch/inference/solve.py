@@ -21,7 +21,6 @@ import torch
 
 from ..config import MagiConfig
 from ..models.base import OdeSystem
-from ..ops.cuda_band import MAX_BANDWIDTH
 from ..ops.gp_cov import build_gp_cov
 from ..ops.kernels import parse_kernel_type
 from ..parallel.chains import run_chains
@@ -43,6 +42,12 @@ logger = logging.getLogger(__name__)
 # step-jitter multipliers (the JAX package seeds those from its PRNG keys).
 INIT_JITTER_SEED_OFFSET = 1
 STEP_JITTER_SEED_OFFSET = 2
+# The JAX package's auto policy puts a band above this on the dense layout
+# (its solve.py: past it dense einsums won on the TPU even sequentially, and
+# the Pallas kernel stopped compiling). The CUDA kernel takes any bandwidth;
+# "auto" keeps the TPU's threshold until it is re-derived on the H100
+# (ROADMAP M11). An explicit band_impl="band" runs at any bandwidth.
+AUTO_BAND_MAX_BANDWIDTH = 64
 
 
 class MagiError(RuntimeError):
@@ -131,6 +136,15 @@ def _check_supported(config: MagiConfig, mesh, resume) -> None:
             )
 
 
+def _check_device(device: torch.device) -> None:
+    """The card must be there when the config asks for it (the default)."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise MagiError(
+            f"device {device} requested (the default) but torch finds no CUDA "
+            "card; pass MagiConfig(device=\"cpu\") to run on the CPU."
+        )
+
+
 def _check_precision() -> None:
     """Float32 contractions must stay true float32 (no TF32)."""
     if (
@@ -160,7 +174,7 @@ def resolve_band_impl(config: MagiConfig, n_times: int, n_dims: int,
         return "dense"
     if config.n_chains >= 8 and dense_bytes <= 2 << 30:
         return "dense"
-    if bandsize > MAX_BANDWIDTH:
+    if bandsize > AUTO_BAND_MAX_BANDWIDTH:
         return "dense"
     return "band"
 
@@ -214,6 +228,7 @@ def solve_magi(
     k = ode_system.theta_size
     nd = n_times * n_dims
     device = config.resolved_device()
+    _check_device(device)
     dtype = config.resolved_dtype()
 
     try:

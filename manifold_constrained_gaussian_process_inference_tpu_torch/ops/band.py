@@ -64,3 +64,15 @@ def band_storage_matvec_torch(
     b_pad = F.pad(bands, (b, b)).contiguous()
     b_diag = b_pad.as_strided((m, n, w), (w * width, 1, width + 1))  # band[b+k, i+k]
     return torch.sum(b_diag * x_win, dim=-1)
+
+
+def band_matvec_pair_torch(bands_a, bands_b, xs, bandwidth: int):
+    """Plain version of the paired kernel: (A x, B x)."""
+    return (band_storage_matvec_torch(bands_a, xs, bandwidth),
+            band_storage_matvec_torch(bands_b, xs, bandwidth))
+
+
+def band_matvec_pair_t_torch(bands_a, bands_b, xs_a, xs_b, bandwidth: int):
+    """Plain version of the paired kernel's backward: A x_a + B x_b."""
+    return (band_storage_matvec_torch(bands_a, xs_a, bandwidth)
+            + band_storage_matvec_torch(bands_b, xs_b, bandwidth))

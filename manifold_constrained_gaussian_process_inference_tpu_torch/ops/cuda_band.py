@@ -1,16 +1,20 @@
-"""Stacked banded matvec in band storage: the hand-written CUDA kernel
-(csrc/band_matvec.cu), its build, and its autograd wrapper.
+"""Stacked banded matvecs in band storage: the hand-written CUDA kernel
+(csrc/band_matvec.cu), its build, and its autograd wrappers.
 
 Port of the JAX package's ops/pallas_band.py. ``band_matvec`` computes
 
     y[..., m, i] = sum_{k=-b..b} bands[m, b+k, i+k] * xs[..., m, i+k]
 
 for xs (M, n) or (C, M, n) (more leading axes fold into C), with the
-(M, 2b+1, n) bands shared across the chain axis. On a CUDA tensor it launches the kernel (or raises); on a CPU
-tensor it runs the plain PyTorch twin ``ops/band.band_storage_matvec_torch``.
-The gradient is the same contraction on the transposed storage
+(M, 2b+1, n) bands shared across the chain axis, and ``band_matvec_pair``
+applies two band stacks to one input in one launch (its backward sums the
+two transposed products in one launch). On a CUDA tensor each launches
+the kernel or raises; on a CPU tensor it runs the plain PyTorch version
+(``ops/band.band_storage_matvec_torch`` and the pair forms beside it). The
+gradient is the same contraction on the transposed storage
 (``transpose_band_storage``); the bands get no gradient (they are static GP
-data in MAGI).
+data in MAGI). Any bandwidth runs: the kernel's shared memory is sized by
+its chunk of diagonals, not by the band.
 
 The kernel is compiled at first use with the installed CUDA toolkit's
 ``nvcc`` for sm_90a into ``<package>/build/``, keyed by a hash of the
@@ -28,15 +32,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .band import band_storage_matvec_torch
+from .band import band_matvec_pair_t_torch, band_matvec_pair_torch, band_storage_matvec_torch
 
-# Kernel launches since the last reset: the wrapper adds one per launch,
-# and a CUDA-graph replay the launches it replays
-# (parallel/chains.GraphedValueAndGrad).
+# The kernel's C entry points, each in _f32 and _f64, with their number of
+# pointer arguments (then n_chains, n_mat, n, bandwidth, stream).
+N_POINTERS = {"band_matvec": 3, "band_matvec_pair": 5, "band_matvec_pair_t": 5}
+
+# Kernel launches since the last reset, in all (LAUNCHES) and by C entry
+# point (KERNEL_LAUNCHES): each wrapper adds one per launch, and a CUDA-graph
+# replay the launches it replays (parallel/chains.GraphedValueAndGrad).
 LAUNCHES = 0
-
-# Bandwidth limit kept from the TPU kernel (pallas_band._PALLAS_MAX_BANDWIDTH).
-MAX_BANDWIDTH = 64
+KERNEL_LAUNCHES = dict.fromkeys(N_POINTERS, 0)
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "band_matvec.cu"
@@ -78,26 +84,26 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def library_path(source: Path = SOURCE) -> Path:
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"band_matvec_{key.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel if this source has not been built yet; returns
-    the shared library's path. Raises if nvcc fails."""
-    so = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (the kernel's by default) if it has not been
+    built yet; returns the shared library's path. Raises if nvcc fails."""
+    so = library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp), str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed to build {SOURCE.name} (exit {proc.returncode}):\n"
+            f"nvcc failed to build {source.name} (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
     # ptxas resource usage (registers, shared memory, spills) per kernel
@@ -106,72 +112,136 @@ def build() -> Path:
     return so
 
 
+def load(source: Path = SOURCE):
+    """Build ``source`` and bind the C entry points it has (a source with
+    the same interface, such as an older commit's kernel, loads too)."""
+    lib = ctypes.CDLL(str(build(source)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, k in N_POINTERS.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}", None)
+            if fn is not None:
+                fn.argtypes = [p] * k + [i, i, i, i, p]
+                fn.restype = i
+    return lib
+
+
 def _library():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("band_matvec_f32", "band_matvec_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = load()
     return _LIB
 
 
-def band_matvec_cuda(bands: torch.Tensor, xs: torch.Tensor, bandwidth: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. bands (M, 2b+1, n),
-    xs (M, n) or (C, M, n), both contiguous, on one CUDA device, float32 or
-    float64."""
+def reset_launches() -> None:
     global LAUNCHES
-    if bands.device.type != "cuda" or xs.device != bands.device:
+    LAUNCHES = 0
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Count launches made outside the wrappers (a CUDA-graph replay)."""
+    global LAUNCHES
+    for name, k in counts.items():
+        KERNEL_LAUNCHES[name] += k
+        LAUNCHES += k
+
+
+def _checked(name, bands, xs, bandwidth):
+    """Device, dtype, contiguity and shape checks of one launch; returns
+    (n_chains, M, n)."""
+    tensors = [*bands, *xs]
+    dev = xs[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(
-            f"band_matvec_cuda needs both tensors on one CUDA device; got "
-            f"{bands.device} and {xs.device}"
+            f"{name} needs all tensors on one CUDA device; got "
+            f"{sorted({str(t.device) for t in tensors})}"
         )
-    if bands.dtype != xs.dtype or xs.dtype not in (torch.float32, torch.float64):
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or xs[0].dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name} takes float32 or float64 of one dtype; got {dtypes}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    m, w, n = bands[0].shape
+    if (
+        bandwidth < 0 or w != 2 * bandwidth + 1
+        or any(t.shape != bands[0].shape for t in bands)
+        or xs[0].dim() not in (2, 3) or xs[0].shape[-2:] != (m, n)
+        or any(t.shape != xs[0].shape for t in xs)
+    ):
         raise ValueError(
-            f"band_matvec_cuda takes float32 or float64 of one dtype; got "
-            f"{bands.dtype} and {xs.dtype}"
+            f"{name}: shape mismatch: bands {[tuple(t.shape) for t in bands]}, xs "
+            f"{[tuple(t.shape) for t in xs]}, bandwidth {bandwidth}"
         )
-    if not (bands.is_contiguous() and xs.is_contiguous()):
-        raise ValueError("band_matvec_cuda needs contiguous tensors")
-    if not 0 <= bandwidth <= MAX_BANDWIDTH:
-        raise ValueError(
-            f"bandwidth {bandwidth} outside the kernel's range [0, {MAX_BANDWIDTH}]"
-        )
-    m, w, n = bands.shape
-    if w != 2 * bandwidth + 1 or xs.dim() not in (2, 3) or xs.shape[-2:] != (m, n):
-        raise ValueError(
-            f"shape mismatch: bands {tuple(bands.shape)}, xs {tuple(xs.shape)}, "
-            f"bandwidth {bandwidth}"
-        )
-    n_chains = xs.shape[0] if xs.dim() == 3 else 1
-    ys = torch.empty_like(xs)
-    if ys.numel() == 0:
-        return ys
-    lib = _library()
-    fn = lib.band_matvec_f32 if xs.dtype == torch.float32 else lib.band_matvec_f64
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = fn(
-        bands.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-        n_chains, m, n, bandwidth, stream,
-    )
+    return (xs[0].shape[0] if xs[0].dim() == 3 else 1), m, n
+
+
+def _launch(name, tensors, dims, bandwidth, like) -> None:
+    global LAUNCHES
+    suffix = "f32" if like.dtype == torch.float32 else "f64"
+    fn = getattr(_library(), f"{name}_{suffix}")
+    stream = torch.cuda.current_stream(like.device).cuda_stream
+    err = fn(*(t.data_ptr() for t in tensors), *dims, bandwidth, stream)
     if err != 0:
-        raise RuntimeError(f"band_matvec kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    KERNEL_LAUNCHES[name] += 1
     LAUNCHES += 1
+
+
+def band_matvec_cuda(bands: torch.Tensor, xs: torch.Tensor, bandwidth: int) -> torch.Tensor:
+    """y = A x on the current stream. bands (M, 2b+1, n), xs (M, n) or
+    (C, M, n), contiguous, on one CUDA device, float32 or float64."""
+    dims = _checked("band_matvec_cuda", [bands], [xs], bandwidth)
+    ys = torch.empty_like(xs)
+    if ys.numel():
+        _launch("band_matvec", [bands, xs, ys], dims, bandwidth, xs)
     return ys
 
 
-def _apply(bands: torch.Tensor, xs: torch.Tensor, bandwidth: int) -> torch.Tensor:
-    if xs.device.type == "cuda":
+def band_matvec_pair_cuda(bands_a, bands_b, xs, bandwidth: int):
+    """(A x, B x) in one launch; shapes as ``band_matvec_cuda``."""
+    dims = _checked("band_matvec_pair_cuda", [bands_a, bands_b], [xs], bandwidth)
+    ya, yb = torch.empty_like(xs), torch.empty_like(xs)
+    if xs.numel():
+        _launch("band_matvec_pair", [bands_a, bands_b, xs, ya, yb], dims, bandwidth, xs)
+    return ya, yb
+
+
+def band_matvec_pair_t_cuda(bands_a, bands_b, xs_a, xs_b, bandwidth: int) -> torch.Tensor:
+    """A x_a + B x_b in one launch; shapes as ``band_matvec_cuda``."""
+    dims = _checked("band_matvec_pair_t_cuda", [bands_a, bands_b], [xs_a, xs_b], bandwidth)
+    ys = torch.empty_like(xs_a)
+    if ys.numel():
+        _launch("band_matvec_pair_t", [bands_a, bands_b, xs_a, xs_b, ys], dims, bandwidth, xs_a)
+    return ys
+
+
+def _on_card(xs: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one (the plain version)."""
+    if xs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"band_matvec: unsupported device {xs.device}")
+    return xs.device.type == "cuda"
+
+
+def _apply(bands, xs, bandwidth):
+    if _on_card(xs):
         return band_matvec_cuda(bands, xs.contiguous(), bandwidth)
-    if xs.device.type == "cpu":
-        return band_storage_matvec_torch(bands, xs, bandwidth)
-    raise ValueError(f"band_matvec: unsupported device {xs.device}")
+    return band_storage_matvec_torch(bands, xs, bandwidth)
+
+
+def _apply_pair(bands_a, bands_b, xs, bandwidth):
+    if _on_card(xs):
+        return band_matvec_pair_cuda(bands_a, bands_b, xs.contiguous(), bandwidth)
+    return band_matvec_pair_torch(bands_a, bands_b, xs, bandwidth)
+
+
+def _apply_pair_t(bands_a, bands_b, xs_a, xs_b, bandwidth):
+    if _on_card(xs_a):
+        return band_matvec_pair_t_cuda(
+            bands_a, bands_b, xs_a.contiguous(), xs_b.contiguous(), bandwidth
+        )
+    return band_matvec_pair_t_torch(bands_a, bands_b, xs_a, xs_b, bandwidth)
 
 
 class BandMatvec(torch.autograd.Function):
@@ -190,11 +260,37 @@ class BandMatvec(torch.autograd.Function):
         return None, None, _apply(bands_t, grad_y, ctx.bandwidth), None
 
 
+class BandMatvecPair(torch.autograd.Function):
+    """(A x, B x) in one launch; dL/dx = A^T g_a + B^T g_b in one launch,
+    through the transposed storages; no gradient for the storages."""
+
+    @staticmethod
+    def forward(ctx, bands_a, bands_a_t, bands_b, bands_b_t, xs, bandwidth):
+        ctx.save_for_backward(bands_a_t, bands_b_t)
+        ctx.bandwidth = bandwidth
+        return _apply_pair(bands_a, bands_b, xs, bandwidth)
+
+    @staticmethod
+    def backward(ctx, grad_a, grad_b):
+        bands_a_t, bands_b_t = ctx.saved_tensors
+        grad_x = _apply_pair_t(bands_a_t, bands_b_t, grad_a, grad_b, ctx.bandwidth)
+        return None, None, None, None, grad_x, None
+
+
+def _folded(xs):
+    """xs (..., M, n) with the leading axes beyond one folded into one."""
+    return xs.reshape(-1, *xs.shape[-2:]) if xs.dim() > 3 else xs
+
+
 def band_matvec(bands, bands_t, xs, bandwidth: int) -> torch.Tensor:
     """Differentiable (in ``xs``) stacked band-storage matvec; see the
     module docstring. xs (..., M, n): leading axes beyond one are folded
     into the kernel's chain axis."""
-    if xs.dim() > 3:
-        flat = xs.reshape(-1, *xs.shape[-2:])
-        return BandMatvec.apply(bands, bands_t, flat, bandwidth).reshape(xs.shape)
-    return BandMatvec.apply(bands, bands_t, xs, bandwidth)
+    return BandMatvec.apply(bands, bands_t, _folded(xs), bandwidth).reshape(xs.shape)
+
+
+def band_matvec_pair(bands_a, bands_a_t, bands_b, bands_b_t, xs, bandwidth: int):
+    """(A x, B x), differentiable in ``xs``: one launch forward and one
+    backward on a card. Shapes as ``band_matvec``."""
+    ya, yb = BandMatvecPair.apply(bands_a, bands_a_t, bands_b, bands_b_t, _folded(xs), bandwidth)
+    return ya.reshape(xs.shape), yb.reshape(xs.shape)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .band import dense_to_band_storage
-from .cuda_band import band_matvec, transpose_band_storage
+from .cuda_band import band_matvec, band_matvec_pair, transpose_band_storage
 from .gp_cov import GPCov
 
 LOG_2PI = float(np.log(2.0 * np.pi))
@@ -192,14 +192,16 @@ def log_posterior(x, theta, sigma, data: LikelihoodData, ode_f: Callable):
 def log_posterior_banded(
     x, theta, sigma, data: BandedLikelihoodData, ode_f: Callable, bandwidth: int
 ):
-    """log_posterior through band-storage matvecs (``band_matvec``: the
-    CUDA kernel on a card, its plain twin on the CPU)."""
+    """log_posterior through band-storage matvecs (the CUDA kernel on a
+    card, its plain version on the CPU): mphi x and GC^T x in one paired
+    launch, then GK^T e, so two launches forward and two backward."""
     f = ode_f(x, theta, data.tvec)
     xct = (x - data.mu).transpose(-1, -2)  # (..., D, n)
-    mphi_x = band_matvec(data.mphi_bs, data.mphi_t_bs, xct, bandwidth)
+    mphi_x, gc_x = band_matvec_pair(
+        data.mphi_bs, data.mphi_t_bs, data.GCt_bs, data.GC_bs, xct, bandwidth
+    )
     e_deriv = (f - data.dotmu).transpose(-1, -2) - mphi_x
     gk_e = band_matvec(data.GKt_bs, data.GK_bs, e_deriv, bandwidth)
-    gc_x = band_matvec(data.GCt_bs, data.GC_bs, xct, bandwidth)
     resid = data.mask * (x - data.yobs_filled)
     return _combine(data, resid, gk_e, gc_x, sigma)
 
@@ -261,18 +263,18 @@ def log_posterior_centered(
 ):
     """log_posterior at x = x_ref + dx, dx (..., n, D), evaluated so that
     every operator product consumes only dx (see CenteredTerms). The banded
-    branch runs its three products through ``band_matvec`` on the (..., D, n)
-    layout."""
+    branch runs its products on the (..., D, n) layout as
+    ``log_posterior_banded`` does: mphi dx and GC^T dx paired, then GK^T e."""
     f = ode_f(cent.x_ref + dx, theta, data.tvec)
     d = dx.shape[-1]
     if isinstance(data, BandedLikelihoodData):
         dxt = dx.transpose(-1, -2)  # (..., D, n)
-        mphi_dx = band_matvec(data.mphi_bs, data.mphi_t_bs, dxt, bandwidth)
+        mphi_dx, gc_dx = band_matvec_pair(
+            data.mphi_bs, data.mphi_t_bs, data.GCt_bs, data.GC_bs, dxt, bandwidth
+        )
         e = (f - cent.c_e).transpose(-1, -2) - mphi_dx
         gk_e = band_matvec(data.GKt_bs, data.GK_bs, e, bandwidth)
-        gc = cent.c_gc.transpose(-1, -2) + band_matvec(
-            data.GCt_bs, data.GC_bs, dxt, bandwidth
-        )
+        gc = cent.c_gc.transpose(-1, -2) + gc_dx
     else:
         fused = _stack_matvec(data.mphi_gct, torch.cat([dx, dx], dim=-1))
         gk_e = _stack_matvec(data.GKt, f - cent.c_e - fused[..., :d])

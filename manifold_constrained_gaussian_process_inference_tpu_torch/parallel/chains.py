@@ -158,7 +158,7 @@ class GraphedValueAndGrad:
     The capture runs ``vg`` once in full (after warm-up calls on a side
     stream), so every kernel wrapper runs and counts its launches then;
     each replay launches the same kernels again and adds the band-matvec
-    launches it contains to ``cuda_band.LAUNCHES``. Outputs are cloned out
+    launches it contains to ``cuda_band``'s counts. Outputs are cloned out
     of the graph's static buffers."""
 
     def __init__(self, vg, example: torch.Tensor, n_warmup: int = 3):
@@ -170,15 +170,18 @@ class GraphedValueAndGrad:
                 vg(self.static_in)
         torch.cuda.current_stream(example.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = cuda_band.LAUNCHES
+        before = dict(cuda_band.KERNEL_LAUNCHES)
         with torch.cuda.graph(self.graph):
             self.static_lp, self.static_grad = vg(self.static_in)
-        self.band_launches = cuda_band.LAUNCHES - before
+        self.kernel_launches = {
+            name: k - before[name] for name, k in cuda_band.KERNEL_LAUNCHES.items()
+        }
+        self.band_launches = sum(self.kernel_launches.values())
 
     def __call__(self, zeta: torch.Tensor):
         self.static_in.copy_(zeta)
         self.graph.replay()
-        cuda_band.LAUNCHES += self.band_launches
+        cuda_band.add_launches(self.kernel_launches)
         return self.static_lp.clone(), self.static_grad.clone()
 
 

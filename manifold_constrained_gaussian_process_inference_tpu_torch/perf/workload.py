@@ -1,0 +1,78 @@
+"""The FitzHugh-Nagumo bench workload and the slice's likelihood, shared by
+``chip_smoke.py`` and the measurement scripts of this subpackage."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+SEED = 42
+THETA_TRUE = np.array([0.2, 0.2, 3.0])
+SIGMA_TRUE = 0.2
+# GP hyperparameters of the likelihood checks (NLML gives about these).
+PHI = np.array([[2.0, 2.0], [1.5, 1.5]])
+TEMPS = (1.0, 1.0, 1.0)
+
+
+def fn_bench_workload(n_obs=100, t_end=20.0, fill=2, seed=SEED):
+    """bench.py's workload, generated with the port's integrators: FN at
+    the true theta, 100 noisy observations on [0, 20] (noise sd 0.2), on a
+    grid with 2**fill - 1 points between observations (fill=2: n = 397;
+    fill=5: n = 3169)."""
+    from ..models import FN_SYSTEM
+    from ..utils.integrators import integrate_system, sample_on_grid
+
+    rng = np.random.default_rng(seed)
+    ts, xs = integrate_system(FN_SYSTEM, [-1.0, 1.0], 0.0, t_end, THETA_TRUE, 4000)
+    t_obs = np.linspace(0.0, t_end, n_obs)
+    y_at_obs = sample_on_grid(ts.numpy(), xs.numpy(), t_obs) + SIGMA_TRUE * rng.normal(
+        size=(n_obs, 2)
+    )
+    ins = 2**fill - 1
+    segs = [np.linspace(t_obs[i], t_obs[i + 1], ins + 2)[:-1] for i in range(n_obs - 1)]
+    t_grid = np.concatenate(segs + [t_obs[-1:]])
+    y_grid = np.full((len(t_grid), 2), np.nan)
+    y_grid[:: ins + 1] = y_at_obs
+    return y_grid, t_grid
+
+
+class SliceLikelihood(NamedTuple):
+    """The slice's whitened, mode-centered likelihood at the bench
+    workload: float64 covariances on the host, the theta transform, the GN
+    whitener at the interpolated start, and ``vg(device, impl)``."""
+
+    cov64: object
+    whitener: object
+    dimension: int
+    target: object  # (cov, impl) -> MagiTarget
+
+    def vg(self, impl: str, dtype=torch.float32, device="cuda"):
+        from ..inference.whiten import make_centered_whitened_vg
+
+        cov = self.cov64.to(dtype=dtype, device=device)
+        wh = type(self.whitener)(*(a.to(dtype=dtype, device=device) for a in self.whitener))
+        return make_centered_whitened_vg(self.target(cov, impl), wh)
+
+
+def slice_likelihood(y, t, bandsize: int) -> SliceLikelihood:
+    from ..inference.solve import _init_x_interpolation
+    from ..inference.target import MagiTarget
+    from ..inference.transforms import make_theta_transform, unconstrain
+    from ..inference.whiten import build_psi_whitener
+    from ..models import FN_SYSTEM
+    from ..ops.gp_cov import build_gp_cov
+
+    cov64 = build_gp_cov("matern52", PHI, t, bandsize=bandsize)
+    tr = make_theta_transform(FN_SYSTEM.theta_lower_bound, FN_SYSTEM.theta_upper_bound)
+    sigma0 = np.array([SIGMA_TRUE, SIGMA_TRUE])
+
+    def target(cov, impl):
+        return MagiTarget.build(y, cov, FN_SYSTEM, sigma0, TEMPS, False,
+                                band_impl=impl, theta_transform=tr)
+
+    t64 = target(cov64, "dense")
+    x0 = _init_x_interpolation(y, t)
+    center = np.concatenate([x0.T.reshape(-1), unconstrain(tr, THETA_TRUE), np.log(sigma0)])
+    wh = build_psi_whitener(cov64, y, t64, center, TEMPS, torch.float64)
+    return SliceLikelihood(cov64, wh, t64.dimension, target)

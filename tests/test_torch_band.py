@@ -1,9 +1,11 @@
-"""PyTorch port, band storage: the band matvec against three references
-(the JAX package's XLA band_matvec, the Pallas kernel in interpret mode as
-tests/test_band_impl.py runs it, and the dense einsum), forward and
-autograd backward, with the chain axis and the edge shapes. On a CPU tensor
-the wrapper runs the plain twin; the kernel itself is checked against the
-twin by the test marked ``cuda``, which runs on the card only."""
+"""PyTorch port, band storage: the band matvec and the paired band matvec
+against three references (the JAX package's XLA band_matvec, the Pallas
+kernel in interpret mode as tests/test_band_impl.py runs it, and the dense
+einsum), forward and autograd backward, with the chain axis and the edge
+shapes (tests/test_torch_band_wide.py adds a bandwidth above the TPU
+kernel's limit of 64). On a CPU tensor
+the wrappers run the plain versions; the kernels themselves are checked
+against them by the tests marked ``cuda``, which run on the card only."""
 from functools import partial
 
 import jax
@@ -20,6 +22,8 @@ from manifold_constrained_gaussian_process_inference_tpu.ops.band import (
 )
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops.band import (
+    band_matvec_pair_t_torch,
+    band_matvec_pair_torch,
     band_storage_matvec_torch,
 )
 
@@ -38,6 +42,17 @@ def _problem(n, b, m=2, c=3, seed=0):
     return dense, bs, bst, xs
 
 
+def _jax_xla(bs, bst, x, b):
+    return np.asarray(pb.band_matvec(jnp.asarray(bs), jnp.asarray(bst), jnp.asarray(x), b, False))
+
+
+def _jax_pallas(bs, x, b):
+    kernel = partial(pb._band_matvec_kernel, bandwidth=b, n=bs.shape[-1], m=bs.shape[0])
+    return np.asarray(plx.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float64), interpret=True,
+    )(jnp.asarray(bs), jnp.asarray(x)))
+
+
 @pytest.mark.parametrize("n,b", SHAPES)
 def test_transpose_band_storage_matches_jax(n, b):
     _, bs, _, _ = _problem(n, b)
@@ -52,18 +67,8 @@ def test_forward_matches_three_references(n, b):
     dense, bs, bst, xs = _problem(n, b)
     got = cb.band_matvec(torch.as_tensor(bs), torch.as_tensor(bst), torch.as_tensor(xs), b)
     want_dense = np.einsum("mij,cmj->cmi", dense, xs)
-    want_xla = np.stack([
-        np.asarray(pb.band_matvec(jnp.asarray(bs), jnp.asarray(bst), jnp.asarray(x), b, False))
-        for x in xs
-    ])
-    kernel = partial(pb._band_matvec_kernel, bandwidth=b, n=n, m=bs.shape[0])
-    want_pallas = np.stack([
-        np.asarray(plx.pallas_call(
-            kernel, out_shape=jax.ShapeDtypeStruct((bs.shape[0], n), jnp.float64),
-            interpret=True,
-        )(jnp.asarray(bs), jnp.asarray(x)))
-        for x in xs
-    ])
+    want_xla = np.stack([_jax_xla(bs, bst, x, b) for x in xs])
+    want_pallas = np.stack([_jax_pallas(bs, x, b) for x in xs])
     for want in (want_dense, want_xla, want_pallas):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
@@ -83,6 +88,96 @@ def test_backward_matches_jax_vjp(n, b):
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-11, atol=1e-12)
     g_dense = np.einsum("mij,mi->mj", dense, np.cos(np.einsum("mij,mj->mi", dense, xs[0])))
     np.testing.assert_allclose(g_t.numpy(), g_dense, rtol=1e-11, atol=1e-12)
+
+
+def _pair_problem(n, b, c=3):
+    dense_a, bs_a, bst_a, xs = _problem(n, b, c=c)
+    dense_b, bs_b, bst_b, _ = _problem(n, b, c=c, seed=1)
+    return (dense_a, bs_a, bst_a), (dense_b, bs_b, bst_b), xs
+
+
+def _pair_apply(a, b_, xs, b):
+    t = torch.as_tensor
+    return cb.band_matvec_pair(t(a[1]), t(a[2]), t(b_[1]), t(b_[2]), xs, b)
+
+
+@pytest.mark.parametrize("n,b", SHAPES)
+def test_pair_forward_matches_jax(n, b):
+    """(A x, B x) from one paired call equals the JAX package's XLA
+    band_matvec and its Pallas kernel in interpret mode, for each stack."""
+    a, b_, xs = _pair_problem(n, b)
+    got_a, got_b = _pair_apply(a, b_, torch.as_tensor(xs), b)
+    for got, (dense, bs, bst) in ((got_a, a), (got_b, b_)):
+        for want in (np.einsum("mij,cmj->cmi", dense, xs),
+                     np.stack([_jax_xla(bs, bst, x, b) for x in xs]),
+                     np.stack([_jax_pallas(bs, x, b) for x in xs])):
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,b", SHAPES)
+def test_pair_backward_matches_jax_vjp(n, b):
+    """The paired op's autograd backward (A^T g_a + B^T g_b in one call)
+    equals the JAX package's VJP of the two band_matvecs, XLA path and
+    Pallas kernel in interpret mode."""
+    a, b_, xs = _pair_problem(n, b, c=2)
+    x = torch.as_tensor(xs).requires_grad_(True)
+    ya, yb = _pair_apply(a, b_, x, b)
+    val = torch.sum(torch.sin(ya)) + torch.sum(torch.cos(yb) * ya)
+    (g_t,) = torch.autograd.grad(val, x)
+
+    def f(v, matvec):
+        ja, jb = matvec(a, v), matvec(b_, v)
+        return jnp.sum(jnp.sin(ja)) + jnp.sum(jnp.cos(jb) * ja)
+
+    def xla(ops, v):
+        bs, bst = jnp.asarray(ops[1]), jnp.asarray(ops[2])
+        return jax.vmap(lambda vi: pb.band_matvec(bs, bst, vi, b, False))(v)
+
+    for matvec in (xla, lambda ops, v: _pallas_vjp_matvec(ops, v, b)):
+        v_j, g_j = jax.value_and_grad(f)(jnp.asarray(xs), matvec)
+        np.testing.assert_allclose(float(val.detach()), float(v_j), rtol=1e-12)
+        np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=1e-12, atol=1e-12)
+
+
+def _pallas_vjp_matvec(ops, v, b):
+    """The JAX package's band matvec with its Pallas kernel in interpret
+    mode on both passes: forward on the storage, backward on the transposed
+    storage (as its custom_vjp does)."""
+    bs, bst = jnp.asarray(ops[1]), jnp.asarray(ops[2])
+
+    def run(storage, x):
+        kernel = partial(pb._band_matvec_kernel, bandwidth=b, n=x.shape[-1], m=x.shape[-2])
+        call = plx.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct(x.shape[-2:], x.dtype), interpret=True)
+        return jnp.stack([call(storage, xi) for xi in x])
+
+    @jax.custom_vjp
+    def matvec(x):
+        return run(bs, x)
+
+    matvec.defvjp(lambda x: (run(bs, x), None), lambda _, g: (run(bst, g),))
+    return matvec(v)
+
+
+def test_pair_gradcheck():
+    a, b_, xs = _pair_problem(12, 3, c=2)
+    x = torch.as_tensor(xs).requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda v: _pair_apply(a, b_, v, 3), (x,))
+
+
+def test_pair_cpu_uses_plain_versions_and_counts_no_launch():
+    a, b_, xs = _pair_problem(20, 3)
+    t = torch.as_tensor
+    before = (cb.LAUNCHES, dict(cb.KERNEL_LAUNCHES))
+    x = t(xs).requires_grad_(True)
+    ya, yb = _pair_apply(a, b_, x, 3)
+    g = torch.autograd.grad((ya * 1.5 + yb * 0.5).sum(), x)[0]
+    np.testing.assert_array_equal(ya.detach().numpy(), band_storage_matvec_torch(t(a[1]), t(xs), 3).numpy())
+    np.testing.assert_array_equal(yb.detach().numpy(), band_storage_matvec_torch(t(b_[1]), t(xs), 3).numpy())
+    want_g = band_matvec_pair_t_torch(t(a[2]), t(b_[2]), torch.full_like(x, 1.5),
+                                      torch.full_like(x, 0.5), 3)
+    np.testing.assert_allclose(g.numpy(), want_g.numpy(), rtol=1e-14, atol=1e-14)
+    assert (cb.LAUNCHES, cb.KERNEL_LAUNCHES) == before
 
 
 def test_chain_axis_and_leading_axes():
@@ -110,8 +205,13 @@ def test_cpu_tensor_uses_twin_and_counts_no_launch():
 
 def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     _, bs, _, xs = _problem(20, 3)
+    bs, xs = torch.as_tensor(bs), torch.as_tensor(xs)
     with pytest.raises(ValueError, match="CUDA"):
-        cb.band_matvec_cuda(torch.as_tensor(bs), torch.as_tensor(xs), 3)
+        cb.band_matvec_cuda(bs, xs, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        cb.band_matvec_pair_cuda(bs, bs, xs, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        cb.band_matvec_pair_t_cuda(bs, bs, xs, xs, 3)
 
 
 def test_kernel_build_is_keyed_by_source():
@@ -128,20 +228,38 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (C, M, b, n): the slice's shape, the filllevel-5 grid (bandsize 160), and
+# edges: n < W, b = 0, n not a multiple of a tile, b > 64 with n < W
+CUDA_SHAPES = [(128, 2, 40, 397), (128, 2, 160, 3169), (3, 2, 5, 7), (2, 3, 0, 130),
+               (4, 2, 3, 129), (5, 2, 70, 100)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
 def test_cuda_kernel_matches_twin(cuda_device, dtype, tol):
-    for (c, m, b, n) in [(128, 2, 40, 397), (3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129)]:
+    """The single and paired kernels, forward and backward through
+    autograd, against their plain versions; two launches each."""
+    for (c, m, b, n) in CUDA_SHAPES:
         rng = np.random.default_rng(b + n)
-        put = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda_device)
-        bs, bst = put(rng.normal(size=(m, 2 * b + 1, n))), put(rng.normal(size=(m, 2 * b + 1, n)))
-        x = put(rng.normal(size=(c, m, n))).requires_grad_(True)
-        g = put(rng.normal(size=(c, m, n)))
+        put = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device=cuda_device)
+        bs, bst, bs2, bst2 = (put(m, 2 * b + 1, n) for _ in range(4))
+        x = put(c, m, n).requires_grad_(True)
+        g, g2 = put(c, m, n), put(c, m, n)
         before = cb.LAUNCHES
         y = cb.band_matvec(bs, bst, x, b)
         (gx,) = torch.autograd.grad(y, x, g)
         torch.cuda.synchronize()
         assert cb.LAUNCHES == before + 2
-        for got, want in ((y, band_storage_matvec_torch(bs, x.detach(), b)),
-                          (gx, band_storage_matvec_torch(bst, g, b))):
-            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+        pairs = [(y, band_storage_matvec_torch(bs, x.detach(), b)),
+                 (gx, band_storage_matvec_torch(bst, g, b))]
+        before = dict(cb.KERNEL_LAUNCHES)
+        ya, yb = cb.band_matvec_pair(bs, bst, bs2, bst2, x, b)
+        (gx2,) = torch.autograd.grad((ya, yb), x, (g, g2))
+        torch.cuda.synchronize()
+        assert {k: cb.KERNEL_LAUNCHES[k] - before[k] for k in before} == {
+            "band_matvec": 0, "band_matvec_pair": 1, "band_matvec_pair_t": 1}
+        want_a, want_b = band_matvec_pair_torch(bs, bs2, x.detach(), b)
+        pairs += [(ya, want_a), (yb, want_b),
+                  (gx2, band_matvec_pair_t_torch(bst, bst2, g, g2, b))]
+        for got, want in pairs:
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max()), (c, m, b, n)

@@ -5,6 +5,8 @@ and log_likelihood_and_gradient_banded equal the JAX package's at float64
 gradients reach ~1e5 at n = 397, where 1e-8 is below float64 resolution
 of the summation), on the band-impl test problem and on
 the n = 397 bench grid, and the chain axis matches per-chain evaluation.
+The banded forms run mphi and GC^T as one paired band call and GK^T as one
+single call, forward and backward, and take a bandwidth above 64.
 
 At n = 397 the port's banded forms are held against the JAX package's dense
 forms, which its own tests hold equal to its banded forms
@@ -32,6 +34,7 @@ from manifold_constrained_gaussian_process_inference_tpu_torch.inference.transfo
     make_theta_transform as t_make_tr,
 )
 from manifold_constrained_gaussian_process_inference_tpu_torch.models import FN_SYSTEM as T_FN
+from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops import likelihood as tl
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops.gp_cov import GPCov
 
@@ -193,6 +196,50 @@ def test_target_value_and_grad_matches_jax(problem, band_impl, sigma_fixed, tran
     x, theta, log_sigma = tt.unpack(torch.as_tensor(psis))
     np.testing.assert_array_equal(x.numpy(), xs)
     np.testing.assert_array_equal(tt.pack(x, theta, log_sigma).numpy(), psis)
+
+
+@pytest.mark.parametrize("centered", [False, True])
+def test_banded_branches_run_two_band_calls_each_way(monkeypatch, centered):
+    """The banded likelihood makes one paired call (mphi and GC^T on one
+    input) and one single call (GK^T) forward, and one of each backward:
+    four kernel launches per value-and-grad on a card."""
+    y, cov_j, cov_t, xs, thetas, sigmas = _make("small")
+    b = cov_t.bandsize
+    dt = tl.make_banded_likelihood_data(y, cov_t, TEMPS)
+    calls = []
+    for name in ("_apply", "_apply_pair", "_apply_pair_t"):
+        fn = getattr(cuda_band, name)
+        monkeypatch.setattr(cuda_band, name,
+                            lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
+    if centered:
+        ct = tl.make_centered_terms(dt, xs[2], b)
+        fn = lambda x, th, s: tl.log_posterior_centered(x - ct.x_ref, th, s, dt, ct, T_FN.f, b)
+    else:
+        fn = lambda x, th, s: tl.log_posterior_banded(x, th, s, dt, T_FN.f, b)
+    _torch_vg(fn, xs[:2], thetas[:2], sigmas[:2])
+    assert sorted(calls) == ["_apply", "_apply", "_apply_pair", "_apply_pair_t"]
+
+
+def test_banded_likelihood_above_bandwidth_64_matches_jax():
+    """Band storage at a bandwidth the TPU kernel did not take (70) equals
+    the JAX package's dense form on the same banded operators."""
+    rng = np.random.default_rng(4)
+    t = np.linspace(0, 8, 150)
+    truth = np.stack([np.sin(t), np.cos(t)], -1)
+    y = truth + 0.15 * rng.normal(size=truth.shape)
+    y[1::3] = np.nan
+    cov_j = jm.build_gp_cov("matern52", np.array([[1.5, 1.5], [1.0, 1.0]]), t, bandsize=70,
+                            complexity=2, jitter=1e-6)
+    cov_t = GPCov.from_numpy(cov_j)
+    assert cov_t.bandsize == 70
+    x = truth + 0.05 * rng.normal(size=truth.shape)
+    theta, sigma = np.array([0.2, 0.2, 3.0]), np.array([0.2, 0.25])
+    dj = jl.make_likelihood_data(y, cov_j, TEMPS)
+    dt = tl.make_banded_likelihood_data(y, cov_t, TEMPS)
+    jv, jg = _jax_vg(lambda a, th, s: jl.log_posterior(a, th, s, dj, J_FN.f), x, theta, sigma)
+    tv, tg = _torch_vg(lambda a, th, s: tl.log_posterior_banded(a, th, s, dt, T_FN.f, 70),
+                       x, theta, sigma)
+    _check(tv, tg, jv, jg)
 
 
 def test_pallas_name_is_refused():

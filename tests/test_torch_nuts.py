@@ -249,6 +249,8 @@ def test_graphed_value_and_grad_replays_eager_results(cuda_device):
     q0 = torch.as_tensor(rng.normal(size=(8, 100)), device=cuda_device)
     graphed = tc.GraphedValueAndGrad(vg, q0)
     assert graphed.band_launches == 2
+    assert graphed.kernel_launches == {
+        "band_matvec": 2, "band_matvec_pair": 0, "band_matvec_pair_t": 0}
     for scale in (0.1, 2.0):
         q = q0 * scale
         before = cuda_band.LAUNCHES

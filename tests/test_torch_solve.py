@@ -195,6 +195,19 @@ def test_auto_band_policy(device, n, chains, band, want):
     assert tsolve.resolve_band_impl(explicit, n, 2, band, torch.device(device)) == "band"
 
 
+def test_default_device_is_the_card():
+    """MagiConfig() resolves to the card; without one, a default-device
+    solve_magi raises instead of running on the CPU."""
+    assert mt.MagiConfig().resolved_device().type == "cuda"
+    assert mt.default_device().type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    y, t = _fn_data()
+    config = mt.MagiConfig(mass_matrix="dense-pooled", x_whitened=True, niter_hmc=4)
+    with pytest.raises(tsolve.MagiError, match='device="cpu"'):
+        mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+
+
 def test_tf32_is_refused():
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
