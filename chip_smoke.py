@@ -14,7 +14,7 @@ launches backward. Phases:
 2. build: compile the kernels from csrc/ with nvcc;
 3. likelihood: the whitened centered value-and-grad on the card, band
    against dense in float32, both against a float64 CPU evaluation, and
-   the kernel launches per value-and-grad (4);
+   the kernel launches in its CUDA graph (a diagnostic);
 4. likelihood-3169: the same workload on the filllevel-5 grid (n=3169;
    the band escalates from 80 to 160), 128 chains, band against dense,
    eager and replayed from a CUDA graph; one chain against float64 on the
@@ -25,7 +25,9 @@ launches backward. Phases:
    backward; each timed per launch from a CUDA graph of back-to-back
    calls beside its plain version and the dense torch.matmul;
 6. slice: ``solve_magi`` end to end; draws finite, recovery within the
-   bars, and every kernel launched by the main path.
+   bars, and the kernel launches of this run, counted from 0 just before
+   it: each kernel's count is its launches per value-and-grad (2 single,
+   1 pair, 1 pair_t: 4) times the run's value-and-grad evaluations.
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -54,7 +56,9 @@ KERNEL_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/ops/palla
 # The kernels' C entry points and the ops of perf/band_timing.py they run.
 KERNELS = {"band_matvec": "single", "band_matvec_pair": "pair",
            "band_matvec_pair_t": "pair_t"}
-LAUNCHES_PER_VG = 4
+# A banded value-and-grad: the pair (mphi, GC^T) and the single GK^T
+# forward, their two launches backward.
+LAUNCHES_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1}
 # Tolerances: float64 agrees to rounding; float32 sums run in another order.
 TOL_F64, TOL_F32 = 1e-12, 1e-5
 TOL_VALUE, TOL_GRAD = 1e-4, 1e-3
@@ -145,16 +149,15 @@ def phase_likelihood(y, t):
         check(eg <= TOL_GRAD, f"{impl} grad err {eg:.3e} > {TOL_GRAD} of max |grad|")
     check(band_vs_dense[0] <= TOL_VALUE and band_vs_dense[1] <= TOL_GRAD, "band vs dense")
     per_vg = launches["band"]
-    check(sum(per_vg.values()) == LAUNCHES_PER_VG and all(per_vg.values()),
-          f"kernel launches per value-and-grad {per_vg}, want {LAUNCHES_PER_VG}")
+    check(per_vg == LAUNCHES_PER_VG,
+          f"kernel launches in the value-and-grad's graph {per_vg}, want {LAUNCHES_PER_VG}")
     print(f"[likelihood] C={N_CHAINS} dim={lik.dimension} bandsize={lik.cov64.bandsize} float32 "
           f"vs float64 CPU: band value rel {out['band'][0]:.3e} grad {out['band'][1]:.3e}; dense "
           f"value rel {out['dense'][0]:.3e} grad {out['dense'][1]:.3e}; band vs dense value "
           f"{band_vs_dense[0]:.3e} grad {band_vs_dense[1]:.3e}; value-and-grad evals/s "
           f"(chains x calls) eager / CUDA-graph replay: band {rates['band'][0]:.0f} / "
           f"{rates['band'][1]:.0f}, dense {rates['dense'][0]:.0f} / {rates['dense'][1]:.0f}; "
-          f"kernel launches per value-and-grad {per_vg}", flush=True)
-    return per_vg
+          f"kernel launches in the band value-and-grad's graph {per_vg}", flush=True)
 
 
 def phase_likelihood_3169():
@@ -305,6 +308,9 @@ def phase_kernel(cb):
 
 
 def phase_slice(mt, cb, y, t):
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS,
+    )
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
         SEED, SIGMA_TRUE, THETA_TRUE,
     )
@@ -333,6 +339,10 @@ def phase_slice(mt, cb, y, t):
     pt = d["phase_times_s"]
     nuts_s = pt["warmup_s"] + pt["sampling_s"]
     device_evals = d["lockstep_leaves"] * N_CHAINS
+    # the sampler's value-and-grad evaluations on the card: the graph's
+    # eager warm-up calls, the start positions and one per batched leaf
+    vg_evals = GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
+    per_vg = {name: k / vg_evals for name, k in launches.items()}
     print(f"[slice] niter_hmc={NITER_HMC} chains={N_CHAINS} band_impl={d['band_impl']} "
           f"bandsize={d['bandsize']} dtype={d['dtype']}; wall {wall:.1f} s: nlml "
           f"{pt['nlml_s']:.2f} s, gn_map {pt['gn_map_s']:.2f} s, hessian+whitener "
@@ -343,19 +353,20 @@ def phase_slice(mt, cb, y, t):
           f"{d['host_syncs'] / d['transitions']:.2f}; min-theta ESS {ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.3f} (total wall); max R-hat {rhat_max:.4f}; theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
-          f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; kernel launches {launches}",
-          flush=True)
+          f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; kernel launches {launches} in "
+          f"{vg_evals} value-and-grads: {per_vg} per value-and-grad", flush=True)
     for name in ("theta", "x_sampled", "sigma", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"non-finite {name}")
     check(res.x_sampled.shape == (N_CHAINS * (NITER_HMC // 2), 397, 2), "x_sampled shape")
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    for name in KERNELS:
-        check(launches[name] > 0, f"the main path never launched {name}")
+    for name, k in LAUNCHES_PER_VG.items():
+        check(launches[name] == k * vg_evals,
+              f"{name}: {launches[name]} launches in {vg_evals} value-and-grads, want {k} each")
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
-    return launches
+    return launches, per_vg
 
 
 def main() -> int:
@@ -370,10 +381,10 @@ def main() -> int:
     smi = phase_device()
     phase_build(cb)
     y, t = fn_bench_workload()
-    per_vg = phase_likelihood(y, t)
+    phase_likelihood(y, t)
     phase_likelihood_3169()
     main_err, timing = phase_kernel(cb)
-    launches = phase_slice(mt, cb, y, t)
+    launches, per_vg = phase_slice(mt, cb, y, t)
     print(json.dumps({"launches_per_vg": sum(per_vg.values()), "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches[name], "launches_per_vg": per_vg[name],

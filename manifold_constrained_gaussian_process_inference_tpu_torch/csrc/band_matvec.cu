@@ -55,6 +55,12 @@
 // loop each take most of the kernel's time: the 4-byte cp.async copies
 // (the rows are not 16-byte aligned) and the shared-memory loads of the
 // FMA loop are what a faster design has to cut.
+//
+// Measurement variants, built only by perf/band_timing.py (which prepends
+// the define to a copy of this source; the shipped library defines none):
+//   BAND_FORCE_TILE 1 or 2   float32 always runs the Small or Large tile
+//   BAND_ABLATE_NO_STAGE     the staging is skipped (wrong results)
+//   BAND_ABLATE_NO_FMA       the FMA loop is skipped (wrong results)
 
 #include <cuda_runtime.h>
 
@@ -164,6 +170,9 @@ __global__ void __launch_bounds__(L::THREADS) band_matvec_kernel(const Args<T> a
   const int lane = tid & 31, warp = tid >> 5;
   const int r8 = lane >> 2, c4 = lane & 3;
   auto stage = [&](int chunk) {
+#ifdef BAND_ABLATE_NO_STAGE
+    if (n > 0) return;
+#endif
     T* st = smem + (chunk % L::STAGES) * NB * BAND_ELEMS;
     const int w0 = chunk * L::WK;
     {
@@ -246,6 +255,9 @@ __global__ void __launch_bounds__(L::THREADS) band_matvec_kernel(const Args<T> a
 #pragma unroll
         for (int p = 0; p < L::RI - 1; ++p) load_row(s, r0 + w_lo + p, win[s][p]);
     }
+#ifdef BAND_ABLATE_NO_FMA
+    if (n > 0) continue;
+#endif
     for (int w0 = w_lo; w0 < w_hi; w0 += L::RI) {
 #pragma unroll
       for (int step = 0; step < L::RI; ++step) {
@@ -320,12 +332,10 @@ __global__ void __launch_bounds__(L::THREADS) band_matvec_kernel(const Args<T> a
 // (the pair ops' two accumulator or window sets take ~230 registers, so
 // fewer stages keep more blocks resident); a wide band (n=3169, b=160)
 // re-stages less of x and of the bands per output. On an H100 each tile
-// wins at its shape (perf/band_timing.py --tiles 1,2; PERF.md).
+// wins at its shape (perf/band_timing.py --variants small,large; PERF.md).
 using Small = Tile<4, 1, 4, 8, 4, 32, 3>;
 using Large = Tile<8, 2, 8, 8, 2, 32, 2>;
 constexpr int kLargeFromWidth = 128;  // 2b+1 at and above which Large runs
-
-int g_tile = 0;  // 0: by shape; 1: Small; 2: Large (band_matvec_set_tile)
 
 template <typename T, class L, int NB, bool SUM>
 int launch_tile(const Args<T>& a, cudaStream_t stream) {
@@ -347,7 +357,11 @@ template <typename T, int NB, bool SUM>
 int dispatch(const Args<T>& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) == 4) {
-    const bool large = g_tile ? g_tile == 2 : 2 * a.bandwidth + 1 >= kLargeFromWidth;
+#ifdef BAND_FORCE_TILE
+    const bool large = BAND_FORCE_TILE == 2;
+#else
+    const bool large = 2 * a.bandwidth + 1 >= kLargeFromWidth;
+#endif
     if (large) return launch_tile<T, Large, NB, SUM>(a, s);
   }
   return launch_tile<T, Small, NB, SUM>(a, s);
@@ -392,7 +406,3 @@ Args<T> args(const void* b0, const void* b1, const void* x0, const void* x1, voi
 
 BAND_ENTRY_POINTS(f32, float)
 BAND_ENTRY_POINTS(f64, double)
-
-// Tile choice for measurements: 0 by shape (the default), 1 Small, 2 Large
-// (float32 only).
-extern "C" void band_matvec_set_tile(int tile) { g_tile = tile; }

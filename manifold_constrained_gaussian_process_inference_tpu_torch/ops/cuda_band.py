@@ -38,10 +38,9 @@ from .band import band_matvec_pair_t_torch, band_matvec_pair_torch, band_storage
 # pointer arguments (then n_chains, n_mat, n, bandwidth, stream).
 N_POINTERS = {"band_matvec": 3, "band_matvec_pair": 5, "band_matvec_pair_t": 5}
 
-# Kernel launches since the last reset, in all (LAUNCHES) and by C entry
-# point (KERNEL_LAUNCHES): each wrapper adds one per launch, and a CUDA-graph
-# replay the launches it replays (parallel/chains.GraphedValueAndGrad).
-LAUNCHES = 0
+# Kernel launches since the last reset, by C entry point: each wrapper adds
+# one per launch, and a CUDA-graph replay the launches it replays
+# (parallel/chains.GraphedValueAndGrad).
 KERNEL_LAUNCHES = dict.fromkeys(N_POINTERS, 0)
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -133,19 +132,20 @@ def _library():
     return _LIB
 
 
+def launches() -> int:
+    """Kernel launches since the last reset, all entry points together."""
+    return sum(KERNEL_LAUNCHES.values())
+
+
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
     for name in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[name] = 0
 
 
 def add_launches(counts: dict) -> None:
     """Count launches made outside the wrappers (a CUDA-graph replay)."""
-    global LAUNCHES
     for name, k in counts.items():
         KERNEL_LAUNCHES[name] += k
-        LAUNCHES += k
 
 
 def _checked(name, bands, xs, bandwidth):
@@ -178,7 +178,6 @@ def _checked(name, bands, xs, bandwidth):
 
 
 def _launch(name, tensors, dims, bandwidth, like) -> None:
-    global LAUNCHES
     suffix = "f32" if like.dtype == torch.float32 else "f64"
     fn = getattr(_library(), f"{name}_{suffix}")
     stream = torch.cuda.current_stream(like.device).cuda_stream
@@ -186,7 +185,6 @@ def _launch(name, tensors, dims, bandwidth, like) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
-    LAUNCHES += 1
 
 
 def band_matvec_cuda(bands: torch.Tensor, xs: torch.Tensor, bandwidth: int) -> torch.Tensor:

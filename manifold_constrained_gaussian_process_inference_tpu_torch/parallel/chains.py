@@ -148,6 +148,10 @@ def jitter_multipliers(rng: np.random.Generator, length: int, prob: float, low: 
     return m
 
 
+# Eager calls of the value-and-grad before its CUDA graph is captured.
+GRAPH_WARMUP_CALLS = 3
+
+
 class GraphedValueAndGrad:
     """``vg`` replayed from a CUDA graph captured at the chains' fixed
     (C, dim) input shape.
@@ -155,13 +159,13 @@ class GraphedValueAndGrad:
     In eager PyTorch one value-and-grad of the production target issues
     ~200 kernels whose launch costs milliseconds of host time, against
     ~0.4 ms of device time (PERF.md); a replay issues them as one graph.
-    The capture runs ``vg`` once in full (after warm-up calls on a side
-    stream), so every kernel wrapper runs and counts its launches then;
-    each replay launches the same kernels again and adds the band-matvec
-    launches it contains to ``cuda_band``'s counts. Outputs are cloned out
-    of the graph's static buffers."""
+    The warm-up calls (on a side stream) run ``vg`` eagerly and count
+    their band-matvec launches; the capture records the kernels without
+    running them, so its launches are read (``kernel_launches``) and taken
+    back out of ``cuda_band``'s counts; each replay adds them again.
+    Outputs are cloned out of the graph's static buffers."""
 
-    def __init__(self, vg, example: torch.Tensor, n_warmup: int = 3):
+    def __init__(self, vg, example: torch.Tensor, n_warmup: int = GRAPH_WARMUP_CALLS):
         self.static_in = example.detach().clone()
         side = torch.cuda.Stream(device=example.device)
         side.wait_stream(torch.cuda.current_stream(example.device))
@@ -176,7 +180,7 @@ class GraphedValueAndGrad:
         self.kernel_launches = {
             name: k - before[name] for name, k in cuda_band.KERNEL_LAUNCHES.items()
         }
-        self.band_launches = sum(self.kernel_launches.values())
+        cuda_band.KERNEL_LAUNCHES.update(before)
 
     def __call__(self, zeta: torch.Tensor):
         self.static_in.copy_(zeta)

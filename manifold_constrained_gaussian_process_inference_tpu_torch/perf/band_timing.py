@@ -3,7 +3,7 @@ their bound, their plain PyTorch versions and the dense ``torch.matmul``,
 and a profiler trace of the slice's replayed value-and-grad.
 
     python3 -m manifold_constrained_gaussian_process_inference_tpu_torch.perf.band_timing \
-        [--baseline OTHER.cu] [--tiles 1,2] [--ablate] [--profile] \
+        [--baseline OTHER.cu] [--variants small,large,fma_only,staging_only] [--profile] \
         [--out chiprun_out/band_timing.json]
 
 Each time is per launch: CUDA events around one replay of a CUDA graph of
@@ -13,11 +13,12 @@ launched one by one from Python, host enqueue included. Callers run in
 turns (kernel, baseline, plain, library, ..., kernel) in one process.
 ``--baseline`` builds another source with the same C interface (for
 example an older commit's kernel) and times it beside this one.
-``--ablate`` also times two variants of the kernel built from its source
-with one half removed: "fma_only" skips the staging (it multiplies
-whatever shared memory holds) and "staging_only" skips the FMA loop; their
-outputs are wrong by design, and their times say which half holds the
-kernel back. ``--profile`` traces ``PROFILE_CALLS`` replays of the slice's
+``--variants`` also times variants of the kernel, each built from its
+source with one of the measurement defines the source names: "small" and
+"large" force a tile for every shape; "fma_only" skips the staging (it
+multiplies whatever shared memory holds) and "staging_only" skips the FMA
+loop, so their outputs are wrong by design, and their times say which half
+holds the kernel back. ``--profile`` traces ``PROFILE_CALLS`` replays of the slice's
 value-and-grad (C=128, n=397, band and dense) with ``torch.profiler`` and
 reports each kernel's share of the device time and the device's idle
 share over the window. Runs on a CUDA card only.
@@ -99,26 +100,22 @@ def eager_ms(fn, count=COUNT, reps=REPS) -> float:
     return float(np.median(times))
 
 
-# Textual edits of csrc/band_matvec.cu for --ablate: (anchor, replacement).
-ABLATIONS = {
-    "fma_only": ("  auto stage = [&](int chunk) {\n",
-                 "  auto stage = [&](int chunk) {\n    if (n > 0) return;\n"),
-    "staging_only": ("for (int w0 = w_lo; w0 < w_hi; w0 += L::RI) {",
-                     "for (int w0 = w_lo; w0 < w_hi && n < 0; w0 += L::RI) {"),
+# The measurement defines of csrc/band_matvec.cu, one per --variants name.
+VARIANTS = {
+    "small": "BAND_FORCE_TILE 1",
+    "large": "BAND_FORCE_TILE 2",
+    "fma_only": "BAND_ABLATE_NO_STAGE",
+    "staging_only": "BAND_ABLATE_NO_FMA",
 }
 
 
-def _ablated(name: str) -> Path:
-    """The kernel's source with one half removed, written under build/."""
+def _variant(name: str) -> Path:
+    """The kernel's source with one measurement define, under build/."""
     from ..ops import cuda_band as cb
 
-    anchor, replacement = ABLATIONS[name]
-    text = cb.SOURCE.read_text()
-    if text.count(anchor) != 1:
-        raise RuntimeError(f"--ablate {name}: anchor not found once in {cb.SOURCE.name}")
-    path = cb.BUILD_DIR / "ablate" / f"{name}.cu"
+    path = cb.BUILD_DIR / "variants" / f"{name}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text.replace(anchor, replacement))
+    path.write_text(f"#define {VARIANTS[name]}\n{cb.SOURCE.read_text()}")
     return path
 
 
@@ -207,11 +204,10 @@ def time_in_turns(fns: dict, order) -> dict:
     return times
 
 
-def time_shape(name, shape, libs, rng, tiles=(), dtype=torch.float32, timed=True):
+def time_shape(name, shape, libs, rng, dtype=torch.float32, timed=True):
     """Every op at one shape: the raw launches of each library that has
-    them (and of each at each of ``tiles`` where it takes one), each checked against its
-    plain version, then timed in turns beside it and the dense
-    torch.matmul."""
+    them, each checked against its plain version, then timed in turns
+    beside it and the dense torch.matmul."""
     suffix = "f32" if dtype == torch.float32 else "f64"
     rows = []
     for op, case in op_cases(shape, dtype, rng).items():
@@ -220,10 +216,7 @@ def time_shape(name, shape, libs, rng, tiles=(), dtype=torch.float32, timed=True
             fn = getattr(lib, f"{OPS[op]}_{suffix}", None)
             if fn is None:
                 continue
-            kernels[tag] = _with_tile(lib, 0, case["raw"](fn))
-            if getattr(lib, "band_matvec_set_tile", None) is not None:
-                for tile in tiles:
-                    kernels[f"{tag}@{tile}"] = _with_tile(lib, tile, case["raw"](fn))
+            kernels[tag] = _raising(case["raw"](fn))
         if not kernels:
             continue
         want = case["plain"]()
@@ -255,14 +248,11 @@ def time_shape(name, shape, libs, rng, tiles=(), dtype=torch.float32, timed=True
     return rows
 
 
-def _with_tile(lib, tile, launch):
-    """``launch`` with the kernel's tile forced (0: chosen by shape)."""
-    set_tile = getattr(lib, "band_matvec_set_tile", None) or (lambda _: None)
+def _raising(launch):
+    """``launch`` (a raw C entry point call), raising on its error code."""
 
     def run():
-        set_tile(tile)
         err = launch()
-        set_tile(0)
         if err:
             raise RuntimeError(f"kernel launch failed: CUDA error {err}")
 
@@ -305,8 +295,8 @@ def profile_vg(out_dir: Path, n_calls=PROFILE_CALLS):
         trace = out_dir / f"vg_{impl}_trace.json"
         prof.export_chrome_trace(str(trace))
         ivals = sorted(_kernel_intervals(trace))
-        row = dict(impl=impl, vg_ms=vg_ms, band_launches_per_vg=graphed.band_launches,
-                   n_kernels=len(ivals))
+        row = dict(impl=impl, vg_ms=vg_ms, n_kernels=len(ivals),
+                   band_launches_per_vg=sum(graphed.kernel_launches.values()))
         if ivals:
             busy, cur_s, cur_e = 0.0, None, None
             for ts, dur, _ in ivals:
@@ -337,10 +327,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--shapes", default="main,long")
-    ap.add_argument("--tiles", default="",
-                    help="also time each kernel at these tiles (1 small, 2 large), e.g. 1,2")
+    ap.add_argument("--variants", default="",
+                    help=f"also time these builds of the kernel, of {','.join(VARIANTS)}")
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/band_timing.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -356,18 +345,15 @@ def main(argv=None) -> int:
     libs = {"kernel": cb.load()}
     if args.baseline is not None:
         libs["baseline"] = cb.load(args.baseline)
-    if args.ablate:
-        libs.update({name: cb.load(_ablated(name)) for name in ABLATIONS})
+    libs.update({name: cb.load(_variant(name)) for name in args.variants.split(",") if name})
     for tag, lib in libs.items():
         log = Path(lib._name).with_suffix(".log")
         print(f"[ptxas] {tag}:\n{log.read_text() if log.exists() else '(no log)'}", flush=True)
     rng = np.random.default_rng(0)
     result = dict(device=smi, rows=[])
-    tiles = [int(t) for t in args.tiles.split(",") if t]
     for name in args.shapes.split(","):
-        result["rows"] += time_shape(name, SHAPES[name], libs, rng, tiles, torch.float64,
-                                     timed=False)
-        result["rows"] += time_shape(name, SHAPES[name], libs, rng, tiles)
+        result["rows"] += time_shape(name, SHAPES[name], libs, rng, torch.float64, timed=False)
+        result["rows"] += time_shape(name, SHAPES[name], libs, rng)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     if args.profile:
         result["profile"] = profile_vg(args.out.parent)
