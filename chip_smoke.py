@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's production path (``solve_magi`` on the FitzHugh-Nagumo
-bench workload: n=397, D=2, 128 NUTS chains under a pooled dense metric,
-exact-Hessian whitening, mode-centered float32 evaluation) with the
-likelihood on the band-storage layout, so every gradient evaluation runs
-the hand-written CUDA band-matvec kernels: the paired launch (mphi and
-GC^T on one input) and the single launch (GK^T) forward, and their two
-launches backward. Phases:
+Drives the port's two main paths on the FitzHugh-Nagumo workload (n=397,
+D=2) with the likelihood on the band-storage layout, so every gradient
+evaluation runs the hand-written CUDA band-matvec kernels: the paired
+launch (mphi and GC^T on one input) and the single launch (GK^T) forward,
+and their two launches backward. The production path is ``solve_magi``
+with 128 NUTS chains under a pooled dense metric, exact-Hessian whitening
+and mode-centered float32 evaluation; the default path is ``solve_magi``
+at the library's defaults: one chain, the diagonal Welford metric, raw Psi.
+Phases:
 
 1. device: the card's name and power limit; TF32 must be off;
 2. build: compile the kernels from csrc/ with nvcc;
@@ -24,10 +26,28 @@ launches backward. Phases:
    shapes (b = 0, n < 2b+1, b > 64), float64 and float32, forward and
    backward; each timed per launch from a CUDA graph of back-to-back
    calls beside its plain version and the dense torch.matmul;
-6. slice: ``solve_magi`` end to end; draws finite, recovery within the
-   bars, and the kernel launches of this run, counted from 0 just before
-   it: each kernel's count is its launches per value-and-grad (2 single,
-   1 pair, 1 pair_t: 4) times the run's value-and-grad evaluations.
+   The kernel is also checked at C = 1 and C = 5 at both shapes, and
+   timed at C = 1 (the default path's shape);
+6. diag-gauss: the diag chain driver on the card, at C = 1 and C = 4, on
+   a 799-dimensional independent Gaussian with scales log-spaced over
+   [0.01, 10]: the draws' variances and the adapted inverse masses against
+   the true scales;
+7. default: ``solve_magi`` at the library's defaults on the FN example's
+   workload (100 observations on [0, 20], noise 0.2, filllevel 2, sigma
+   sampled; 200 iterations): the float32 value-and-grad of one chain at the
+   start Psi against float64 on the CPU, finite draws, the sampling accept
+   rate and divergences within their bars, and exactly 4 kernel launches
+   per value-and-grad; per-leaf times and tree depths are printed;
+8. families: the three model-family workloads of the JAX package's
+   end-to-end tests (ptrans, hiv, hes1log_fixg; MAP warm start, theta
+   constrained, gp_mean="observed") on the card in float32;
+9. slice: the production ``solve_magi`` end to end; draws finite, recovery
+   within the bars, and the kernel launches of this run.
+
+The launches of each main path ([default], [slice]) are counted from 0
+just before its ``solve_magi`` and read just after: each kernel's count is
+its launches per value-and-grad (2 single, 1 pair, 1 pair_t: 4) times the
+run's value-and-grad evaluations.
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -45,10 +65,21 @@ import numpy as np
 import torch
 
 N_CHAINS = 128
-# 400 warmup + 400 draws per chain: at ~0.8 ms per batched leapfrog step
+# 250 warmup + 250 draws per chain: at ~0.7 ms per batched leapfrog step
 # (value-and-grad replayed from a CUDA graph) and ~600 batched steps per
-# iteration, ~400 s of sampling, half the script's time limit (PERF.md).
-NITER_HMC = 800
+# iteration, ~300 s, so that the whole script stays near half its time
+# limit with the default-path phases (PERF.md; 800 until they came).
+NITER_HMC = 500
+# The default path: 100 warmup + 100 draws of one chain (the example runs
+# 50,000 iterations; cut for time only).
+DEFAULT_NITER = 200
+DEFAULT_SEED = 12345  # examples/fn_example.py's seed
+DEFAULT_TOL_VALUE, DEFAULT_TOL_GRAD = 1e-5, 1e-4
+DEFAULT_ACCEPT = (0.6, 0.95)
+DEFAULT_MAX_DIVERGENT_SHARE = 0.1
+# diag-gauss: dimension, iterations (half warmup), chain counts and bars
+GAUSS_DIM, GAUSS_NITER, GAUSS_CHAINS = 799, 1000, (1, 4)
+GAUSS_VAR_TOL, GAUSS_MASS_RANGE, GAUSS_MASS_SHARE = 0.1, (0.5, 2.0), 0.95
 MAIN_BANDSIZE = 40  # the band after escalation on this workload (20 -> 40)
 LONG_FILL, LONG_BAND_START = 5, 80  # n = 3169; the band escalates to 160
 KERNEL_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/band_matvec.cu"
@@ -264,12 +295,14 @@ def phase_kernel(cb):
              "pair_t": band_matvec_pair_t_torch}
     rng = np.random.default_rng(0)
     main, long = bt.SHAPES["main"], bt.SHAPES["long"]
+    # the default path's shapes: one chain (and five) at both grids
+    few = [(c, *shape[1:]) for shape in (main, long) for c in (1, 5)]
     # n < 2b+1, b = 0, n not a multiple of a tile, b at the TPU kernel's
     # limit, b > 64 with n < 2b+1, and C not a multiple of the chain tile
     edges = [(3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129), (1, 2, 64, 200), (5, 2, 40, 50),
              (3, 2, 70, 150), (33, 2, 100, 170)]
     worst, main_err = {}, {}
-    for shape in [main, long] + edges:
+    for shape in [main, long] + few + edges:
         for dtype in (torch.float64, torch.float32):
             errs = _autograd_errors(cb, plain, *shape, dtype, rng)
             tol = TOL_F64 if dtype == torch.float64 else TOL_F32
@@ -285,7 +318,8 @@ def phase_kernel(cb):
     rel2 = float((cb.band_matvec_cuda(bs2, x2, MAIN_BANDSIZE) - want).abs().max() / want.abs().max())
     check(rel2 <= TOL_F64, f"kernel (M, n) form: rel {rel2:.3e}")
     timing = {}
-    for label, shape in (("main", main), ("long", long)):
+    for label in ("main", "long", "main_c1", "long_c1"):
+        shape = bt.SHAPES[label]
         for op, case in bt.op_cases(shape, torch.float32, rng).items():
             fns = {"kernel": case["wrapper"], "plain": case["plain"], "library": case["library"]}
             times = bt.time_in_turns(fns, ["kernel", "plain", "library", "kernel"])
@@ -300,11 +334,202 @@ def phase_kernel(cb):
         for (label, op), v in timing.items()
     )
     print(f"[kernel] single, pair and pair_t against their plain versions, forward and backward, "
-          f"at {2 + len(edges)} shapes: worst rel float64 {worst[torch.float64]:.3e} (tol "
+          f"at {2 + len(few) + len(edges)} shapes (C in 1, 5, 128 at both grids): worst rel float64 {worst[torch.float64]:.3e} (tol "
           f"{TOL_F64}), float32 {worst[torch.float32]:.3e} (tol {TOL_F32}); max abs err at the "
           f"main shape float32 {main_err}; ms per launch (CUDA graph of {bt.COUNT}, CUDA events) "
-          f"at main {main} and long {long}: {cells}", flush=True)
+          f"at (C, M, b, n) {[bt.SHAPES[k] for k in ('main', 'long', 'main_c1', 'long_c1')]}: "
+          f"{cells}", flush=True)
     return main_err, timing
+
+
+def _per_vg(launches, vg_evals, what):
+    """Launches per value-and-grad of one main path's run, which must be
+    exactly LAUNCHES_PER_VG."""
+    for name, k in LAUNCHES_PER_VG.items():
+        check(launches[name] == k * vg_evals,
+              f"{what}: {name} {launches[name]} launches in {vg_evals} value-and-grads, "
+              f"want {k} each")
+    return {name: k / vg_evals for name, k in launches.items()}
+
+
+def _leaf_times(d):
+    """ms per batched leapfrog step (sampler wall over batched leaves; the
+    whole step: the replayed value-and-grad and the NUTS bookkeeping) and
+    leaves/s of a solve_magi result's diagnostics."""
+    pt = d["phase_times_s"]
+    nuts_s = pt["warmup_s"] + pt["sampling_s"]
+    return 1e3 * nuts_s / d["lockstep_leaves"], d["lockstep_leaves"] / nuts_s
+
+
+def phase_diag_gauss():
+    """The diag driver on an independent Gaussian with log-spaced scales:
+    Welford adaptation on the device, independent of MAGI."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        run_chains,
+    )
+
+    scales = np.logspace(-2.0, 1.0, GAUSS_DIM)
+    inv_var = torch.as_tensor(1.0 / scales**2, dtype=torch.float32, device="cuda")
+
+    def vg(q):
+        g = -q * inv_var
+        return 0.5 * (g * q).sum(-1), g
+
+    parts = []
+    for c in GAUSS_CHAINS:
+        q0 = np.random.default_rng(c).normal(size=(c, GAUSS_DIM)) * scales
+        t0 = time.perf_counter()
+        samples, info = run_chains(
+            vg, torch.as_tensor(q0, dtype=torch.float32, device="cuda"),
+            torch.Generator(device="cuda").manual_seed(c), n_samples=GAUSS_NITER,
+            n_adapts=GAUSS_NITER // 2, initial_step_size=0.01, target_accept=0.8,
+            mass_matrix="diag", chunk_size=GAUSS_NITER // 2,
+        )
+        wall = time.perf_counter() - t0
+        var_err = np.abs(samples.reshape(-1, GAUSS_DIM).astype(np.float64).var(0) / scales**2 - 1.0)
+        mass = info["inv_mass"] / scales**2
+        lo, hi = GAUSS_MASS_RANGE
+        share = ((mass >= lo) & (mass <= hi)).mean(axis=1)
+        check(np.isfinite(samples).all(), f"diag-gauss C={c}: non-finite draws")
+        check(np.median(var_err) <= GAUSS_VAR_TOL,
+              f"diag-gauss C={c}: median |var/scale^2 - 1| {np.median(var_err):.3f}")
+        check(share.min() >= GAUSS_MASS_SHARE,
+              f"diag-gauss C={c}: inv_mass/scale^2 in {GAUSS_MASS_RANGE} for {share.min():.3f}")
+        nuts_s = info["warmup_time_s"] + info["sampling_time_s"]
+        parts.append(
+            f"C={c}: wall {wall:.1f} s, median |var/scale^2 - 1| {np.median(var_err):.4f}, "
+            f"inv_mass/scale^2 in [{lo}, {hi}] for {share.min():.4f} (worst chain), step size "
+            f"{np.round(info['step_size'], 4).tolist()}, {info['lockstep_leaves']} batched leaves "
+            f"({1e3 * nuts_s / info['lockstep_leaves']:.3f} ms each), sampling accept "
+            f"{info['accept_prob'].mean():.3f}, sampling tree depth mean "
+            f"{info['tree_depth'].mean():.2f}"
+        )
+    print(f"[diag-gauss] dim={GAUSS_DIM}, scales log-spaced over [0.01, 10], {GAUSS_NITER} "
+          f"iterations ({GAUSS_NITER // 2} warmup), float32: " + "; ".join(parts), flush=True)
+
+
+def _start_psi_check(y, t, config):
+    """solve_magi's start Psi (NLML phi and sigma, interpolated x,
+    bounds-midpoint theta) on the default path: the float32 band
+    value-and-grad of one chain on the card against float64 dense on the
+    CPU."""
+    import manifold_constrained_gaussian_process_inference_tpu_torch as mt
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nlml import (
+        optimize_gp_hyperparameters,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.solve import (
+        _init_theta_from_bounds, _init_x_interpolation,
+    )
+
+    opt = optimize_gp_hyperparameters(y, t, config.kernel, jitter=config.jitter,
+                                      max_iters=config.gp_optim_iterations)
+    phi, sigma = opt[:, :2].T, np.maximum(opt[:, 2], 1e-8)
+    psi0 = np.concatenate([_init_x_interpolation(y, t).T.reshape(-1),
+                           _init_theta_from_bounds(mt.FN_SYSTEM), np.log(sigma)])
+    cov64 = mt.build_gp_cov(config.kernel, phi, t, bandsize=config.band_size,
+                            jitter=config.jitter)
+    vals = {}
+    for impl, dtype, device in (("band", torch.float32, "cuda"), ("dense", torch.float64, "cpu")):
+        target = mt.MagiTarget.build(y, cov64.to(dtype=dtype, device=device), mt.FN_SYSTEM,
+                                     sigma, config.prior_temperature, False, band_impl=impl)
+        v, g = target.value_and_grad_fn()(torch.as_tensor(psi0[None], dtype=dtype, device=device))
+        vals[impl] = (v.double().cpu().numpy(), g.double().cpu().numpy())
+    (v32, g32), (v64, g64) = vals["band"], vals["dense"]
+    err = (float(np.abs(v32 - v64).max() / np.abs(v64).max()),
+           float(np.abs(g32 - g64).max() / np.abs(g64).max()))
+    check(np.isfinite(v32).all() and np.isfinite(g32).all(), "default: non-finite start vg")
+    check(err[0] <= DEFAULT_TOL_VALUE and err[1] <= DEFAULT_TOL_GRAD,
+          f"default: float32 start value-and-grad vs float64: value rel {err[0]:.3e}, grad "
+          f"{err[1]:.3e} of max |grad|")
+    return err, float(v64[0]), float(np.abs(g64).max())
+
+
+def phase_default(mt, cb):
+    """solve_magi at the library's defaults (one chain, diag, raw Psi) on
+    the FN example's workload, with the band kernels."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        THETA_TRUE, fn_bench_workload,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
+        ess,
+    )
+
+    y, t = fn_bench_workload(seed=DEFAULT_SEED)
+    config = mt.MagiConfig(
+        niter_hmc=DEFAULT_NITER, burnin_ratio=0.5, step_size_factor=0.06,
+        target_accept_ratio=0.8, jitter=1e-6, prior_temperature=(1.0, 1.0, 5.0),
+        seed=DEFAULT_SEED, band_impl="band", device="cuda", verbose=True,
+    )
+    check(config.n_chains == 1 and config.mass_matrix == "diag" and not config.x_whitened
+          and config.map_init_iterations == 0, "default: MagiConfig defaults changed")
+    err, v64, gmax = _start_psi_check(y, t, config)
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+    wall = time.perf_counter() - t0
+    launches = dict(cb.KERNEL_LAUNCHES)
+    d = res.diagnostics
+    vg_evals = GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
+    leaf_ms, leaves_s = _leaf_times(d)
+    pt = d["phase_times_s"]
+    n_keep = DEFAULT_NITER // 2
+    accept = float(d["accept_prob"].mean())
+    div_share = float(d["diverging"].mean())
+    tpc = d["theta_per_chain"]
+    ess_theta = [ess(tpc[:, :, j]) for j in range(tpc.shape[-1])]
+    depth_hist = np.bincount(d["tree_depth"].ravel(), minlength=config.max_tree_depth + 1)
+    print(f"[default] niter_hmc={DEFAULT_NITER} chains=1 mass_matrix={config.mass_matrix} raw Psi "
+          f"band_impl={d['band_impl']} bandsize={d['bandsize']} dtype={d['dtype']} dim="
+          f"{d['final_psi'].shape[-1]}; start Psi: float32 band vs float64 dense CPU value rel "
+          f"{err[0]:.3e} (lp {v64:.6g}), grad {err[1]:.3e} of max |grad| {gmax:.4g}; wall "
+          f"{wall:.1f} s: nlml {pt['nlml_s']:.2f} s, warmup {pt['warmup_s']:.2f} s, sampling "
+          f"{pt['sampling_s']:.2f} s; {d['lockstep_leaves']} leaves "
+          f"({d['lockstep_leaves'] / d['transitions']:.1f} per transition), {leaf_ms:.4f} ms per "
+          f"leaf, {leaves_s:.0f} leaves/s; host syncs/transition "
+          f"{d['host_syncs'] / d['transitions']:.2f}; sampling tree depths (0..10) "
+          f"{depth_hist.tolist()}; step size {float(d['step_size'][0]):.5g}; accept {accept:.4f}; "
+          f"divergent {div_share:.3f}; theta ESS {np.round(ess_theta, 1).tolist()}; theta mean "
+          f"{np.round(res.theta.mean(0), 4).tolist()} (true {THETA_TRUE.tolist()}); sigma mean "
+          f"{np.round(res.sigma.mean(0), 4).tolist()}; kernel launches {launches} in {vg_evals} "
+          f"value-and-grads", flush=True)
+    for name in ("theta", "x_sampled", "sigma", "lp"):
+        check(np.isfinite(getattr(res, name)).all(), f"default: non-finite {name}")
+    check(res.x_sampled.shape == (n_keep, 397, 2), "default: x_sampled shape")
+    check(d["band_impl"] == "band", f"default: band_impl {d['band_impl']}")
+    check(DEFAULT_ACCEPT[0] <= accept <= DEFAULT_ACCEPT[1], f"default: accept {accept:.4f}")
+    check(div_share <= DEFAULT_MAX_DIVERGENT_SHARE, f"default: divergent share {div_share:.3f}")
+    return launches, _per_vg(launches, vg_evals, "default"), leaf_ms
+
+
+def phase_families(mt):
+    """The JAX package's model-family end-to-end workloads on the card in
+    float32, under that test's assertions."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        FAMILY_CASES, family_problem,
+    )
+
+    parts = []
+    for name, case in FAMILY_CASES.items():
+        system, y, t, options = family_problem(name)
+        t0 = time.perf_counter()
+        res = mt.solve_magi(y, t, system, mt.MagiConfig(device="cuda", **options))
+        wall = time.perf_counter() - t0
+        n_keep = options["niter_hmc"] // 2
+        check(res.theta.shape == (n_keep, system.theta_size), f"{name}: theta shape")
+        for what in ("theta", "x_sampled", "lp"):
+            check(np.isfinite(getattr(res, what)).all(), f"{name}: non-finite {what}")
+        if case["positive"]:
+            check(bool((res.theta > 0).all()), f"{name}: theta not positive")
+        d = res.diagnostics
+        parts.append(f"{name} (n={len(t)}, D={y.shape[1]}, k={system.theta_size}) {wall:.1f} s, "
+                     f"map {d['phase_times_s']['map_s']:.2f} s, accept "
+                     f"{d['accept_prob'].mean():.3f}, tree depth mean {d['tree_depth'].mean():.2f}, "
+                     f"theta mean {np.round(res.theta.mean(0), 4).tolist()} "
+                     f"(true {case['theta']})")
+    print("[families] float32 on the card: " + "; ".join(parts), flush=True)
 
 
 def phase_slice(mt, cb, y, t):
@@ -342,31 +567,33 @@ def phase_slice(mt, cb, y, t):
     # the sampler's value-and-grad evaluations on the card: the graph's
     # eager warm-up calls, the start positions and one per batched leaf
     vg_evals = GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
-    per_vg = {name: k / vg_evals for name, k in launches.items()}
+    leaf_ms, leaves_s = _leaf_times(d)
+    depth_hist = np.bincount(d["tree_depth"].ravel(), minlength=config.max_tree_depth + 1)
     print(f"[slice] niter_hmc={NITER_HMC} chains={N_CHAINS} band_impl={d['band_impl']} "
           f"bandsize={d['bandsize']} dtype={d['dtype']}; wall {wall:.1f} s: nlml "
           f"{pt['nlml_s']:.2f} s, gn_map {pt['gn_map_s']:.2f} s, hessian+whitener "
           f"{pt['whitener_s']:.2f} s, warmup {pt['warmup_s']:.2f} s, sampling "
           f"{pt['sampling_s']:.2f} s; batched value-and-grad evals/s "
           f"{device_evals / nuts_s:.0f} (useful sampling leapfrogs/s "
-          f"{d['gradient_evals'] / pt['sampling_s']:.0f}); host syncs/transition "
-          f"{d['host_syncs'] / d['transitions']:.2f}; min-theta ESS {ess_min:.1f}, ESS/s "
+          f"{d['gradient_evals'] / pt['sampling_s']:.0f}); {leaf_ms:.4f} ms per batched leaf, "
+          f"{leaves_s:.0f} leaves/s, {d['lockstep_leaves'] / d['transitions']:.1f} per "
+          f"transition; host syncs/transition {d['host_syncs'] / d['transitions']:.2f}; sampling "
+          f"tree depths (0..10, chains x draws) {depth_hist.tolist()}; min-theta ESS "
+          f"{ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.3f} (total wall); max R-hat {rhat_max:.4f}; theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
           f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; kernel launches {launches} in "
-          f"{vg_evals} value-and-grads: {per_vg} per value-and-grad", flush=True)
+          f"{vg_evals} value-and-grads", flush=True)
     for name in ("theta", "x_sampled", "sigma", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"non-finite {name}")
     check(res.x_sampled.shape == (N_CHAINS * (NITER_HMC // 2), 397, 2), "x_sampled shape")
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    for name, k in LAUNCHES_PER_VG.items():
-        check(launches[name] == k * vg_evals,
-              f"{name}: {launches[name]} launches in {vg_evals} value-and-grads, want {k} each")
+    per_vg = _per_vg(launches, vg_evals, "slice")
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
-    return launches, per_vg
+    return launches, per_vg, leaf_ms
 
 
 def main() -> int:
@@ -384,13 +611,19 @@ def main() -> int:
     phase_likelihood(y, t)
     phase_likelihood_3169()
     main_err, timing = phase_kernel(cb)
-    launches, per_vg = phase_slice(mt, cb, y, t)
-    print(json.dumps({"launches_per_vg": sum(per_vg.values()), "kernels": [{
+    phase_diag_gauss()
+    paths = {"default": phase_default(mt, cb)}
+    phase_families(mt)
+    paths["slice"] = phase_slice(mt, cb, y, t)
+    print(json.dumps({"launches_per_vg": sum(paths["slice"][1].values()), "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches[name], "launches_per_vg": per_vg[name],
+        "launches": sum(p[0][name] for p in paths.values()),
+        "launches_by_path": {path: p[0][name] for path, p in paths.items()},
+        "launches_per_vg": {path: p[1][name] for path, p in paths.items()},
         "max_abs_err": main_err[name], **timing[("main", op)],
-        "long": timing[("long", op)],
-    } for name, op in KERNELS.items()]}))
+        "long": timing[("long", op)], "c1": timing[("main_c1", op)],
+        "long_c1": timing[("long_c1", op)],
+    } for name, op in KERNELS.items()], "ms_per_leaf": {path: p[2] for path, p in paths.items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

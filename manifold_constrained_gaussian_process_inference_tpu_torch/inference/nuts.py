@@ -1,15 +1,36 @@
-"""NUTS types and helpers shared by the batched transition (port of the
-part of the JAX package's inference/nuts.py that inference/nuts_batched.py
-imports). The single-chain ``nuts_transition``/``run_nuts`` path is not
-ported yet (ROADMAP M12).
+"""NUTS types, metrics and the single-chain API (port of the JAX package's
+inference/nuts.py).
+
+The transition itself is ``inference/nuts_batched.py``'s, over an explicit
+(C, dim) chain axis. A single chain is that transition at C = 1:
+``nuts_transition`` and ``run_nuts`` are views of one chain over the
+batched transition and over ``parallel/chains.run_chains``, not a second
+recursive implementation (which would cost a host synchronisation per
+leaf). The warmup and sampling steps here take carries with a leading
+chain axis, C = 1 included.
+
+Two metrics, one tree code: ``DenseMetric`` (a full M^-1 shared by all
+chains) and ``DiagMetric`` (a per-chain diagonal M^-1, Stan's
+``DiagEuclideanMetric``). The transition only calls ``momentum(z)`` (a
+draw p ~ N(0, M) from z ~ N(0, I)) and ``velocity(p)`` (M^-1 p).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .adapt import DualAveragingState
+from .adapt import (
+    DualAveragingState,
+    WelfordState,
+    da_init,
+    da_restart,
+    da_update,
+    welford_init,
+    welford_update,
+    welford_variance_regularized,
+)
 
 MAX_DELTA_ENERGY = 1000.0  # Stan's divergence threshold
 
@@ -22,6 +43,25 @@ class DenseMetric(NamedTuple):
     minv: torch.Tensor       # (dim, dim)
     chol_minv: torch.Tensor  # (dim, dim) lower
     p_chol: torch.Tensor     # (dim, dim) upper
+
+    def momentum(self, z: torch.Tensor) -> torch.Tensor:
+        return z @ self.p_chol.T
+
+    def velocity(self, p: torch.Tensor) -> torch.Tensor:
+        return p @ self.minv.T
+
+
+class DiagMetric(NamedTuple):
+    """Diagonal inverse-mass metric: ``inv_mass`` (C, dim) per chain, or
+    (dim,) shared; p = z / sqrt(inv_mass) and M^-1 p = inv_mass * p."""
+
+    inv_mass: torch.Tensor
+
+    def momentum(self, z: torch.Tensor) -> torch.Tensor:
+        return z / torch.sqrt(self.inv_mass)
+
+    def velocity(self, p: torch.Tensor) -> torch.Tensor:
+        return self.inv_mass * p
 
 
 class NutsStats(NamedTuple):
@@ -49,13 +89,21 @@ class ChainState(NamedTuple):
 
 
 class WarmupCarry(NamedTuple):
+    """Warmup state: per-chain dual averaging, and under the diagonal
+    metric the Welford moments of the current window and the inverse mass
+    (C, dim); the pooled dense path leaves both None (its metric is the
+    driver's)."""
+
     chain: ChainState
     da: DualAveragingState
+    welford: Optional[WelfordState] = None
+    inv_mass: Optional[torch.Tensor] = None
 
 
 class SampleCarry(NamedTuple):
     chain: ChainState
     eps: torch.Tensor
+    inv_mass: Optional[torch.Tensor] = None
 
 
 def _popcount32(x: int) -> int:
@@ -72,3 +120,128 @@ def _leaf_idx_to_ckpt_idxs(n: int):
     idx_max = _popcount32(n >> 1)
     n_trail = _popcount32(((n + 1) & -(n + 1)) - 1)
     return idx_max - n_trail + 1, idx_max
+
+
+# ---------------------------------------------------------------------------
+# Warmup and sampling under the diagonal metric (carries with a chain axis)
+# ---------------------------------------------------------------------------
+
+
+def init_warmup_carry(vg_b, q0s: torch.Tensor, initial_step_size) -> WarmupCarry:
+    """Evaluate the start positions (C, dim); start per-chain dual
+    averaging, empty Welford moments (kept in the working dtype, as in the
+    JAX package) and a unit inverse mass."""
+    c, dim = q0s.shape
+    logp0, grad0 = vg_b(q0s)
+    eps0 = torch.full((c,), float(initial_step_size), dtype=q0s.dtype, device=q0s.device)
+    return WarmupCarry(
+        chain=ChainState(q=q0s, logp=logp0, grad=grad0),
+        da=da_init(eps0),
+        welford=welford_init(dim, q0s.dtype, q0s.device, batch=(c,)),
+        inv_mass=torch.ones_like(q0s),
+    )
+
+
+def make_warmup_step(vg_b, target_accept: float, max_depth: int, generator: torch.Generator):
+    """One warmup transition per chain under its own diagonal metric, with
+    Stan's adaptation: dual averaging every step; the draw joins the
+    window's Welford moments when ``in_win``, and at ``win_end`` the inverse
+    mass becomes the regularized window variance, the moments restart and
+    dual averaging restarts. The window flags are host booleans shared by
+    all chains (``adapt.build_window_schedule``)."""
+    from .nuts_batched import nuts_transition_batched
+
+    def warmup_step(carry: WarmupCarry, in_win: bool, win_end: bool):
+        chain = carry.chain
+        q, logp, grad, stats = nuts_transition_batched(
+            vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
+            DiagMetric(carry.inv_mass), generator, max_depth=max_depth,
+        )
+        da = da_update(carry.da, stats.accept_prob, target_accept)
+        welford, inv_mass = carry.welford, carry.inv_mass
+        if in_win:
+            welford = welford_update(welford, q)
+        if win_end:
+            inv_mass = welford_variance_regularized(welford)
+            welford = welford_init(q.shape[1], q.dtype, q.device, batch=(q.shape[0],))
+            da = da_restart(da)
+        chain = ChainState(q=q, logp=logp, grad=grad)
+        return WarmupCarry(chain=chain, da=da, welford=welford, inv_mass=inv_mass), stats
+
+    return warmup_step
+
+
+def make_sample_step(vg_b, max_depth: int, generator: torch.Generator):
+    """One post-warmup transition per chain at its frozen step size and
+    inverse mass (``carry.eps``, ``carry.inv_mass``)."""
+    from .nuts_batched import make_sample_step_batched
+
+    step = make_sample_step_batched(vg_b, max_depth, generator)
+
+    def sample_step(carry: SampleCarry):
+        return step(carry, None, DiagMetric(carry.inv_mass))
+
+    return sample_step
+
+
+# ---------------------------------------------------------------------------
+# One chain: views over the batched transition and the chain driver
+# ---------------------------------------------------------------------------
+
+
+def _metric(inv_mass):
+    """A DenseMetric as it is; a (dim,) tensor as the diagonal metric."""
+    return inv_mass if isinstance(inv_mass, DenseMetric) else DiagMetric(inv_mass)
+
+
+def _one_chain(vg):
+    """(dim,) -> ((), (dim,)) as (1, dim) -> ((1,), (1, dim))."""
+
+    def vg_b(q):
+        logp, grad = vg(q[0])
+        return logp[None], grad[None]
+
+    return vg_b
+
+
+def nuts_transition(vg, q, logp, grad, generator: torch.Generator, step_size, inv_mass,
+                    max_depth: int = 10, max_delta_energy: float = MAX_DELTA_ENERGY):
+    """One NUTS transition of one chain from (q (dim,), logp (), grad
+    (dim,)) under ``inv_mass``, a (dim,) diagonal or a DenseMetric. ``vg``
+    maps (dim,) -> ((), (dim,)). Returns (q', logp', grad', NutsStats) with
+    per-chain statistics of shape (1,)."""
+    from .nuts_batched import nuts_transition_batched
+
+    q1, logp1, grad1, stats = nuts_transition_batched(
+        _one_chain(vg), q[None], logp.reshape(1), grad[None], step_size, _metric(inv_mass),
+        generator, max_depth=max_depth, max_delta_energy=max_delta_energy,
+    )
+    return q1[0], logp1[0], grad1[0], stats
+
+
+def run_nuts(
+    vg,
+    q0: torch.Tensor,
+    generator: torch.Generator,
+    n_samples: int,
+    n_adapts: int,
+    initial_step_size: float = 0.1,
+    target_accept: float = 0.8,
+    max_depth: int = 10,
+):
+    """Single-chain NUTS with Stan warmup (diagonal Welford metric). ``vg``
+    maps (dim,) -> ((), (dim,)); random numbers come from ``generator`` on
+    q0's device. Returns (samples (n_samples - n_adapts, dim) numpy, info
+    dict) with the JAX package's info keys and no chain axis.
+
+    This is ``parallel/chains.run_chains(mass_matrix="diag")`` at C = 1."""
+    from ..parallel.chains import run_chains
+
+    samples, info = run_chains(
+        _one_chain(vg), q0[None], generator, n_samples=n_samples, n_adapts=n_adapts,
+        initial_step_size=initial_step_size, target_accept=target_accept,
+        max_depth=max_depth, mass_matrix="diag", chunk_size=max(n_samples, 1),
+    )
+    per_chain = ("lp", "accept_prob", "num_leapfrog", "tree_depth", "diverging", "energy",
+                 "step_size", "inv_mass", "warmup_diverging", "final_psi")
+    return samples[0], {k: (np.asarray(v)[0] if k in per_chain else v) for k, v in info.items()}

@@ -4,8 +4,11 @@ the JAX package's inference/nuts_batched.py).
 Per chain the semantics are those of the JAX package: multinomial
 trajectory sampling, biased progressive sampling across doublings, the
 generalized U-turn criterion with the checkpointed sub-tree checks of
-iterative NUTS, divergence at MAX_DELTA_ENERGY, a shared dense metric
-applied as ``p @ minv.T`` and momenta drawn as ``z @ p_chol.T``.
+iterative NUTS, divergence at MAX_DELTA_ENERGY. The metric is a
+``nuts.DenseMetric`` shared by all chains (``p @ minv.T``, momenta drawn as
+``z @ p_chol.T``) or a per-chain ``nuts.DiagMetric`` (``inv_mass * p``,
+``z / sqrt(inv_mass)``); the tree code only calls its ``momentum`` and
+``velocity``.
 
 The JAX package keeps both lockstep loops on the device. Eager PyTorch
 cannot branch on device values without a host synchronisation, so the
@@ -41,7 +44,6 @@ from .adapt import da_init, da_restart, da_update
 from .nuts import (
     MAX_DELTA_ENERGY,
     ChainState,
-    DenseMetric,
     NutsStats,
     SampleCarry,
     WarmupCarry,
@@ -91,7 +93,7 @@ class SubTree(NamedTuple):
 
 
 def _build_subtree_b(
-    vg_b, edge, num_leaves: int, eps_signed, metric: DenseMetric, h0, alive0,
+    vg_b, edge, num_leaves: int, eps_signed, metric, h0, alive0,
     generator, max_delta_energy,
 ) -> SubTree:
     """``num_leaves`` leapfrog steps outward from ``edge`` for every chain
@@ -99,7 +101,6 @@ def _build_subtree_b(
     at the leaf where it diverges or its sub-tree turns."""
     C, _, dim = edge.shape
     dtype, device = edge.dtype, edge.device
-    minv_t = metric.minv.T
     n_rows = max(num_leaves.bit_length() - 1, 1)
     ckpts = torch.zeros((C, n_rows, 3, dim), dtype=dtype, device=device)
     u_leaf = torch.rand((num_leaves, C), generator=generator, dtype=dtype, device=device)
@@ -124,7 +125,7 @@ def _build_subtree_b(
         v_half = v + half * mg
         q_n = q + step * v_half
         logp_n, g_n = vg_b(q_n)
-        mg_n = g_n @ minv_t
+        mg_n = metric.velocity(g_n)
         p_n = p_half + half * g_n
         v_n = v_half + half * mg_n
         leaf = torch.stack([q_n, p_n, v_n, g_n, mg_n], dim=1)
@@ -179,12 +180,12 @@ def nuts_transition_batched(
     logp: torch.Tensor,      # (C,)
     grad: torch.Tensor,      # (C, dim)
     step_size,               # scalar or (C,)
-    metric: DenseMetric,
+    metric,                  # DenseMetric or DiagMetric
     generator: torch.Generator,
     max_depth: int = 10,
     max_delta_energy: float = MAX_DELTA_ENERGY,
 ):
-    """One NUTS transition for all C chains under a shared dense metric.
+    """One NUTS transition for all C chains under ``metric``.
     ``vg_b`` maps (C, dim) -> ((C,), (C, dim)). Returns
     (q', logp', grad', NutsStats)."""
     C, dim = q.shape
@@ -192,10 +193,10 @@ def nuts_transition_batched(
     eps = torch.as_tensor(step_size, dtype=dtype, device=device).expand(C)
 
     z = torch.randn((C, dim), generator=generator, dtype=dtype, device=device)
-    p0 = z @ metric.p_chol.T
-    v0 = p0 @ metric.minv.T
+    p0 = metric.momentum(z)
+    v0 = metric.velocity(p0)
     h0 = -logp + 0.5 * _rowdot(p0, v0)
-    left = right = torch.stack([q, p0, v0, grad, grad @ metric.minv.T], dim=1)
+    left = right = torch.stack([q, p0, v0, grad, metric.velocity(grad)], dim=1)
     rho = p0
     prop = left
     logp_prop = logp
@@ -264,7 +265,7 @@ def nuts_transition_batched(
 
 
 # ---------------------------------------------------------------------------
-# Warmup and sampling steps under a shared dense metric
+# Warmup under the shared dense metric; sampling under either metric
 # ---------------------------------------------------------------------------
 
 
@@ -283,7 +284,7 @@ def make_warmup_step_pooled_batched(
     (restarted at adaptation-window ends) under the shared metric, which
     the driver re-estimates between windows."""
 
-    def warmup_step(carry: WarmupCarry, win_end: bool, metric: DenseMetric):
+    def warmup_step(carry: WarmupCarry, win_end: bool, metric):
         chain = carry.chain
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
@@ -297,20 +298,18 @@ def make_warmup_step_pooled_batched(
     return warmup_step
 
 
-def make_sample_step_pooled_batched(vg_b, max_depth: int, generator: torch.Generator):
+def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator):
     """Post-warmup transition at the frozen per-chain step sizes, scaled by
     an optional step-size multiplier shared by all chains (``step_jitter``
-    in parallel/chains.py)."""
+    in parallel/chains.py), under ``metric``."""
 
-    def sample_step(carry: SampleCarry, eps_mult, metric: DenseMetric):
+    def sample_step(carry: SampleCarry, eps_mult, metric):
         chain = carry.chain
         eps = carry.eps if eps_mult is None else carry.eps * eps_mult
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, eps, metric, generator,
             max_depth=max_depth,
         )
-        return SampleCarry(chain=ChainState(q=q, logp=logp, grad=grad), eps=carry.eps), (
-            q, logp, stats,
-        )
+        return carry._replace(chain=ChainState(q=q, logp=logp, grad=grad)), (q, logp, stats)
 
     return sample_step

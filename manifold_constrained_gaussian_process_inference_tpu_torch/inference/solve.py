@@ -1,13 +1,16 @@
 """solve_magi, the end-to-end MAGI orchestrator (port of the JAX package's
-inference/solve.py for its production path):
+inference/solve.py for ``sampler="nuts"``):
 
   NLML init of (phi, sigma) -> x init by interpolation -> theta init from
-  bounds -> GP covariances -> target -> staged Gauss-Newton MAP and
-  exact-Hessian Laplace whitening (float64, host) -> C batched NUTS chains
-  under a pooled dense metric (sampling device) -> results
+  bounds -> GP covariances -> target -> optional Adam MAP warm start
+  (``map_init_iterations``) -> with ``x_whitened``, staged Gauss-Newton MAP
+  and exact-Hessian Laplace whitening (float64, host) -> C batched NUTS
+  chains under per-chain diagonal metrics (``mass_matrix="diag"``, the
+  default) or a pooled dense metric (sampling device) -> results
 
-Only ``sampler="nuts"`` with ``mass_matrix="dense-pooled"`` is ported; the
-other options raise NotImplementedError naming their ROADMAP item.
+The defaults (one chain, diag, raw Psi) are the JAX package's. The other
+samplers, checkpoint/resume, mesh, envelope and profile_dir raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ STEP_JITTER_SEED_OFFSET = 2
 # "auto" keeps the TPU's threshold until it is re-derived on the H100
 # (ROADMAP M11). An explicit band_impl="band" runs at any bandwidth.
 AUTO_BAND_MAX_BANDWIDTH = 64
+# optax.adam's defaults, which the JAX package's MAP warm start uses.
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 class MagiError(RuntimeError):
@@ -116,13 +121,56 @@ def _init_theta_from_bounds(system: OdeSystem) -> np.ndarray:
     return theta
 
 
+def map_warm_start(
+    vg,
+    psi0: np.ndarray,
+    n_iters: int,
+    lr: float,
+    theta_slice: slice,
+    theta_lb: np.ndarray,
+    theta_ub: np.ndarray,
+    dtype,
+    device="cpu",
+) -> np.ndarray:
+    """Adam ascent on the log-posterior from ``psi0``, with optax.adam's
+    update on the negated gradient (b1=0.9, b2=0.999, eps=1e-8,
+    eps_root=0). After each step theta is clipped into its bounds with a
+    strict margin (1/theta-style terms stay finite); a step with a
+    non-finite coordinate is rejected (the moments still advance, as in the
+    JAX package). Returns the best Psi seen, float64 numpy. The loop stays
+    on ``device``: the best-value test is a ``torch.where``, and only the
+    start and end values are read on the host."""
+    put = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=device)
+    both = np.isfinite(theta_lb) & np.isfinite(theta_ub)
+    margin = np.where(both, 1e-4 * np.minimum(theta_ub - theta_lb, 1.0), 1e-4)
+    lo, hi = put(theta_lb) + put(margin), put(theta_ub) - put(margin)
+    psi = put(psi0)
+    m, nu = torch.zeros_like(psi), torch.zeros_like(psi)
+    v0, _ = vg(psi)
+    best_psi, best_v = psi, v0
+    for t in range(1, n_iters + 1):
+        v, g = vg(psi)
+        better = v > best_v
+        best_psi = torch.where(better, psi, best_psi)
+        best_v = torch.where(better, v, best_v)
+        m = (1.0 - ADAM_B1) * -g + ADAM_B1 * m
+        nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+        m_hat = m / (1.0 - ADAM_B1**t)
+        nu_hat = nu / (1.0 - ADAM_B2**t)
+        new = psi + -lr * (m_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+        new[theta_slice] = torch.clamp(new[theta_slice], lo, hi)
+        psi = torch.where(torch.isfinite(new).all(), new, psi)
+    v_f, _ = vg(psi)
+    out = torch.where(v_f > best_v, psi, best_psi)
+    logger.info("MAP warm start: log-posterior %.4g -> %.4g (%d Adam steps)",
+                float(v0), float(torch.maximum(v_f, best_v)), n_iters)
+    return out.to("cpu", torch.float64).numpy()
+
+
 def _check_supported(config: MagiConfig, mesh, resume) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     unported = [
         (config.sampler != "nuts", f"sampler='{config.sampler}'", "M15"),
-        (config.mass_matrix != "dense-pooled", f"mass_matrix='{config.mass_matrix}'", "M12"),
-        (not config.x_whitened, "x_whitened=False", "M12"),
-        (config.map_init_iterations > 0, "map_init_iterations > 0", "M12"),
         (resume is not None, "resume", "M13"),
         (config.checkpoint_path is not None, "checkpoint_path", "M13"),
         (mesh is not None, "mesh", "M17"),
@@ -349,44 +397,64 @@ def solve_magi(
         psi0[nd : nd + k] = unconstrain(theta_transform, psi0[nd : nd + k])
     logger.info("Sampling dimension: %d", psi0.shape[0])
 
-    # --- staged Gauss-Newton MAP on a float64 dense CPU replica ---
-    t_phase = time.perf_counter()
-    freeze = None if sigma_is_fixed else slice(nd + k, target.dimension)
-    theta_freeze = np.ones(target.dimension, dtype=bool)
-    theta_freeze[nd : nd + k] = False
-
-    def make_target_vg(stage_temps):
-        t_s = build_target(gp_cov64, stage_temps, "dense")
-        return t_s.value_and_grad_fn(), t_s
-
-    psi0 = _gn_stages(make_target_vg, gp_cov64, y_obs, psi0, prior_temps,
-                      theta_freeze, freeze, nd)
-    phase_times["gn_map_s"] = time.perf_counter() - t_phase
-
-    # --- exact-Hessian whitener at the mode (GN precision as fallback) ---
-    t_phase = time.perf_counter()
-    target_h = build_target(gp_cov64, prior_temps, "dense")
-    try:
-        whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
-    except (np.linalg.LinAlgError, RuntimeError):
-        logger.warning("exact-Hessian whitener failed; using the GN precision.")
-        whitener = build_psi_whitener(
-            gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
+    # --- optional Adam MAP warm start, in the working dtype on the device ---
+    if config.map_init_iterations > 0:
+        t_phase = time.perf_counter()
+        if theta_transform is None:
+            map_lb, map_ub = lo, hi
+        else:  # the theta slot holds unconstrained values
+            map_lb, map_ub = np.full(k, -np.inf), np.full(k, np.inf)
+        psi0 = map_warm_start(
+            target.value_and_grad_fn(), psi0, config.map_init_iterations, config.map_init_lr,
+            slice(nd, nd + k), map_lb, map_ub, dtype, device,
         )
-    vg = make_centered_whitened_vg(target, whitener)
-    phase_times["whitener_s"] = time.perf_counter() - t_phase
+        phase_times["map_s"] = time.perf_counter() - t_phase
+
+    whitener = None
+    if config.x_whitened:
+        # --- staged Gauss-Newton MAP on a float64 dense CPU replica ---
+        t_phase = time.perf_counter()
+        freeze = None if sigma_is_fixed else slice(nd + k, target.dimension)
+        theta_freeze = np.ones(target.dimension, dtype=bool)
+        theta_freeze[nd : nd + k] = False
+
+        def make_target_vg(stage_temps):
+            t_s = build_target(gp_cov64, stage_temps, "dense")
+            return t_s.value_and_grad_fn(), t_s
+
+        psi0 = _gn_stages(make_target_vg, gp_cov64, y_obs, psi0, prior_temps,
+                          theta_freeze, freeze, nd)
+        phase_times["gn_map_s"] = time.perf_counter() - t_phase
+
+        # --- exact-Hessian whitener at the mode (GN precision as fallback) ---
+        t_phase = time.perf_counter()
+        target_h = build_target(gp_cov64, prior_temps, "dense")
+        try:
+            whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
+        except (np.linalg.LinAlgError, RuntimeError):
+            logger.warning("exact-Hessian whitener failed; using the GN precision.")
+            whitener = build_psi_whitener(
+                gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
+            )
+        vg = make_centered_whitened_vg(target, whitener)
+        start = np.zeros(target.dimension)  # zeta = 0 is the mode
+        phase_times["whitener_s"] = time.perf_counter() - t_phase
+    else:
+        # raw Psi: the target's own value-and-grad, no mode-centering
+        vg = target.value_and_grad_fn()
+        start = psi0
 
     # --- NUTS chains on the sampling device ---
     n_chains = int(config.n_chains)
     n_adapts = int(np.floor(config.niter_hmc * config.burnin_ratio))
-    zeta0 = np.zeros((n_chains, target.dimension))
+    starts = np.tile(start, (n_chains, 1))
     if config.chain_init_jitter > 0 and n_chains > 1:
         rng_init = np.random.default_rng(config.seed + INIT_JITTER_SEED_OFFSET)
-        zeta0[1:] += config.chain_init_jitter * rng_init.standard_normal(zeta0[1:].shape)
+        starts[1:] += config.chain_init_jitter * rng_init.standard_normal(starts[1:].shape)
     generator = torch.Generator(device=device).manual_seed(int(config.seed))
     samples, info = run_chains(
         vg,
-        torch.as_tensor(zeta0, dtype=dtype, device=device),
+        torch.as_tensor(starts, dtype=dtype, device=device),
         generator,
         n_samples=config.niter_hmc,
         n_adapts=n_adapts,
@@ -405,9 +473,10 @@ def solve_magi(
 
     # --- results ---
     n_keep = samples.shape[1]
-    samples = zeta_to_psi_np(whitener, samples.reshape(-1, samples.shape[-1])).reshape(
-        samples.shape
-    )
+    if whitener is not None:
+        samples = zeta_to_psi_np(whitener, samples.reshape(-1, samples.shape[-1])).reshape(
+            samples.shape
+        )
     flat = samples.reshape(n_chains * n_keep, -1)
     x_samples = flat[:, :nd].reshape(-1, n_dims, n_times).transpose(0, 2, 1)
     theta_samples = flat[:, nd : nd + k]
@@ -431,7 +500,8 @@ def solve_magi(
         "inv_mass": info["inv_mass"],
         "n_divergent": n_div,
         "n_chains": n_chains,
-        "final_psi": info["final_psi"],  # whitened zeta, as in the JAX package
+        "final_psi": info["final_psi"],  # the sampler's coordinates (zeta when whitened)
+        "final_key": info["final_key"],
         "lp_per_chain": info["lp"],
         "theta_per_chain": theta_samples.reshape(n_chains, n_keep, k),
         "sampling_time_s": info["sampling_time_s"],

@@ -2,7 +2,8 @@
 
 ``f(x, theta, tvec)`` is vectorized over the time grid and over any
 leading batch axes: x (..., n, D), theta (..., k), tvec (n,) -> (..., n, D).
-Jacobians not supplied by hand default to ``torch.func.jacfwd`` of ``f``.
+Jacobians not supplied by hand default to ``torch.func.jacfwd`` of ``f`` at
+each grid point, with the same leading axes.
 """
 from __future__ import annotations
 
@@ -47,22 +48,42 @@ class OdeSystem:
             object.__setattr__(self, "f_dtheta", _autodiff_dtheta(self.f))
 
 
+def _rows(x, theta, tvec):
+    """The leading axes and the grid folded into one row axis: x (..., n, D),
+    theta (..., k), tvec (n,) -> lead, n, (R, D), (R, k), (R,)."""
+    lead = torch.broadcast_shapes(x.shape[:-2], theta.shape[:-1])
+    n, d = x.shape[-2:]
+    k = theta.shape[-1]
+    return (
+        lead, n,
+        x.expand(*lead, n, d).reshape(-1, d),
+        theta[..., None, :].expand(*lead, n, k).reshape(-1, k),
+        tvec.expand(*lead, n).reshape(-1),
+    )
+
+
 def _autodiff_dx(f: OdeF) -> OdeF:
     def f_dx(x, theta, tvec):
-        def single(xi, ti):
-            return torch.func.jacfwd(lambda u: f(u[None, :], theta, ti[None])[0])(xi)
+        lead, n, xs, ths, ts = _rows(x, theta, tvec)
 
-        return torch.func.vmap(single)(x, tvec)
+        def single(xi, thi, ti):
+            return torch.func.jacfwd(lambda u: f(u[None, :], thi, ti[None])[0])(xi)
+
+        out = torch.func.vmap(single)(xs, ths, ts)
+        return out.reshape(*lead, n, *out.shape[1:])
 
     return f_dx
 
 
 def _autodiff_dtheta(f: OdeF) -> OdeF:
     def f_dtheta(x, theta, tvec):
-        def single(xi, ti):
-            return torch.func.jacfwd(lambda th: f(xi[None, :], th, ti[None])[0])(theta)
+        lead, n, xs, ths, ts = _rows(x, theta, tvec)
 
-        return torch.func.vmap(single)(x, tvec)
+        def single(xi, thi, ti):
+            return torch.func.jacfwd(lambda th: f(xi[None, :], th, ti[None])[0])(thi)
+
+        out = torch.func.vmap(single)(xs, ths, ts)
+        return out.reshape(*lead, n, *out.shape[1:])
 
     return f_dtheta
 

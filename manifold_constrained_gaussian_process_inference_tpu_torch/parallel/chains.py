@@ -1,15 +1,17 @@
-"""Multi-chain NUTS driver with a shared, cross-chain pooled dense metric
-(port of the ``mass_matrix="dense-pooled"`` path of the JAX package's
-parallel/chains.py, without its mesh, envelope, checkpoint and resume
-branches).
+"""Multi-chain NUTS driver (port of the JAX package's parallel/chains.py
+``run_chains``, without its mesh, envelope, checkpoint and resume
+branches), under a shared pooled dense metric or per-chain diagonal ones.
 
 All C chains advance together through ``inference/nuts_batched.py`` on one
-device. Warmup runs in chunks aligned to the adaptation-window boundaries;
-the in-window draws of all chains accumulate device-side moments
-(divergence-masked count, sum and sum of outer products, in float64), and
-at each boundary the host turns them into a regularized dense metric.
-Sampling runs in chunks of ``chunk_size`` iterations; each chunk's draws
-are copied to the host when it ends.
+device. Under ``mass_matrix="dense-pooled"`` warmup runs in chunks aligned
+to the adaptation-window boundaries; the in-window draws of all chains
+accumulate device-side moments (divergence-masked count, sum and sum of
+outer products, in float64), and at each boundary the host turns them into
+a regularized dense metric. Under ``mass_matrix="diag"`` each chain keeps
+its own Welford moments and inverse mass on the device (Stan parity), and
+warmup runs in chunks of ``chunk_size``. Sampling runs in chunks of
+``chunk_size`` iterations; each chunk's draws are copied to the host when
+it ends.
 """
 from __future__ import annotations
 
@@ -20,13 +22,20 @@ import numpy as np
 import torch
 
 from ..inference.adapt import build_window_schedule
-from ..ops import cuda_band
-from ..inference.nuts import DenseMetric, SampleCarry
+from ..inference.nuts import (
+    DenseMetric,
+    DiagMetric,
+    SampleCarry,
+    init_warmup_carry,
+    make_sample_step,
+    make_warmup_step,
+)
 from ..inference.nuts_batched import (
     init_warmup_carry_batched,
-    make_sample_step_pooled_batched,
+    make_sample_step_batched,
     make_warmup_step_pooled_batched,
 )
+from ..ops import cuda_band
 
 logger = logging.getLogger(__name__)
 
@@ -194,6 +203,91 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _Counts:
+    """Host counts of one run: transitions, device-to-host reads and
+    batched leapfrog steps."""
+
+    def __init__(self):
+        self.transitions = self.host_syncs = self.lockstep_leaves = 0
+
+    def add(self, stats) -> None:
+        self.transitions += 1
+        self.host_syncs += stats.host_syncs
+        self.lockstep_leaves += stats.lockstep_leaves
+
+
+def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
+                   target_accept, max_depth, progress, counts, t0):
+    """Warmup under the pooled dense metric: chunks aligned to the window
+    ends, in-window moments accumulated on the device, the metric
+    re-estimated on the host at each window end. Returns (carry, metric,
+    per-chunk (C, L) divergence flags)."""
+    n_chains, dim = psi0.shape
+    dtype, device = psi0.dtype, psi0.device
+    f64 = dict(dtype=torch.float64, device=device)
+    eye = torch.eye(dim, dtype=dtype, device=device)
+    metric = DenseMetric(minv=eye, chol_minv=eye, p_chol=eye)
+    carry = init_warmup_carry_batched(vg, psi0, initial_step_size)
+    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator)
+    in_window, window_end = build_window_schedule(n_adapts)
+    div_chunks, window_moments = [], []
+    pos = 0
+    for length in _window_aligned_chunks(window_end, chunk_size):
+        div = torch.zeros((n_chains, length), dtype=torch.bool, device=device)
+        cnt, n_win, n_div = (torch.zeros((), **f64) for _ in range(3))
+        s1 = torch.zeros(dim, **f64)
+        s2 = torch.zeros((dim, dim), **f64)
+        for t in range(length):
+            carry, stats = warmup_step(carry, bool(window_end[pos + t]), metric)
+            counts.add(stats)
+            div[:, t] = stats.diverging
+            if in_window[pos + t]:
+                keep = (~stats.diverging).to(torch.float64)
+                q64 = carry.chain.q.to(torch.float64)
+                qm = q64 * keep[:, None]
+                cnt += keep.sum()
+                s1 += qm.sum(dim=0)
+                s2 += qm.T @ q64
+                n_win += n_chains
+                n_div += stats.diverging.sum()
+        div_chunks.append(div.cpu().numpy())
+        window_moments.append(tuple(m.cpu().numpy() for m in (cnt, s1, s2, n_win, n_div)))
+        counts.host_syncs += 1
+        pos += length
+        if window_end[pos - 1]:
+            metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric)
+            window_moments = []
+        if progress:
+            logger.info("warmup %d/%d (%.1fs, pooled dense metric)",
+                        pos, n_adapts, time.perf_counter() - t0)
+    return carry, metric, div_chunks
+
+
+def _warmup_diag(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
+                 target_accept, max_depth, progress, counts, t0):
+    """Warmup under per-chain diagonal metrics (Stan's windowed Welford
+    adaptation, ``inference/nuts.make_warmup_step``), in chunks of
+    ``chunk_size``. Returns (carry, per-chunk (C, L) divergence flags)."""
+    carry = init_warmup_carry(vg, psi0, initial_step_size)
+    warmup_step = make_warmup_step(vg, target_accept, max_depth, generator)
+    in_window, window_end = build_window_schedule(n_adapts)
+    div_chunks = []
+    pos = 0
+    for length in _chunk_lengths(n_adapts, chunk_size):
+        div = torch.zeros((psi0.shape[0], length), dtype=torch.bool, device=psi0.device)
+        for t in range(length):
+            carry, stats = warmup_step(carry, bool(in_window[pos + t]), bool(window_end[pos + t]))
+            counts.add(stats)
+            div[:, t] = stats.diverging
+        div_chunks.append(div.cpu().numpy())
+        counts.host_syncs += 1
+        pos += length
+        if progress:
+            logger.info("warmup %d/%d (%.1fs, diag metric)", pos, n_adapts,
+                        time.perf_counter() - t0)
+    return carry, div_chunks
+
+
 def run_chains(
     vg,
     psi0: torch.Tensor,
@@ -209,74 +303,69 @@ def run_chains(
     step_jitter: float = 0.0,
     step_jitter_low: float = 0.4,
     jitter_rng: np.random.Generator | None = None,
+    resume_ckpt=None,
+    envelope=None,
 ):
-    """Run C NUTS chains from psi0 (C, dim) with Stan warmup under the
-    pooled dense metric. ``vg`` maps (C, dim) -> ((C,), (C, dim)). Random
-    numbers come from ``generator`` (on psi0's device) and the step-jitter
-    multipliers from the host ``jitter_rng``. On a CUDA device ``vg`` is
-    replayed from a CUDA graph (GraphedValueAndGrad). Returns (samples (C, S, dim)
-    numpy, info dict of numpy arrays with a leading chain axis)."""
-    if mass_matrix != "dense-pooled":
-        raise NotImplementedError(
-            f"mass_matrix='{mass_matrix}' is not ported yet (ROADMAP M12); "
-            "the port runs mass_matrix='dense-pooled'."
-        )
+    """Run C NUTS chains from psi0 (C, dim) with Stan warmup. ``vg`` maps
+    (C, dim) -> ((C,), (C, dim)). Random numbers come from ``generator``
+    (on psi0's device) and the step-jitter multipliers from the host
+    ``jitter_rng``. On a CUDA device ``vg`` is replayed from a CUDA graph
+    (GraphedValueAndGrad), C = 1 included. Returns (samples (C, S, dim)
+    numpy, info dict of numpy arrays with a leading chain axis).
+
+    ``mass_matrix``: "dense-pooled", one dense metric shared by all chains
+    and estimated from their pooled in-window draws (``step_jitter``
+    applies here only); or "diag", per-chain diagonal Welford adaptation
+    (Stan parity), where ``info["inv_mass"]`` is (C, dim). ``resume_ckpt`` and ``envelope`` are
+    not ported (ROADMAP M13, M18)."""
+    if mass_matrix not in ("dense-pooled", "diag"):
+        raise ValueError(f"unknown mass_matrix '{mass_matrix}'")
+    if mass_matrix == "diag":
+        if envelope is not None:
+            raise ValueError(
+                "the curvature envelope folds into the dense-pooled metric; "
+                "mass_matrix='diag' (Stan parity) does not support it."
+            )
+        if resume_ckpt is not None:
+            raise ValueError(
+                "warmup resume is implemented for mass_matrix='dense-pooled' "
+                "(the production path); the diag path restarts warmup."
+            )
+        if step_jitter:
+            raise ValueError(
+                "step_jitter is implemented for mass_matrix='dense-pooled' "
+                "(the production path); the diag path keeps Stan parity."
+            )
+    for given, what, item in ((resume_ckpt, "resume_ckpt", "M13"), (envelope, "envelope", "M18")):
+        if given is not None:
+            raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP {item}).")
     if jitter_rng is None:
         jitter_rng = np.random.default_rng(0)
     n_chains, dim = psi0.shape
     n_keep = n_samples - n_adapts
     dtype, device = psi0.dtype, psi0.device
-    f64 = dict(dtype=torch.float64, device=device)
-    eye = torch.eye(dim, dtype=dtype, device=device)
-    metric = DenseMetric(minv=eye, chol_minv=eye, p_chol=eye)
-    host_syncs = lockstep_leaves = n_transitions = 0
+    counts = _Counts()
 
     t0 = time.perf_counter()
     if device.type == "cuda":
         vg = GraphedValueAndGrad(vg, psi0)
-    carry = init_warmup_carry_batched(vg, psi0, initial_step_size)
-    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator)
-    in_window, window_end = build_window_schedule(n_adapts)
-    warmup_div_chunks = []
-    window_moments = []
-    pos = 0
-    for length in _window_aligned_chunks(window_end, chunk_size):
-        div = torch.zeros((n_chains, length), dtype=torch.bool, device=device)
-        cnt, n_win, n_div = (torch.zeros((), **f64) for _ in range(3))
-        s1 = torch.zeros(dim, **f64)
-        s2 = torch.zeros((dim, dim), **f64)
-        for t in range(length):
-            carry, stats = warmup_step(carry, bool(window_end[pos + t]), metric)
-            host_syncs += stats.host_syncs
-            lockstep_leaves += stats.lockstep_leaves
-            div[:, t] = stats.diverging
-            if in_window[pos + t]:
-                keep = (~stats.diverging).to(torch.float64)
-                q64 = carry.chain.q.to(torch.float64)
-                qm = q64 * keep[:, None]
-                cnt += keep.sum()
-                s1 += qm.sum(dim=0)
-                s2 += qm.T @ q64
-                n_win += n_chains
-                n_div += stats.diverging.sum()
-        n_transitions += length
-        warmup_div_chunks.append(div.cpu().numpy())
-        window_moments.append(tuple(m.cpu().numpy() for m in (cnt, s1, s2, n_win, n_div)))
-        host_syncs += 1
-        pos += length
-        if window_end[pos - 1]:
-            metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric)
-            window_moments = []
-        if progress:
-            logger.info("warmup %d/%d (%.1fs, pooled dense metric)",
-                        pos, n_adapts, time.perf_counter() - t0)
+    warm_args = (vg, psi0, generator, n_adapts, chunk_size, initial_step_size, target_accept,
+                 max_depth)
+    if mass_matrix == "diag":
+        carry, warmup_div_chunks = _warmup_diag(*warm_args, progress, counts, t0)
+        metric = DiagMetric(carry.inv_mass)
+        diag_step = make_sample_step(vg, max_depth, generator)
+        sample_step = lambda c, mult: diag_step(c)  # noqa: E731
+    else:
+        carry, metric, warmup_div_chunks = _warmup_pooled(*warm_args, progress, counts, t0)
+        pooled_step = make_sample_step_batched(vg, max_depth, generator)
+        sample_step = lambda c, mult: pooled_step(c, mult, metric)  # noqa: E731
     eps_final = torch.exp(carry.da.log_eps_avg)
     _sync(device)
     warmup_time = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    sample_step = make_sample_step_pooled_batched(vg, max_depth, generator)
-    scarry = SampleCarry(chain=carry.chain, eps=eps_final)
+    scarry = SampleCarry(chain=carry.chain, eps=eps_final, inv_mass=carry.inv_mass)
     names = ("lp", "accept_prob", "num_leapfrog", "tree_depth", "diverging", "energy")
     out = {name: [] for name in ("samples",) + names}
     pos = 0
@@ -285,18 +374,16 @@ def run_chains(
         qs = torch.empty((n_chains, length, dim), dtype=dtype, device=device)
         cols = {name: [] for name in names}
         for t in range(length):
-            scarry, (q, logp, stats) = sample_step(scarry, float(mults[t]), metric)
-            host_syncs += stats.host_syncs
-            lockstep_leaves += stats.lockstep_leaves
+            scarry, (q, logp, stats) = sample_step(scarry, float(mults[t]))
+            counts.add(stats)
             qs[:, t] = q
             for name, value in zip(names, (logp, stats.accept_prob, stats.num_leapfrog,
                                            stats.tree_depth, stats.diverging, stats.energy)):
                 cols[name].append(value)
-        n_transitions += length
         out["samples"].append(qs.cpu().numpy())
         for name in names:
             out[name].append(torch.stack(cols[name], dim=1).cpu().numpy())
-        host_syncs += 1
+        counts.host_syncs += 1
         pos += length
         if progress:
             logger.info("sampling %d/%d (%.1fs)", pos, n_keep, time.perf_counter() - t0)
@@ -309,15 +396,18 @@ def run_chains(
     info = {name: cat(out[name]) for name in names}
     info.update(
         step_size=eps_final.cpu().numpy(),
-        inv_mass=metric.minv.cpu().numpy(),
-        metric="dense-pooled",
+        inv_mass=(metric.minv if mass_matrix == "dense-pooled" else metric.inv_mass).cpu().numpy(),
+        metric=mass_matrix,
         step_jitter=(float(step_jitter), float(step_jitter_low)),
         warmup_diverging=cat(warmup_div_chunks),
         final_psi=scarry.chain.q.cpu().numpy(),
+        # the state of the one generator all chains draw from (the JAX
+        # package returns each chain's PRNG key)
+        final_key=generator.get_state().numpy(),
         warmup_time_s=warmup_time,
         sampling_time_s=sampling_time,
-        transitions=n_transitions,
-        host_syncs=host_syncs,
-        lockstep_leaves=lockstep_leaves,
+        transitions=counts.transitions,
+        host_syncs=counts.host_syncs,
+        lockstep_leaves=counts.lockstep_leaves,
     )
     return cat(out["samples"]), info

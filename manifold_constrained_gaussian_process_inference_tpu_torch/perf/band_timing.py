@@ -35,8 +35,10 @@ import torch
 
 COUNT, REPS = 200, 5
 PROFILE_CALLS = 20
-# (C, M, b, n): the slice's shape, and the filllevel-5 grid (bandsize 160)
-SHAPES = {"main": (128, 2, 40, 397), "long": (128, 2, 160, 3169)}
+# (C, M, b, n): the 128-chain slice's shape and the filllevel-5 grid
+# (bandsize 160), each also at one chain (the default single-chain path)
+SHAPES = {"main": (128, 2, 40, 397), "long": (128, 2, 160, 3169),
+          "main_c1": (1, 2, 40, 397), "long_c1": (1, 2, 160, 3169)}
 # NVIDIA H100 SXM: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12

@@ -76,3 +76,52 @@ def slice_likelihood(y, t, bandsize: int) -> SliceLikelihood:
     center = np.concatenate([x0.T.reshape(-1), unconstrain(tr, THETA_TRUE), np.log(sigma0)])
     wh = build_psi_whitener(cov64, y, t64, center, TEMPS, torch.float64)
     return SliceLikelihood(cov64, wh, t64.dimension, target)
+
+
+# The model-family workloads of the JAX package's end-to-end tests
+# (tests/test_model_families_e2e.py): system name, initial state, true
+# theta, t_end, observations, noise sd, RK4 steps, and the solve_magi
+# options (phi and sigma fixed). ``positive``: theta must stay positive.
+FAMILY_CASES = {
+    "ptrans": dict(
+        x0=[1.0, 0.0, 1.0, 0.0, 0.0], theta=[0.07, 0.6, 0.05, 0.3, 0.017, 0.3],
+        t_end=60.0, n_obs=15, noise=0.01, n_steps=3000, positive=True,
+        config=dict(niter_hmc=60, seed=2, theta_constrained=True, map_init_iterations=100),
+        phi=(0.5, 20.0),
+    ),
+    "hiv": dict(
+        x0=list(np.log([600.0, 30.0, 20.0, 8.0])),
+        theta=[36.0, 0.108, 0.5, 1e3, 1e3, 1e3, -0.2, -0.3, -0.5],
+        t_end=0.1, n_obs=12, noise=0.05, n_steps=2000, positive=False,
+        config=dict(niter_hmc=40, seed=3, map_init_iterations=50),
+        phi=(10.0, 0.1),
+    ),
+    "hes1log_fixg": dict(
+        x0=list(np.log([1.439, 2.037, 17.904])), theta=[0.022, 0.3, 0.031, 0.028, 0.5, 20.0],
+        t_end=120.0, n_obs=13, noise=0.1, n_steps=3000, positive=True,
+        config=dict(niter_hmc=40, seed=4, theta_constrained=True, map_init_iterations=100,
+                    gp_mean="observed"),
+        phi=(1.0, 40.0),
+    ),
+}
+
+
+def family_problem(name: str, seed: int = 0):
+    """(system, y, t, solve_magi options) of one FAMILY_CASES workload:
+    RK4 truth at the true theta, noisy observations on a uniform grid, with
+    sigma and phi fixed as in the JAX package's test."""
+    from ..models import get_system
+    from ..utils.integrators import integrate_system, sample_on_grid
+
+    case = FAMILY_CASES[name]
+    system = get_system(name)
+    rng = np.random.default_rng(seed)
+    ts, xs = integrate_system(system, case["x0"], 0.0, case["t_end"],
+                              np.asarray(case["theta"]), case["n_steps"])
+    t = np.linspace(0.0, case["t_end"], case["n_obs"])
+    d = len(case["x0"])
+    y = sample_on_grid(ts.numpy(), xs.numpy(), t) + rng.normal(size=(case["n_obs"], d)) * case["noise"]
+    variance, lengthscale = case["phi"]
+    options = dict(case["config"], sigma=np.full(d, case["noise"]),
+                   phi=np.vstack([np.full(d, variance), np.full(d, lengthscale)]))
+    return system, y, t, options

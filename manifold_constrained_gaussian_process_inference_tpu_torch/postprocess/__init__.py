@@ -1,1 +1,2 @@
-from .diagnostics import ess, split_rhat  # noqa: F401
+from .diagnostics import ess, format_summary, split_rhat, summarize_chains  # noqa: F401
+from .summary import magi_summary, results_to_chain  # noqa: F401

@@ -1,9 +1,12 @@
-"""MCMC diagnostics: effective sample size and split-R-hat (port of the JAX
-package's postprocess/diagnostics.py, which is plain numpy; carried over
-unchanged). Algorithms follow Vehtari et al. 2021: split-R-hat and bulk ESS
-via the autocovariance / Geyer initial-monotone-sequence estimator.
+"""MCMC diagnostics: effective sample size, split-R-hat, quantiles and the
+summary table (port of the JAX package's postprocess/diagnostics.py, which
+is plain numpy; carried over unchanged). Algorithms follow Vehtari et al.
+2021: split-R-hat and bulk ESS via the autocovariance / Geyer
+initial-monotone-sequence estimator.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -71,3 +74,41 @@ def ess(x: np.ndarray) -> float:
         tau = -1.0 + 2.0 * pairs.sum()
     tau = max(tau, 1.0 / np.log10(n * m + 10.0))
     return float(m * n / tau)
+
+
+def _per_param(fn, samples: np.ndarray) -> np.ndarray:
+    """Apply a (C, S) -> scalar diagnostic over the last axis params.
+    samples: (C, S, P)."""
+    return np.array([fn(samples[:, :, p]) for p in range(samples.shape[-1])])
+
+
+def summarize_chains(samples: np.ndarray, names=None, probs=(0.025, 0.5, 0.975)) -> Dict:
+    """Summary table over (C, S, P) (or (S, P)) samples: mean, sd,
+    quantiles, ESS and split-R-hat per parameter."""
+    samples = np.asarray(samples, dtype=np.float64)
+    if samples.ndim == 2:
+        samples = samples[None]
+    c, s, p = samples.shape
+    flat = samples.reshape(c * s, p)
+    names = list(names) if names is not None else [f"param[{i}]" for i in range(p)]
+    out = {
+        "names": names,
+        "mean": flat.mean(axis=0),
+        "sd": flat.std(axis=0, ddof=1),
+        "ess": _per_param(ess, samples),
+        "rhat": _per_param(split_rhat, samples),
+    }
+    for q in probs:
+        out[f"q{q}"] = np.quantile(flat, q, axis=0)
+    return out
+
+
+def format_summary(summary: Dict, digits: int = 3) -> str:
+    cols = ["mean", "sd", "q0.025", "q0.5", "q0.975", "ess", "rhat"]
+    avail = [c for c in cols if c in summary]
+    header = f"{'parameter':>16} " + " ".join(f"{c:>10}" for c in avail)
+    lines = [header]
+    for i, name in enumerate(summary["names"]):
+        vals = " ".join(f"{summary[c][i]:>10.{digits}f}" for c in avail)
+        lines.append(f"{name:>16} {vals}")
+    return "\n".join(lines)

@@ -1,5 +1,6 @@
-"""PyTorch port, models: the FitzHugh-Nagumo right-hand side and its
-Jacobians equal the JAX package's to 1e-12 (float64), batched over chains."""
+"""PyTorch port, models: every system's right-hand side and Jacobians
+(analytic for FN and Hes1, torch.func defaults for the rest) equal the JAX
+package's to 1e-12 (float64), batched over chains."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +61,45 @@ def test_registry_has_fn():
     assert "fn" in tbase.registered_systems()
     with pytest.raises(KeyError):
         tbase.get_system("no-such-system")
+
+
+# name -> (D, lower and upper end of the random theta)
+SYSTEMS = {"hes1": (3, 0.2, 1.0), "hes1log": (3, 0.2, 1.0), "hes1log_fixg": (3, 0.2, 1.0),
+           "hes1log_fixf": (3, 0.2, 1.0), "hiv": (4, -1.0, 1.0), "ptrans": (5, 0.2, 1.0)}
+
+
+def test_registry_matches_jax():
+    from manifold_constrained_gaussian_process_inference_tpu.models import base as jbase
+
+    assert tbase.registered_systems() == jbase.registered_systems()
+    for name in SYSTEMS:
+        t, j = tbase.get_system(name), jbase.get_system(name)
+        assert t.theta_size == j.theta_size and t.name == name
+        np.testing.assert_array_equal(t.theta_lower_bound, j.theta_lower_bound)
+        np.testing.assert_array_equal(t.theta_upper_bound, j.theta_upper_bound)
+
+
+@pytest.mark.parametrize("attr", ["f", "f_dx", "f_dtheta"])
+@pytest.mark.parametrize("name", sorted(SYSTEMS))
+def test_system_matches_jax_batched_over_chains(name, attr):
+    from manifold_constrained_gaussian_process_inference_tpu.models import base as jbase
+
+    d, lo, hi = SYSTEMS[name]
+    system_t, system_j = tbase.get_system(name), jbase.get_system(name)
+    rng = np.random.default_rng(5)
+    xs = 0.5 * rng.normal(size=(3, 9, d))
+    thetas = rng.uniform(lo, hi, size=(3, system_t.theta_size))
+    t = np.linspace(0.0, 2.0, 9)
+    got = getattr(system_t, attr)(torch.as_tensor(xs), torch.as_tensor(thetas), torch.as_tensor(t))
+    shared = getattr(system_t, attr)(torch.as_tensor(xs), torch.as_tensor(thetas[0]),
+                                     torch.as_tensor(t))
+    for c in range(3):
+        want = np.asarray(getattr(system_j, attr)(jnp.asarray(xs[c]), jnp.asarray(thetas[c]),
+                                                  jnp.asarray(t)))
+        np.testing.assert_allclose(got[c].numpy(), want, rtol=1e-12, atol=1e-12)
+        one = getattr(system_t, attr)(torch.as_tensor(xs[c]), torch.as_tensor(thetas[0]),
+                                      torch.as_tensor(t))
+        np.testing.assert_allclose(shared[c].numpy(), one.numpy(), rtol=1e-14, atol=1e-14)
 
 
 def test_rk4_matches_jax():

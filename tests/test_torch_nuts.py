@@ -1,7 +1,10 @@
-"""PyTorch port, NUTS and the pooled chain driver: the window schedule, dual
+"""PyTorch port, NUTS and the chain driver: the window schedule, dual
 averaging, Welford moments, checkpoint indices, chunking, step jitter and
 the pooled dense metric equal the JAX package's; the batched transition
-matches the JAX transition's tree sizes and recovers Gaussian moments."""
+matches the JAX transitions' tree sizes under a dense and a diagonal
+metric, its dense path is bit-identical to the parent commit's, and the
+single-chain API (run_nuts, the diag Welford warmup) and the diag driver
+recover Gaussian moments and return the JAX package's info keys."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,10 +218,246 @@ def test_divergences_reject_instead_of_raising():
     assert n_div > 0
 
 
-def test_unported_mass_matrix_raises():
-    with pytest.raises(NotImplementedError, match="M12"):
+# The dense-metric transition of the parent commit, recorded bit for bit
+# (float.hex) on the target and metric of _dense_case: the metric types now
+# carry momentum() and velocity(), and the dense path must not move.
+DENSE_RECORDED_Q = [
+    "-0x1.852ea5325c8a0p-3", "0x1.1a4e9e4adbd5cp-1", "0x1.3f2d104aafdcap+0",
+    "0x1.2897663ab5ea2p+0", "0x1.76ad547b20d22p-1", "-0x1.bd1ae28abe66ep-1",
+    "0x1.d39a283a9b0ffp-1", "-0x1.83f2b701d171ep+0", "-0x1.0ea93b110aae2p+0",
+    "0x1.2870ac43409c4p+1", "0x1.23668fe604fa4p-3", "-0x1.9db1f6c856ff5p+0",
+    "-0x1.4016de6d02fa2p-1", "-0x1.3d10de408d5afp+0", "-0x1.45dd58ac1586ap-1",
+    "-0x1.43b40db722b09p+0", "0x1.e5c2737181d97p-2", "-0x1.ca9d802853122p+0",
+    "0x1.1ea3e00750d46p+1", "-0x1.c09c9375fd86fp-3",
+]
+DENSE_RECORDED_LEAVES = [[7.0, 7.0, 7.0, 3.0], [15.0, 15.0, 15.0, 7.0], [7.0, 7.0, 7.0, 7.0]]
+DENSE_RECORDED_ACCEPT = ["0x1.0000000000000p+0", "0x1.fdfd7311e3919p-1",
+                         "0x1.e64a42906e299p-1", "0x1.e0a7fff30222ap-1"]
+
+
+def _dense_case():
+    rng = np.random.default_rng(11)
+    dim, C = 5, 4
+    a = rng.normal(size=(dim, dim))
+    prec = torch.as_tensor(np.linalg.inv(a @ a.T / dim + np.eye(dim)))
+    minv = rng.normal(size=(dim, dim))
+    minv = minv @ minv.T / dim + np.eye(dim)
+    chol = np.linalg.cholesky(minv)
+    metric = tn.DenseMetric(*(torch.as_tensor(m) for m in (minv, chol, np.linalg.inv(chol).T)))
+
+    def vg(q):
+        g = -q @ prec
+        return 0.5 * (g * q).sum(-1), g
+
+    return vg, torch.as_tensor(rng.normal(size=(C, dim))), metric
+
+
+def test_dense_path_bit_identical_to_before():
+    vg, q, metric = _dense_case()
+    lp, g = vg(q)
+    gen = torch.Generator().manual_seed(11)
+    leaves = []
+    for _ in range(3):
+        q, lp, g, st = tb.nuts_transition_batched(vg, q, lp, g, 0.4, metric, gen, max_depth=6)
+        leaves.append(st.num_leapfrog.tolist())
+    assert [x.hex() for x in q.numpy().ravel()] == DENSE_RECORDED_Q
+    assert leaves == DENSE_RECORDED_LEAVES
+    assert [x.hex() for x in st.accept_prob.numpy()] == DENSE_RECORDED_ACCEPT
+
+
+def test_dense_identity_matches_diag_unit_bitwise():
+    """The identity dense metric and the unit diagonal one give the same
+    transition bit for bit from the same generator state."""
+    vg, q0, _ = _dense_case()
+    eye = torch.eye(q0.shape[1], dtype=q0.dtype)
+    out = []
+    for metric in (tn.DenseMetric(eye, eye, eye), tn.DiagMetric(torch.ones_like(q0))):
+        q, (lp, g) = q0, vg(q0)
+        gen = torch.Generator().manual_seed(3)
+        for _ in range(4):
+            q, lp, g, st = tb.nuts_transition_batched(vg, q, lp, g, 0.3, metric, gen)
+        out.append((q, lp, st.num_leapfrog))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_diag_tree_sizes_match_jax_transition():
+    """Same target, step size and diagonal metric: the per-chain leapfrog
+    counts of the port's transition and of the JAX package's single-chain
+    ``nuts_transition`` (vmapped) agree in distribution, and so do the
+    draws' scales."""
+    C, dim, eps = 64, SCALES.shape[0], 0.5
+    inv_mass = SCALES**2 * np.exp(np.random.default_rng(2).uniform(-0.3, 0.3, size=dim))
+    q0 = np.random.default_rng(0).normal(size=(C, dim)) * SCALES
+    q = torch.as_tensor(q0)
+    lp, g = _vg_t(q)
+    metric = tn.DiagMetric(torch.as_tensor(np.tile(inv_mass, (C, 1))))
+    gen = torch.Generator().manual_seed(0)
+    vg_j = jax.value_and_grad(lambda x: -0.5 * jnp.sum((x / SCALES) ** 2))
+    step_j = jax.jit(jax.vmap(lambda q, lp, g, k: jn.nuts_transition(
+        vg_j, q, lp, g, k, jnp.asarray(eps), jnp.asarray(inv_mass))))
+    qj = jnp.asarray(q0)
+    lpj, gj = jax.vmap(vg_j)(qj)
+    keys = jax.random.split(jax.random.PRNGKey(0), C)
+    n_t, n_j, d_t, d_j = [], [], [], []
+    for _ in range(40):
+        q, lp, g, st = tb.nuts_transition_batched(_vg_t, q, lp, g, eps, metric, gen)
+        ks = jax.vmap(jax.random.split)(keys)
+        keys = ks[:, 0]
+        qj, lpj, gj, stj = step_j(qj, lpj, gj, ks[:, 1])
+        n_t.append(st.num_leapfrog.numpy())
+        n_j.append(np.asarray(stj.num_leapfrog))
+        d_t.append(q.numpy())
+        d_j.append(np.asarray(qj))
+    assert abs(np.mean(n_t) / np.mean(n_j) - 1.0) < 0.1
+    sd_t, sd_j = np.std(np.concatenate(d_t[5:]), 0), np.std(np.concatenate(d_j[5:]), 0)
+    np.testing.assert_allclose(sd_t / SCALES, 1.0, atol=0.15)
+    np.testing.assert_allclose(sd_j / SCALES, 1.0, atol=0.15)
+
+
+def test_single_chain_transition_is_the_batched_one_at_c1():
+    vg1 = lambda q: (-0.5 * (q * q).sum(-1), -q)  # noqa: E731
+    q = torch.linspace(-1.0, 1.0, 6, dtype=torch.float64)
+    lp, g = vg1(q)
+    inv_mass = torch.linspace(0.5, 2.0, 6, dtype=torch.float64)
+    one = tn.nuts_transition(vg1, q, lp, g, torch.Generator().manual_seed(4), 0.4, inv_mass)
+    batched = tb.nuts_transition_batched(vg1, q[None], lp[None], g[None], 0.4,
+                                         tn.DiagMetric(inv_mass), torch.Generator().manual_seed(4))
+    for a, b in zip(one[:3], batched[:3]):
+        assert torch.equal(a, b[0])
+    assert torch.equal(one[3].num_leapfrog, batched[3].num_leapfrog)
+
+
+def test_warmup_step_adapts_inv_mass_at_window_end():
+    """In-window draws join the per-chain Welford moments (working dtype);
+    at the window end the inverse mass becomes Stan's regularized variance
+    of those draws, and the moments and dual averaging restart."""
+    vg = lambda q: (-0.5 * (q * q).sum(-1), -q)  # noqa: E731
+    q0 = torch.as_tensor(np.random.default_rng(0).normal(size=(3, 4)))
+    carry = tn.init_warmup_carry(vg, q0, 0.5)
+    assert carry.welford.count.shape == (3,) and torch.equal(carry.inv_mass, torch.ones_like(q0))
+    step = tn.make_warmup_step(vg, 0.8, 10, torch.Generator().manual_seed(0))
+    draws = []
+    for t in range(12):
+        carry, _ = step(carry, t >= 2, t == 11)
+        if t >= 2:
+            draws.append(carry.chain.q.numpy())
+    xs = np.stack(draws, axis=1)  # (C, 10, dim)
+    w = 10 / 15
+    want = w * xs.var(axis=1, ddof=1) + 1e-3 * (1 - w)
+    np.testing.assert_allclose(carry.inv_mass.numpy(), want, rtol=1e-12)
+    assert carry.welford.count.abs().sum() == 0 and carry.da.count.abs().sum() == 0
+    assert carry.welford.mean.dtype == torch.float64
+
+
+def test_std_normal_moments_under_run_nuts():
+    """Mirror of the JAX package's test_std_normal_moments (run_nuts, diag
+    warmup; 2,000 kept draws)."""
+    vg = lambda q: (-0.5 * (q * q).sum(), -q)  # noqa: E731
+    samples, info = tn.run_nuts(vg, torch.zeros(4, dtype=torch.float64),
+                                torch.Generator().manual_seed(0), n_samples=2500, n_adapts=500)
+    assert samples.shape == (2000, 4)
+    assert np.abs(samples.mean(0)).max() < 0.15
+    assert np.abs(samples.var(0) - 1.0).max() < 0.2
+    assert 0.6 < float(np.mean(info["accept_prob"])) <= 1.0
+    assert int(np.sum(info["diverging"])) == 0
+    assert info["inv_mass"].shape == (4,) and np.ndim(info["step_size"]) == 0
+
+
+def test_correlated_gaussian_moments_and_mass_adaptation_under_run_nuts():
+    """Mirror of the JAX package's test of the same name (2,000 kept draws)."""
+    d = 5
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(d, d))
+    covm = a @ a.T + d * np.eye(d)
+    prec = torch.as_tensor(np.linalg.inv(covm))
+    mu = torch.arange(d, dtype=torch.float64)
+
+    def vg(q):
+        g = -prec @ (q - mu)
+        return 0.5 * (q - mu) @ g, g
+
+    samples, info = tn.run_nuts(vg, torch.zeros(d, dtype=torch.float64),
+                                torch.Generator().manual_seed(3), n_samples=3000, n_adapts=1000)
+    sd = np.sqrt(np.diag(covm))
+    assert np.all(np.abs(samples.mean(0) - np.arange(d)) < 0.25 * sd)
+    assert np.all(np.abs(samples.var(0) / np.diag(covm) - 1.0) < 0.35)
+    ratio = info["inv_mass"] / np.diag(covm)
+    assert np.all(ratio > 0.3) and np.all(ratio < 3.0)
+
+
+def test_std_normal_moments_under_diag_driver():
+    dim, C = 6, 8
+    vg = lambda q: (-0.5 * (q * q).sum(-1), -q)  # noqa: E731
+    psi0 = torch.as_tensor(np.random.default_rng(1).normal(size=(C, dim)))
+    samples, info = tc.run_chains(
+        vg, psi0, torch.Generator().manual_seed(1), n_samples=500, n_adapts=250,
+        initial_step_size=0.5, target_accept=0.8, chunk_size=100, mass_matrix="diag",
+    )
+    flat = samples.reshape(-1, dim)
+    assert samples.shape == (C, 250, dim) and info["metric"] == "diag"
+    np.testing.assert_allclose(flat.mean(0), 0.0, atol=0.1)
+    np.testing.assert_allclose(flat.var(0), 1.0, atol=0.15)
+    assert info["inv_mass"].shape == (C, dim) and info["step_size"].shape == (C,)
+    np.testing.assert_allclose(info["inv_mass"], 1.0, atol=0.5)
+    assert info["warmup_diverging"].shape == (C, 250)
+
+
+def test_correlated_gaussian_moments_and_mass_adaptation_under_diag_driver():
+    """The run_nuts mirror above at C = 4 through run_chains: per-chain
+    inverse masses near the marginal variances."""
+    d, C = 5, 4
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(d, d))
+    covm = a @ a.T + d * np.eye(d)
+    prec = torch.as_tensor(np.linalg.inv(covm))
+    mu = torch.arange(d, dtype=torch.float64)
+
+    def vg(q):
+        g = -(q - mu) @ prec
+        return 0.5 * ((q - mu) * g).sum(-1), g
+
+    samples, info = tc.run_chains(vg, torch.zeros((C, d), dtype=torch.float64),
+                                  torch.Generator().manual_seed(3), n_samples=1200,
+                                  n_adapts=600, mass_matrix="diag")
+    flat = samples.reshape(-1, d)
+    sd = np.sqrt(np.diag(covm))
+    assert np.all(np.abs(flat.mean(0) - np.arange(d)) < 0.25 * sd)
+    assert np.all(np.abs(flat.var(0) / np.diag(covm) - 1.0) < 0.35)
+    ratio = info["inv_mass"] / np.diag(covm)
+    assert np.all(ratio > 0.3) and np.all(ratio < 3.0)
+
+
+def test_diag_driver_info_matches_jax():
+    """run_chains(mass_matrix="diag"): every info key of the JAX package's,
+    with the same shapes (``final_key`` is the state of the one torch
+    generator, not C PRNG keys)."""
+    C, dim = 3, 4
+    q0 = np.random.default_rng(0).normal(size=(C, dim))
+    _, want = jc.run_chains(
+        jax.value_and_grad(lambda q: -0.5 * jnp.sum(q * q)), jnp.asarray(q0),
+        jax.random.split(jax.random.PRNGKey(0), C), n_samples=20, n_adapts=10,
+        chunk_size=8, mass_matrix="diag",
+    )
+    samples, got = tc.run_chains(lambda q: (-0.5 * (q * q).sum(-1), -q), torch.as_tensor(q0),
+                                 torch.Generator().manual_seed(0), n_samples=20, n_adapts=10,
+                                 chunk_size=8, mass_matrix="diag")
+    assert samples.shape == (C, 10, dim)
+    assert set(want) <= set(got)
+    for key in set(want) - {"final_key"}:
+        assert np.shape(got[key]) == np.shape(want[key]), key
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(step_jitter=0.125), ValueError), (dict(envelope=object()), ValueError),
+    (dict(resume_ckpt=object()), ValueError), (dict(mass_matrix="dense"), ValueError),
+    (dict(mass_matrix="dense-pooled", envelope=object()), NotImplementedError),
+    (dict(mass_matrix="dense-pooled", resume_ckpt=object()), NotImplementedError),
+])
+def test_driver_refuses_options_of_the_other_metric(kw, error):
+    with pytest.raises(error):
         tc.run_chains(lambda q: (q.sum(-1), q), torch.zeros(2, 2), torch.Generator(),
-                      n_samples=4, n_adapts=2, mass_matrix="diag")
+                      n_samples=4, n_adapts=2, **{"mass_matrix": "diag", **kw})
 
 
 @pytest.fixture
