@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the FitzHugh-Nagumo workload (n=397,
-D=2) with the likelihood on the band-storage layout, so every gradient
-evaluation runs the hand-written CUDA band-matvec kernels: the paired
-launch (mphi and GC^T on one input) and the single launch (GK^T) forward,
-and their two launches backward. The production path is ``solve_magi``
-with 128 NUTS chains under a pooled dense metric, exact-Hessian whitening
-and mode-centered float32 evaluation; the default path is ``solve_magi``
-at the library's defaults: one chain, the diagonal Welford metric, raw Psi.
+Drives the port's main paths with the likelihood on the band-storage
+layout, so every gradient evaluation runs the hand-written CUDA
+band-matvec kernels: the paired launch (mphi and GC^T on one input) and
+the single launch (GK^T) forward, and their two launches backward. The
+paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
+metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
+default ``solve_magi`` (one chain, the diagonal Welford metric, raw Psi) on
+the FitzHugh-Nagumo workload (n=397, D=2); parallel-tempering NUTS on
+log-Hes1 with H never observed; ChEES-HMC under SNAPER on the FN workload.
 Phases:
 
 1. device: the card's name and power limit; TF32 must be off;
@@ -25,11 +26,12 @@ Phases:
    versions at the main path's shape, at the n=3169 shape and at edge
    shapes (b = 0, n < 2b+1, b > 64), float64 and float32, forward and
    backward; each timed per launch from a CUDA graph of back-to-back
-   calls beside its plain version and the dense torch.matmul;
-   The kernel is also checked at C = 1 and C = 5 at both shapes, and
-   timed at C = 1 (the default path's shape);
-6. diag-gauss: the diag chain driver on the card, at C = 1 and C = 4, on
-   a 799-dimensional independent Gaussian with scales log-spaced over
+   calls beside its plain version and the dense torch.matmul. The kernel
+   is also checked and timed at the shapes of the other paths: C = 1 (the
+   default path; C = 5 is checked too) at both grids, [pt]'s (40 chains,
+   D = 3, b = 20, n = 33) and [chees]'s (64 chains at the main shape);
+6. diag-gauss: the diag chain driver on the card at C = 4 on a
+   799-dimensional independent Gaussian with scales log-spaced over
    [0.01, 10]: the draws' variances and the adapted inverse masses against
    the true scales;
 7. default: ``solve_magi`` at the library's defaults on the FN example's
@@ -42,12 +44,32 @@ Phases:
    end-to-end tests (ptrans, hiv, hes1log_fixg; MAP warm start, theta
    constrained, gp_mean="observed") on the card in float32;
 9. slice: the production ``solve_magi`` end to end; draws finite, recovery
-   within the bars, and the kernel launches of this run.
+   within the bars, and the kernel launches of this run;
+10. pt: config 3 of docs/BENCHMARKS.md (log-Hes1 fixed-f, P and M observed
+   in alternation, H never; n=33, D=3, dim=105; 10 rungs x 4 replicas =
+   40 batched chains, pooled dense metric per rung, whitened, theta
+   constrained, target accept 0.95, 3000 Adam steps of MAP warm start),
+   cut to PT_NITER iterations: recovery, mixing and sampler-health bars,
+   and the run's tempered value-and-grad, read after the ladder adapted,
+   against the raw value times the final ladder (a CUDA graph reading a
+   stale ladder fails it);
+11. chees: config 7 (FN n=397, 64 chains, sigma fixed, phi from the NLML,
+   whitened, SNAPER, target accept 0.95), CHEES_NITER iterations, each
+   leapfrog step replayed from one CUDA graph: recovery, R-hat, trajectory
+   length and health bars;
+12. resume: short ``solve_magi`` runs on the card, each resumed through
+   ``solve_magi(resume=...)`` from a checkpoint and its theta and lp held
+   bit for bit against the uninterrupted run's: pooled dense NUTS killed
+   mid-warmup, and NUTS, PT and ChEES after a sampling chunk.
 
-The launches of each main path ([default], [slice]) are counted from 0
-just before its ``solve_magi`` and read just after: each kernel's count is
-its launches per value-and-grad (2 single, 1 pair, 1 pair_t: 4) times the
-run's value-and-grad evaluations.
+The cut runs of [pt] and [chees] are held to bars set from the JAX
+package's readings at the same cuts on the same data
+(``python -m tests.test_torch_reference_cuts``; PERF.md).
+
+The launches of each main path ([default], [slice], [pt], [chees]) are
+counted from 0 just before its ``solve_magi`` and read just after: each
+kernel's count is its launches per value-and-grad (2 single, 1 pair, 1
+pair_t: 4) times the run's value-and-grad evaluations.
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -78,7 +100,9 @@ DEFAULT_TOL_VALUE, DEFAULT_TOL_GRAD = 1e-5, 1e-4
 DEFAULT_ACCEPT = (0.6, 0.95)
 DEFAULT_MAX_DIVERGENT_SHARE = 0.1
 # diag-gauss: dimension, iterations (half warmup), chain counts and bars
-GAUSS_DIM, GAUSS_NITER, GAUSS_CHAINS = 799, 1000, (1, 4)
+# (C = 1 was dropped for time; the first warmup iterations, at depth 10
+# under the unit metric, cost the same at any C)
+GAUSS_DIM, GAUSS_NITER, GAUSS_CHAINS = 799, 1000, (4,)
 GAUSS_VAR_TOL, GAUSS_MASS_RANGE, GAUSS_MASS_SHARE = 0.1, (0.5, 2.0), 0.95
 MAIN_BANDSIZE = 40  # the band after escalation on this workload (20 -> 40)
 LONG_FILL, LONG_BAND_START = 5, 80  # n = 3169; the band escalates to 160
@@ -87,6 +111,10 @@ KERNEL_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/ops/palla
 # The kernels' C entry points and the ops of perf/band_timing.py they run.
 KERNELS = {"band_matvec": "single", "band_matvec_pair": "pair",
            "band_matvec_pair_t": "pair_t"}
+# The shapes of perf/band_timing.py each kernel is timed at: the slice's
+# (the JSON's top-level times), the n=3169 grid's, one chain at both, and
+# the shapes of [pt] and [chees]
+TIMED_SHAPES = ("main", "long", "main_c1", "long_c1", "pt", "chees")
 # A banded value-and-grad: the pair (mphi, GC^T) and the single GK^T
 # forward, their two launches backward.
 LAUNCHES_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1}
@@ -94,6 +122,68 @@ LAUNCHES_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t"
 TOL_F64, TOL_F32 = 1e-12, 1e-5
 TOL_VALUE, TOL_GRAD = 1e-4, 1e-3
 THETA_RMSE_MAX, SIGMA_RMSE_MAX, RHAT_MAX = 0.2, 0.05, 1.05
+# pt: config 3 cut to PT_NITER iterations (the bench runs 8000; 600 took
+# 569 s on the card, PERF.md), its theta bar and the sampler-health bars.
+# Config 3's unobserved-H bar (RMSE < 1.0) is a bench-length bar; at this
+# cut H is held to the JAX package's worst reading at the same cut on the
+# same data over sampler seeds 0, 1, 2 (1.0108-1.0332, float64 on the CPU;
+# tests/test_torch_reference_cuts.py, PERF.md), rounded up.
+PT_NITER, PT_SEED, PT_BANDSIZE = 150, 0, 20
+PT_H_RMSE_MAX, PT_SWAP_RANGE = 1.04, (0.1, 0.9)
+PT_ACCEPT_RANGE, PT_MAX_DIVERGENT_SHARE = (0.6, 0.99), 0.1
+PT_GRAPH_TOL = 1e-6  # float32: the replayed and eager values agree to rounding
+# chees: config 7 cut to CHEES_NITER iterations (the bench runs 3000, where
+# its R-hat bar is <= 1.05). At the cut, max R-hat is held to the JAX
+# package's worst reading over sampler seeds 42 (the smoke's), 1, 2
+# (1.1156-2.5222: T is still adapting), rounded up, as [pt]'s H.
+CHEES_NITER, CHEES_CHAINS = 600, 64
+CHEES_RHAT_MAX = 2.53
+CHEES_ACCEPT_RANGE, CHEES_MAX_DIVERGENT_SHARE = (0.6, 0.99), 0.1
+# resume: iterations (half warmup) and chunk of each short run
+RESUME_NITER, RESUME_CHUNK = 80, 20
+
+
+def pt_config(seed: int = PT_SEED) -> dict:
+    """Config 3 at the smoke's cut: the MagiConfig arguments that both
+    packages take (the reference run uses them too)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        HES1_CONFIG3,
+    )
+
+    return {**HES1_CONFIG3, "niter_hmc": PT_NITER, "seed": seed}
+
+
+def chees_config(y, t, seed: int) -> dict:
+    """Config 7 at the smoke's cut, phi from the NLML on the observations
+    (every 4th grid point), as the bench does; arguments of both packages'
+    MagiConfig."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nlml import (
+        optimize_gp_hyperparameters,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        SIGMA_TRUE,
+    )
+
+    hp = optimize_gp_hyperparameters(y[::4], t[::4], "matern52")
+    return dict(
+        niter_hmc=CHEES_NITER, step_size_factor=0.06, seed=seed, target_accept_ratio=0.95,
+        prior_temperature=(1.0, 1.0, 1.0), phi=hp[:, :2].T, sigma=np.full(2, SIGMA_TRUE),
+        sampler="chees", chees_criterion="snaper", n_chains=CHEES_CHAINS, x_whitened=True,
+        theta_constrained=True, chain_init_jitter=0.05, mass_matrix="dense-pooled",
+        chunk_size=250,
+    )
+
+
+def max_rhat(theta_per_chain) -> float:
+    from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
+        split_rhat,
+    )
+
+    return max(split_rhat(theta_per_chain[:, :, j]) for j in range(theta_per_chain.shape[-1]))
+
+
+def rmse(a, b) -> float:
+    return float(np.sqrt(np.mean((np.asarray(a) - np.asarray(b)) ** 2)))
 
 
 class SmokeFailure(RuntimeError):
@@ -295,8 +385,10 @@ def phase_kernel(cb):
              "pair_t": band_matvec_pair_t_torch}
     rng = np.random.default_rng(0)
     main, long = bt.SHAPES["main"], bt.SHAPES["long"]
-    # the default path's shapes: one chain (and five) at both grids
+    # the default path's shapes: one chain (and five) at both grids; [pt]'s
+    # and [chees]'s
     few = [(c, *shape[1:]) for shape in (main, long) for c in (1, 5)]
+    few += [bt.SHAPES["pt"], bt.SHAPES["chees"]]
     # n < 2b+1, b = 0, n not a multiple of a tile, b at the TPU kernel's
     # limit, b > 64 with n < 2b+1, and C not a multiple of the chain tile
     edges = [(3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129), (1, 2, 64, 200), (5, 2, 40, 50),
@@ -318,7 +410,7 @@ def phase_kernel(cb):
     rel2 = float((cb.band_matvec_cuda(bs2, x2, MAIN_BANDSIZE) - want).abs().max() / want.abs().max())
     check(rel2 <= TOL_F64, f"kernel (M, n) form: rel {rel2:.3e}")
     timing = {}
-    for label in ("main", "long", "main_c1", "long_c1"):
+    for label in TIMED_SHAPES:
         shape = bt.SHAPES[label]
         for op, case in bt.op_cases(shape, torch.float32, rng).items():
             fns = {"kernel": case["wrapper"], "plain": case["plain"], "library": case["library"]}
@@ -334,11 +426,12 @@ def phase_kernel(cb):
         for (label, op), v in timing.items()
     )
     print(f"[kernel] single, pair and pair_t against their plain versions, forward and backward, "
-          f"at {2 + len(few) + len(edges)} shapes (C in 1, 5, 128 at both grids): worst rel float64 {worst[torch.float64]:.3e} (tol "
-          f"{TOL_F64}), float32 {worst[torch.float32]:.3e} (tol {TOL_F32}); max abs err at the "
-          f"main shape float32 {main_err}; ms per launch (CUDA graph of {bt.COUNT}, CUDA events) "
-          f"at (C, M, b, n) {[bt.SHAPES[k] for k in ('main', 'long', 'main_c1', 'long_c1')]}: "
-          f"{cells}", flush=True)
+          f"at {2 + len(few) + len(edges)} shapes (C in 1, 5, 128 at both grids, [pt]'s "
+          f"{bt.SHAPES['pt']} and [chees]'s {bt.SHAPES['chees']}): worst rel float64 "
+          f"{worst[torch.float64]:.3e} (tol {TOL_F64}), float32 {worst[torch.float32]:.3e} (tol "
+          f"{TOL_F32}); max abs err at the main shape float32 {main_err}; ms per launch (CUDA "
+          f"graph of {bt.COUNT}, CUDA events) at (C, M, b, n) "
+          f"{[bt.SHAPES[k] for k in TIMED_SHAPES]}: {cells}", flush=True)
     return main_err, timing
 
 
@@ -540,7 +633,7 @@ def phase_slice(mt, cb, y, t):
         SEED, SIGMA_TRUE, THETA_TRUE,
     )
     from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
-        ess, split_rhat,
+        ess,
     )
 
     config = mt.MagiConfig(
@@ -558,9 +651,9 @@ def phase_slice(mt, cb, y, t):
     d = res.diagnostics
     tpc = d["theta_per_chain"]
     ess_min = min(ess(tpc[:, :, j]) for j in range(tpc.shape[-1]))
-    rhat_max = max(split_rhat(tpc[:, :, j]) for j in range(tpc.shape[-1]))
-    theta_rmse = float(np.sqrt(np.mean((res.theta.mean(0) - THETA_TRUE) ** 2)))
-    sigma_rmse = float(np.sqrt(np.mean((res.sigma.mean(0) - SIGMA_TRUE) ** 2)))
+    rhat_max = max_rhat(tpc)
+    theta_rmse = rmse(res.theta.mean(0), THETA_TRUE)
+    sigma_rmse = rmse(res.sigma.mean(0), SIGMA_TRUE)
     pt = d["phase_times_s"]
     nuts_s = pt["warmup_s"] + pt["sampling_s"]
     device_evals = d["lockstep_leaves"] * N_CHAINS
@@ -596,6 +689,247 @@ def phase_slice(mt, cb, y, t):
     return launches, per_vg, leaf_ms
 
 
+def _health(d):
+    """Sampling accept rate and divergent share of a result's diagnostics."""
+    return float(d["accept_prob"].mean()), float(d["diverging"].mean())
+
+
+def _stale_ladder_gap(built, temperatures, n_rep):
+    """Max relative gap between the run's tempered value-and-grad (replayed
+    from its CUDA graph) at the start positions it was captured with and
+    the raw value there times the run's final ladder."""
+    vg, _, example, vg_t = built
+    want = vg(example)[0] * torch.as_tensor(np.tile(1.0 / temperatures, n_rep),
+                                            dtype=example.dtype, device=example.device)
+    got = vg_t(example)[0]
+    return float(((got - want).abs().max() / want.abs().max()).cpu())
+
+
+def phase_pt(mt, cb):
+    """Config 3 through solve_magi with sampler="pt-nuts"."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
+        tempering as tt,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.models import (
+        HES1LOG_FIXF_SYSTEM,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GraphedValueAndGrad,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        HES1_THETA_TRUE_FIXF, hes1_workload,
+    )
+
+    t_grid, y, x_truth = hes1_workload(seed=PT_SEED)
+    config = mt.MagiConfig(**pt_config(), band_impl="band", device="cuda", verbose=True)
+    # keep the run's tempered value-and-grad to read it after the run
+    real_tempered, built = tt._tempered_vg, []
+
+    def keep(vg, beta, example):
+        out = real_tempered(vg, beta, example)
+        built.append((vg, beta, example, out[0]))
+        return out
+
+    tt._tempered_vg = keep
+    try:
+        cb.reset_launches()
+        t0 = time.perf_counter()
+        res = mt.solve_magi(y, t_grid, HES1LOG_FIXF_SYSTEM, config)
+        wall = time.perf_counter() - t0
+        launches = dict(cb.KERNEL_LAUNCHES)
+    finally:
+        tt._tempered_vg = real_tempered
+    d = res.diagnostics
+    check(len(built) == 1 and isinstance(built[0][3], GraphedValueAndGrad),
+          "pt: the tempered value-and-grad is not replayed from a CUDA graph")
+    start_ladder = tt.auto_ladder(config.pt_temps, d["final_psi"].shape[-1])
+    check(not np.allclose(d["temperatures"], start_ladder), "pt: the ladder did not adapt")
+    graph_gap = _stale_ladder_gap(built[0], d["temperatures"], config.pt_replicas)
+    # the MAP warm start's value-and-grads (start, one per Adam step, end)
+    # and the sampler's (PT counts its own: start, graph warm-up, leaves)
+    vg_evals = config.map_init_iterations + 2 + d["vg_evals"]
+    n_chains = config.pt_temps * config.pt_replicas
+    pt = d["phase_times_s"]
+    nuts_s = pt["warmup_s"] + pt["sampling_s"]
+    leaf_ms = 1e3 * nuts_s / d["lockstep_leaves"]
+    batched = d["lockstep_leaves"] / d["transitions"]
+    per_chain = d["chain_leaves"] / (n_chains * d["transitions"])
+    theta_rmse = rmse(res.theta.mean(0), HES1_THETA_TRUE_FIXF)
+    h_rmse = rmse(res.x_sampled[:, :, 2].mean(0), x_truth[:, 2])
+    accept, div_share = _health(d)
+    swap = float(d["swap_acceptance"])
+    print(f"[pt] config 3: n={len(t_grid)} D=3 dim={d['final_psi'].shape[-1]} rungs="
+          f"{config.pt_temps} replicas={config.pt_replicas} ({n_chains} batched chains) "
+          f"niter_hmc={PT_NITER} band_impl={d['band_impl']} bandsize={d['bandsize']} "
+          f"dtype={d['dtype']}; wall {wall:.1f} s: map {pt['map_s']:.2f} s, gn_map "
+          f"{pt['gn_map_s']:.2f} s, whitener {pt['whitener_s']:.2f} s, warmup "
+          f"{pt['warmup_s']:.2f} s, "
+          f"sampling {pt['sampling_s']:.2f} s; {d['lockstep_leaves']} batched leaves, "
+          f"{leaf_ms:.4f} ms per batched leaf; leaves per transition batched {batched:.1f} vs "
+          f"mean per chain {per_chain:.1f}; host syncs/transition "
+          f"{d['host_syncs'] / d['transitions']:.2f}; final ladder T "
+          f"{np.round(d['temperatures'], 4).tolist()}; swap acceptance {swap:.3f} per pair "
+          f"{np.round(d['swap_acceptance_per_pair'], 3).tolist()}; cold-rung accept {accept:.4f}, "
+          f"divergent {div_share:.4f}; step sizes (cold rungs) "
+          f"{np.round(np.asarray(d['step_size'])[:, 0], 5).tolist()}; theta mean "
+          f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; unobserved-H RMSE "
+          f"{h_rmse:.4f}; replayed tempered value vs raw x final ladder {graph_gap:.3e}; "
+          f"kernel launches {launches} in {vg_evals} value-and-grads", flush=True)
+    for name in ("theta", "x_sampled", "lp"):
+        check(np.isfinite(getattr(res, name)).all(), f"pt: non-finite {name}")
+    check(d["band_impl"] == "band", f"pt: band_impl {d['band_impl']}")
+    check(d["bandsize"] == PT_BANDSIZE, f"pt: bandsize {d['bandsize']} != {PT_BANDSIZE}")
+    check(graph_gap <= PT_GRAPH_TOL,
+          f"pt: replayed tempered value vs raw value x final ladder {graph_gap:.3e}")
+    per_vg = _per_vg(launches, vg_evals, "pt")
+    check(theta_rmse < THETA_RMSE_MAX, f"pt: theta RMSE {theta_rmse:.4f}")
+    check(h_rmse < PT_H_RMSE_MAX, f"pt: unobserved-H RMSE {h_rmse:.4f}")
+    check(PT_SWAP_RANGE[0] <= swap <= PT_SWAP_RANGE[1], f"pt: swap acceptance {swap:.3f}")
+    check(PT_ACCEPT_RANGE[0] <= accept <= PT_ACCEPT_RANGE[1], f"pt: cold-rung accept {accept:.4f}")
+    check(div_share <= PT_MAX_DIVERGENT_SHARE, f"pt: divergent share {div_share:.4f}")
+    return launches, per_vg, leaf_ms
+
+
+def phase_chees(mt, cb, y, t):
+    """Config 7 through solve_magi with sampler="chees" (SNAPER)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        SEED, THETA_TRUE,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
+        ess,
+    )
+
+    config = mt.MagiConfig(**chees_config(y, t, SEED), band_impl="band", device="cuda",
+                           verbose=True)
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+    wall = time.perf_counter() - t0
+    launches = dict(cb.KERNEL_LAUNCHES)
+    d = res.diagnostics
+    tpc = d["theta_per_chain"]
+    rhat_max = max_rhat(tpc)
+    ess_min = min(ess(tpc[:, :, j]) for j in range(tpc.shape[-1]))
+    theta_rmse = rmse(res.theta.mean(0), THETA_TRUE)
+    pt = d["phase_times_s"]
+    step_ms = 1e3 * (pt["warmup_s"] + pt["sampling_s"]) / d["lockstep_leaves"]
+    steps = d["num_leapfrog"][0]
+    accept, div_share = _health(d)
+    traj, eps = float(d["trajectory_length"]), float(d["step_size"])
+    trace = d["trajectory_warmup_trace"]
+    quarters = [float(trace[int(q * (len(trace) - 1))]) for q in (0.25, 0.5, 0.75, 1.0)]
+    print(f"[chees] config 7: n={len(t)} chains={CHEES_CHAINS} SNAPER niter_hmc={CHEES_NITER} "
+          f"band_impl={d['band_impl']} bandsize={d['bandsize']} dtype={d['dtype']}; wall "
+          f"{wall:.1f} s: nlml {pt['nlml_s']:.2f} s, gn_map {pt['gn_map_s']:.2f} s, whitener "
+          f"{pt['whitener_s']:.2f} s, warmup {pt['warmup_s']:.2f} s, sampling "
+          f"{pt['sampling_s']:.2f} s; {d['lockstep_leaves']} leapfrog steps, {step_ms:.4f} ms "
+          f"per step (all chains); n_steps per iteration "
+          f"{d['lockstep_leaves'] / d['transitions']:.1f} "
+          f"(sampling: mean {steps.mean():.1f}, min {steps.min()}, max {steps.max()}); "
+          f"trajectory length {traj:.4f} (warmup T at 1/4, 1/2, 3/4, end "
+          f"{np.round(quarters, 3).tolist()}), step size {eps:.5f}; accept {accept:.4f}, divergent "
+          f"{div_share:.4f}; min-theta ESS {ess_min:.1f}, ESS/s {ess_min / wall:.3f} (total "
+          f"wall); max R-hat {rhat_max:.4f}; theta mean {np.round(res.theta.mean(0), 4).tolist()} "
+          f"RMSE {theta_rmse:.4f}; kernel launches {launches} in {d['vg_evals']} "
+          f"value-and-grads", flush=True)
+    for name in ("theta", "x_sampled", "lp"):
+        check(np.isfinite(getattr(res, name)).all(), f"chees: non-finite {name}")
+    check(d["band_impl"] == "band", f"chees: band_impl {d['band_impl']}")
+    check(d["bandsize"] == MAIN_BANDSIZE, f"chees: bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
+    per_vg = _per_vg(launches, d["vg_evals"], "chees")
+    check(theta_rmse <= THETA_RMSE_MAX, f"chees: theta RMSE {theta_rmse:.4f}")
+    check(rhat_max <= CHEES_RHAT_MAX, f"chees: max R-hat {rhat_max:.4f} > {CHEES_RHAT_MAX}")
+    check(np.isfinite(traj) and traj > eps, f"chees: trajectory length {traj} vs step {eps}")
+    check(CHEES_ACCEPT_RANGE[0] <= accept <= CHEES_ACCEPT_RANGE[1], f"chees: accept {accept:.4f}")
+    check(div_share <= CHEES_MAX_DIVERGENT_SHARE, f"chees: divergent share {div_share:.4f}")
+    return launches, per_vg, step_ms
+
+
+def phase_resume(mt):
+    """Resumed ``solve_magi`` runs on the card against the uninterrupted
+    ones, bit for bit: each chain's theta, x and lp. A small whitened FN
+    problem (n=41, phi and sigma fixed) on the band kernels in float32. The
+    checkpoint writer is wrapped to keep the checkpoint that a run killed
+    there would have left, and the resumed call loads it from its file."""
+    import dataclasses
+    import tempfile
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
+        checkpoint as ck, tempering as tt,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        PHI, SIGMA_TRUE, fn_bench_workload,
+    )
+
+    y, t = fn_bench_workload(n_obs=21, t_end=8.0, fill=1)
+    n_keep, more = RESUME_NITER // 2, RESUME_NITER // 2 - RESUME_CHUNK
+
+    def kept_checkpoint(module, writer, want, config):
+        real, kept = getattr(module, writer), {}
+
+        def capture(path, ckpt):
+            if "path" not in kept and want(ckpt):
+                kept["path"] = f"{path}.kept.npz"
+                real(kept["path"], ckpt)
+            real(path, ckpt)
+
+        setattr(module, writer, capture)
+        try:
+            res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+        finally:
+            setattr(module, writer, real)
+        check("path" in kept, f"resume: {config.sampler} wrote no checkpoint to keep")
+        return res, kept["path"]
+
+    def draws(res):
+        d = res.diagnostics
+        c = d["n_chains"]
+        return (d["theta_per_chain"], d["lp_per_chain"],
+                res.x_sampled.reshape(c, -1, *res.x_sampled.shape[1:]))
+
+    def same(full, resumed, first, what):
+        for name, a, b in zip(("theta", "lp", "x"), draws(full), draws(resumed)):
+            a = a[:, first:]
+            check(a.shape == b.shape and np.array_equal(a, b),
+                  f"resume {what}: the resumed {name} differs from the uninterrupted run's")
+        return draws(resumed)[0].shape
+
+    parts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        base = dict(niter_hmc=RESUME_NITER, burnin_ratio=0.5, chunk_size=RESUME_CHUNK, seed=5,
+                    phi=PHI, sigma=np.full(2, SIGMA_TRUE), x_whitened=True, band_impl="band",
+                    device="cuda", checkpoint_path=f"{tmp}/ckpt.npz")
+        pooled = mt.MagiConfig(**base, n_chains=8, chain_init_jitter=0.05,
+                               mass_matrix="dense-pooled", step_jitter=0.125)
+        full, kept = kept_checkpoint(
+            ck, "save_checkpoint",
+            lambda c: c.phase == "warmup" and 0 < c.warmup["pos"] < RESUME_NITER // 2, pooled)
+        pos = ck.load_checkpoint(kept).warmup["pos"]
+        shape = same(full, mt.solve_magi(y, t, mt.FN_SYSTEM, pooled, resume=kept), 0,
+                     "pooled NUTS warmup")
+        parts.append(f"pooled NUTS killed at warmup iteration {pos} of {RESUME_NITER // 2}: "
+                     f"{shape[0]} chains x {shape[1]} draws equal")
+        cases = (
+            ("diag NUTS", ck, "save_checkpoint", dict(n_chains=4, chain_init_jitter=0.05)),
+            ("pooled PT (4 rungs x 2 replicas)", tt, "save_pt_checkpoint",
+             dict(sampler="pt-nuts", pt_temps=4, pt_replicas=2, mass_matrix="dense-pooled")),
+            ("ChEES", ck, "save_checkpoint",
+             dict(sampler="chees", n_chains=16, chain_init_jitter=0.05)),
+        )
+        sampling = lambda c: getattr(c, "phase", "sampling") == "sampling"  # noqa: E731
+        for what, module, writer, extra in cases:
+            config = mt.MagiConfig(**base, **extra)
+            full, kept = kept_checkpoint(module, writer, sampling, config)
+            leg = dataclasses.replace(config, niter_hmc=more)
+            shape = same(full, mt.solve_magi(y, t, mt.FN_SYSTEM, leg, resume=kept),
+                         n_keep - more, what)
+            parts.append(f"{what} resumed after {RESUME_CHUNK} draws: {shape[0]} chains x "
+                         f"{shape[1]} draws equal")
+    print(f"[resume] solve_magi(resume=checkpoint file) on the card, float32, whitened FN "
+          f"n={len(t)}, band kernels; theta, x and lp against the uninterrupted run: "
+          + "; ".join(parts), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -605,16 +939,31 @@ def main() -> int:
         fn_bench_workload,
     )
 
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build(cb)
     y, t = fn_bench_workload()
-    phase_likelihood(y, t)
-    phase_likelihood_3169()
-    main_err, timing = phase_kernel(cb)
-    phase_diag_gauss()
-    paths = {"default": phase_default(mt, cb)}
-    phase_families(mt)
-    paths["slice"] = phase_slice(mt, cb, y, t)
+    paths = {}
+    phases = {
+        "likelihood": lambda: phase_likelihood(y, t),
+        "likelihood-3169": phase_likelihood_3169,
+        "kernel": lambda: phase_kernel(cb),
+        "diag-gauss": phase_diag_gauss,
+        "default": lambda: paths.__setitem__("default", phase_default(mt, cb)),
+        "families": lambda: phase_families(mt),
+        "slice": lambda: paths.__setitem__("slice", phase_slice(mt, cb, y, t)),
+        "pt": lambda: paths.__setitem__("pt", phase_pt(mt, cb)),
+        "chees": lambda: paths.__setitem__("chees", phase_chees(mt, cb, y, t)),
+        "resume": lambda: phase_resume(mt),
+    }
+    out, phase_s = {}, {}
+    for name, run in phases.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+    print(f"[time] phase wall seconds {phase_s}; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    main_err, timing = out["kernel"]
     print(json.dumps({"launches_per_vg": sum(paths["slice"][1].values()), "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": sum(p[0][name] for p in paths.values()),
@@ -622,8 +971,11 @@ def main() -> int:
         "launches_per_vg": {path: p[1][name] for path, p in paths.items()},
         "max_abs_err": main_err[name], **timing[("main", op)],
         "long": timing[("long", op)], "c1": timing[("main_c1", op)],
-        "long_c1": timing[("long_c1", op)],
-    } for name, op in KERNELS.items()], "ms_per_leaf": {path: p[2] for path, p in paths.items()}}))
+        "long_c1": timing[("long_c1", op)], "pt": timing[("pt", op)],
+        "chees": timing[("chees", op)],
+    } for name, op in KERNELS.items()], "ms_per_leaf": {
+        path: paths[path][2] for path in ("default", "slice", "pt")},
+        "ms_per_chees_leapfrog_step": paths["chees"][2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

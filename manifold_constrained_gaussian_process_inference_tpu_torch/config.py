@@ -13,6 +13,11 @@ import numpy as np
 import torch
 
 
+class MagiError(RuntimeError):
+    """An input or a checkpoint the solver refuses (``inference.solve`` and
+    ``inference.checkpoint`` raise it)."""
+
+
 def default_device() -> torch.device:
     """The first CUDA card. The port's entry points run on the card unless
     the caller asks for the CPU (``device="cpu"``); without a card,

@@ -9,8 +9,9 @@ recursive implementation (which would cost a host synchronisation per
 leaf). The warmup and sampling steps here take carries with a leading
 chain axis, C = 1 included.
 
-Two metrics, one tree code: ``DenseMetric`` (a full M^-1 shared by all
-chains) and ``DiagMetric`` (a per-chain diagonal M^-1, Stan's
+Three metrics, one tree code: ``DenseMetric`` (a full M^-1 shared by all
+chains), ``RungDenseMetric`` (one full M^-1 per tempering rung) and
+``DiagMetric`` (a per-chain diagonal M^-1, Stan's
 ``DiagEuclideanMetric``). The transition only calls ``momentum(z)`` (a
 draw p ~ N(0, M) from z ~ N(0, I)) and ``velocity(p)`` (M^-1 p).
 """
@@ -49,6 +50,29 @@ class DenseMetric(NamedTuple):
 
     def velocity(self, p: torch.Tensor) -> torch.Tensor:
         return p @ self.minv.T
+
+
+class RungDenseMetric(NamedTuple):
+    """One full inverse-mass metric per temperature rung, shared by the
+    replicas (parallel tempering under ``mass_matrix="dense-pooled"``):
+    (K, dim, dim) stacks of ``DenseMetric``'s three factors. Chains are laid
+    out replica-major, so chain c is on rung c mod K; ``momentum`` and
+    ``velocity`` apply each rung's factor to its chains as one batched
+    product over the (R, K, dim) view."""
+
+    minv: torch.Tensor       # (K, dim, dim)
+    chol_minv: torch.Tensor  # (K, dim, dim) lower
+    p_chol: torch.Tensor     # (K, dim, dim) upper
+
+    def _apply(self, mats: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        k, dim = mats.shape[0], x.shape[-1]
+        return torch.einsum("rkj,kij->rki", x.reshape(-1, k, dim), mats).reshape(x.shape)
+
+    def momentum(self, z: torch.Tensor) -> torch.Tensor:
+        return self._apply(self.p_chol, z)
+
+    def velocity(self, p: torch.Tensor) -> torch.Tensor:
+        return self._apply(self.minv, p)
 
 
 class DiagMetric(NamedTuple):

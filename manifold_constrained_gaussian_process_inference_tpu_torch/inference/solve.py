@@ -1,15 +1,18 @@
 """solve_magi, the end-to-end MAGI orchestrator (port of the JAX package's
-inference/solve.py for ``sampler="nuts"``):
+inference/solve.py):
 
   NLML init of (phi, sigma) -> x init by interpolation -> theta init from
   bounds -> GP covariances -> target -> optional Adam MAP warm start
   (``map_init_iterations``) -> with ``x_whitened``, staged Gauss-Newton MAP
-  and exact-Hessian Laplace whitening (float64, host) -> C batched NUTS
-  chains under per-chain diagonal metrics (``mass_matrix="diag"``, the
-  default) or a pooled dense metric (sampling device) -> results
+  and exact-Hessian Laplace whitening (float64, host) -> the sampler on the
+  sampling device: C batched NUTS chains under per-chain diagonal metrics
+  (``mass_matrix="diag"``, the default) or a pooled dense metric,
+  parallel-tempering NUTS (``sampler="pt-nuts"``) or ChEES-HMC
+  (``sampler="chees"``) -> results
 
-The defaults (one chain, diag, raw Psi) are the JAX package's. The other
-samplers, checkpoint/resume, mesh, envelope and profile_dir raise
+The defaults (one chain, diag, raw Psi) are the JAX package's. Every
+sampler writes checkpoints (``checkpoint_path``) and resumes from them
+(``resume``). mesh, the divergence envelope and profile_dir raise
 NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..config import MagiConfig
+from ..config import MagiConfig, MagiError
 from ..models.base import OdeSystem
 from ..ops.gp_cov import build_gp_cov
 from ..ops.kernels import parse_kernel_type
@@ -53,10 +56,6 @@ STEP_JITTER_SEED_OFFSET = 2
 AUTO_BAND_MAX_BANDWIDTH = 64
 # optax.adam's defaults, which the JAX package's MAP warm start uses.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
-
-class MagiError(RuntimeError):
-    pass
 
 
 @dataclasses.dataclass
@@ -167,12 +166,9 @@ def map_warm_start(
     return out.to("cpu", torch.float64).numpy()
 
 
-def _check_supported(config: MagiConfig, mesh, resume) -> None:
+def _check_supported(config: MagiConfig, mesh) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     unported = [
-        (config.sampler != "nuts", f"sampler='{config.sampler}'", "M15"),
-        (resume is not None, "resume", "M13"),
-        (config.checkpoint_path is not None, "checkpoint_path", "M13"),
         (mesh is not None, "mesh", "M17"),
         (config.divergence_envelope, "divergence_envelope", "M18"),
         (config.profile_dir is not None, "profile_dir", "M10"),
@@ -182,6 +178,72 @@ def _check_supported(config: MagiConfig, mesh, resume) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP {item})."
             )
+
+
+def _normalize_pt(s_pt: np.ndarray, info: dict):
+    """PT results in run_chains' (C, S) layout: the cold (T = 1) rung of
+    each replica is one posterior chain; the per-rung accept and depth
+    stacks stay under ``*_per_rung``. accept_prob, tree_depth and
+    num_leapfrog are rung-ordered while diverging travels with the swapped
+    positions (tempering.py). Returns (samples (C, S, dim), info, C)."""
+    info = dict(info)
+    info["accept_prob_per_rung"] = info["accept_prob"]
+    info["tree_depth_per_rung"] = info["tree_depth"]
+    if s_pt.ndim == 2:  # one ladder: (S, dim)
+        samples, info["lp"] = s_pt[None], info["lp"][None]
+        for key in ("diverging", "num_leapfrog", "accept_prob", "tree_depth"):
+            info[key] = info[key][:, 0][None]
+        info["final_psi"] = info["final_psi"][:1]
+    else:  # (R, S, dim)
+        samples, info["lp"] = s_pt, info["lp"].T
+        for key in ("diverging", "num_leapfrog", "accept_prob", "tree_depth"):
+            info[key] = info[key][:, :, 0].T
+        info["final_psi"] = info["final_psi"][:, 0]
+    info["energy"] = np.zeros_like(info["lp"])
+    info["warmup_diverging"] = np.zeros((samples.shape[0], 0))
+    return samples, info, samples.shape[0]
+
+
+def _load_resume(resume, config: MagiConfig, dimension: int):
+    """A checkpoint given by path or object, refused when it is the JAX
+    package's or its dimension is not the target's."""
+    from .checkpoint import check_port_checkpoint, load_checkpoint
+    from .tempering import load_pt_checkpoint
+
+    if isinstance(resume, str):
+        load = load_pt_checkpoint if config.sampler == "pt-nuts" else load_checkpoint
+        resume = load(resume)
+    check_port_checkpoint(resume)
+    ck_dim = int(np.asarray(resume["qs"] if isinstance(resume, dict) else resume.psi).shape[-1])
+    if ck_dim != dimension:
+        raise MagiError(
+            f"resume checkpoint dimension {ck_dim} does not match the target dimension "
+            f"{dimension}; the resumed call must use the same data and config as the original run."
+        )
+    return resume
+
+
+def _run_resumed(vg, ckpt, config: MagiConfig, dtype, device):
+    """A resumed sampling leg through the sampler's resumed runner, in the
+    (C, S) layout of the fresh runs. Returns (samples, info, n_chains)."""
+    common = dict(chunk_size=config.chunk_size, dtype=dtype, device=device,
+                  checkpoint_path=config.checkpoint_path, progress=config.verbose)
+    if config.sampler == "chees":
+        from .chees import run_chees_resumed
+
+        samples, info, _ = run_chees_resumed(vg, ckpt, config.niter_hmc, **common)
+        return samples, info, samples.shape[0]
+    if config.sampler == "pt-nuts":
+        from .tempering import run_parallel_tempering_resumed
+
+        s_pt, info, _ = run_parallel_tempering_resumed(
+            vg, ckpt, config.niter_hmc, max_depth=config.max_tree_depth, **common)
+        return _normalize_pt(s_pt, info)
+    from .checkpoint import run_chains_resumed
+
+    samples, info, _ = run_chains_resumed(vg, ckpt, config.niter_hmc,
+                                          max_depth=config.max_tree_depth, **common)
+    return samples, info, samples.shape[0]
 
 
 def _check_device(device: torch.device) -> None:
@@ -260,9 +322,15 @@ def solve_magi(
 ) -> MagiResult:
     """Solve the MAGI inference problem; see MagiConfig for the options.
     ``initial_params`` optionally supplies Psi_0 = [vec(x); theta;
-    log(sigma)]. ``mesh`` and ``resume`` are not ported yet."""
+    log(sigma)]. ``resume``: a checkpoint (path or object) of an earlier
+    call with the same data and config; a sampling-phase checkpoint
+    continues sampling for ``niter_hmc`` more draws per chain, a
+    warmup-phase one (NUTS under the pooled dense metric) continues that
+    run's warmup. ``mesh`` is not ported yet (ROADMAP M17)."""
     config = config or MagiConfig()
-    _check_supported(config, mesh, resume)
+    _check_supported(config, mesh)
+    if config.sampler not in ("nuts", "pt-nuts", "chees"):
+        raise MagiError(f"unknown sampler '{config.sampler}'")
     _check_precision()
     t_start = time.perf_counter()
     phase_times = {}
@@ -444,7 +512,7 @@ def solve_magi(
         vg = target.value_and_grad_fn()
         start = psi0
 
-    # --- NUTS chains on the sampling device ---
+    # --- the sampler on the sampling device ---
     n_chains = int(config.n_chains)
     n_adapts = int(np.floor(config.niter_hmc * config.burnin_ratio))
     starts = np.tile(start, (n_chains, 1))
@@ -452,30 +520,74 @@ def solve_magi(
         rng_init = np.random.default_rng(config.seed + INIT_JITTER_SEED_OFFSET)
         starts[1:] += config.chain_init_jitter * rng_init.standard_normal(starts[1:].shape)
     generator = torch.Generator(device=device).manual_seed(int(config.seed))
-    samples, info = run_chains(
-        vg,
-        torch.as_tensor(starts, dtype=dtype, device=device),
-        generator,
-        n_samples=config.niter_hmc,
-        n_adapts=n_adapts,
-        initial_step_size=config.step_size_factor,
-        target_accept=config.target_accept_ratio,
-        max_depth=config.max_tree_depth,
-        chunk_size=config.chunk_size,
-        progress=config.verbose,
-        mass_matrix=config.mass_matrix,
-        step_jitter=config.step_jitter,
-        step_jitter_low=config.step_jitter_low,
-        jitter_rng=np.random.default_rng(config.seed + STEP_JITTER_SEED_OFFSET),
-    )
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    warmup_resume = None
+    if resume is not None:
+        resume = _load_resume(resume, config, target.dimension)
+        if getattr(resume, "phase", "sampling") == "warmup":
+            if config.sampler != "nuts" or config.mass_matrix != "dense-pooled":
+                raise MagiError(
+                    "warmup-phase checkpoints resume only for sampler='nuts' with "
+                    "mass_matrix='dense-pooled'; other samplers restart warmup."
+                )
+            warmup_resume, resume = resume, None
+    if resume is not None:
+        samples, info, n_chains = _run_resumed(vg, resume, config, dtype, device)
+    elif config.sampler == "chees":
+        from .chees import run_chees
+
+        samples, info = run_chees(
+            vg, put(starts), generator, n_samples=config.niter_hmc, n_adapts=n_adapts,
+            initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
+            chunk_size=config.chunk_size, progress=config.verbose,
+            criterion=config.chees_criterion, checkpoint_path=config.checkpoint_path,
+        )
+    elif config.sampler == "pt-nuts":
+        from .tempering import run_parallel_tempering
+
+        if n_chains != 1:
+            logger.warning("sampler='pt-nuts' runs pt_replicas independent temperature "
+                           "ladders; n_chains=%d ignored.", n_chains)
+        s_pt, info = run_parallel_tempering(
+            vg, put(starts[0]), generator, n_samples=config.niter_hmc, n_adapts=n_adapts,
+            n_temps=config.pt_temps, max_temp=config.pt_max_temp,
+            initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
+            max_depth=config.max_tree_depth, chunk_size=config.chunk_size,
+            progress=config.verbose, ladder_adapt=config.pt_ladder_adapt,
+            checkpoint_path=config.checkpoint_path, n_replicas=int(config.pt_replicas),
+            mass_matrix=config.mass_matrix,
+        )
+        samples, info, n_chains = _normalize_pt(s_pt, info)
+    else:
+        samples, info = run_chains(
+            vg,
+            put(starts),
+            generator,
+            n_samples=config.niter_hmc,
+            n_adapts=n_adapts,
+            initial_step_size=config.step_size_factor,
+            target_accept=config.target_accept_ratio,
+            max_depth=config.max_tree_depth,
+            chunk_size=config.chunk_size,
+            progress=config.verbose,
+            mass_matrix=config.mass_matrix,
+            step_jitter=config.step_jitter,
+            step_jitter_low=config.step_jitter_low,
+            jitter_rng=np.random.default_rng(config.seed + STEP_JITTER_SEED_OFFSET),
+            checkpoint_path=config.checkpoint_path,
+            resume_ckpt=warmup_resume,
+        )
     phase_times["warmup_s"] = info["warmup_time_s"]
     phase_times["sampling_s"] = info["sampling_time_s"]
 
     # --- results ---
     n_keep = samples.shape[1]
-    if whitener is not None:
-        samples = zeta_to_psi_np(whitener, samples.reshape(-1, samples.shape[-1])).reshape(
-            samples.shape
+    if whitener is not None and n_keep:
+        # one (C, dim) product per draw: a BLAS product's rounding of a row
+        # can depend on how many rows it is given, and a resumed leg holds
+        # fewer draws than the uninterrupted run it must equal bit for bit
+        samples = np.stack(
+            [zeta_to_psi_np(whitener, samples[:, s]) for s in range(n_keep)], axis=1
         )
     flat = samples.reshape(n_chains * n_keep, -1)
     x_samples = flat[:, :nd].reshape(-1, n_dims, n_times).transpose(0, 2, 1)
@@ -511,6 +623,7 @@ def solve_magi(
         "transitions": info["transitions"],
         "host_syncs": info["host_syncs"],
         "lockstep_leaves": info["lockstep_leaves"],
+        "chain_leaves": info["chain_leaves"],
         "sigma_is_fixed": sigma_is_fixed,
         "sampler": config.sampler,
         "band_impl": band_impl,
@@ -518,6 +631,11 @@ def solve_magi(
         "device": str(device),
         "dtype": str(dtype),
     }
+    for key in ("metric", "vg_evals", "trajectory_length",
+                "trajectory_warmup_trace", "swap_acceptance", "swap_acceptance_per_pair",
+                "temperatures", "accept_prob_per_rung", "tree_depth_per_rung"):
+        if key in info:
+            diagnostics[key] = info[key]
     return MagiResult(
         theta=theta_samples,
         x_sampled=x_samples,

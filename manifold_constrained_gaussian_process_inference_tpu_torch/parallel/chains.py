@@ -1,6 +1,6 @@
 """Multi-chain NUTS driver (port of the JAX package's parallel/chains.py
-``run_chains``, without its mesh, envelope, checkpoint and resume
-branches), under a shared pooled dense metric or per-chain diagonal ones.
+``run_chains``, without its mesh and envelope branches), under a shared
+pooled dense metric or per-chain diagonal ones.
 
 All C chains advance together through ``inference/nuts_batched.py`` on one
 device. Under ``mass_matrix="dense-pooled"`` warmup runs in chunks aligned
@@ -12,6 +12,11 @@ its own Welford moments and inverse mass on the device (Stan parity), and
 warmup runs in chunks of ``chunk_size``. Sampling runs in chunks of
 ``chunk_size`` iterations; each chunk's draws are copied to the host when
 it ends.
+
+With ``checkpoint_path`` a checkpoint (inference/checkpoint.py) is written
+after every sampling chunk, and on the pooled dense path after every warmup
+chunk too; ``resume_ckpt`` continues a pooled warmup from such a
+checkpoint, bit for bit, and ``sample_from_checkpoint`` continues sampling.
 """
 from __future__ import annotations
 
@@ -21,13 +26,16 @@ import time
 import numpy as np
 import torch
 
-from ..inference.adapt import build_window_schedule
+from ..config import MagiError
+from ..inference import checkpoint as ckpt_io
+from ..inference.adapt import DualAveragingState, build_window_schedule
 from ..inference.nuts import (
+    ChainState,
     DenseMetric,
     DiagMetric,
     SampleCarry,
+    WarmupCarry,
     init_warmup_carry,
-    make_sample_step,
     make_warmup_step,
 )
 from ..inference.nuts_batched import (
@@ -114,6 +122,13 @@ def _pooled_dense_metric(
         flat = qs[~div].astype(np.float64)
     else:
         flat = qs.reshape(-1, dim).astype(np.float64)
+    return pooled_dense_metric_from_samples(flat, dim, dtype, prev)
+
+
+def pooled_dense_metric_from_samples(flat: np.ndarray, dim: int, dtype,
+                                     prev: DenseMetric) -> DenseMetric:
+    """DenseMetric from pooled draws (n, dim) on the host, float64; fewer
+    than 5 draws keep ``prev``."""
     if flat.shape[0] < 5:
         return prev
     return _metric_from_cov(np.cov(flat, rowvar=False), flat.shape[0], dim, dtype, prev)
@@ -145,6 +160,18 @@ def _metric_from_cov(cov: np.ndarray, n_s: float, dim: int, dtype, prev: DenseMe
     return DenseMetric(minv=put(reg), chol_minv=put(chol), p_chol=put(np.linalg.inv(chol).T))
 
 
+def dense_metric_from_minv(minv, dtype, device, chol=None, p_chol=None):
+    """A DenseMetric (or, for a (K, dim, dim) stack, the factors of one
+    per rung) from M^-1; the Cholesky factors are computed in float64 on
+    the host unless given."""
+    minv64 = np.asarray(minv, dtype=np.float64)
+    if chol is None:
+        chol = np.linalg.cholesky(minv64)
+        p_chol = np.swapaxes(np.linalg.inv(chol), -1, -2)
+    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return put(minv), put(chol), put(p_chol)
+
+
 def jitter_multipliers(rng: np.random.Generator, length: int, prob: float, low: float) -> np.ndarray:
     """Shared per-iteration step-size multipliers for ``step_jitter``: 1.0
     with probability 1-prob, else log-uniform in [low, 1]. Drawn from a host
@@ -172,24 +199,15 @@ class GraphedValueAndGrad:
     their band-matvec launches; the capture records the kernels without
     running them, so its launches are read (``kernel_launches``) and taken
     back out of ``cuda_band``'s counts; each replay adds them again.
-    Outputs are cloned out of the graph's static buffers."""
+    Outputs are cloned out of the graph's static buffers. Tensors that
+    ``vg`` reads besides its input (parallel tempering's inverse
+    temperatures) are captured by address: update them in place."""
 
     def __init__(self, vg, example: torch.Tensor, n_warmup: int = GRAPH_WARMUP_CALLS):
         self.static_in = example.detach().clone()
-        side = torch.cuda.Stream(device=example.device)
-        side.wait_stream(torch.cuda.current_stream(example.device))
-        with torch.cuda.stream(side):
-            for _ in range(n_warmup):
-                vg(self.static_in)
-        torch.cuda.current_stream(example.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        before = dict(cuda_band.KERNEL_LAUNCHES)
-        with torch.cuda.graph(self.graph):
-            self.static_lp, self.static_grad = vg(self.static_in)
-        self.kernel_launches = {
-            name: k - before[name] for name, k in cuda_band.KERNEL_LAUNCHES.items()
-        }
-        cuda_band.KERNEL_LAUNCHES.update(before)
+        self.graph, self.kernel_launches, out = capture_graph(
+            lambda: vg(self.static_in), example.device, n_warmup)
+        self.static_lp, self.static_grad = out
 
     def __call__(self, zeta: torch.Tensor):
         self.static_in.copy_(zeta)
@@ -198,41 +216,133 @@ class GraphedValueAndGrad:
         return self.static_lp.clone(), self.static_grad.clone()
 
 
+def capture_graph(fn, device, n_warmup: int = GRAPH_WARMUP_CALLS):
+    """Run ``fn`` ``n_warmup`` times eagerly on a side stream, then capture
+    one call in a CUDA graph. Returns (graph, band-matvec launches per
+    replay, the captured call's outputs); the capture's launches are taken
+    back out of ``cuda_band``'s counts."""
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(n_warmup):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(cuda_band.KERNEL_LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = fn()
+    launches = {name: k - before[name] for name, k in cuda_band.KERNEL_LAUNCHES.items()}
+    cuda_band.KERNEL_LAUNCHES.update(before)
+    return graph, launches, out
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-class _Counts:
-    """Host counts of one run: transitions, device-to-host reads and
-    batched leapfrog steps."""
+class Counts:
+    """Host counts of one run: transitions, device-to-host reads, batched
+    leapfrog steps (paid by every chain in lockstep) and, on the device,
+    the leapfrog steps the chains' own trees needed (``chain_leaves``,
+    summed over chains)."""
 
     def __init__(self):
         self.transitions = self.host_syncs = self.lockstep_leaves = 0
+        self.chain_leaves = 0.0
 
     def add(self, stats) -> None:
         self.transitions += 1
         self.host_syncs += stats.host_syncs
         self.lockstep_leaves += stats.lockstep_leaves
+        self.chain_leaves = self.chain_leaves + stats.num_leapfrog.sum()
+
+    def info(self) -> dict:
+        return dict(transitions=self.transitions, host_syncs=self.host_syncs,
+                    lockstep_leaves=self.lockstep_leaves, chain_leaves=float(self.chain_leaves))
+
+
+def _restore_warmup(ckpt, n_adapts, chunk_size, chunks, generator, dtype, device):
+    """The pooled warmup's state from a warmup-phase checkpoint, after
+    checking that it was written under this schedule."""
+    if getattr(ckpt, "phase", "sampling") != "warmup":
+        raise ValueError(
+            "resume_ckpt must be a warmup-phase checkpoint; "
+            "post-warmup checkpoints resume via run_chains_resumed."
+        )
+    ckpt_io.check_port_checkpoint(ckpt)
+    ckpt_io.check_warmup_schedule(ckpt, n_adapts, chunk_size)
+    w = ckpt.warmup
+    pos = int(w["pos"])
+    if pos not in np.cumsum(chunks):
+        raise MagiError(
+            f"warmup checkpoint position {pos} does not align with the chunk schedule "
+            f"for n_adapts={n_adapts}, chunk_size={chunk_size}."
+        )
+    ckpt_io.set_generator_state(generator, ckpt.rng_state, ckpt.rng_device)
+    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    c = {name: put(v) for name, v in w["carry"].items()}
+    carry = WarmupCarry(
+        chain=ChainState(q=c["q"], logp=c["logp"], grad=c["grad"]),
+        da=DualAveragingState(c["log_eps"], c["log_eps_avg"], c["h_bar"], c["mu"], c["count"]),
+    )
+    metric = DenseMetric(*dense_metric_from_minv(w["metric_minv"], dtype, device,
+                                                 w["metric_chol"], w["metric_pchol"]))
+    moments = [tuple(np.asarray(p) for p in m) for m in w["moments"]]
+    div = np.asarray(w["div"])
+    return carry, metric, moments, ([div] if div.size else []), pos
+
+
+def _warmup_checkpoint(carry, metric, moments, div_chunks, pos, generator, meta):
+    n_chains = carry.chain.q.shape[0]
+    arrays = dict(q=carry.chain.q, logp=carry.chain.logp, grad=carry.chain.grad,
+                  **carry.da._asdict())
+    rng_state, rng_device = ckpt_io.generator_state(generator)
+    return ckpt_io.SamplerCheckpoint(
+        psi=carry.chain.q.cpu().numpy(), step_size=np.zeros(0),
+        inv_mass=metric.minv.cpu().numpy(), rng_state=rng_state, rng_device=rng_device,
+        meta=meta, phase="warmup",
+        warmup={
+            "pos": pos,
+            "carry": {name: arrays[name].cpu().numpy() for name in ckpt_io.WARMUP_CARRY_FIELDS},
+            "metric_minv": metric.minv.cpu().numpy(),
+            "metric_chol": metric.chol_minv.cpu().numpy(),
+            "metric_pchol": metric.p_chol.cpu().numpy(),
+            "moments": list(moments),  # the live list grows after this chunk
+            "div": (np.concatenate(div_chunks, axis=1) if div_chunks
+                    else np.zeros((n_chains, 0), dtype=bool)),
+        },
+    )
 
 
 def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
-                   target_accept, max_depth, progress, counts, t0):
+                   target_accept, max_depth, progress, counts, t0, resume_ckpt=None,
+                   checkpoint_path=None, meta=None):
     """Warmup under the pooled dense metric: chunks aligned to the window
     ends, in-window moments accumulated on the device, the metric
-    re-estimated on the host at each window end. Returns (carry, metric,
+    re-estimated on the host at each window end; a checkpoint after every
+    chunk when ``checkpoint_path`` is set. Returns (carry, metric,
     per-chunk (C, L) divergence flags)."""
     n_chains, dim = psi0.shape
     dtype, device = psi0.dtype, psi0.device
     f64 = dict(dtype=torch.float64, device=device)
-    eye = torch.eye(dim, dtype=dtype, device=device)
-    metric = DenseMetric(minv=eye, chol_minv=eye, p_chol=eye)
-    carry = init_warmup_carry_batched(vg, psi0, initial_step_size)
-    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator)
     in_window, window_end = build_window_schedule(n_adapts)
-    div_chunks, window_moments = [], []
+    chunks = _window_aligned_chunks(window_end, chunk_size)
+    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator)
+    resume_pos = 0
+    if resume_ckpt is not None:
+        carry, metric, window_moments, div_chunks, resume_pos = _restore_warmup(
+            resume_ckpt, n_adapts, chunk_size, chunks, generator, dtype, device)
+    else:
+        eye = torch.eye(dim, dtype=dtype, device=device)
+        metric = DenseMetric(minv=eye, chol_minv=eye, p_chol=eye)
+        carry = init_warmup_carry_batched(vg, psi0, initial_step_size)
+        div_chunks, window_moments = [], []
     pos = 0
-    for length in _window_aligned_chunks(window_end, chunk_size):
+    for length in chunks:
+        if pos + length <= resume_pos:
+            pos += length  # run before the checkpoint
+            continue
         div = torch.zeros((n_chains, length), dtype=torch.bool, device=device)
         cnt, n_win, n_div = (torch.zeros((), **f64) for _ in range(3))
         s1 = torch.zeros(dim, **f64)
@@ -257,6 +367,9 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
         if window_end[pos - 1]:
             metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric)
             window_moments = []
+        if checkpoint_path:
+            ckpt_io.save_checkpoint(checkpoint_path, _warmup_checkpoint(
+                carry, metric, window_moments, div_chunks, pos, generator, meta))
         if progress:
             logger.info("warmup %d/%d (%.1fs, pooled dense metric)",
                         pos, n_adapts, time.perf_counter() - t0)
@@ -288,6 +401,88 @@ def _warmup_diag(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
     return carry, div_chunks
 
 
+SAMPLE_STATS = ("lp", "accept_prob", "num_leapfrog", "tree_depth", "diverging", "energy")
+
+
+def _sample(vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng,
+            step_jitter, step_jitter_low, counts, progress, t0, checkpoint_path=None,
+            drawn0=0):
+    """The sampling phase at frozen step sizes and ``metric`` (shared dense
+    or per-chain diagonal), in chunks of ``chunk_size``; a checkpoint after
+    every chunk when ``checkpoint_path`` is set. Returns (carry, samples
+    (C, S, dim) numpy, dict of per-draw stats (C, S), the last
+    checkpoint or None)."""
+    n_chains, dim = scarry.chain.q.shape
+    dense = isinstance(metric, DenseMetric)
+    step = make_sample_step_batched(vg, max_depth, generator)
+    out = {name: [] for name in ("samples",) + SAMPLE_STATS}
+    pos, last = 0, None
+    for length in _chunk_lengths(n_keep, chunk_size):
+        mults = jitter_multipliers(jitter_rng, length, step_jitter, step_jitter_low)
+        qs = torch.empty((n_chains, length, dim), dtype=scarry.chain.q.dtype,
+                         device=scarry.chain.q.device)
+        cols = {name: [] for name in SAMPLE_STATS}
+        for t in range(length):
+            scarry, (q, logp, stats) = step(scarry, float(mults[t]) if dense else None, metric)
+            counts.add(stats)
+            qs[:, t] = q
+            for name, value in zip(SAMPLE_STATS, (logp, stats.accept_prob, stats.num_leapfrog,
+                                                  stats.tree_depth, stats.diverging, stats.energy)):
+                cols[name].append(value)
+        out["samples"].append(qs.cpu().numpy())
+        for name in SAMPLE_STATS:
+            out[name].append(torch.stack(cols[name], dim=1).cpu().numpy())
+        counts.host_syncs += 1
+        pos += length
+        if checkpoint_path:
+            last = _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter,
+                                        step_jitter_low, drawn0 + n_chains * pos)
+            ckpt_io.save_checkpoint(checkpoint_path, last)
+        if progress:
+            logger.info("sampling %d/%d (%.1fs)", pos, n_keep, time.perf_counter() - t0)
+    cat = lambda parts: np.concatenate(parts, axis=1) if parts else np.zeros((n_chains, 0))
+    return scarry, cat(out["samples"]), {name: cat(out[name]) for name in SAMPLE_STATS}, last
+
+
+def _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter, step_jitter_low,
+                         n_drawn):
+    dense = isinstance(metric, DenseMetric)
+    rng_state, rng_device = ckpt_io.generator_state(generator)
+    state = {"logp": scarry.chain.logp.cpu().numpy(), "grad": scarry.chain.grad.cpu().numpy()}
+    if dense:
+        state.update(metric_chol=metric.chol_minv.cpu().numpy(),
+                     metric_pchol=metric.p_chol.cpu().numpy())
+    return ckpt_io.SamplerCheckpoint(
+        psi=scarry.chain.q.cpu().numpy(), step_size=scarry.eps.cpu().numpy(),
+        inv_mass=(metric.minv if dense else metric.inv_mass).cpu().numpy(),
+        rng_state=rng_state, rng_device=rng_device, n_samples_drawn=int(n_drawn),
+        meta={"metric": "dense-pooled" if dense else "diag",
+              "step_jitter": float(step_jitter), "step_jitter_low": float(step_jitter_low),
+              "jitter_rng": jitter_rng.bit_generator.state},
+        state=state,
+    )
+
+
+def _run_info(samples_stats, metric, mass_matrix, step_jitter, step_jitter_low, eps,
+              scarry, generator, counts, warmup_div, warmup_time, sampling_time):
+    info = dict(samples_stats)
+    info.update(
+        step_size=eps.cpu().numpy(),
+        inv_mass=(metric.minv if mass_matrix == "dense-pooled" else metric.inv_mass).cpu().numpy(),
+        metric=mass_matrix,
+        step_jitter=(float(step_jitter), float(step_jitter_low)),
+        warmup_diverging=warmup_div,
+        final_psi=scarry.chain.q.cpu().numpy(),
+        # the state of the one generator all chains draw from (the JAX
+        # package returns each chain's PRNG key)
+        final_key=generator.get_state().numpy(),
+        warmup_time_s=warmup_time,
+        sampling_time_s=sampling_time,
+        **counts.info(),
+    )
+    return info
+
+
 def run_chains(
     vg,
     psi0: torch.Tensor,
@@ -303,6 +498,7 @@ def run_chains(
     step_jitter: float = 0.0,
     step_jitter_low: float = 0.4,
     jitter_rng: np.random.Generator | None = None,
+    checkpoint_path: str | None = None,
     resume_ckpt=None,
     envelope=None,
 ):
@@ -314,10 +510,13 @@ def run_chains(
     numpy, info dict of numpy arrays with a leading chain axis).
 
     ``mass_matrix``: "dense-pooled", one dense metric shared by all chains
-    and estimated from their pooled in-window draws (``step_jitter``
-    applies here only); or "diag", per-chain diagonal Welford adaptation
-    (Stan parity), where ``info["inv_mass"]`` is (C, dim). ``resume_ckpt`` and ``envelope`` are
-    not ported (ROADMAP M13, M18)."""
+    and estimated from their pooled in-window draws (``step_jitter``,
+    warmup checkpoints and ``resume_ckpt`` apply here only); or "diag",
+    per-chain diagonal Welford adaptation (Stan parity), where
+    ``info["inv_mass"]`` is (C, dim). ``checkpoint_path``: a checkpoint
+    after every sampling chunk (and every pooled warmup chunk).
+    ``resume_ckpt``: a warmup-phase checkpoint of the same call to continue
+    from. ``envelope`` is not ported (ROADMAP M18)."""
     if mass_matrix not in ("dense-pooled", "diag"):
         raise ValueError(f"unknown mass_matrix '{mass_matrix}'")
     if mass_matrix == "diag":
@@ -336,78 +535,84 @@ def run_chains(
                 "step_jitter is implemented for mass_matrix='dense-pooled' "
                 "(the production path); the diag path keeps Stan parity."
             )
-    for given, what, item in ((resume_ckpt, "resume_ckpt", "M13"), (envelope, "envelope", "M18")):
-        if given is not None:
-            raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP {item}).")
+    if envelope is not None:
+        raise NotImplementedError("envelope is not ported to PyTorch yet (ROADMAP M18).")
     if jitter_rng is None:
         jitter_rng = np.random.default_rng(0)
-    n_chains, dim = psi0.shape
     n_keep = n_samples - n_adapts
-    dtype, device = psi0.dtype, psi0.device
-    counts = _Counts()
+    device = psi0.device
+    counts = Counts()
 
     t0 = time.perf_counter()
     if device.type == "cuda":
         vg = GraphedValueAndGrad(vg, psi0)
     warm_args = (vg, psi0, generator, n_adapts, chunk_size, initial_step_size, target_accept,
-                 max_depth)
+                 max_depth, progress, counts, t0)
     if mass_matrix == "diag":
-        carry, warmup_div_chunks = _warmup_diag(*warm_args, progress, counts, t0)
+        carry, warmup_div_chunks = _warmup_diag(*warm_args)
         metric = DiagMetric(carry.inv_mass)
-        diag_step = make_sample_step(vg, max_depth, generator)
-        sample_step = lambda c, mult: diag_step(c)  # noqa: E731
     else:
-        carry, metric, warmup_div_chunks = _warmup_pooled(*warm_args, progress, counts, t0)
-        pooled_step = make_sample_step_batched(vg, max_depth, generator)
-        sample_step = lambda c, mult: pooled_step(c, mult, metric)  # noqa: E731
+        meta = {"metric": "dense-pooled", "step_jitter": float(step_jitter),
+                "step_jitter_low": float(step_jitter_low), "n_adapts": int(n_adapts),
+                "chunk_size": int(chunk_size)}
+        carry, metric, warmup_div_chunks = _warmup_pooled(
+            *warm_args, resume_ckpt=resume_ckpt, checkpoint_path=checkpoint_path, meta=meta)
     eps_final = torch.exp(carry.da.log_eps_avg)
     _sync(device)
     warmup_time = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    scarry = SampleCarry(chain=carry.chain, eps=eps_final, inv_mass=carry.inv_mass)
-    names = ("lp", "accept_prob", "num_leapfrog", "tree_depth", "diverging", "energy")
-    out = {name: [] for name in ("samples",) + names}
-    pos = 0
-    for length in _chunk_lengths(n_keep, chunk_size):
-        mults = jitter_multipliers(jitter_rng, length, step_jitter, step_jitter_low)
-        qs = torch.empty((n_chains, length, dim), dtype=dtype, device=device)
-        cols = {name: [] for name in names}
-        for t in range(length):
-            scarry, (q, logp, stats) = sample_step(scarry, float(mults[t]))
-            counts.add(stats)
-            qs[:, t] = q
-            for name, value in zip(names, (logp, stats.accept_prob, stats.num_leapfrog,
-                                           stats.tree_depth, stats.diverging, stats.energy)):
-                cols[name].append(value)
-        out["samples"].append(qs.cpu().numpy())
-        for name in names:
-            out[name].append(torch.stack(cols[name], dim=1).cpu().numpy())
-        counts.host_syncs += 1
-        pos += length
-        if progress:
-            logger.info("sampling %d/%d (%.1fs)", pos, n_keep, time.perf_counter() - t0)
+    scarry = SampleCarry(chain=carry.chain, eps=eps_final)
+    scarry, samples, stats, _ = _sample(
+        vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng, step_jitter,
+        step_jitter_low, counts, progress, t0, checkpoint_path)
     _sync(device)
-    sampling_time = time.perf_counter() - t1
+    warmup_div = (np.concatenate(warmup_div_chunks, axis=1) if warmup_div_chunks
+                  else np.zeros((psi0.shape[0], 0)))
+    info = _run_info(stats, metric, mass_matrix, step_jitter, step_jitter_low, eps_final, scarry,
+                     generator, counts, warmup_div, warmup_time, time.perf_counter() - t1)
+    return samples, info
 
-    cat = lambda parts: (
-        np.concatenate(parts, axis=1) if parts else np.zeros((n_chains, 0))
-    )
-    info = {name: cat(out[name]) for name in names}
-    info.update(
-        step_size=eps_final.cpu().numpy(),
-        inv_mass=(metric.minv if mass_matrix == "dense-pooled" else metric.inv_mass).cpu().numpy(),
-        metric=mass_matrix,
-        step_jitter=(float(step_jitter), float(step_jitter_low)),
-        warmup_diverging=cat(warmup_div_chunks),
-        final_psi=scarry.chain.q.cpu().numpy(),
-        # the state of the one generator all chains draw from (the JAX
-        # package returns each chain's PRNG key)
-        final_key=generator.get_state().numpy(),
-        warmup_time_s=warmup_time,
-        sampling_time_s=sampling_time,
-        transitions=counts.transitions,
-        host_syncs=counts.host_syncs,
-        lockstep_leaves=counts.lockstep_leaves,
-    )
-    return cat(out["samples"]), info
+
+def sample_from_checkpoint(vg, ckpt, n_samples, max_depth, dtype, device, chunk_size,
+                           checkpoint_path, progress):
+    """Sampling continued from a sampling-phase NUTS checkpoint (see
+    ``inference.checkpoint.run_chains_resumed``)."""
+    generator = ckpt_io.restore_generator(ckpt.rng_state, ckpt.rng_device, device)
+    meta, state = ckpt.meta or {}, ckpt.state or {}
+    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    psi = put(ckpt.psi)
+    n_chains = psi.shape[0]
+    if meta.get("metric") == "dense-pooled":
+        metric = DenseMetric(*dense_metric_from_minv(
+            ckpt.inv_mass, dtype, device, state.get("metric_chol"), state.get("metric_pchol")))
+        mass_matrix = "dense-pooled"
+    else:
+        metric = DiagMetric(put(ckpt.inv_mass).expand(n_chains, -1))
+        mass_matrix = "diag"
+    jitter_rng = np.random.default_rng(0)
+    if meta.get("jitter_rng"):
+        jitter_rng.bit_generator.state = meta["jitter_rng"]
+    step_jitter = float(meta.get("step_jitter", 0.0) or 0.0)
+    step_jitter_low = float(meta.get("step_jitter_low", 0.4) or 0.4)
+    counts = Counts()
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        vg = GraphedValueAndGrad(vg, psi)
+    if "logp" in state and "grad" in state:
+        logp, grad = put(state["logp"]), put(state["grad"])
+    else:
+        logp, grad = vg(psi)
+    eps = put(ckpt.step_size).expand(n_chains)
+    scarry = SampleCarry(chain=ChainState(q=psi, logp=logp, grad=grad), eps=eps)
+    scarry, samples, stats, last = _sample(
+        vg, scarry, metric, generator, n_samples, max_depth, chunk_size, jitter_rng,
+        step_jitter, step_jitter_low, counts, progress, t0, checkpoint_path,
+        drawn0=int(ckpt.n_samples_drawn))
+    _sync(device)
+    if last is None:
+        last = _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter,
+                                    step_jitter_low, ckpt.n_samples_drawn + samples[:, :, 0].size)
+    info = _run_info(stats, metric, mass_matrix, step_jitter, step_jitter_low, eps, scarry,
+                     generator, counts, np.zeros((n_chains, 0)), 0.0, time.perf_counter() - t0)
+    return samples, info, last

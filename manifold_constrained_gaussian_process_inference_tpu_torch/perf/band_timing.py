@@ -36,8 +36,11 @@ import torch
 COUNT, REPS = 200, 5
 PROFILE_CALLS = 20
 # (C, M, b, n): the 128-chain slice's shape and the filllevel-5 grid
-# (bandsize 160), each also at one chain (the default single-chain path)
+# (bandsize 160), each also at one chain (the default single-chain path);
+# config 3's parallel tempering (10 rungs x 4 replicas, D=3, n=33, bandsize
+# 20) and config 7's 64 ChEES chains
 SHAPES = {"main": (128, 2, 40, 397), "long": (128, 2, 160, 3169),
+          "pt": (40, 3, 20, 33), "chees": (64, 2, 40, 397),
           "main_c1": (1, 2, 40, 397), "long_c1": (1, 2, 160, 3169)}
 # NVIDIA H100 SXM: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12

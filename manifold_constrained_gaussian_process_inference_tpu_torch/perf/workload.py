@@ -1,5 +1,7 @@
-"""The FitzHugh-Nagumo bench workload and the slice's likelihood, shared by
-``chip_smoke.py`` and the measurement scripts of this subpackage."""
+"""The FitzHugh-Nagumo bench workload and the slice's likelihood, the
+model-family workloads and config 3's log-Hes1 data, shared by
+``chip_smoke.py``, the tests and the measurement scripts of this
+subpackage."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -125,3 +127,41 @@ def family_problem(name: str, seed: int = 0):
     options = dict(case["config"], sigma=np.full(d, case["noise"]),
                    phi=np.vstack([np.full(d, variance), np.full(d, lengthscale)]))
     return system, y, t, options
+
+
+# Config 3 of docs/BENCHMARKS.md (the recipe of examples/hes1_example.py and
+# benchmarks/run_baseline_configs.py): log-Hes1 on the MAGI paper's design,
+# P and M observed in alternation every 15 minutes on [0, 240], H never
+# observed, noise sd 0.15 on the log scale; inference runs the fixed-f
+# variant (6 parameters) with phi and sigma given.
+HES1_THETA_TRUE = np.array([0.022, 0.3, 0.031, 0.028, 0.5, 20.0, 0.3])
+HES1_THETA_TRUE_FIXF = np.array([0.022, 0.3, 0.031, 0.028, 0.5, 0.3])
+HES1_X0 = np.log(np.array([1.439, 2.037, 17.904]))
+HES1_NOISE_SD = 0.15
+HES1_CONFIG3 = dict(
+    niter_hmc=8000, step_size_factor=0.05, sampler="pt-nuts", pt_temps=10, pt_replicas=4,
+    x_whitened=True, target_accept_ratio=0.95, mass_matrix="dense-pooled",
+    phi=np.array([[2.0, 1.5, 12.0], [55.0, 55.0, 55.0]]), sigma=np.full(3, HES1_NOISE_SD),
+    map_init_iterations=3000, map_init_lr=0.02, theta_constrained=True, chunk_size=500,
+)
+
+
+def hes1_workload(t_end=240.0, obs_spacing=15.0, grid_spacing=7.5, seed=0):
+    """(t_grid, y, x_truth) of config 3, generated with the port's
+    integrators: RK4 truth of the full log-Hes1 system (8000 steps) on a
+    grid of spacing 7.5 (n = 33); P at t = 0, 30, 60, ..., M at t = 15, 45,
+    ..., H never; NaN where unobserved."""
+    from ..models import HES1LOG_SYSTEM
+    from ..utils.integrators import integrate_system, sample_on_grid
+
+    rng = np.random.default_rng(seed)
+    ts, xs = integrate_system(HES1LOG_SYSTEM, HES1_X0, 0.0, t_end, HES1_THETA_TRUE, 8000)
+    t_grid = np.arange(0.0, t_end + 1e-9, grid_spacing)
+    x_truth = sample_on_grid(ts.numpy(), xs.numpy(), t_grid)
+    y = np.full((len(t_grid), 3), np.nan)
+    for i, t in enumerate(t_grid):
+        k = round(t / obs_spacing)
+        if abs(t - k * obs_spacing) < 1e-9:
+            dim = 0 if k % 2 == 0 else 1
+            y[i, dim] = x_truth[i, dim] + rng.normal() * HES1_NOISE_SD
+    return t_grid, y, x_truth

@@ -1,7 +1,7 @@
 """PyTorch port, postprocessing (plain numpy, the port's own copy):
 summarize_chains, format_summary, results_to_chain and magi_summary give
-the JAX package's output on the same samples, and ess / split_rhat equal
-its values."""
+the JAX package's output on the same samples, ess / split_rhat equal its
+values, and plot_magi draws its figures (matplotlib imported only then)."""
 import numpy as np
 import pytest
 
@@ -77,3 +77,56 @@ def test_results_to_chain_and_magi_summary_match_jax(n_chains, capsys):
     for key in want:
         if key != "names":
             np.testing.assert_array_equal(got[key], want[key])
+
+
+def _artists(fig):
+    """Per axes: title, visibility, and the data of every line, ribbon and
+    scatter, in drawing order."""
+    out = []
+    for ax in fig.axes:
+        lines = [np.asarray(line.get_xydata()) for line in ax.get_lines()]
+        fills = [np.asarray(c.get_paths()[0].vertices) if hasattr(c, "get_paths") and c.get_paths()
+                 else np.asarray(c.get_offsets()) for c in ax.collections]
+        out.append((ax.get_title(), ax.get_visible(), lines, fills))
+    return out
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("traj", dict(comp_names=["P", "M"], ci=True)),
+    ("traj", dict(obs=False, ci=False, ylim=(-3, 3))),
+    ("trace", dict(include_sigma=True, include_lp=True)),
+    ("trace", dict(par_names=["a", "b", "c"], nplotcol=2)),
+])
+def test_plot_magi_matches_jax(kind, kw, tmp_path):
+    """plot_magi draws the JAX package's figure: the same axes, titles and
+    plotted data; the figure is written when asked; an unknown type raises."""
+    import matplotlib.pyplot as plt
+
+    got_res = _result(TResult, 4, np.random.default_rng(6))
+    want_res = _result(JResult, 4, np.random.default_rng(6))
+    t = np.linspace(0.0, 6.0, 7)
+    y = np.random.default_rng(7).normal(size=(7, 2))
+    y[::2, 1] = np.nan
+    extra = dict(t_obs=t, y_obs=y) if kind == "traj" else {}
+    path = tmp_path / "fig.png"
+    got = tp.plot_magi(got_res, type=kind, save_path=str(path), **extra, **kw)
+    want = jp.plot_magi(want_res, type=kind, **extra, **kw)
+    assert path.stat().st_size > 0
+    for (gt, gv, gl, gf), (wt, wv, wl, wf) in zip(_artists(got), _artists(want), strict=True):
+        assert (gt, gv, len(gl), len(gf)) == (wt, wv, len(wl), len(wf))
+        for g, w in zip(gl + gf, wl + wf):
+            np.testing.assert_array_equal(g, w)
+    plt.close("all")
+    with pytest.raises(ValueError, match="type"):
+        tp.plot_magi(got_res, type="pairs")
+
+
+def test_plot_magi_imports_matplotlib_lazily():
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['matplotlib'] = None\n"
+            "import manifold_constrained_gaussian_process_inference_tpu_torch.postprocess as p\n"
+            "try:\n    p.plot_magi(None)\nexcept ImportError as e:\n    print('lazy', e)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "lazy" in out.stdout, out.stderr

@@ -1,9 +1,9 @@
 """PyTorch port, orchestration: the NLML initialization reaches the JAX
 package's optimum, solve_magi runs the production recipe (128-chain
 pooled, whitened) end to end on the CPU with band_impl="band" and keeps the
-result contract, and the options the port does not run yet raise
-NotImplementedError naming their ROADMAP item. The default path's cases are
-in tests/test_torch_solver_e2e.py."""
+result contract, so does every other sampler and metric, and the options
+the port does not run yet raise NotImplementedError naming their ROADMAP
+item. The default path's cases are in tests/test_torch_solver_e2e.py."""
 import dataclasses
 
 import numpy as np
@@ -148,9 +148,6 @@ def test_solve_magi_band_loose_recovery(solved):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(sampler="chees"), "M15"),
-    (dict(sampler="pt-nuts"), "M15"),
-    (dict(checkpoint_path="ckpt.npz"), "M13"),
     (dict(divergence_envelope=True), "M18"),
     (dict(profile_dir="prof"), "M10"),
 ])
@@ -162,7 +159,7 @@ def test_unported_options_raise(change, item):
         mt.solve_magi(y, t, mt.FN_SYSTEM, config)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "M17"), (dict(resume="x.npz"), "M13")])
+@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "M17")])
 def test_unported_entry_arguments_raise(kw, item):
     y, t = _fn_data()
     config = mt.MagiConfig(mass_matrix="dense-pooled", x_whitened=True, device="cpu")
@@ -214,3 +211,31 @@ def test_tf32_is_refused():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     tsolve._check_precision()
+
+
+@pytest.mark.parametrize("options,n_chains", [
+    (dict(sampler="pt-nuts", pt_temps=3, pt_replicas=1), 1),
+    (dict(sampler="pt-nuts", pt_temps=2, pt_replicas=1, mass_matrix="dense-pooled"), 1),
+    (dict(sampler="pt-nuts", pt_temps=3, pt_replicas=3, mass_matrix="dense-pooled"), 3),
+    (dict(sampler="chees", n_chains=4, chees_criterion="chees"), 4),
+    (dict(sampler="chees", n_chains=4, chees_criterion="snaper"), 4),
+])
+def test_solve_magi_runs_every_sampler(options, n_chains):
+    """Every sampler and metric through solve_magi on the CPU keeps the
+    result contract: (C, S) per-chain arrays, PT's per-rung stacks and
+    swap statistics, ChEES's trajectory length."""
+    y, t = _fn_data(n_obs=9, t_end=4.0)
+    config = mt.MagiConfig(niter_hmc=40, seed=3, sigma=[0.1, 0.1], x_whitened=True,
+                           phi=np.array([[1.0, 1.0], [1.5, 1.5]]), device="cpu", **options)
+    res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+    d = res.diagnostics
+    assert d["n_chains"] == n_chains and d["theta_per_chain"].shape == (n_chains, 20, 3)
+    assert d["lp_per_chain"].shape == d["accept_prob"].shape == (n_chains, 20)
+    for a in (res.theta, res.x_sampled, res.lp):
+        assert np.isfinite(a).all()
+    if options["sampler"] == "pt-nuts":
+        k = options["pt_temps"]
+        assert d["accept_prob_per_rung"].shape[-1] == k and len(d["temperatures"]) == k
+        assert len(d["swap_acceptance_per_pair"]) == k - 1 and 0 <= d["swap_acceptance"] <= 1
+    else:
+        assert d["trajectory_length"] > 0 and d["trajectory_warmup_trace"].shape == (20,)
