@@ -32,8 +32,8 @@ Phases:
    D = 3, b = 20, n = 33) and [chees]'s (64 chains at the main shape);
 6. diag-gauss: the diag chain driver on the card at C = 4 on a
    799-dimensional independent Gaussian with scales log-spaced over
-   [0.01, 10]: the draws' variances and the adapted inverse masses against
-   the true scales;
+   [0.01, 10], trees capped at depth GAUSS_MAX_DEPTH: the draws' variances
+   and the adapted inverse masses against the true scales;
 7. default: ``solve_magi`` at the library's defaults on the FN example's
    workload (100 observations on [0, 20], noise 0.2, filllevel 2, sigma
    sampled; 200 iterations): the float32 value-and-grad of one chain at the
@@ -60,7 +60,31 @@ Phases:
 12. resume: short ``solve_magi`` runs on the card, each resumed through
    ``solve_magi(resume=...)`` from a checkpoint and its theta and lp held
    bit for bit against the uninterrupted run's: pooled dense NUTS killed
-   mid-warmup, and NUTS, PT and ChEES after a sampling chunk.
+   mid-warmup, and NUTS, PT and ChEES after a sampling chunk;
+13. mesh: MESH_RANKS ranks spawned by torch.multiprocessing over gloo, all
+   on the one card (NCCL refuses two ranks on one card), the kernels built
+   here before the spawn: (a) ``solve_magi(mesh=...)`` on [slice]'s recipe
+   and data, 128 chains = 4 ranks x 32, cut to MESH_NITER iterations:
+   recovery and divergence bars, exactly 4 kernel launches per
+   value-and-grad on every rank, and every rank's step sizes, metric and
+   gathered result bit-identical; (b) the JAX package's dry-run protocol on
+   the whitened target of (a): ``run_chains`` (128 chains, pooled),
+   ``run_parallel_tempering`` (4 replicas) and ``run_chees`` (64 chains),
+   each sharded against the same call unsharded, max |delta| < 1e-4 in
+   float64 on the card (the float32 deltas are printed: there a batch's
+   shape changes a chain's rounding, which a tree decision near its
+   threshold turns into another trajectory); (c) a one-rank NCCL world (a
+   subgroup of rank 0): (b)'s float32 ``run_chains`` bit-equal to the
+   unsharded call;
+14. grid: on the same ranks, the grid-sharded value-and-grad of
+   [likelihood-3169]'s workload (n=3169, band 160, sigma sampled; the
+   blocks built here in float64) at C = 1 and 128 against the unsharded
+   banded value-and-grad on the card: in float64 under the JAX dry run's
+   bars (value 1e-4 relative, gradient 1e-4 relative elementwise over
+   |g| + 1e-3), in float32 the value alike and the gradient within 1e-4 of
+   max |g|, and float32 against float64 on the CPU; the same on every rank,
+   exactly 4 launches per value-and-grad eager and replayed; then NUTS on
+   one chain on it.
 
 The cut runs of [pt] and [chees] are held to bars set from the JAX
 package's readings at the same cuts on the same data
@@ -78,7 +102,9 @@ device the script exits non-zero.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -103,6 +129,10 @@ DEFAULT_MAX_DIVERGENT_SHARE = 0.1
 # (C = 1 was dropped for time; the first warmup iterations, at depth 10
 # under the unit metric, cost the same at any C)
 GAUSS_DIM, GAUSS_NITER, GAUSS_CHAINS = 799, 1000, (4,)
+# Trees capped at depth 8 for time: under the first window's unit metric
+# the trees ran to depth 10, ~84% of the phase's leaves (the bars hold at
+# depth 8 on the CPU with a 2.7x margin)
+GAUSS_MAX_DEPTH = 8
 GAUSS_VAR_TOL, GAUSS_MASS_RANGE, GAUSS_MASS_SHARE = 0.1, (0.5, 2.0), 0.95
 MAIN_BANDSIZE = 40  # the band after escalation on this workload (20 -> 40)
 LONG_FILL, LONG_BAND_START = 5, 80  # n = 3169; the band escalates to 160
@@ -112,9 +142,13 @@ KERNEL_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/ops/palla
 KERNELS = {"band_matvec": "single", "band_matvec_pair": "pair",
            "band_matvec_pair_t": "pair_t"}
 # The shapes of perf/band_timing.py each kernel is timed at: the slice's
-# (the JSON's top-level times), the n=3169 grid's, one chain at both, and
-# the shapes of [pt] and [chees]
-TIMED_SHAPES = ("main", "long", "main_c1", "long_c1", "pt", "chees")
+# (the JSON's top-level times), the n=3169 grid's, one chain at both, the
+# shapes of [pt], [chees] and a [mesh] rank's, and [grid]'s local blocks
+# at C = 128 and 1, where each times only the ops that run there
+TIMED_SHAPES = ("main", "long", "main_c1", "long_c1", "pt", "chees", "mesh", "grid_pair",
+                "grid_single", "grid_pair_c1", "grid_single_c1")
+OPS_AT = {"grid_pair": ("pair", "pair_t"), "grid_pair_c1": ("pair", "pair_t"),
+          "grid_single": ("single",), "grid_single_c1": ("single",)}
 # A banded value-and-grad: the pair (mphi, GC^T) and the single GK^T
 # forward, their two launches backward.
 LAUNCHES_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1}
@@ -123,13 +157,14 @@ TOL_F64, TOL_F32 = 1e-12, 1e-5
 TOL_VALUE, TOL_GRAD = 1e-4, 1e-3
 THETA_RMSE_MAX, SIGMA_RMSE_MAX, RHAT_MAX = 0.2, 0.05, 1.05
 # pt: config 3 cut to PT_NITER iterations (the bench runs 8000; 600 took
-# 569 s on the card, PERF.md), its theta bar and the sampler-health bars.
-# Config 3's unobserved-H bar (RMSE < 1.0) is a bench-length bar; at this
-# cut H is held to the JAX package's worst reading at the same cut on the
-# same data over sampler seeds 0, 1, 2 (1.0108-1.0332, float64 on the CPU;
-# tests/test_torch_reference_cuts.py, PERF.md), rounded up.
-PT_NITER, PT_SEED, PT_BANDSIZE = 150, 0, 20
-PT_H_RMSE_MAX, PT_SWAP_RANGE = 1.04, (0.1, 0.9)
+# 569 s on the card, PERF.md; 150 until the mesh phases came), its theta bar
+# and the sampler-health bars. Config 3's unobserved-H bar (RMSE < 1.0) is a
+# bench-length bar; at this cut H is held to the JAX package's worst reading
+# at the same cut on the same data over sampler seeds 0, 1, 2 (1.0077-1.0662,
+# float64 on the CPU; tests/test_torch_reference_cuts.py, PERF.md), rounded
+# up.
+PT_NITER, PT_SEED, PT_BANDSIZE = 100, 0, 20
+PT_H_RMSE_MAX, PT_SWAP_RANGE = 1.07, (0.1, 0.9)
 PT_ACCEPT_RANGE, PT_MAX_DIVERGENT_SHARE = (0.6, 0.99), 0.1
 PT_GRAPH_TOL = 1e-6  # float32: the replayed and eager values agree to rounding
 # chees: config 7 cut to CHEES_NITER iterations (the bench runs 3000, where
@@ -141,6 +176,19 @@ CHEES_RHAT_MAX = 2.53
 CHEES_ACCEPT_RANGE, CHEES_MAX_DIVERGENT_SHARE = (0.6, 0.99), 0.1
 # resume: iterations (half warmup) and chunk of each short run
 RESUME_NITER, RESUME_CHUNK = 80, 20
+# mesh: ranks (gloo, all on the one card) and [slice]'s recipe cut to
+# MESH_NITER iterations (half warmup; at 60, with 3 dual-averaging steps
+# after the one metric window, 12.7% of the draws diverged): recovery bars
+# as [slice]'s, at most 10% divergent; the JAX package's dry-run bound on
+# every sharded-vs-unsharded delta and on the grid-sharded value-and-grad
+# against the unsharded one
+MESH_RANKS, MESH_NITER, MESH_MAX_DIVERGENT_SHARE = 4, 100, 0.1
+DRYRUN_TOL, GRID_TOL = 1e-4, 1e-4
+DRYRUN_CALLS = ("chains", "pt", "chees")
+GRID_CHAINS = (1, 128)
+# the one-rank world of [mesh] (c), and where the ranks' tensors live
+MESH_SOLO_BACKEND, DEVICE = "nccl", "cuda"
+GRID_NUTS = dict(n_samples=6, n_adapts=3, initial_step_size=1e-4, max_depth=4)
 
 
 def pt_config(seed: int = PT_SEED) -> dict:
@@ -151,6 +199,20 @@ def pt_config(seed: int = PT_SEED) -> dict:
     )
 
     return {**HES1_CONFIG3, "niter_hmc": PT_NITER, "seed": seed}
+
+
+def slice_config(niter: int) -> dict:
+    """[slice]'s production recipe at ``niter`` iterations: MagiConfig
+    arguments."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import SEED
+
+    return dict(
+        niter_hmc=niter, burnin_ratio=0.5, step_size_factor=0.06,
+        prior_temperature=(1.0, 1.0, 1.0), sampler="nuts", n_chains=N_CHAINS,
+        mass_matrix="dense-pooled", chain_init_jitter=0.05, x_whitened=True,
+        theta_constrained=True, target_accept_ratio=0.95, step_jitter=0.125,
+        seed=SEED, chunk_size=250, band_impl="band", device=DEVICE,
+    )
 
 
 def chees_config(y, t, seed: int) -> dict:
@@ -193,6 +255,27 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def digest(*arrays) -> str:
+    """A hash of arrays' bytes: ranks hold equal results iff they agree."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def wall_ms(fn, n_runs: int = 20) -> float:
+    """Host ms per call of fn(), synchronized at both ends (for calls that
+    end in a collective, which waits on the host), after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_runs):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n_runs
 
 
 def cuda_ms(fn, n_runs: int = 50) -> float:
@@ -348,6 +431,50 @@ def phase_likelihood_3169():
           f"{band_vs_dense[0]:.3e} grad {band_vs_dense[1]:.3e}; value-and-grad evals/s (chains x "
           f"calls) eager / CUDA-graph replay: band {rates['band'][0]:.0f} / {rates['band'][1]:.0f}, "
           f"dense {rates['dense'][0]:.0f} / {rates['dense'][1]:.0f}", flush=True)
+    return _grid_inputs(y, t, cov64, x_ref)
+
+
+def _grid_inputs(y, t, cov64, x_ref):
+    """[grid]'s inputs, made where the n=3169 covariances are: every rank's
+    blocks (host float64), raw states psi (C, dim) near the interpolated x
+    at the true theta and sigma, and the unsharded banded value-and-grad at
+    them: on the card in float32 (with its ms per call, replayed from a CUDA
+    graph) and float64 at each C of GRID_CHAINS, and chain 0 in float64 on
+    the CPU."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.target import (
+        MagiTarget,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.models import FN_SYSTEM
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GraphedValueAndGrad,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.grid import (
+        make_grid_sharded_data,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        SIGMA_TRUE, TEMPS, THETA_TRUE,
+    )
+
+    c, n = max(GRID_CHAINS), len(t)
+    sigma = np.full(2, SIGMA_TRUE)
+    x = x_ref[None] + 0.001 * np.random.default_rng(3).normal(size=(c, n, 2))
+    psi = np.concatenate([x.transpose(0, 2, 1).reshape(c, -1), np.tile(THETA_TRUE, (c, 1)),
+                          np.tile(np.log(sigma), (c, 1))], axis=1)
+    out = dict(psi=psi, sigma=sigma, ref={}, ms={},
+               data=make_grid_sharded_data(y, cov64, TEMPS, MESH_RANKS, dtype=torch.float32))
+    vg = lambda dtype, device: MagiTarget.build(  # noqa: E731
+        y, cov64, FN_SYSTEM, sigma, TEMPS, False, dtype=dtype, device=device,
+        band_impl="band").value_and_grad_fn()
+    for dtype in (torch.float32, torch.float64):
+        vg_card = vg(dtype, DEVICE)
+        for chains in GRID_CHAINS:
+            x = torch.as_tensor(psi[:chains], dtype=dtype, device=DEVICE)
+            out["ref"][chains, dtype] = tuple(a.double().cpu().numpy() for a in vg_card(x))
+            if dtype == torch.float32:
+                graphed = GraphedValueAndGrad(vg_card, x)
+                out["ms"][chains] = cuda_ms(lambda: graphed(x), 20)
+    out["ref64_cpu"] = tuple(a.numpy() for a in vg(torch.float64, "cpu")(torch.as_tensor(psi[:1])))
+    return out
 
 
 def _autograd_errors(cb, plain, c, m, b, n, dtype, rng):
@@ -385,10 +512,11 @@ def phase_kernel(cb):
              "pair_t": band_matvec_pair_t_torch}
     rng = np.random.default_rng(0)
     main, long = bt.SHAPES["main"], bt.SHAPES["long"]
-    # the default path's shapes: one chain (and five) at both grids; [pt]'s
-    # and [chees]'s
+    # the default path's shapes: one chain (and five) at both grids; [pt]'s,
+    # [chees]'s, a [mesh] rank's and [grid]'s blocks
     few = [(c, *shape[1:]) for shape in (main, long) for c in (1, 5)]
-    few += [bt.SHAPES["pt"], bt.SHAPES["chees"]]
+    few += [bt.SHAPES[k] for k in ("pt", "chees", "mesh", "grid_pair", "grid_single",
+                                   "grid_pair_c1", "grid_single_c1")]
     # n < 2b+1, b = 0, n not a multiple of a tile, b at the TPU kernel's
     # limit, b > 64 with n < 2b+1, and C not a multiple of the chain tile
     edges = [(3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129), (1, 2, 64, 200), (5, 2, 40, 50),
@@ -413,12 +541,16 @@ def phase_kernel(cb):
     for label in TIMED_SHAPES:
         shape = bt.SHAPES[label]
         for op, case in bt.op_cases(shape, torch.float32, rng).items():
+            if op not in OPS_AT.get(label, KERNELS.values()):
+                continue
             fns = {"kernel": case["wrapper"], "plain": case["plain"], "library": case["library"]}
-            times = bt.time_in_turns(fns, ["kernel", "plain", "library", "kernel"])
+            times = {tag: [] for tag in fns}
+            for tag in ("kernel", "plain", "library", "kernel"):  # in turns
+                times[tag].append(bt.graph_ms(fns[tag]))
             timing[(label, op)] = dict(
-                ms=float(np.mean([p[0] for p in times["kernel"]])),
-                plain_ms=times["plain"][0][0], library_ms=times["library"][0][0],
-                bound_ms=case["bound"][0], bound_by=case["bound"][1],
+                ms=float(np.mean(times["kernel"])), plain_ms=times["plain"][0],
+                library_ms=times["library"][0], bound_ms=case["bound"][0],
+                bound_by=case["bound"][1],
             )
     cells = "; ".join(
         f"{label} {op}: kernel {v['ms']:.5f} plain {v['plain_ms']:.5f} matmul "
@@ -427,7 +559,9 @@ def phase_kernel(cb):
     )
     print(f"[kernel] single, pair and pair_t against their plain versions, forward and backward, "
           f"at {2 + len(few) + len(edges)} shapes (C in 1, 5, 128 at both grids, [pt]'s "
-          f"{bt.SHAPES['pt']} and [chees]'s {bt.SHAPES['chees']}): worst rel float64 "
+          f"{bt.SHAPES['pt']}, [chees]'s {bt.SHAPES['chees']}, a [mesh] rank's "
+          f"{bt.SHAPES['mesh']}, [grid]'s blocks {bt.SHAPES['grid_pair']} and "
+          f"{bt.SHAPES['grid_single']} at C = 128 and 1): worst rel float64 "
           f"{worst[torch.float64]:.3e} (tol {TOL_F64}), float32 {worst[torch.float32]:.3e} (tol "
           f"{TOL_F32}); max abs err at the main shape float32 {main_err}; ms per launch (CUDA "
           f"graph of {bt.COUNT}, CUDA events) at (C, M, b, n) "
@@ -476,7 +610,7 @@ def phase_diag_gauss():
             vg, torch.as_tensor(q0, dtype=torch.float32, device="cuda"),
             torch.Generator(device="cuda").manual_seed(c), n_samples=GAUSS_NITER,
             n_adapts=GAUSS_NITER // 2, initial_step_size=0.01, target_accept=0.8,
-            mass_matrix="diag", chunk_size=GAUSS_NITER // 2,
+            mass_matrix="diag", chunk_size=GAUSS_NITER // 2, max_depth=GAUSS_MAX_DEPTH,
         )
         wall = time.perf_counter() - t0
         var_err = np.abs(samples.reshape(-1, GAUSS_DIM).astype(np.float64).var(0) / scales**2 - 1.0)
@@ -498,7 +632,8 @@ def phase_diag_gauss():
             f"{info['tree_depth'].mean():.2f}"
         )
     print(f"[diag-gauss] dim={GAUSS_DIM}, scales log-spaced over [0.01, 10], {GAUSS_NITER} "
-          f"iterations ({GAUSS_NITER // 2} warmup), float32: " + "; ".join(parts), flush=True)
+          f"iterations ({GAUSS_NITER // 2} warmup), tree depth <= {GAUSS_MAX_DEPTH}, float32: "
+          + "; ".join(parts), flush=True)
 
 
 def _start_psi_check(y, t, config):
@@ -630,19 +765,13 @@ def phase_slice(mt, cb, y, t):
         GRAPH_WARMUP_CALLS,
     )
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
-        SEED, SIGMA_TRUE, THETA_TRUE,
+        SIGMA_TRUE, THETA_TRUE,
     )
     from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
         ess,
     )
 
-    config = mt.MagiConfig(
-        niter_hmc=NITER_HMC, burnin_ratio=0.5, step_size_factor=0.06,
-        prior_temperature=(1.0, 1.0, 1.0), sampler="nuts", n_chains=N_CHAINS,
-        mass_matrix="dense-pooled", chain_init_jitter=0.05, x_whitened=True,
-        theta_constrained=True, target_accept_ratio=0.95, step_jitter=0.125,
-        seed=SEED, chunk_size=250, band_impl="band", device="cuda", verbose=True,
-    )
+    config = mt.MagiConfig(**slice_config(NITER_HMC), verbose=True)
     cb.reset_launches()
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
@@ -930,11 +1059,347 @@ def phase_resume(mt):
           + "; ".join(parts), flush=True)
 
 
+def _mesh_solve(rank, mesh, y, t):
+    """(a): solve_magi(mesh=...) on [slice]'s recipe at MESH_NITER; returns
+    this rank's readings and the (target, whitener) it sampled."""
+    import manifold_constrained_gaussian_process_inference_tpu_torch as mt
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference import solve
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        SIGMA_TRUE, THETA_TRUE,
+    )
+
+    real, kept = solve.make_centered_whitened_vg, []
+    solve.make_centered_whitened_vg = lambda *a: kept.append(a) or real(*a)
+    try:
+        cb.reset_launches()
+        t0 = time.perf_counter()
+        res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**slice_config(MESH_NITER)),
+                            mesh=mesh)
+        wall = time.perf_counter() - t0
+        launches = dict(cb.KERNEL_LAUNCHES)
+    finally:
+        solve.make_centered_whitened_vg = real
+    d = res.diagnostics
+    pt = d["phase_times_s"]
+    return kept[0], dict(
+        result=digest(res.theta, res.x_sampled, res.sigma, res.lp),
+        adapted=digest(d["step_size"], d["inv_mass"]), wall=wall, phase_times=pt,
+        finite=all(np.isfinite(getattr(res, name)).all()
+                   for name in ("theta", "x_sampled", "sigma", "lp")),
+        theta_rmse=rmse(res.theta.mean(0), THETA_TRUE), sigma_rmse=rmse(res.sigma.mean(0),
+                                                                        SIGMA_TRUE),
+        rhat=max_rhat(d["theta_per_chain"]), divergent=float(d["diverging"].mean()),
+        launches=launches, vg_evals=GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"],
+        leaves=d["lockstep_leaves"], transitions=d["transitions"],
+        chain_leaves=d["chain_leaves"] / (N_CHAINS // mesh.size),
+        leaf_ms=1e3 * (pt["warmup_s"] + pt["sampling_s"]) / d["lockstep_leaves"],
+        bandsize=d["bandsize"], dim=int(d["final_psi"].shape[-1]),
+    )
+
+
+def _float64_twin(target, whitener):
+    """(a)'s whitened value-and-grad in float64 on the card: its float32
+    data and whitener widened."""
+    import dataclasses
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
+        make_centered_whitened_vg,
+    )
+
+    wide = lambda f: f.double() if torch.is_tensor(f) and f.is_floating_point() else f  # noqa: E731
+    consts = target.theta_consts
+    target64 = dataclasses.replace(
+        target, data=type(target.data)(*map(wide, target.data)), sigma_init=wide(target.sigma_init),
+        theta_consts=None if consts is None else type(consts)(*map(wide, consts)))
+    return make_centered_whitened_vg(target64, type(whitener)(*map(wide, whitener)))
+
+
+def _mesh_dryrun(rank, mesh, vgs, dim, nccl_group):
+    """(b) and (c): the JAX dry run's protocol, sharded over the mesh, on
+    (a)'s whitened value-and-grad in float32 and in float64 (``vgs``); rank 0
+    runs each call unsharded too, and (b)'s float32 run_chains call on a
+    one-rank NCCL world. In float32 a batch's shape changes the rounding of
+    a chain's value-and-grad and of its batched dots (cuBLAS picks kernels
+    by shape), which a tree decision near its threshold can turn into
+    another trajectory; in float64 it cannot."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.chees import (
+        run_chees,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.tempering import (
+        make_replica_mesh, run_parallel_tempering,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import (
+        CHAIN_AXIS, Mesh, run_chains,
+    )
+
+    gen = lambda seed: torch.Generator(device=DEVICE).manual_seed(seed)  # noqa: E731
+    kw = dict(n_samples=3, n_adapts=1, initial_step_size=0.01, max_depth=4)
+    calls = {
+        "chains": lambda f, z, m: run_chains(f, z, gen(0), mass_matrix="dense-pooled", mesh=m,
+                                             **kw),
+        "pt": lambda f, z, m: run_parallel_tempering(
+            f, z[0], gen(2), n_temps=3, max_temp=4.0, n_replicas=mesh.size,
+            ladder_adapt=False, mass_matrix="dense-pooled", mesh=m, **kw),
+        "chees": lambda f, z, m: run_chees(f, z[:CHEES_CHAINS], gen(3), n_samples=3,
+                                           n_adapts=1, initial_step_size=0.01, mesh=m),
+    }
+    meshes = {"chains": mesh, "pt": make_replica_mesh(device=DEVICE), "chees": mesh}
+    out = {}
+    for dtype, vg in vgs.items():
+        zeros = torch.zeros((N_CHAINS, dim), dtype=dtype, device=DEVICE)
+        for name, call in calls.items():
+            sharded = call(vg, zeros, meshes[name])[0]
+            out[f"{name}_{dtype}_digest"] = digest(sharded)
+            if rank == 0:
+                plain = call(vg, zeros, None)[0]
+                out[f"{name}_{dtype}_delta"] = float(np.abs(sharded - plain).max())
+                if name == "chains" and dtype == torch.float32:
+                    solo = Mesh(CHAIN_AXIS, device=DEVICE, group=nccl_group)
+                    nccl = call(vg, zeros, solo)[0]
+                    out["nccl"] = (solo.backend, solo.size, bool(np.array_equal(nccl, plain)))
+            out.setdefault("shapes", {})[name] = sharded.shape
+    return out
+
+
+def _grid_rank(rank, grid_file):
+    """[grid] on one rank: the grid-sharded value-and-grad at each C of
+    GRID_CHAINS, eager and replayed from a CUDA graph, with its launches
+    and ms per call; then NUTS on one chain on it. ``grid_file``: the
+    blocks and states, saved by the parent (a file: pickling them into the
+    spawned processes took ~0.3 s per MB)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.models import FN_SYSTEM
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import (
+        make_grid_mesh, make_grid_value_and_grad, run_chains,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS, GraphedValueAndGrad,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.grid import (
+        GridBlocks, GridShardedData,
+    )
+
+    mesh = make_grid_mesh(device=DEVICE)
+    with np.load(grid_file) as f:
+        data = GridShardedData(
+            blocks=GridBlocks(*(f[name] for name in GridBlocks._fields)), nobs=f["nobs"],
+            beta=f["beta"], **{k: int(f[k]) for k in ("n", "nloc", "bandwidth", "n_dev")},
+            dtype=torch.float32)
+        psi64 = torch.as_tensor(f["psi"], dtype=torch.float64, device=DEVICE)
+        sigma = f["sigma"]
+    vg = make_grid_value_and_grad(data, FN_SYSTEM, sigma, False, mesh)
+    vg64 = make_grid_value_and_grad(data._replace(dtype=torch.float64), FN_SYSTEM, sigma, False,
+                                    mesh)
+    psi = psi64.float()
+    out = {}
+    for chains in GRID_CHAINS:
+        v64, g64 = (a.cpu().numpy() for a in vg64(psi64[:chains]))
+        out[chains, torch.float64] = dict(value=v64, grad=g64, digest=digest(v64, g64))
+        x = psi[:chains]
+        cb.reset_launches()
+        v, g = vg(x)
+        eager = dict(cb.KERNEL_LAUNCHES)
+        graphed = GraphedValueAndGrad(vg, x)
+        cb.reset_launches()
+        vr, gr = graphed(x)
+        replayed = dict(cb.KERNEL_LAUNCHES)
+        host = [a.double().cpu().numpy() for a in (v, g, vr, gr)]
+        out[chains] = dict(value=host[0], grad=host[1], digest=digest(*host),
+                           replay_equal=bool(np.array_equal(host[0], host[2])
+                                             and np.array_equal(host[1], host[3])),
+                           eager=eager, replayed=replayed, ms=wall_ms(lambda: graphed(x)))
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    samples, info = run_chains(vg, psi[:1], torch.Generator(device=DEVICE).manual_seed(11),
+                               mass_matrix="diag", **GRID_NUTS)
+    out["nuts"] = dict(digest=digest(samples), finite=bool(np.isfinite(samples).all()),
+                       launches=dict(cb.KERNEL_LAUNCHES), wall=time.perf_counter() - t0,
+                       vg_evals=GRAPH_WARMUP_CALLS + 1 + info["lockstep_leaves"],
+                       leaves=info["lockstep_leaves"], accept=float(info["accept_prob"].mean()))
+    out["blocks"] = (mesh.rank, data.nloc, tuple(vg.mphi.shape), tuple(vg.gkt.shape))
+    return out
+
+
+def _mesh_rank(rank, y, t, grid_file, t_spawn):
+    """One rank of [mesh] and [grid] (gloo, all ranks on the one card);
+    ``t_spawn``: the parent's clock at the spawn."""
+    import torch.distributed as dist
+
+    t_entry = time.time()
+    # every rank has started (imports, CUDA) before rank 0's host setup runs
+    torch.zeros(1, device=DEVICE)
+    dist.barrier()
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import (
+        make_chain_mesh,
+    )
+
+    if rank == 0:  # rank 0's host setup (NLML, Hessian) while the others wait
+        torch.set_num_threads(os.cpu_count() or 1)
+    mesh = make_chain_mesh(device=DEVICE)
+    t0 = time.perf_counter()
+    (target, whitener), solve_out = _mesh_solve(rank, mesh, y, t)
+    t1 = time.perf_counter()
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
+        make_centered_whitened_vg,
+    )
+
+    vgs = {torch.float32: make_centered_whitened_vg(target, whitener),
+           torch.float64: _float64_twin(target, whitener)}
+    # every rank makes the one-rank NCCL subgroup (only rank 0 is in it),
+    # after (a): NCCL's threads would share the host with rank 0's setup
+    nccl_group = dist.new_group([0], backend=MESH_SOLO_BACKEND)
+    dry = _mesh_dryrun(rank, mesh, vgs, solve_out["dim"], nccl_group)
+    t2 = time.perf_counter()
+    grid_out = _grid_rank(rank, grid_file)
+    return dict(solve=solve_out, dryrun=dry, grid=grid_out,
+                seconds=dict(start=t_entry - t_spawn, solve=t1 - t0, dryrun=t2 - t1,
+                             grid=time.perf_counter() - t2), t_end=time.time())
+
+
+def phase_mesh(y, t, grid):
+    """[mesh] and [grid]: MESH_RANKS ranks spawned over gloo on the one
+    card, the kernels built before the spawn. Each line prints before its
+    checks run."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.dryrun import (
+        run_ranks,
+    )
+
+    import tempfile
+
+    t0 = time.perf_counter()
+    data = grid["data"]
+    with tempfile.TemporaryDirectory() as tmp:
+        grid_file = os.path.join(tmp, "grid.npz")
+        np.savez(grid_file, **data.blocks._asdict(), nobs=data.nobs, beta=data.beta, n=data.n,
+                 nloc=data.nloc, bandwidth=data.bandwidth, n_dev=data.n_dev, psi=grid["psi"],
+                 sigma=grid["sigma"])
+        ranks = run_ranks(_mesh_rank, MESH_RANKS, args=(y, t, grid_file, time.time()),
+                          threads=max(1, (os.cpu_count() or MESH_RANKS) // MESH_RANKS))
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        r["seconds"]["stop"] = time.time() - r["t_end"]
+    return {"mesh": _report_mesh(ranks, wall), "grid": _report_grid(ranks, grid)}
+
+
+def _ratios(launches, vg_evals):
+    return {name: k / vg_evals for name, k in launches.items()}
+
+
+def _report_mesh(ranks, wall):
+    sol = [r["solve"] for r in ranks]
+    a, dry = sol[0], ranks[0]["dryrun"]
+    leaf_ms = [r["leaf_ms"] for r in sol]
+    tp = a["phase_times"]
+    print(f"[mesh] {MESH_RANKS} gloo ranks on one card, {N_CHAINS} chains "
+          f"({N_CHAINS // MESH_RANKS} per rank), [slice]'s recipe cut to niter_hmc={MESH_NITER}, dim={a['dim']}: wall "
+          f"{wall:.1f} s (rank 0: solve_magi {a['wall']:.1f} s, nlml {tp['nlml_s']:.2f}, gn_map "
+          f"{tp['gn_map_s']:.2f}, whitener {tp['whitener_s']:.2f}, warmup {tp['warmup_s']:.2f}, "
+          f"sampling {tp['sampling_s']:.2f} s); ms per batched leaf per rank "
+          f"{np.round(leaf_ms, 4).tolist()}; batched leaves per transition per rank "
+          f"{[round(r['leaves'] / r['transitions'], 1) for r in sol]} vs mean per chain "
+          f"{[round(r['chain_leaves'] / r['transitions'], 1) for r in sol]}; max R-hat "
+          f"{a['rhat']:.4f}; theta RMSE {a['theta_rmse']:.4f}, sigma RMSE {a['sigma_rmse']:.4f}, "
+          f"divergent {a['divergent']:.4f}; launches per value-and-grad per rank "
+          f"{[_ratios(r['launches'], r['vg_evals']) for r in sol]} "
+          f"({[r['vg_evals'] for r in sol]} value-and-grads); step sizes, metric and gathered "
+          f"result identical on every rank: {len({(r['result'], r['adapted']) for r in sol}) == 1}"
+          f"; dry-run protocol (3 iterations, 1 warmup, step 0.01, depth 4) sharded vs "
+          f"unsharded max |delta| in float64 (float32): "
+          + ", ".join(f"{name} {dry[f'{name}_{torch.float64}_delta']:.3e} "
+                      f"({dry[f'{name}_{torch.float32}_delta']:.3e})" for name in DRYRUN_CALLS)
+          + f" ({N_CHAINS} chains, {MESH_RANKS} replicas x 3 rungs, {CHEES_CHAINS} chains); "
+          f"one-rank world "
+          f"{dry['nccl'][:2]} run_chains bit-equal to unsharded: {dry['nccl'][2]}; rank 0 "
+          f"seconds {({k: round(v, 1) for k, v in ranks[0]['seconds'].items()})}", flush=True)
+    for name in ("result", "adapted"):
+        check(len({r[name] for r in sol}) == 1, f"mesh: the ranks' {name} differ")
+    check(a["finite"], "mesh: non-finite draws")
+    per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}") for i, r in enumerate(sol)]
+    check(a["theta_rmse"] <= THETA_RMSE_MAX, f"mesh: theta RMSE {a['theta_rmse']:.4f}")
+    check(a["sigma_rmse"] <= SIGMA_RMSE_MAX, f"mesh: sigma RMSE {a['sigma_rmse']:.4f}")
+    check(a["divergent"] <= MESH_MAX_DIVERGENT_SHARE, f"mesh: divergent {a['divergent']:.4f}")
+    check(a["bandsize"] == MAIN_BANDSIZE, f"mesh: bandsize {a['bandsize']}")
+    for name in DRYRUN_CALLS:
+        for dtype in (torch.float32, torch.float64):
+            check(len({r["dryrun"][f"{name}_{dtype}_digest"] for r in ranks}) == 1,
+                  f"mesh: the ranks' sharded {name} draws differ ({dtype})")
+        delta = dry[f"{name}_{torch.float64}_delta"]
+        check(delta < DRYRUN_TOL, f"mesh: sharded {name} vs unsharded in float64 {delta:.3e}")
+    check(dry["nccl"] == (MESH_SOLO_BACKEND, 1, True),
+          f"mesh: one-rank NCCL run_chains vs unsharded {dry['nccl']}")
+    launches = {name: sum(r["launches"][name] for r in sol) for name in KERNELS}
+    return launches, per_vg[0], float(np.mean(leaf_ms))
+
+
+def _report_grid(ranks, grid):
+    g0 = ranks[0]["grid"]
+    parts, errs = [], {}
+    for chains in GRID_CHAINS:
+        for dtype in (torch.float32, torch.float64):
+            cur = g0[chains] if dtype == torch.float32 else g0[chains, dtype]
+            v_ref, g_ref = grid["ref"][chains, dtype]
+            # the JAX dry run's measures: value relative, gradient relative
+            # elementwise over |g| + 1e-3; and the gradient's error of max |g|
+            errs[chains, dtype] = (
+                float(np.max(np.abs(cur["value"] - v_ref) / np.maximum(1.0, np.abs(v_ref)))),
+                float(np.max(np.abs(cur["grad"] - g_ref) / (1e-3 + np.abs(g_ref)))),
+                float(np.abs(cur["grad"] - g_ref).max() / np.abs(g_ref).max()),
+            )
+        cur, e32, e64 = g0[chains], errs[chains, torch.float32], errs[chains, torch.float64]
+        parts.append(f"C={chains}: vs unsharded, float64 value rel {e64[0]:.3e}, grad rel "
+                     f"elementwise {e64[1]:.3e}; float32 value rel {e32[0]:.3e}, grad of max |g| "
+                     f"{e32[2]:.3e} (elementwise {e32[1]:.3e}); float32 ms per value-and-grad "
+                     f"sharded (replay + psum, host clock) "
+                     f"{[round(r['grid'][chains]['ms'], 4) for r in ranks]} vs unsharded "
+                     f"(replay) {grid['ms'][chains]:.4f}; launches per value-and-grad eager "
+                     f"{cur['eager']}, replayed {cur['replayed']}")
+    v64, g64 = grid["ref64_cpu"]
+    e_val = float(abs(g0[1]["value"][0] - v64[0]) / abs(v64[0]))
+    e_grad = float(np.abs(g0[1]["grad"][0] - g64[0]).max() / np.abs(g64[0]).max())
+    nuts = [r["grid"]["nuts"] for r in ranks]
+    blocks = g0["blocks"]
+    print(f"[grid] n={grid['data'].n} band {grid['data'].bandwidth} over {MESH_RANKS} gloo ranks "
+          f"on one card (nloc {blocks[1]}, local mphi storage {blocks[2]}, GK^T {blocks[3]}), "
+          f"sigma sampled: " + "; ".join(parts) + f"; float32 chain 0 vs float64 CPU value rel "
+          f"{e_val:.3e}, grad {e_grad:.3e} of max |grad|; NUTS on one chain "
+          f"({GRID_NUTS['n_samples']} iterations, depth <= {GRID_NUTS['max_depth']}): "
+          f"{nuts[0]['leaves']} leaves in {nuts[0]['wall']:.2f} s, accept "
+          f"{nuts[0]['accept']:.3f}, launches per value-and-grad "
+          f"{_ratios(nuts[0]['launches'], nuts[0]['vg_evals'])}", flush=True)
+    for chains in GRID_CHAINS:
+        for key in (chains, (chains, torch.float64)):
+            check(len({r["grid"][key]["digest"] for r in ranks}) == 1,
+                  f"grid: the ranks' value-and-grad differ at {key}")
+        e32, e64 = errs[chains, torch.float32], errs[chains, torch.float64]
+        # float64 under the JAX dry run's bars; float32 value alike, and its
+        # gradient of max |g| (elementwise, float32 rounding of the largest
+        # terms swamps the smallest components)
+        check(max(e64[:2]) < GRID_TOL, f"grid C={chains} float64 vs unsharded {e64}")
+        check(e32[0] < GRID_TOL and e32[2] < GRID_TOL,
+              f"grid C={chains} float32 vs unsharded {e32}")
+        check(g0[chains]["replay_equal"], f"grid C={chains}: replayed differs from eager")
+        for r in ranks:
+            for how in ("eager", "replayed"):
+                _per_vg(r["grid"][chains][how], 1, f"grid C={chains} {how}")
+    check(e_val <= TOL_VALUE and e_grad <= TOL_GRAD,
+          f"grid vs float64 CPU: value rel {e_val:.3e}, grad {e_grad:.3e}")
+    check(all(n["finite"] for n in nuts), "grid NUTS: non-finite draws")
+    check(len({n["digest"] for n in nuts}) == 1, "grid NUTS: the ranks' draws differ")
+    nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS") for n in nuts]
+    launches = {name: sum(n["launches"][name] for n in nuts) for name in KERNELS}
+    return launches, nuts_per_vg[0], None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     import manifold_constrained_gaussian_process_inference_tpu_torch as mt
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf import band_timing as bt
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
         fn_bench_workload,
     )
@@ -955,6 +1420,7 @@ def main() -> int:
         "pt": lambda: paths.__setitem__("pt", phase_pt(mt, cb)),
         "chees": lambda: paths.__setitem__("chees", phase_chees(mt, cb, y, t)),
         "resume": lambda: phase_resume(mt),
+        "mesh": lambda: paths.update(phase_mesh(y, t, out["likelihood-3169"])),
     }
     out, phase_s = {}, {}
     for name, run in phases.items():
@@ -964,6 +1430,7 @@ def main() -> int:
     print(f"[time] phase wall seconds {phase_s}; total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     main_err, timing = out["kernel"]
+    grid_label = lambda op: "grid_single" if op == "single" else "grid_pair"  # noqa: E731
     print(json.dumps({"launches_per_vg": sum(paths["slice"][1].values()), "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": sum(p[0][name] for p in paths.values()),
@@ -972,9 +1439,11 @@ def main() -> int:
         "max_abs_err": main_err[name], **timing[("main", op)],
         "long": timing[("long", op)], "c1": timing[("main_c1", op)],
         "long_c1": timing[("long_c1", op)], "pt": timing[("pt", op)],
-        "chees": timing[("chees", op)],
+        "chees": timing[("chees", op)], "mesh": timing[("mesh", op)],
+        "grid": {"shape": bt.SHAPES[grid_label(op)], **timing[(grid_label(op), op)]},
+        "grid_c1": timing[(grid_label(op) + "_c1", op)],
     } for name, op in KERNELS.items()], "ms_per_leaf": {
-        path: paths[path][2] for path in ("default", "slice", "pt")},
+        path: paths[path][2] for path in ("default", "slice", "pt", "mesh")},
         "ms_per_chees_leapfrog_step": paths["chees"][2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-"""ChEES-HMC (port of the JAX package's inference/chees.py, without its
-chain mesh): jittered HMC whose trajectory length adapts by Adam ascent on
-the ChEES criterion (Hoffman, Radul & Sountsov 2021) or on SNAPER's
-principal-component projection (Sountsov & Hoffman 2021).
+"""ChEES-HMC (port of the JAX package's inference/chees.py): jittered HMC
+whose trajectory length adapts by Adam ascent on the ChEES criterion
+(Hoffman, Radul & Sountsov 2021) or on SNAPER's principal-component
+projection (Sountsov & Hoffman 2021).
 
 Every chain runs the same number of leapfrog steps in an iteration, so the
 C chains are one (C, dim) batch with no lockstep waste. The step count
@@ -16,6 +16,14 @@ component) stay on the device.
 The transition is split into a draw-free core (``chees_core``: the momenta
 and accept uniforms are inputs) and the draws (``chees_transition``), so a
 test can feed the core the JAX package's own draws.
+
+Under a chain mesh (``parallel/chains.make_chain_mesh``) each rank runs a
+block of the chains, and every cross-chain mean or sum becomes a
+``pmean``/``psum`` over the ranks (exact for equal blocks, which the
+divisibility check enforces), so every rank adapts the same step size,
+trajectory length, metric and principal component, and reads the same
+n_steps. Each rank draws the random numbers of all chains and keeps its
+block, as the NUTS transition does.
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ import numpy as np
 import torch
 
 from ..config import default_device, default_dtype
-from ..parallel.chains import GRAPH_WARMUP_CALLS, Counts, capture_graph
+from ..parallel.chains import GRAPH_WARMUP_CALLS, MESH_CHECKPOINT_REFUSAL, Counts, capture_graph
+from ..parallel.mesh import Mesh, local_draw
 from ..ops import cuda_band
 from . import checkpoint as ckpt_io
 from .adapt import DualAveragingState, build_window_schedule, da_init, da_update
@@ -37,6 +46,19 @@ logger = logging.getLogger(__name__)
 
 MAX_LEAPFROG = 1000
 MAX_DELTA_ENERGY = 1000.0
+
+
+def _gmean(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Mean over the (possibly sharded) chain axis: the block mean, then its
+    pmean over the ranks."""
+    m = torch.mean(x, dim=0)
+    return m if mesh is None else mesh.pmean(m)
+
+
+def _gsum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Sum over the (possibly sharded) chain axis."""
+    s = torch.sum(x, dim=0)
+    return s if mesh is None else mesh.psum(s)
 
 
 def halton(i: int, base: int = 2) -> float:
@@ -160,12 +182,13 @@ def n_leapfrog_steps(traj_length, eps, u: float, max_leapfrog: int = MAX_LEAPFRO
 
 
 def chees_core(vg_b, qs, logps, grads, z, accept_u, eps, inv_mass, n_steps: int, u, pc=None,
-               leapfrog=None):
+               leapfrog=None, mesh=None):
     """The draw-free ChEES transition: momenta p = z / sqrt(inv_mass) from
     standard normals ``z`` (C, dim), ``n_steps`` leapfrog steps, accept by
     ``accept_u`` (C,); the criterion gradient (ChEES, or SNAPER with a unit
-    vector ``pc``) from the proposals and cross-chain means, scaled by the
-    jitter ``u``. Returns (qs, logps, grads, info)."""
+    vector ``pc``) from the proposals and cross-chain means (over all the
+    mesh's chains), scaled by the jitter ``u``. Returns (qs, logps, grads,
+    info)."""
     c = qs.shape[0]
     ps = z / torch.sqrt(inv_mass)[None, :]
     h0 = -logps + 0.5 * torch.sum(ps * ps * inv_mass[None, :], dim=1)
@@ -180,8 +203,8 @@ def chees_core(vg_b, qs, logps, grads, z, accept_u, eps, inv_mass, n_steps: int,
     logps_out = torch.where(accept, logps_new, logps)
     grads_out = torch.where(accept[:, None], grads_new, grads)
 
-    qc = qs - qs.mean(dim=0)[None, :]
-    qnc = qs_new - qs_new.mean(dim=0)[None, :]
+    qc = qs - _gmean(qs, mesh)[None, :]
+    qnc = qs_new - _gmean(qs_new, mesh)[None, :]
     vs_new = ps_new * inv_mass[None, :]
     if pc is None:
         dsq = torch.sum(qnc * qnc, dim=1) - torch.sum(qc * qc, dim=1)
@@ -191,7 +214,7 @@ def chees_core(vg_b, qs, logps, grads, z, accept_u, eps, inv_mass, n_steps: int,
         dsq = a1 * a1 - a0 * a0
         proj = a1 * (vs_new @ pc)
     w = accept_prob * dsq * proj
-    chees_grad = torch.sum(w, dim=0) / (torch.sum(accept_prob, dim=0) + 1e-6) * u
+    chees_grad = _gsum(w, mesh) / (_gsum(accept_prob, mesh) + 1e-6) * u
     info = {
         "accept_prob": accept_prob,
         "accepted": accept,
@@ -206,28 +229,32 @@ def chees_core(vg_b, qs, logps, grads, z, accept_u, eps, inv_mass, n_steps: int,
 
 
 def chees_transition(vg_b, state: CheesState, eps, inv_mass, traj_length, generator,
-                     max_leapfrog: int = MAX_LEAPFROG, pc=None, leapfrog=None):
-    """One jittered-HMC iteration of all chains: draws the momenta and the
-    accept uniforms from ``generator``, reads n_steps once. Returns
-    (new_state, info)."""
+                     max_leapfrog: int = MAX_LEAPFROG, pc=None, leapfrog=None, mesh=None):
+    """One jittered-HMC iteration of all chains (of this rank's block under
+    a mesh): draws the momenta and the accept uniforms from ``generator``,
+    reads n_steps once. Returns (new_state, info)."""
     c, dim = state.qs.shape
+    dtype, device = state.qs.dtype, state.qs.device
     n_steps, u = n_leapfrog_steps(traj_length, eps, halton(state.iteration), max_leapfrog)
-    z = torch.randn((c, dim), generator=generator, dtype=state.qs.dtype, device=state.qs.device)
-    accept_u = torch.rand((c,), generator=generator, dtype=state.qs.dtype, device=state.qs.device)
+    z = local_draw(torch.randn, generator, (c, dim), 0, mesh, dtype, device)
+    accept_u = local_draw(torch.rand, generator, (c,), 0, mesh, dtype, device)
     qs, logps, grads, info = chees_core(vg_b, state.qs, state.logps, state.grads, z, accept_u,
-                                        eps, inv_mass, n_steps, u, pc=pc, leapfrog=leapfrog)
+                                        eps, inv_mass, n_steps, u, pc=pc, leapfrog=leapfrog,
+                                        mesh=mesh)
     return CheesState(qs=qs, logps=logps, grads=grads, iteration=state.iteration + 1), info
 
 
 def chees_adapt_update(adapt: CheesAdaptState, qs, info, target_accept: float, eps,
-                       adam_lr: float = 0.025, t_ema_rate: float = 0.01) -> CheesAdaptState:
+                       adam_lr: float = 0.025, t_ema_rate: float = 0.01,
+                       mesh: Mesh | None = None) -> CheesAdaptState:
     """Warmup update: dual averaging on the harmonic-mean acceptance, Adam
     on log T along the criterion gradient (step clipped to +-0.1, T kept in
     [4 eps, MAX_LEAPFROG eps]), its iterate average, Welford over all
-    chains' draws and one Oja step of the principal component."""
-    c = qs.shape[0]
+    chains' draws and one Oja step of the principal component. Under a
+    mesh every cross-chain reduction is a psum/pmean over the ranks."""
+    c = qs.shape[0] * (1 if mesh is None else mesh.size)
     c_glob = torch.tensor(float(c), dtype=qs.dtype, device=qs.device)
-    hmean = 1.0 / torch.mean(1.0 / torch.clamp(info["accept_prob"], min=1e-10), dim=0)
+    hmean = 1.0 / _gmean(1.0 / torch.clamp(info["accept_prob"], min=1e-10), mesh)
     da = da_update(adapt.da, hmean, target_accept)
 
     g = info["chees_grad"] * adapt.traj_length
@@ -245,11 +272,12 @@ def chees_adapt_update(adapt: CheesAdaptState, qs, info, target_accept: float, e
 
     count = adapt.welford_count + c_glob
     delta = qs - adapt.welford_mean[None, :]
-    mean = adapt.welford_mean + torch.sum(delta, dim=0) / count
-    m2 = adapt.welford_m2 + torch.sum(delta * (qs - mean[None, :]), dim=0)
+    mean = adapt.welford_mean + _gsum(delta, mesh) / count
+    m2 = adapt.welford_m2 + _gsum(delta * (qs - mean[None, :]), mesh)
 
     qc = qs - mean[None, :]
-    sigma_u = qc.T @ (qc @ adapt.pc) / c_glob
+    su = qc.T @ (qc @ adapt.pc)
+    sigma_u = (su if mesh is None else mesh.psum(su)) / c_glob
     eta = 1.0 / torch.sqrt(t + 10.0)
     pc_new = adapt.pc + eta * sigma_u
     norm = torch.sqrt(torch.sum(pc_new * pc_new))
@@ -308,7 +336,7 @@ def chees_checkpoint(state: CheesState, adapt: CheesAdaptState, eps, inv_mass, t
 
 
 def _sample(vg_b, leapfrog, state, adapt, eps, inv_mass, traj, generator, n_keep, chunk_size,
-            counts, progress, t0, checkpoint_path, drawn0=0):
+            counts, progress, t0, checkpoint_path, drawn0=0, mesh=None):
     """The sampling phase at frozen eps, metric and T. Returns (state,
     per-chunk host arrays (C, L, ...), last checkpoint or None)."""
     names = ("samples", "lp", "accept_prob", "num_leapfrog", "diverging")
@@ -320,7 +348,7 @@ def _sample(vg_b, leapfrog, state, adapt, eps, inv_mass, traj, generator, n_keep
         cols = {name: [] for name in names}
         for _ in range(length):
             state, info = chees_transition(vg_b, state, eps, inv_mass, traj, generator,
-                                           leapfrog=leapfrog)
+                                           leapfrog=leapfrog, mesh=mesh)
             counts.add(_step_stats(info))
             for name, value in zip(names, (state.qs, state.logps, info["accept_prob"],
                                            info["num_leapfrog"], info["diverging"])):
@@ -345,7 +373,10 @@ def _step_stats(info) -> NutsStats:
                      step_size=None, host_syncs=1, lockstep_leaves=info["n_steps"])
 
 
-def _info(state, parts, eps, inv_mass, traj, generator, counts, vg_evals, **extra):
+def _info(state, parts, eps, inv_mass, traj, generator, counts, vg_evals, mesh=None, **extra):
+    if mesh is not None:  # every chain's draws and state, on every rank
+        parts = {name: [mesh.gather_np(p) for p in chunks] for name, chunks in parts.items()}
+        state = state._replace(qs=mesh.all_gather(state.qs))
     c, dim = state.qs.shape
     cat = lambda name, empty: (np.concatenate(parts[name], axis=1) if parts[name] else empty)
     lp = cat("lp", np.zeros((c, 0)))
@@ -384,7 +415,7 @@ def run_chees(
     adapt_trajectory: bool = True,
     criterion: str = "snaper",
     checkpoint_path: str | None = None,
-    mesh=None,
+    mesh: Mesh | None = None,
 ):
     """Run C ChEES-HMC chains from psi0 (C, dim); ``vg`` maps (C, dim) ->
     ((C,), (C, dim)); random numbers come from ``generator``. Returns
@@ -395,17 +426,26 @@ def run_chees(
     ``adapt_trajectory=False`` pins T at its start value. The metric
     refreshes at the Stan window ends. ``checkpoint_path``: a
     SamplerCheckpoint after every sampling chunk (``run_chees_resumed``).
-    ``mesh`` is not ported (ROADMAP M17)."""
-    if mesh is not None:
-        raise NotImplementedError("the chain mesh is not ported to PyTorch yet (ROADMAP M17).")
+
+    ``mesh`` (``parallel/chains.make_chain_mesh``): every rank calls with
+    the same arguments (psi0 of all C chains, a generator seeded alike) and
+    runs C/size chains (C must be a multiple of the mesh size); each returns
+    the draws of all C chains, with the rank's own counts.
+    ``checkpoint_path`` is not ported under a mesh (ROADMAP M17)."""
     if criterion not in ("chees", "snaper"):
         raise ValueError(f"unknown trajectory criterion '{criterion}'")
     c, dim = psi0.shape
     n_keep = n_samples - n_adapts
+    if mesh is not None:
+        if checkpoint_path:
+            raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
+        mesh.check_divides(c, "n_chains")
     if init_jitter > 0 and c > 1:
         noise = init_jitter * torch.randn(psi0.shape, generator=generator, dtype=psi0.dtype,
                                           device=psi0.device)
         psi0 = torch.cat([psi0[:1], psi0[1:] + noise[1:]])
+    if mesh is not None:
+        psi0 = psi0[mesh.block(c)]
     t0 = time.perf_counter()
     state, adapt = chees_init(vg, psi0, initial_step_size, initial_traj_length)
     leapfrog = Leapfrog(vg, psi0)
@@ -420,10 +460,10 @@ def run_chees(
         eps = torch.exp(adapt.da.log_eps)
         state, info = chees_transition(vg, state, eps, adapt.inv_mass, adapt.traj_length,
                                        generator, pc=adapt.pc if use_pc else None,
-                                       leapfrog=leapfrog)
+                                       leapfrog=leapfrog, mesh=mesh)
         counts.add(_step_stats(info))
         adapt = chees_adapt_update(adapt, state.qs, info, target_accept, eps,
-                                   t_ema_rate=t_ema_rate)
+                                   t_ema_rate=t_ema_rate, mesh=mesh)
         if not adapt_trajectory:
             adapt = adapt._replace(traj_length=t_pinned, log_t_ema=torch.log(t_pinned))
         if window_end[pos]:
@@ -439,10 +479,10 @@ def run_chees(
     t1 = time.perf_counter()
     state, parts, _ = _sample(vg, leapfrog, state, adapt, eps_final, inv_mass_final, traj_final,
                               generator, n_keep, chunk_size, counts, progress, t0,
-                              checkpoint_path)
+                              checkpoint_path, mesh=mesh)
     vg_evals = 1 + leapfrog.eager_calls + counts.lockstep_leaves
     return _info(
-        state, parts, eps_final, inv_mass_final, traj_final, generator, counts, vg_evals,
+        state, parts, eps_final, inv_mass_final, traj_final, generator, counts, vg_evals, mesh,
         trajectory_warmup_trace=(torch.stack(ttrace).cpu().numpy() if ttrace else np.zeros(0)),
         warmup_time_s=warmup_time, sampling_time_s=time.perf_counter() - t1,
     )

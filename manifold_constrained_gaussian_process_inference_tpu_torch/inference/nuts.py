@@ -166,20 +166,22 @@ def init_warmup_carry(vg_b, q0s: torch.Tensor, initial_step_size) -> WarmupCarry
     )
 
 
-def make_warmup_step(vg_b, target_accept: float, max_depth: int, generator: torch.Generator):
+def make_warmup_step(vg_b, target_accept: float, max_depth: int, generator: torch.Generator,
+                     mesh=None):
     """One warmup transition per chain under its own diagonal metric, with
     Stan's adaptation: dual averaging every step; the draw joins the
     window's Welford moments when ``in_win``, and at ``win_end`` the inverse
     mass becomes the regularized window variance, the moments restart and
     dual averaging restarts. The window flags are host booleans shared by
-    all chains (``adapt.build_window_schedule``)."""
+    all chains (``adapt.build_window_schedule``). Under a chain ``mesh``
+    the carry holds this rank's block of chains."""
     from .nuts_batched import nuts_transition_batched
 
     def warmup_step(carry: WarmupCarry, in_win: bool, win_end: bool):
         chain = carry.chain
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
-            DiagMetric(carry.inv_mass), generator, max_depth=max_depth,
+            DiagMetric(carry.inv_mass), generator, max_depth=max_depth, mesh=mesh,
         )
         da = da_update(carry.da, stats.accept_prob, target_accept)
         welford, inv_mass = carry.welford, carry.inv_mass
@@ -219,12 +221,17 @@ def _metric(inv_mass):
 
 
 def _one_chain(vg):
-    """(dim,) -> ((), (dim,)) as (1, dim) -> ((1,), (1, dim))."""
+    """(dim,) -> ((), (dim,)) as (1, dim) -> ((1,), (1, dim)). A
+    value-and-grad that ends in a collective (``parallel/grid.py``) keeps its
+    ``local`` part and ``reduce`` apart, so that the chain driver's CUDA
+    graph captures the local part only."""
 
     def vg_b(q):
         logp, grad = vg(q[0])
         return logp[None], grad[None]
 
+    if hasattr(vg, "reduce"):
+        vg_b.local, vg_b.reduce = _one_chain(vg.local), vg.reduce
     return vg_b
 
 

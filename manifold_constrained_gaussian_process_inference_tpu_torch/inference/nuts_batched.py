@@ -33,6 +33,14 @@ loops are arranged around that cost:
 Leaf state is packed as one (C, 5, dim) tensor [q, p, v, grad, M^-1 grad]
 so that each masked commit is one ``torch.where``. Random numbers come from
 one ``torch.Generator`` on the chains' device.
+
+Under a chain mesh (``parallel/mesh.py``) each rank runs the transition of
+its block of chains in its own lockstep. Every rank draws each random
+tensor for all chains and keeps its block (``mesh.local_draw``), and at the
+end of a transition a rank that stopped doubling before the deepest rank
+makes the draws of the doublings it skipped (one ``max`` over the ranks per
+transition), so the generators stay in step and chain c draws what it
+would draw unsharded.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel.mesh import local_draw
 from .adapt import da_init, da_restart, da_update
 from .nuts import (
     MAX_DELTA_ENERGY,
@@ -94,7 +103,7 @@ class SubTree(NamedTuple):
 
 def _build_subtree_b(
     vg_b, edge, num_leaves: int, eps_signed, metric, h0, alive0,
-    generator, max_delta_energy,
+    generator, max_delta_energy, mesh=None,
 ) -> SubTree:
     """``num_leaves`` leapfrog steps outward from ``edge`` for every chain
     alive in ``alive0``. A chain commits each leaf while alive and freezes
@@ -103,7 +112,7 @@ def _build_subtree_b(
     dtype, device = edge.dtype, edge.device
     n_rows = max(num_leaves.bit_length() - 1, 1)
     ckpts = torch.zeros((C, n_rows, 3, dim), dtype=dtype, device=device)
-    u_leaf = torch.rand((num_leaves, C), generator=generator, dtype=dtype, device=device)
+    u_leaf = local_draw(torch.rand, generator, (num_leaves, C), 1, mesh, dtype, device)
     half = (0.5 * eps_signed)[:, None]
     step = eps_signed[:, None]
 
@@ -184,15 +193,17 @@ def nuts_transition_batched(
     generator: torch.Generator,
     max_depth: int = 10,
     max_delta_energy: float = MAX_DELTA_ENERGY,
+    mesh=None,
 ):
     """One NUTS transition for all C chains under ``metric``.
-    ``vg_b`` maps (C, dim) -> ((C,), (C, dim)). Returns
+    ``vg_b`` maps (C, dim) -> ((C,), (C, dim)). Under a chain ``mesh`` the
+    C chains are this rank's block (see the module docstring). Returns
     (q', logp', grad', NutsStats)."""
     C, dim = q.shape
     dtype, device = q.dtype, q.device
     eps = torch.as_tensor(step_size, dtype=dtype, device=device).expand(C)
 
-    z = torch.randn((C, dim), generator=generator, dtype=dtype, device=device)
+    z = local_draw(torch.randn, generator, (C, dim), 0, mesh, dtype, device)
     p0 = metric.momentum(z)
     v0 = metric.velocity(p0)
     h0 = -logp + 0.5 * _rowdot(p0, v0)
@@ -206,21 +217,22 @@ def nuts_transition_batched(
     diverging = torch.zeros(C, dtype=torch.bool, device=device)
     depth = torch.zeros(C, dtype=torch.int32, device=device)
     done = torch.zeros(C, dtype=torch.bool, device=device)
-    host_syncs = lockstep_leaves = 0
+    host_syncs = lockstep_leaves = doublings = 0
 
     for i in range(max_depth):
         if i > 0:
             host_syncs += 1
             if bool(done.all()):
                 break
+        doublings += 1
         upd = ~done
-        u = torch.rand((2, C), generator=generator, dtype=dtype, device=device)
+        u = local_draw(torch.rand, generator, (2, C), 1, mesh, dtype, device)
         go_right = u[0] < 0.5
         gr3 = go_right[:, None, None]
         direction = torch.where(go_right, 1.0, -1.0).to(dtype)
         sub = _build_subtree_b(
             vg_b, torch.where(gr3, right, left), 1 << i, direction * eps,
-            metric, h0, upd, generator, max_delta_energy,
+            metric, h0, upd, generator, max_delta_energy, mesh,
         )
         lockstep_leaves += sub.leaves_run
         host_syncs += sub.host_syncs
@@ -251,6 +263,14 @@ def nuts_transition_batched(
         done = done | (upd & (sub.diverging | sub.turning | turning_combined))
         depth = torch.where(upd, i + 1, depth)
 
+    if mesh is not None:
+        # the draws of the doublings the deepest rank ran and this one did not
+        host_syncs += 1
+        full = C * mesh.size
+        for i in range(doublings, mesh.max_int(doublings)):
+            torch.rand((2, full), generator=generator, dtype=dtype, device=device)
+            torch.rand((1 << i, full), generator=generator, dtype=dtype, device=device)
+
     stats = NutsStats(
         accept_prob=sum_accept / torch.clamp(num_leaves, min=1.0),
         num_leapfrog=num_leaves,
@@ -278,7 +298,7 @@ def init_warmup_carry_batched(vg_b, q0s: torch.Tensor, initial_step_size) -> War
 
 
 def make_warmup_step_pooled_batched(
-    vg_b, target_accept: float, max_depth: int, generator: torch.Generator
+    vg_b, target_accept: float, max_depth: int, generator: torch.Generator, mesh=None
 ):
     """Warmup transition with per-chain dual averaging of the step size
     (restarted at adaptation-window ends) under the shared metric, which
@@ -288,7 +308,7 @@ def make_warmup_step_pooled_batched(
         chain = carry.chain
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
-            metric, generator, max_depth=max_depth,
+            metric, generator, max_depth=max_depth, mesh=mesh,
         )
         da = da_update(carry.da, stats.accept_prob, target_accept)
         if win_end:
@@ -298,7 +318,7 @@ def make_warmup_step_pooled_batched(
     return warmup_step
 
 
-def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator):
+def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator, mesh=None):
     """Post-warmup transition at the frozen per-chain step sizes, scaled by
     an optional step-size multiplier shared by all chains (``step_jitter``
     in parallel/chains.py), under ``metric``."""
@@ -308,7 +328,7 @@ def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator):
         eps = carry.eps if eps_mult is None else carry.eps * eps_mult
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, eps, metric, generator,
-            max_depth=max_depth,
+            max_depth=max_depth, mesh=mesh,
         )
         return carry._replace(chain=ChainState(q=q, logp=logp, grad=grad)), (q, logp, stats)
 

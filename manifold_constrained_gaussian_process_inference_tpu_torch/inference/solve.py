@@ -12,8 +12,12 @@ inference/solve.py):
 
 The defaults (one chain, diag, raw Psi) are the JAX package's. Every
 sampler writes checkpoints (``checkpoint_path``) and resumes from them
-(``resume``). mesh, the divergence envelope and profile_dir raise
-NotImplementedError naming their ROADMAP item.
+(``resume``). Under a ``mesh`` (``parallel/mesh.py``) every rank calls
+solve_magi with the same data and config: rank 0 runs the setup (NLML, MAP
+warm start, Gauss-Newton MAP, whitener) and broadcasts what feeds the
+sampler, the sampler is sharded over the ranks, and every rank returns the
+same gathered result. Checkpoints under a mesh, the divergence envelope and
+profile_dir raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,11 +33,13 @@ from ..config import MagiConfig, MagiError
 from ..models.base import OdeSystem
 from ..ops.gp_cov import build_gp_cov
 from ..ops.kernels import parse_kernel_type
-from ..parallel.chains import run_chains
+from ..parallel.chains import MESH_CHECKPOINT_REFUSAL, run_chains
+from ..parallel.mesh import broadcast_tensors
 from .nlml import default_initial_guesses, optimize_gp_hyperparameters
 from .target import MagiTarget, check_band_impl
 from .transforms import constrain_np, make_theta_transform, unconstrain
 from .whiten import (
+    PsiWhitener,
     build_psi_whitener,
     build_psi_whitener_exact,
     gauss_newton_map,
@@ -166,10 +172,11 @@ def map_warm_start(
     return out.to("cpu", torch.float64).numpy()
 
 
-def _check_supported(config: MagiConfig, mesh) -> None:
+def _check_supported(config: MagiConfig, mesh, resume) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
+    if mesh is not None and (config.checkpoint_path or resume is not None):
+        raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
     unported = [
-        (mesh is not None, "mesh", "M17"),
         (config.divergence_envelope, "divergence_envelope", "M18"),
         (config.profile_dir is not None, "profile_dir", "M10"),
     ]
@@ -178,6 +185,16 @@ def _check_supported(config: MagiConfig, mesh) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (ROADMAP {item})."
             )
+
+
+def _from_root(mesh, compute, *like):
+    """``compute()`` (a tuple of float64 host arrays) on rank 0, broadcast
+    to every rank of the mesh (the others pass arrays ``like`` it); just
+    ``compute()`` without a mesh."""
+    if mesh is None:
+        return compute()
+    out = compute() if mesh.rank == 0 else like
+    return tuple(mesh.broadcast_np(np.asarray(a, dtype=np.float64)) for a in out)
 
 
 def _normalize_pt(s_pt: np.ndarray, info: dict):
@@ -326,9 +343,18 @@ def solve_magi(
     call with the same data and config; a sampling-phase checkpoint
     continues sampling for ``niter_hmc`` more draws per chain, a
     warmup-phase one (NUTS under the pooled dense metric) continues that
-    run's warmup. ``mesh`` is not ported yet (ROADMAP M17)."""
+    run's warmup.
+
+    ``mesh`` (``parallel.make_chain_mesh`` or ``inference.tempering.
+    make_replica_mesh``) shards the sampler's axis over the ranks: NUTS
+    chains (``n_chains`` a multiple of the mesh size), PT replica ladders
+    (``pt_replicas``) or ChEES chains. Every rank calls with the same data
+    and config and gets the same result; its diagnostics' counts
+    (transitions, host_syncs, lockstep_leaves, chain_leaves) are the rank's
+    own. ``checkpoint_path`` and ``resume`` are not ported under a mesh
+    (ROADMAP M17)."""
     config = config or MagiConfig()
-    _check_supported(config, mesh)
+    _check_supported(config, mesh, resume)
     if config.sampler not in ("nuts", "pt-nuts", "chees"):
         raise MagiError(f"unknown sampler '{config.sampler}'")
     _check_precision()
@@ -346,6 +372,8 @@ def solve_magi(
     device = config.resolved_device()
     _check_device(device)
     dtype = config.resolved_dtype()
+    if mesh is not None and mesh.device.type != device.type:
+        raise MagiError(f"the mesh's device {mesh.device} is not the config's device {device}")
 
     try:
         parse_kernel_type(config.kernel)
@@ -372,18 +400,21 @@ def solve_magi(
     if phi_exo.size and sigma_is_fixed:
         phi_all, sigma_init = phi_exo, sigma_exo
     else:
-        guesses = default_initial_guesses(y_obs, t_obs)
-        if phi_exo.size:
-            guesses[:, 0] = np.log(np.maximum(phi_exo[0], 1e-10))
-            guesses[:, 1] = np.log(np.maximum(phi_exo[1], 1e-10))
-        optimized = optimize_gp_hyperparameters(
-            y_obs, t_obs, config.kernel, initial_log_params=guesses,
-            jitter=config.jitter, max_iters=config.gp_optim_iterations,
-            ftol=config.gp_optim_ftol, gtol=config.gp_optim_gtol,
-            show_trace=config.gp_optim_show_trace,
-        )
-        phi_all = phi_exo if phi_exo.size else optimized[:, :2].T
-        sigma_init = np.maximum(optimized[:, 2], 1e-8)
+        def nlml():
+            guesses = default_initial_guesses(y_obs, t_obs)
+            if phi_exo.size:
+                guesses[:, 0] = np.log(np.maximum(phi_exo[0], 1e-10))
+                guesses[:, 1] = np.log(np.maximum(phi_exo[1], 1e-10))
+            optimized = optimize_gp_hyperparameters(
+                y_obs, t_obs, config.kernel, initial_log_params=guesses,
+                jitter=config.jitter, max_iters=config.gp_optim_iterations,
+                ftol=config.gp_optim_ftol, gtol=config.gp_optim_gtol,
+                show_trace=config.gp_optim_show_trace,
+            )
+            return (phi_exo if phi_exo.size else optimized[:, :2].T,
+                    np.maximum(optimized[:, 2], 1e-8))
+
+        phi_all, sigma_init = _from_root(mesh, nlml, np.zeros((2, n_dims)), np.zeros(n_dims))
     phase_times["nlml_s"] = time.perf_counter() - t_phase
     logger.info("phi:\n%s\ninitial sigma: %s%s", np.round(phi_all, 4),
                 np.round(sigma_init, 4), " (fixed)" if sigma_is_fixed else "")
@@ -472,10 +503,10 @@ def solve_magi(
             map_lb, map_ub = lo, hi
         else:  # the theta slot holds unconstrained values
             map_lb, map_ub = np.full(k, -np.inf), np.full(k, np.inf)
-        psi0 = map_warm_start(
+        (psi0,) = _from_root(mesh, lambda: (map_warm_start(
             target.value_and_grad_fn(), psi0, config.map_init_iterations, config.map_init_lr,
             slice(nd, nd + k), map_lb, map_ub, dtype, device,
-        )
+        ),), psi0)
         phase_times["map_s"] = time.perf_counter() - t_phase
 
     whitener = None
@@ -490,20 +521,26 @@ def solve_magi(
             t_s = build_target(gp_cov64, stage_temps, "dense")
             return t_s.value_and_grad_fn(), t_s
 
-        psi0 = _gn_stages(make_target_vg, gp_cov64, y_obs, psi0, prior_temps,
-                          theta_freeze, freeze, nd)
+        (psi0,) = _from_root(mesh, lambda: (_gn_stages(
+            make_target_vg, gp_cov64, y_obs, psi0, prior_temps, theta_freeze, freeze, nd),), psi0)
         phase_times["gn_map_s"] = time.perf_counter() - t_phase
 
         # --- exact-Hessian whitener at the mode (GN precision as fallback) ---
         t_phase = time.perf_counter()
-        target_h = build_target(gp_cov64, prior_temps, "dense")
-        try:
-            whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
-        except (np.linalg.LinAlgError, RuntimeError):
-            logger.warning("exact-Hessian whitener failed; using the GN precision.")
-            whitener = build_psi_whitener(
-                gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
-            )
+        if mesh is None or mesh.rank == 0:
+            target_h = build_target(gp_cov64, prior_temps, "dense")
+            try:
+                whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
+            except (np.linalg.LinAlgError, RuntimeError):
+                logger.warning("exact-Hessian whitener failed; using the GN precision.")
+                whitener = build_psi_whitener(
+                    gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
+                )
+        else:
+            dim = target.dimension
+            empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)  # noqa: E731
+            whitener = PsiWhitener(W=empty(dim, dim), L_T=empty(dim, dim), center=empty(dim))
+        whitener = broadcast_tensors(mesh, whitener)
         vg = make_centered_whitened_vg(target, whitener)
         start = np.zeros(target.dimension)  # zeta = 0 is the mode
         phase_times["whitener_s"] = time.perf_counter() - t_phase
@@ -541,6 +578,7 @@ def solve_magi(
             initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
             chunk_size=config.chunk_size, progress=config.verbose,
             criterion=config.chees_criterion, checkpoint_path=config.checkpoint_path,
+            mesh=mesh,
         )
     elif config.sampler == "pt-nuts":
         from .tempering import run_parallel_tempering
@@ -555,7 +593,7 @@ def solve_magi(
             max_depth=config.max_tree_depth, chunk_size=config.chunk_size,
             progress=config.verbose, ladder_adapt=config.pt_ladder_adapt,
             checkpoint_path=config.checkpoint_path, n_replicas=int(config.pt_replicas),
-            mass_matrix=config.mass_matrix,
+            mass_matrix=config.mass_matrix, mesh=mesh,
         )
         samples, info, n_chains = _normalize_pt(s_pt, info)
     else:
@@ -576,6 +614,7 @@ def solve_magi(
             jitter_rng=np.random.default_rng(config.seed + STEP_JITTER_SEED_OFFSET),
             checkpoint_path=config.checkpoint_path,
             resume_ckpt=warmup_resume,
+            mesh=mesh,
         )
     phase_times["warmup_s"] = info["warmup_time_s"]
     phase_times["sampling_s"] = info["sampling_time_s"]

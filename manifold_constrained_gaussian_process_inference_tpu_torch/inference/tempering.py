@@ -1,5 +1,5 @@
 """Parallel tempering over a temperature ladder of NUTS chains (port of the
-JAX package's inference/tempering.py, without its replica mesh).
+JAX package's inference/tempering.py).
 
 The MAGI posterior can be multimodal, and single-temperature chains do not
 cross between basins. Here the chain axis becomes a ladder: rung k samples
@@ -22,6 +22,13 @@ in a device buffer that the tempered value-and-grad reads; on the card that
 function is replayed from a CUDA graph, so a ladder update writes the
 buffer in place and the graph sees it. Log-densities and gradients are
 un-tempered after the transition, as in the JAX package.
+
+Under a replica mesh (``make_replica_mesh``) each rank runs R/size whole
+ladders, so swaps stay on the rank. Between sub-chunks the swap counters
+are summed over the ranks and the pooled metric's window draws gathered,
+so every rank adapts the same ladder and the same per-rung metric (rank
+0's metric is broadcast); the ladder buffer that each rank's graph reads
+is the rank's own, updated in place.
 """
 from __future__ import annotations
 
@@ -35,11 +42,13 @@ import torch
 from ..config import MagiError, default_device, default_dtype
 from ..parallel.chains import (
     GRAPH_WARMUP_CALLS,
+    MESH_CHECKPOINT_REFUSAL,
     Counts,
     GraphedValueAndGrad,
     dense_metric_from_minv,
     pooled_dense_metric_from_samples,
 )
+from ..parallel.mesh import REPLICA_AXIS, Mesh, broadcast_tensors, gather_rows, local_draw
 from . import checkpoint as ckpt_io
 from .adapt import (
     DualAveragingState,
@@ -56,6 +65,16 @@ from .nuts import DenseMetric, DiagMetric, RungDenseMetric
 from .nuts_batched import nuts_transition_batched
 
 logger = logging.getLogger(__name__)
+
+
+def make_replica_mesh(n_devices=None, device=None) -> Mesh:
+    """1-D mesh over the PT replica axis: every rank of the initialized
+    default process group (``n_devices``, when given, must be their number)
+    runs pt_replicas/size whole ladders."""
+    mesh = Mesh(REPLICA_AXIS, device=device)
+    if n_devices is not None and n_devices != mesh.size:
+        raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size} ranks")
+    return mesh
 
 
 def geometric_ladder(n_temps: int, t_max: float = 32.0) -> np.ndarray:
@@ -155,17 +174,18 @@ def swap_sweep(qs, lp, grads, diverging, inv_temps, u, iteration: int):
     )
 
 
-def _pt_step(vg_t, beta, carry: PTCarry, eps, metric, generator, max_depth: int):
-    """K tempered NUTS transitions of every replica as one batched call,
-    then one swap sweep. Returns (carry, stats of the rung-ordered
-    transitions, swap-permuted divergence flags (R, K))."""
+def _pt_step(vg_t, beta, carry: PTCarry, eps, metric, generator, max_depth: int, mesh=None):
+    """K tempered NUTS transitions of every replica (of this rank's block
+    under a mesh) as one batched call, then one swap sweep. Returns (carry,
+    stats of the rung-ordered transitions, swap-permuted divergence flags
+    (R, K))."""
     c, dim = carry.qs.shape
     k = carry.inv_temps.shape[0]
     q, lp_t, g_t, stats = nuts_transition_batched(
         vg_t, carry.qs, carry.lp * beta, carry.grads * beta[:, None], eps, metric, generator,
-        max_depth=max_depth,
+        max_depth=max_depth, mesh=mesh,
     )
-    u = torch.rand((c // k, k), generator=generator, dtype=q.dtype, device=q.device)
+    u = local_draw(torch.rand, generator, (c // k, k), 0, mesh, q.dtype, q.device)
     qs, lp, grads, div, tried, accepted = swap_sweep(
         q.view(-1, k, dim), (lp_t / beta).view(-1, k), (g_t / beta[:, None]).view(-1, k, dim),
         stats.diverging.view(-1, k), carry.inv_temps, u, carry.iteration,
@@ -213,7 +233,7 @@ def _tempered_vg(vg, beta, example):
 
 
 def _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth, chunk_size,
-               counts, progress, t0, checkpoint_path, drawn0=0):
+               counts, progress, t0, checkpoint_path, drawn0=0, mesh=None):
     """The sampling phase at frozen step sizes, metrics and ladder; a PT
     checkpoint after every chunk when ``checkpoint_path`` is set. Returns
     (carry, per-chunk host arrays: cold-rung draws (L, R, dim), cold lp
@@ -228,7 +248,8 @@ def _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth, chu
         length = min(chunk_size, n_keep - pos)
         cols = {name: [] for name in parts}
         for _ in range(length):
-            carry, stats, div = _pt_step(vg_t, beta, carry, eps, metric, generator, max_depth)
+            carry, stats, div = _pt_step(vg_t, beta, carry, eps, metric, generator, max_depth,
+                                         mesh)
             counts.add(stats)
             cols["samples"].append(carry.qs.view(n_rep, k, -1)[:, 0])
             cols["lp"].append(carry.lp.view(n_rep, k)[:, 0])
@@ -303,7 +324,7 @@ def run_parallel_tempering(
     checkpoint_path=None,
     n_replicas: int = 1,
     mass_matrix: str = "diag",
-    mesh=None,
+    mesh: Mesh | None = None,
 ):
     """PT-NUTS. ``vg`` maps (C, dim) -> ((C,), (C, dim)); ``psi0`` (dim,)
     (every rung of every replica starts there) or (R, dim). Random numbers
@@ -317,9 +338,13 @@ def run_parallel_tempering(
     warmup (swap counts pooled across replicas; ``ladder_adapt=False``
     keeps the start ladder, ``auto_ladder`` unless ``temperatures`` or
     ``max_temp`` say otherwise). ``checkpoint_path``: a PT checkpoint after
-    every sampling chunk. ``mesh`` is not ported (ROADMAP M17)."""
-    if mesh is not None:
-        raise NotImplementedError("the replica mesh is not ported to PyTorch yet (ROADMAP M17).")
+    every sampling chunk.
+
+    ``mesh`` (``make_replica_mesh``): every rank calls with the same
+    arguments and runs n_replicas/size ladders (n_replicas must be a
+    multiple of the mesh size); each returns the results of all replicas,
+    with the rank's own counts. ``checkpoint_path`` is not ported under a
+    mesh (ROADMAP M17)."""
     if mass_matrix not in ("diag", "dense-pooled"):
         raise ValueError(f"unknown mass_matrix '{mass_matrix}'")
     dtype, device = psi0.dtype, psi0.device
@@ -331,8 +356,14 @@ def run_parallel_tempering(
                         else auto_ladder(n_temps, dim))
     temperatures = np.asarray(temperatures, dtype=np.float64)
     k_temps = len(temperatures)
-    n_chains = n_rep * k_temps
     psi0s = psi0.expand(n_rep, dim) if psi0.ndim == 1 else psi0
+    if mesh is not None:
+        if checkpoint_path:
+            raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
+        mesh.check_divides(n_rep, "n_replicas")
+        n_rep //= mesh.size
+        psi0s = psi0s[mesh.block(psi0s.shape[0])]
+    n_chains = n_rep * k_temps
     qs0 = psi0s.repeat_interleave(k_temps, dim=0).contiguous()
     counts = Counts()
     t0 = time.perf_counter()
@@ -374,7 +405,7 @@ def run_parallel_tempering(
         for t in range(pos, pos + length):
             step_metric = metric if pooled else DiagMetric(carry.inv_mass)
             carry, stats, div = _pt_step(vg_t, beta, carry, torch.exp(carry.da.log_eps),
-                                         step_metric, generator, max_depth)
+                                         step_metric, generator, max_depth, mesh)
             counts.add(stats)
             da = da_update(carry.da, stats.accept_prob, target_accept)
             welford, inv_mass = carry.welford, carry.inv_mass
@@ -398,13 +429,19 @@ def run_parallel_tempering(
         pos += length
         if pooled and window_end[pos - 1]:
             keep = np.concatenate(win_mask)
-            metric = pooled_rung_metrics(np.concatenate(win_qs)[keep],
-                                         np.concatenate(win_div)[keep].astype(bool), metric, dtype)
+            # all replicas' window draws, on every rank
+            buf = gather_rows(mesh, np.concatenate(win_qs)[keep], axis=1)
+            dbuf = gather_rows(mesh, np.concatenate(win_div)[keep], axis=1)
+            metric = broadcast_tensors(mesh, pooled_rung_metrics(buf, dbuf.astype(bool), metric,
+                                                                 dtype))
             win_qs, win_mask, win_div = [], [], []
         if ladder_adapt and pos <= ladder_freeze_at:
             old = carry.inv_temps.cpu().numpy().astype(np.float64)
-            new = adapt_ladder(old, carry.n_swap_accept.sum(0).cpu().numpy(),
-                               carry.n_swap_try.sum(0).cpu().numpy())
+            swaps = torch.stack([carry.n_swap_accept.sum(0), carry.n_swap_try.sum(0)])
+            if mesh is not None:
+                swaps = mesh.psum(swaps)
+            acc, tries = swaps.cpu().numpy()
+            new = adapt_ladder(old, acc, tries)
             counts.host_syncs += 1
             if not np.allclose(new, old):
                 inv_temps = torch.as_tensor(new, dtype=dtype, device=device)
@@ -425,9 +462,15 @@ def run_parallel_tempering(
     warmup_time = time.perf_counter() - t0
     t1 = time.perf_counter()
     carry, parts, _ = _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth,
-                                 chunk_size, counts, progress, t0, checkpoint_path)
+                                 chunk_size, counts, progress, t0, checkpoint_path, mesh=mesh)
     sampling_time = time.perf_counter() - t1
     vg_evals = 1 + eager_calls + counts.lockstep_leaves
+    if mesh is not None:  # every replica's state and draws, on every rank
+        carry = carry._replace(**{name: mesh.all_gather(getattr(carry, name)) for name in
+                                  ("qs", "inv_mass", "n_swap_accept", "n_swap_try")})
+        eps = mesh.all_gather(eps)
+        parts = {name: [gather_rows(mesh, p, axis=1) for p in chunks]
+                 for name, chunks in parts.items()}
     return _pt_info(carry, temperatures, parts, eps, generator, counts, vg_evals,
                     warmup_time, sampling_time, metric)
 

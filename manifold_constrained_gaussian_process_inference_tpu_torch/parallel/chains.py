@@ -1,10 +1,16 @@
 """Multi-chain NUTS driver (port of the JAX package's parallel/chains.py
-``run_chains``, without its mesh and envelope branches), under a shared
-pooled dense metric or per-chain diagonal ones.
+``run_chains``, without its envelope branch), under a shared pooled dense
+metric or per-chain diagonal ones.
 
 All C chains advance together through ``inference/nuts_batched.py`` on one
-device. Under ``mass_matrix="dense-pooled"`` warmup runs in chunks aligned
-to the adaptation-window boundaries; the in-window draws of all chains
+device, or, under a chain mesh (``make_chain_mesh``, ``parallel/mesh.py``),
+each rank advances its block of C/size chains in its own lockstep: the
+pooled window moments are summed over the ranks before the metric is
+estimated (and rank 0's metric is broadcast), so every rank samples under
+the same metric, and each rank returns the draws and statistics of all C
+chains in chain order. Under ``mass_matrix="dense-pooled"`` warmup runs in
+chunks aligned to the adaptation-window boundaries; the in-window draws of
+all chains
 accumulate device-side moments (divergence-masked count, sum and sum of
 outer products, in float64), and at each boundary the host turns them into
 a regularized dense metric. Under ``mass_matrix="diag"`` each chain keeps
@@ -44,8 +50,23 @@ from ..inference.nuts_batched import (
     make_warmup_step_pooled_batched,
 )
 from ..ops import cuda_band
+from .mesh import CHAIN_AXIS, Mesh, broadcast_tensors, gather_rows
 
 logger = logging.getLogger(__name__)
+
+MESH_CHECKPOINT_REFUSAL = (
+    "checkpoint_path and resume under a mesh are not ported to PyTorch yet "
+    "(ROADMAP M17): the ranks' generators and the gathered state need their own design."
+)
+
+
+def make_chain_mesh(n_devices: int | None = None, device=None) -> Mesh:
+    """1-D mesh over the chain axis: every rank of the initialized default
+    process group (``n_devices``, when given, must be their number)."""
+    mesh = Mesh(CHAIN_AXIS, device=device)
+    if n_devices is not None and n_devices != mesh.size:
+        raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size} ranks")
+    return mesh
 
 
 def _chunk_lengths(total: int, chunk: int):
@@ -201,18 +222,26 @@ class GraphedValueAndGrad:
     back out of ``cuda_band``'s counts; each replay adds them again.
     Outputs are cloned out of the graph's static buffers. Tensors that
     ``vg`` reads besides its input (parallel tempering's inverse
-    temperatures) are captured by address: update them in place."""
+    temperatures) are captured by address: update them in place.
+
+    A value-and-grad that ends in a collective (``parallel/grid.py``) has a
+    ``local`` part and a ``reduce``: only the local part is captured (a
+    collective cannot be), and ``reduce`` runs after each replay."""
 
     def __init__(self, vg, example: torch.Tensor, n_warmup: int = GRAPH_WARMUP_CALLS):
         self.static_in = example.detach().clone()
+        local = getattr(vg, "local", vg)
+        self.reduce = getattr(vg, "reduce", None)
         self.graph, self.kernel_launches, out = capture_graph(
-            lambda: vg(self.static_in), example.device, n_warmup)
+            lambda: local(self.static_in), example.device, n_warmup)
         self.static_lp, self.static_grad = out
 
     def __call__(self, zeta: torch.Tensor):
         self.static_in.copy_(zeta)
         self.graph.replay()
         cuda_band.add_launches(self.kernel_launches)
+        if self.reduce is not None:
+            return self.reduce(self.static_lp, self.static_grad)
         return self.static_lp.clone(), self.static_grad.clone()
 
 
@@ -315,20 +344,28 @@ def _warmup_checkpoint(carry, metric, moments, div_chunks, pos, generator, meta)
     )
 
 
+def _psum_moments(mesh: Mesh, moments):
+    """Window moments (cnt, s1, s2, n_win, n_div) summed over the ranks in
+    one all_reduce."""
+    flat = mesh.psum(torch.cat([m.reshape(-1) for m in moments]))
+    parts = flat.split([m.numel() for m in moments])
+    return tuple(p.reshape(m.shape) for p, m in zip(parts, moments))
+
+
 def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
-                   target_accept, max_depth, progress, counts, t0, resume_ckpt=None,
+                   target_accept, max_depth, progress, counts, t0, mesh=None, resume_ckpt=None,
                    checkpoint_path=None, meta=None):
     """Warmup under the pooled dense metric: chunks aligned to the window
-    ends, in-window moments accumulated on the device, the metric
-    re-estimated on the host at each window end; a checkpoint after every
-    chunk when ``checkpoint_path`` is set. Returns (carry, metric,
-    per-chunk (C, L) divergence flags)."""
+    ends, in-window moments accumulated on the device (and summed over the
+    ranks of a mesh), the metric re-estimated on the host at each window
+    end; a checkpoint after every chunk when ``checkpoint_path`` is set.
+    Returns (carry, metric, per-chunk (C, L) divergence flags)."""
     n_chains, dim = psi0.shape
     dtype, device = psi0.dtype, psi0.device
     f64 = dict(dtype=torch.float64, device=device)
     in_window, window_end = build_window_schedule(n_adapts)
     chunks = _window_aligned_chunks(window_end, chunk_size)
-    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator)
+    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator, mesh)
     resume_pos = 0
     if resume_ckpt is not None:
         carry, metric, window_moments, div_chunks, resume_pos = _restore_warmup(
@@ -361,11 +398,17 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
                 n_win += n_chains
                 n_div += stats.diverging.sum()
         div_chunks.append(div.cpu().numpy())
-        window_moments.append(tuple(m.cpu().numpy() for m in (cnt, s1, s2, n_win, n_div)))
+        moments = (cnt, s1, s2, n_win, n_div)
+        if mesh is not None:
+            moments = _psum_moments(mesh, moments)
+        window_moments.append(tuple(m.cpu().numpy() for m in moments))
         counts.host_syncs += 1
         pos += length
         if window_end[pos - 1]:
             metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric)
+            # every rank samples under rank 0's metric, whatever its host's
+            # linear algebra rounds differently
+            metric = broadcast_tensors(mesh, metric)
             window_moments = []
         if checkpoint_path:
             ckpt_io.save_checkpoint(checkpoint_path, _warmup_checkpoint(
@@ -377,12 +420,12 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
 
 
 def _warmup_diag(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
-                 target_accept, max_depth, progress, counts, t0):
+                 target_accept, max_depth, progress, counts, t0, mesh=None):
     """Warmup under per-chain diagonal metrics (Stan's windowed Welford
     adaptation, ``inference/nuts.make_warmup_step``), in chunks of
     ``chunk_size``. Returns (carry, per-chunk (C, L) divergence flags)."""
     carry = init_warmup_carry(vg, psi0, initial_step_size)
-    warmup_step = make_warmup_step(vg, target_accept, max_depth, generator)
+    warmup_step = make_warmup_step(vg, target_accept, max_depth, generator, mesh)
     in_window, window_end = build_window_schedule(n_adapts)
     div_chunks = []
     pos = 0
@@ -406,7 +449,7 @@ SAMPLE_STATS = ("lp", "accept_prob", "num_leapfrog", "tree_depth", "diverging", 
 
 def _sample(vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng,
             step_jitter, step_jitter_low, counts, progress, t0, checkpoint_path=None,
-            drawn0=0):
+            drawn0=0, mesh=None):
     """The sampling phase at frozen step sizes and ``metric`` (shared dense
     or per-chain diagonal), in chunks of ``chunk_size``; a checkpoint after
     every chunk when ``checkpoint_path`` is set. Returns (carry, samples
@@ -414,7 +457,7 @@ def _sample(vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter
     checkpoint or None)."""
     n_chains, dim = scarry.chain.q.shape
     dense = isinstance(metric, DenseMetric)
-    step = make_sample_step_batched(vg, max_depth, generator)
+    step = make_sample_step_batched(vg, max_depth, generator, mesh)
     out = {name: [] for name in ("samples",) + SAMPLE_STATS}
     pos, last = 0, None
     for length in _chunk_lengths(n_keep, chunk_size):
@@ -464,15 +507,19 @@ def _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter, ste
 
 
 def _run_info(samples_stats, metric, mass_matrix, step_jitter, step_jitter_low, eps,
-              scarry, generator, counts, warmup_div, warmup_time, sampling_time):
-    info = dict(samples_stats)
+              scarry, generator, counts, warmup_div, warmup_time, sampling_time, mesh=None):
+    """The info dict; under a mesh every per-chain array is gathered over
+    the ranks (the counts stay the rank's own)."""
+    rows = lambda a: gather_rows(mesh, a)  # noqa: E731
+    info = {name: rows(a) for name, a in samples_stats.items()}
     info.update(
-        step_size=eps.cpu().numpy(),
-        inv_mass=(metric.minv if mass_matrix == "dense-pooled" else metric.inv_mass).cpu().numpy(),
+        step_size=rows(eps).cpu().numpy(),
+        inv_mass=(metric.minv if mass_matrix == "dense-pooled"
+                  else rows(metric.inv_mass)).cpu().numpy(),
         metric=mass_matrix,
         step_jitter=(float(step_jitter), float(step_jitter_low)),
-        warmup_diverging=warmup_div,
-        final_psi=scarry.chain.q.cpu().numpy(),
+        warmup_diverging=rows(warmup_div),
+        final_psi=rows(scarry.chain.q).cpu().numpy(),
         # the state of the one generator all chains draw from (the JAX
         # package returns each chain's PRNG key)
         final_key=generator.get_state().numpy(),
@@ -501,6 +548,7 @@ def run_chains(
     checkpoint_path: str | None = None,
     resume_ckpt=None,
     envelope=None,
+    mesh: Mesh | None = None,
 ):
     """Run C NUTS chains from psi0 (C, dim) with Stan warmup. ``vg`` maps
     (C, dim) -> ((C,), (C, dim)). Random numbers come from ``generator``
@@ -516,7 +564,14 @@ def run_chains(
     ``info["inv_mass"]`` is (C, dim). ``checkpoint_path``: a checkpoint
     after every sampling chunk (and every pooled warmup chunk).
     ``resume_ckpt``: a warmup-phase checkpoint of the same call to continue
-    from. ``envelope`` is not ported (ROADMAP M18)."""
+    from. ``envelope`` is not ported (ROADMAP M18).
+
+    ``mesh`` (``make_chain_mesh``): every rank calls run_chains with the
+    same arguments (psi0 of all C chains, a generator seeded alike) and
+    runs its block of C/size chains; C must be a multiple of the mesh size.
+    Each rank returns the samples and per-chain info of all C chains; the
+    counts in info are the rank's own. ``checkpoint_path`` and
+    ``resume_ckpt`` are not ported under a mesh (ROADMAP M17)."""
     if mass_matrix not in ("dense-pooled", "diag"):
         raise ValueError(f"unknown mass_matrix '{mass_matrix}'")
     if mass_matrix == "diag":
@@ -537,6 +592,11 @@ def run_chains(
             )
     if envelope is not None:
         raise NotImplementedError("envelope is not ported to PyTorch yet (ROADMAP M18).")
+    if mesh is not None:
+        if checkpoint_path or resume_ckpt is not None:
+            raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
+        mesh.check_divides(psi0.shape[0], "n_chains")
+        psi0 = psi0[mesh.block(psi0.shape[0])]
     if jitter_rng is None:
         jitter_rng = np.random.default_rng(0)
     n_keep = n_samples - n_adapts
@@ -547,7 +607,7 @@ def run_chains(
     if device.type == "cuda":
         vg = GraphedValueAndGrad(vg, psi0)
     warm_args = (vg, psi0, generator, n_adapts, chunk_size, initial_step_size, target_accept,
-                 max_depth, progress, counts, t0)
+                 max_depth, progress, counts, t0, mesh)
     if mass_matrix == "diag":
         carry, warmup_div_chunks = _warmup_diag(*warm_args)
         metric = DiagMetric(carry.inv_mass)
@@ -565,13 +625,13 @@ def run_chains(
     scarry = SampleCarry(chain=carry.chain, eps=eps_final)
     scarry, samples, stats, _ = _sample(
         vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng, step_jitter,
-        step_jitter_low, counts, progress, t0, checkpoint_path)
+        step_jitter_low, counts, progress, t0, checkpoint_path, mesh=mesh)
     _sync(device)
     warmup_div = (np.concatenate(warmup_div_chunks, axis=1) if warmup_div_chunks
                   else np.zeros((psi0.shape[0], 0)))
     info = _run_info(stats, metric, mass_matrix, step_jitter, step_jitter_low, eps_final, scarry,
-                     generator, counts, warmup_div, warmup_time, time.perf_counter() - t1)
-    return samples, info
+                     generator, counts, warmup_div, warmup_time, time.perf_counter() - t1, mesh)
+    return gather_rows(mesh, samples), info
 
 
 def sample_from_checkpoint(vg, ckpt, n_samples, max_depth, dtype, device, chunk_size,

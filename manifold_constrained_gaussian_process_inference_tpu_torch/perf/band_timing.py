@@ -38,10 +38,16 @@ PROFILE_CALLS = 20
 # (C, M, b, n): the 128-chain slice's shape and the filllevel-5 grid
 # (bandsize 160), each also at one chain (the default single-chain path);
 # config 3's parallel tempering (10 rungs x 4 replicas, D=3, n=33, bandsize
-# 20) and config 7's 64 ChEES chains
+# 20), config 7's 64 ChEES chains, a rank's 32 chains of the slice sharded
+# over 4 ranks, and the local blocks of the filllevel-5 grid sharded over 4
+# ranks (nloc = 793: the paired mphi/GC^T storage of nloc + 4b columns and
+# GK^T's of nloc + 2b) at C = 128 and 1
 SHAPES = {"main": (128, 2, 40, 397), "long": (128, 2, 160, 3169),
           "pt": (40, 3, 20, 33), "chees": (64, 2, 40, 397),
-          "main_c1": (1, 2, 40, 397), "long_c1": (1, 2, 160, 3169)}
+          "main_c1": (1, 2, 40, 397), "long_c1": (1, 2, 160, 3169),
+          "mesh": (32, 2, 40, 397),
+          "grid_pair": (128, 2, 160, 1433), "grid_single": (128, 2, 160, 1113),
+          "grid_pair_c1": (1, 2, 160, 1433), "grid_single_c1": (1, 2, 160, 1113)}
 # NVIDIA H100 SXM: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12

@@ -234,11 +234,92 @@ def test_traj_iterate_averaging_and_refresh_reset():
 
 
 def test_chees_refuses_the_chain_mesh_and_unknown_criterion():
+    """Under the chain mesh only checkpoints still raise (ROADMAP M17)."""
     z = torch.zeros((2, 2), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="M17"):
-        tch.run_chees(_vg_t, z, torch.Generator(), 4, 2, mesh=object())
+        tch.run_chees(_vg_t, z, torch.Generator(), 4, 2, mesh=object(),
+                      checkpoint_path="chees.npz")
     with pytest.raises(ValueError, match="criterion"):
         tch.run_chees(_vg_t, z, torch.Generator(), 4, 2, criterion="nuts")
+
+
+# -- the chain mesh: ranks spawned over gloo on the CPU -----------------------
+
+CHEES_DRYRUN = dict(n_samples=3, n_adapts=1, initial_step_size=0.01)
+# warmup with a window end (the metric refresh) and the trajectory adapting
+CHEES_SHORT = dict(n_samples=40, n_adapts=30, initial_step_size=0.1)
+CHEES_GAUSS = dict(n_samples=300, n_adapts=150, initial_step_size=0.1)
+
+
+def _chees_mesh_job(rank):
+    """ChEES on a mesh of one rank and on all four, against the unsharded
+    run; the unsharded references are spread over the ranks."""
+    import torch.distributed as dist
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import (
+        CHAIN_AXIS, Mesh, dryrun, make_chain_mesh,
+    )
+
+    world = dist.get_world_size()
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    one = Mesh(CHAIN_AXIS, device="cpu", group=solo)
+    four = make_chain_mesh(world, device="cpu")
+    target, psi0, _, _ = dryrun._fn_problem(11, 5.0, torch.float64, "cpu")
+    vg = target.value_and_grad_fn()
+    psi8 = torch.as_tensor(psi0).expand(8, -1).contiguous()
+    z8 = torch.zeros((8, DIM), dtype=torch.float64)
+    gen = lambda seed: torch.Generator().manual_seed(seed)  # noqa: E731
+    out = {}
+    if rank < 2:
+        criterion = ("snaper", "chees")[rank]
+        out["one"] = tuple(tch.run_chees(vg, psi8, gen(8), criterion=criterion, mesh=m,
+                                         **CHEES_SHORT) for m in (None, one))
+    if rank == 2:
+        out["dryrun_ref"] = tch.run_chees(vg, psi8, gen(3), **CHEES_DRYRUN)[0]
+    if rank == 3:
+        out["gauss_ref"] = tch.run_chees(_vg_t, z8, gen(9), **CHEES_GAUSS)[0]
+    out["dryrun"] = tch.run_chees(vg, psi8, gen(3), mesh=four, **CHEES_DRYRUN)[0]
+    out["gauss"] = tch.run_chees(_vg_t, z8, gen(9), mesh=four, **CHEES_GAUSS)
+    return out
+
+
+@pytest.fixture(scope="module")
+def chees_ranks():
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import dryrun
+
+    return dryrun.run_ranks(_chees_mesh_job, 4)
+
+
+CHEES_INFO_KEYS = ("lp", "accept_prob", "num_leapfrog", "diverging", "step_size", "inv_mass",
+                   "trajectory_length", "final_psi", "trajectory_warmup_trace")
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_chees_mesh_of_one_equals_unsharded(chees_ranks, rank):
+    """Bit for bit under SNAPER (rank 0) and ChEES (rank 1)."""
+    (s_ref, i_ref), (s, info) = chees_ranks[rank]["one"]
+    np.testing.assert_array_equal(s, s_ref)
+    for key in CHEES_INFO_KEYS:
+        np.testing.assert_array_equal(info[key], i_ref[key], err_msg=key)
+
+
+def test_chees_four_ranks_match_unsharded(chees_ranks):
+    """Per chain at the dry run's protocol (<= 1e-10); on the Gaussian the
+    same draws on every rank, and means and standard deviations within the
+    JAX package's chain-sharding bars of the unsharded run's."""
+    ref, got = chees_ranks[2]["dryrun_ref"], chees_ranks[0]["dryrun"]
+    assert got.shape == ref.shape == (8, 2, 27)
+    assert np.abs(got - ref).max() <= 1e-10
+    s, info = chees_ranks[0]["gauss"]
+    for other in chees_ranks[1:]:
+        np.testing.assert_array_equal(other["dryrun"], got)
+        np.testing.assert_array_equal(other["gauss"][0], s)
+        for key in CHEES_INFO_KEYS:
+            np.testing.assert_array_equal(other["gauss"][1][key], info[key], err_msg=key)
+    a = chees_ranks[3]["gauss_ref"].reshape(-1, DIM)
+    b = s.reshape(-1, DIM)
+    assert np.all(np.abs(a.mean(0) - b.mean(0)) < 0.15 * np.sqrt(np.diag(COV)))
+    assert np.all(np.abs(a.std(0) - b.std(0)) < 0.2 * np.sqrt(np.diag(COV)))
 
 
 def test_solve_magi_chees_matches_jax_setup_and_posterior(monkeypatch):

@@ -159,10 +159,14 @@ def test_unported_options_raise(change, item):
         mt.solve_magi(y, t, mt.FN_SYSTEM, config)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(mesh=object()), "M17")])
-def test_unported_entry_arguments_raise(kw, item):
+@pytest.mark.parametrize("kw,change,item", [
+    (dict(mesh=object(), resume="ckpt.npz"), {}, "M17"),
+    (dict(mesh=object()), dict(checkpoint_path="ckpt.npz"), "M17"),
+])
+def test_unported_entry_arguments_raise(kw, change, item):
+    """Under a mesh, checkpoints and resume still raise."""
     y, t = _fn_data()
-    config = mt.MagiConfig(mass_matrix="dense-pooled", x_whitened=True, device="cpu")
+    config = mt.MagiConfig(mass_matrix="dense-pooled", x_whitened=True, device="cpu", **change)
     with pytest.raises(NotImplementedError, match=item):
         mt.solve_magi(y, t, mt.FN_SYSTEM, config, **kw)
 

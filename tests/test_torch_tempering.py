@@ -285,9 +285,91 @@ def test_pt_pooled_dense_metric_on_correlated_gaussian():
 
 
 def test_pt_refuses_the_replica_mesh():
+    """Under the replica mesh only checkpoints still raise (ROADMAP M17)."""
     with pytest.raises(NotImplementedError, match="M17"):
         tt.run_parallel_tempering(_gauss_vg, torch.zeros(2, dtype=torch.float64), _gen(0),
-                                  n_samples=4, n_adapts=2, mesh=object())
+                                  n_samples=4, n_adapts=2, mesh=object(),
+                                  checkpoint_path="pt.npz")
+
+
+# -- the replica mesh: ranks spawned over gloo on the CPU ---------------------
+
+PT_DRYRUN = dict(n_samples=3, n_adapts=1, n_temps=3, max_temp=4.0, initial_step_size=0.01,
+                 max_depth=4, n_replicas=4, ladder_adapt=False, mass_matrix="dense-pooled")
+# warmup with a window end (the pooled rung metric) and ladder updates
+PT_SHORT = dict(n_samples=50, n_adapts=40, n_temps=3, max_temp=4.0, initial_step_size=0.05,
+                max_depth=5, n_replicas=4, chunk_size=20)
+
+
+def _pt_mesh_job(rank):
+    """PT on a mesh of one rank and on all four, against the unsharded run;
+    the unsharded references are spread over the ranks."""
+    import torch.distributed as dist
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import dryrun
+
+    world = dist.get_world_size()
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    one = tt.Mesh(tt.REPLICA_AXIS, device="cpu", group=solo)
+    four = tt.make_replica_mesh(world, device="cpu")
+    target, psi0, _, _ = dryrun._fn_problem(11, 5.0, torch.float64, "cpu")
+    vg, psi0 = target.value_and_grad_fn(), torch.as_tensor(psi0)
+    out = {}
+    if rank < 2:
+        metric = ("dense-pooled", "diag")[rank]
+        kw = dict(PT_SHORT, mass_matrix=metric)
+        out["one"] = tuple(tt.run_parallel_tempering(vg, psi0, _gen(6), mesh=m, **kw)
+                           for m in (None, one))
+    if rank == 2:
+        out["dryrun_ref"] = tt.run_parallel_tempering(vg, psi0, _gen(2), **PT_DRYRUN)[0]
+    pooled = dict(PT_SHORT, mass_matrix="dense-pooled")
+    if rank == 3:
+        out["short_ref"] = tt.run_parallel_tempering(vg, psi0, _gen(6), **pooled)
+    out["dryrun"] = tt.run_parallel_tempering(vg, psi0, _gen(2), mesh=four, **PT_DRYRUN)[0]
+    out["short"] = tt.run_parallel_tempering(vg, psi0, _gen(6), mesh=four, **pooled)
+    return out
+
+
+@pytest.fixture(scope="module")
+def pt_ranks():
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import dryrun
+
+    return dryrun.run_ranks(_pt_mesh_job, 4)
+
+
+PT_INFO_KEYS = ("lp", "diverging", "accept_prob", "tree_depth", "num_leapfrog", "step_size",
+                "inv_mass", "final_psi", "temperatures", "swap_acceptance_per_pair")
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_pt_mesh_of_one_equals_unsharded(pt_ranks, rank):
+    """Bit for bit, pooled (rank 0) and diag (rank 1): draws, ladder, metric."""
+    (s_ref, i_ref), (s, info) = pt_ranks[rank]["one"]
+    np.testing.assert_array_equal(s, s_ref)
+    for key in PT_INFO_KEYS:
+        np.testing.assert_array_equal(info[key], i_ref[key], err_msg=key)
+
+
+def test_pt_four_ranks_match_unsharded_per_replica(pt_ranks):
+    """The dry run's protocol (<= 1e-10 per replica), and the same gathered
+    result on every rank; over 50 iterations with the ladder and the pooled
+    rung metric adapting, the ladder equals the unsharded run's and the
+    draws stay finite."""
+    ref = pt_ranks[2]["dryrun_ref"]
+    got = pt_ranks[0]["dryrun"]
+    assert got.shape == ref.shape == (4, 2, 27)
+    assert np.abs(got - ref).max() <= 1e-10
+    s_ref, i_ref = pt_ranks[3]["short_ref"]
+    s, info = pt_ranks[0]["short"]
+    assert s.shape == s_ref.shape == (4, 10, 27) and np.isfinite(s).all()
+    np.testing.assert_array_equal(info["temperatures"], i_ref["temperatures"])
+    assert not np.allclose(info["temperatures"], tt.geometric_ladder(3, 4.0))
+    assert info["inv_mass"].shape == (3, 27, 27)
+    for other in pt_ranks[1:]:
+        np.testing.assert_array_equal(other["dryrun"], got)
+        np.testing.assert_array_equal(other["short"][0], s)
+        for key in PT_INFO_KEYS:
+            np.testing.assert_array_equal(other["short"][1][key], info[key], err_msg=key)
 
 
 def _fn_problem():
