@@ -1063,7 +1063,9 @@ def _mesh_solve(rank, mesh, y, t):
     """(a): solve_magi(mesh=...) on [slice]'s recipe at MESH_NITER; returns
     this rank's readings and the (target, whitener) it sampled."""
     import manifold_constrained_gaussian_process_inference_tpu_torch as mt
-    from manifold_constrained_gaussian_process_inference_tpu_torch.inference import solve
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
+        make_centered_whitened_vg,
+    )
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
         GRAPH_WARMUP_CALLS,
@@ -1072,22 +1074,26 @@ def _mesh_solve(rank, mesh, y, t):
         SIGMA_TRUE, THETA_TRUE,
     )
 
-    real, kept = solve.make_centered_whitened_vg, []
-    solve.make_centered_whitened_vg = lambda *a: kept.append(a) or real(*a)
-    try:
-        cb.reset_launches()
-        t0 = time.perf_counter()
-        res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**slice_config(MESH_NITER)),
-                            mesh=mesh)
-        wall = time.perf_counter() - t0
-        launches = dict(cb.KERNEL_LAUNCHES)
-    finally:
-        solve.make_centered_whitened_vg = real
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**slice_config(MESH_NITER)),
+                        mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = dict(cb.KERNEL_LAUNCHES)
     d = res.diagnostics
     pt = d["phase_times_s"]
-    return kept[0], dict(
+    target, whitener = d["target"], d["whitener"]
+    # what this rank sampled, before any gather: its target's tensors, its
+    # whitener and their value-and-grad at a point common to every rank
+    zeta = torch.as_tensor(np.random.default_rng(1).normal(
+        scale=0.1, size=(N_CHAINS // mesh.size, target.dimension)), dtype=torch.float32,
+        device=DEVICE)
+    held = [a for a in (*target.data, target.sigma_init, *whitener,
+                        *make_centered_whitened_vg(target, whitener)(zeta)) if torch.is_tensor(a)]
+    return (target, whitener), dict(
         result=digest(res.theta, res.x_sampled, res.sigma, res.lp),
-        adapted=digest(d["step_size"], d["inv_mass"]), wall=wall, phase_times=pt,
+        adapted=digest(d["step_size"], d["inv_mass"]),
+        sampled_on=digest(*(a.cpu().numpy() for a in held)), wall=wall, phase_times=pt,
         finite=all(np.isfinite(getattr(res, name)).all()
                    for name in ("theta", "x_sampled", "sigma", "lp")),
         theta_rmse=rmse(res.theta.mean(0), THETA_TRUE), sigma_rmse=rmse(res.sigma.mean(0),
@@ -1118,14 +1124,26 @@ def _float64_twin(target, whitener):
     return make_centered_whitened_vg(target64, type(whitener)(*map(wide, whitener)))
 
 
+def _in_row_blocks(vg, n_blocks):
+    """``vg`` applied to ``n_blocks`` row blocks of its (C, dim) input: the
+    batch each rank's value-and-grad sees under a mesh of ``n_blocks``."""
+    def blocked(z):
+        parts = [vg(block) for block in z.chunk(n_blocks)]
+        return tuple(torch.cat(col) for col in zip(*parts))
+
+    return blocked
+
+
 def _mesh_dryrun(rank, mesh, vgs, dim, nccl_group):
     """(b) and (c): the JAX dry run's protocol, sharded over the mesh, on
     (a)'s whitened value-and-grad in float32 and in float64 (``vgs``); rank 0
     runs each call unsharded too, and (b)'s float32 run_chains call on a
-    one-rank NCCL world. In float32 a batch's shape changes the rounding of
-    a chain's value-and-grad and of its batched dots (cuBLAS picks kernels
-    by shape), which a tree decision near its threshold can turn into
-    another trajectory; in float64 it cannot."""
+    one-rank NCCL world. In float32 the whitening GEMM of the value-and-grad
+    rounds a chain by the batch's size (cuBLAS picks kernels by shape), which
+    a tree decision near its threshold can turn into another trajectory; in
+    float64 it cannot. So float32 run_chains is also run unsharded with its
+    value-and-grad applied in the ranks' row blocks, which the sharded run
+    must equal bit for bit."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.chees import (
         run_chees,
     )
@@ -1158,6 +1176,9 @@ def _mesh_dryrun(rank, mesh, vgs, dim, nccl_group):
                 plain = call(vg, zeros, None)[0]
                 out[f"{name}_{dtype}_delta"] = float(np.abs(sharded - plain).max())
                 if name == "chains" and dtype == torch.float32:
+                    blocks = call(_in_row_blocks(vg, mesh.size), zeros, None)[0]
+                    out["chains_blocked"] = (float(np.abs(sharded - blocks).max()),
+                                             bool(np.array_equal(sharded, blocks)))
                     solo = Mesh(CHAIN_AXIS, device=DEVICE, group=nccl_group)
                     nccl = call(vg, zeros, solo)[0]
                     out["nccl"] = (solo.backend, solo.size, bool(np.array_equal(nccl, plain)))
@@ -1305,17 +1326,21 @@ def _report_mesh(ranks, wall):
           f"{a['rhat']:.4f}; theta RMSE {a['theta_rmse']:.4f}, sigma RMSE {a['sigma_rmse']:.4f}, "
           f"divergent {a['divergent']:.4f}; launches per value-and-grad per rank "
           f"{[_ratios(r['launches'], r['vg_evals']) for r in sol]} "
-          f"({[r['vg_evals'] for r in sol]} value-and-grads); step sizes, metric and gathered "
-          f"result identical on every rank: {len({(r['result'], r['adapted']) for r in sol}) == 1}"
+          f"({[r['vg_evals'] for r in sol]} value-and-grads); target, whitener and their "
+          f"value-and-grad identical on every rank: {len({r['sampled_on'] for r in sol}) == 1}; "
+          f"step sizes, metric and gathered result identical on every rank: "
+          f"{len({(r['result'], r['adapted']) for r in sol}) == 1}"
           f"; dry-run protocol (3 iterations, 1 warmup, step 0.01, depth 4) sharded vs "
           f"unsharded max |delta| in float64 (float32): "
           + ", ".join(f"{name} {dry[f'{name}_{torch.float64}_delta']:.3e} "
                       f"({dry[f'{name}_{torch.float32}_delta']:.3e})" for name in DRYRUN_CALLS)
           + f" ({N_CHAINS} chains, {MESH_RANKS} replicas x 3 rungs, {CHEES_CHAINS} chains); "
+          f"float32 chains vs unsharded with the value-and-grad in {MESH_RANKS} row blocks: "
+          f"max |delta| {dry['chains_blocked'][0]:.3e}, bit-equal {dry['chains_blocked'][1]}; "
           f"one-rank world "
           f"{dry['nccl'][:2]} run_chains bit-equal to unsharded: {dry['nccl'][2]}; rank 0 "
           f"seconds {({k: round(v, 1) for k, v in ranks[0]['seconds'].items()})}", flush=True)
-    for name in ("result", "adapted"):
+    for name in ("sampled_on", "result", "adapted"):
         check(len({r[name] for r in sol}) == 1, f"mesh: the ranks' {name} differ")
     check(a["finite"], "mesh: non-finite draws")
     per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}") for i, r in enumerate(sol)]
@@ -1329,6 +1354,8 @@ def _report_mesh(ranks, wall):
                   f"mesh: the ranks' sharded {name} draws differ ({dtype})")
         delta = dry[f"{name}_{torch.float64}_delta"]
         check(delta < DRYRUN_TOL, f"mesh: sharded {name} vs unsharded in float64 {delta:.3e}")
+    check(dry["chains_blocked"][1],
+          f"mesh: float32 sharded chains vs unsharded in row blocks {dry['chains_blocked'][0]:.3e}")
     check(dry["nccl"] == (MESH_SOLO_BACKEND, 1, True),
           f"mesh: one-rank NCCL run_chains vs unsharded {dry['nccl']}")
     launches = {name: sum(r["launches"][name] for r in sol) for name in KERNELS}

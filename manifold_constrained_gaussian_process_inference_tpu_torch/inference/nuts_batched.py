@@ -65,8 +65,12 @@ Q, P, V, G, MG = range(5)
 
 
 def _rowdot(a, b):
-    """Per-chain dot product: (C, dim) x (C, dim) -> (C,)."""
-    return torch.einsum("cd,cd->c", a, b)
+    """Per-chain dot product: (C, dim) x (C, dim) -> (C,). An elementwise
+    product summed along its rows rounds a row alike at any C; an einsum
+    is a batched GEMM on the card, whose rounding of a row depends on the
+    batch's size, so a chain would not compute the same energy in a shard
+    of a mesh as in the whole batch."""
+    return (a * b).sum(-1)
 
 
 def _is_turning_b(p_left, v_left, p_right, v_right, rho):
@@ -81,8 +85,8 @@ def _is_iterative_turning_b(p_leaf, v_leaf, rho_cum, ckpts):
     active checkpoint rows ``ckpts`` (C, R, 3, dim) = [p, v, rho]."""
     r, v_ck, rho_ck = ckpts.unbind(2)
     rho_c = rho_cum[:, None, :] - rho_ck + r - 0.5 * (r + p_leaf[:, None, :])
-    t_left = torch.einsum("crd,crd->cr", v_ck, rho_c) <= 0.0
-    t_right = torch.einsum("crd,cd->cr", rho_c, v_leaf) <= 0.0
+    t_left = (v_ck * rho_c).sum(-1) <= 0.0
+    t_right = (rho_c * v_leaf[:, None, :]).sum(-1) <= 0.0
     return torch.any(t_left | t_right, dim=1)
 
 

@@ -349,10 +349,11 @@ def solve_magi(
     make_replica_mesh``) shards the sampler's axis over the ranks: NUTS
     chains (``n_chains`` a multiple of the mesh size), PT replica ladders
     (``pt_replicas``) or ChEES chains. Every rank calls with the same data
-    and config and gets the same result; its diagnostics' counts
-    (transitions, host_syncs, lockstep_leaves, chain_leaves) are the rank's
-    own. ``checkpoint_path`` and ``resume`` are not ported under a mesh
-    (ROADMAP M17)."""
+    and config and gets the same result: rank 0 runs the host setup (NLML,
+    GP covariances, MAP warm start, Gauss-Newton, whitener) and broadcasts
+    it. The diagnostics' counts (transitions, host_syncs, lockstep_leaves,
+    chain_leaves) are the rank's own. ``checkpoint_path`` and ``resume``
+    are not ported under a mesh (ROADMAP M17)."""
     config = config or MagiConfig()
     _check_supported(config, mesh, resume)
     if config.sampler not in ("nuts", "pt-nuts", "chees"):
@@ -439,11 +440,17 @@ def solve_magi(
     else:
         theta_init = _init_theta_from_bounds(ode_system)
 
-    # --- GP covariances: float64 on the host; the sampling copy is cast ---
-    gp_cov64 = build_gp_cov(
-        config.kernel, phi_all, t_obs, bandsize=config.band_size, complexity=2,
-        jitter=config.jitter, auto_escalate_bandsize=config.band_auto_escalate,
-    )
+    # --- GP covariances: float64 on the host; the sampling copy is cast.
+    # Under a mesh rank 0's bundle goes to every rank: the host float64
+    # factorizations need not round alike on every rank's host ---
+    gp_cov64 = None
+    if mesh is None or mesh.rank == 0:
+        gp_cov64 = build_gp_cov(
+            config.kernel, phi_all, t_obs, bandsize=config.band_size, complexity=2,
+            jitter=config.jitter, auto_escalate_bandsize=config.band_auto_escalate,
+        )
+    if mesh is not None:
+        gp_cov64 = mesh.broadcast_object(gp_cov64)
     gp_cov = gp_cov64.to(dtype=dtype, device=device)
 
     prior_temps = np.asarray(config.prior_temperature, dtype=np.float64)
@@ -667,6 +674,11 @@ def solve_magi(
         "sampler": config.sampler,
         "band_impl": band_impl,
         "bandsize": int(gp_cov.bandsize),
+        # what the sampler ran on: its value-and-grad is
+        # make_centered_whitened_vg(target, whitener), or the target's own
+        # without a whitener
+        "target": target,
+        "whitener": whitener,
         "device": str(device),
         "dtype": str(dtype),
     }

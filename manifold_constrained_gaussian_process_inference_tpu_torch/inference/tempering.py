@@ -68,13 +68,8 @@ logger = logging.getLogger(__name__)
 
 
 def make_replica_mesh(n_devices=None, device=None) -> Mesh:
-    """1-D mesh over the PT replica axis: every rank of the initialized
-    default process group (``n_devices``, when given, must be their number)
-    runs pt_replicas/size whole ladders."""
-    mesh = Mesh(REPLICA_AXIS, device=device)
-    if n_devices is not None and n_devices != mesh.size:
-        raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size} ranks")
-    return mesh
+    """``Mesh.world`` along the replica axis (the JAX package's name)."""
+    return Mesh.world(REPLICA_AXIS, n_devices, device)
 
 
 def geometric_ladder(n_temps: int, t_max: float = 32.0) -> np.ndarray:

@@ -60,13 +60,9 @@ MESH_CHECKPOINT_REFUSAL = (
 )
 
 
-def make_chain_mesh(n_devices: int | None = None, device=None) -> Mesh:
-    """1-D mesh over the chain axis: every rank of the initialized default
-    process group (``n_devices``, when given, must be their number)."""
-    mesh = Mesh(CHAIN_AXIS, device=device)
-    if n_devices is not None and n_devices != mesh.size:
-        raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size} ranks")
-    return mesh
+def make_chain_mesh(n_devices=None, device=None) -> Mesh:
+    """``Mesh.world`` along the chain axis (the JAX package's name)."""
+    return Mesh.world(CHAIN_AXIS, n_devices, device)
 
 
 def _chunk_lengths(total: int, chunk: int):

@@ -3,12 +3,13 @@ JAX package's ``__graft_entry__.py::dryrun_multichip``), and ``run_ranks``,
 which starts the ranks of a torch.distributed world for it, for the tests
 and for the smoke.
 
-    python -m manifold_constrained_gaussian_process_inference_tpu_torch.parallel.dryrun 4
+    python -m manifold_constrained_gaussian_process_inference_tpu_torch.parallel.dryrun 4 [cpu]
 
-runs the four stages of the JAX package's dry run on 4 gloo ranks on the
-CPU: NUTS chains, a grid-sharded value-and-grad (and NUTS on it), PT
-replica ladders and ChEES chains, each sharded against the same call
-unsharded, and prints the deltas.
+runs the four stages of the JAX package's dry run on 4 gloo ranks, all on
+the card (``default_device()``) or, given ``cpu``, on the CPU: NUTS chains,
+a grid-sharded value-and-grad (and NUTS on it), PT replica ladders and
+ChEES chains, each sharded against the same call unsharded, and prints the
+deltas.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from ..config import default_dtype
+from ..config import default_device, default_dtype
 
 # The JAX package's dry-run bound on every sharded-vs-unsharded delta.
 DRYRUN_TOL = 1e-4
@@ -166,10 +167,12 @@ def _dryrun_rank(rank: int, device: str) -> dict:
     return out
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu") -> dict:
-    """The JAX package's ``dryrun_multichip`` on ``n_devices`` gloo ranks
-    (all on ``device``): chains, grid, PT replicas and ChEES, each sharded
-    against unsharded within DRYRUN_TOL. Prints the deltas; returns them."""
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """The JAX package's ``dryrun_multichip`` on ``n_devices`` gloo ranks,
+    all on ``device`` (None = ``default_device()``, the card): chains, grid,
+    PT replicas and ChEES, each sharded against unsharded within
+    DRYRUN_TOL. Prints the deltas; returns them."""
+    device = str(torch.device(device) if device is not None else default_device())
     d = run_ranks(_dryrun_rank, n_devices, args=(device,))[0]
     for what in ("chains", "pt", "chees"):
         assert d[what] < DRYRUN_TOL, f"sharded {what} diverge from the unsharded run: {d[what]}"
@@ -187,4 +190,5 @@ def dryrun_multichip(n_devices: int, device: str = "cpu") -> dict:
 
 
 if __name__ == "__main__":
-    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)
+    dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4,
+                     sys.argv[2] if len(sys.argv) > 2 else None)

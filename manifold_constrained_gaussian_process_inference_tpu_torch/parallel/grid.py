@@ -33,7 +33,7 @@ On the card the local part is replayed from a CUDA graph
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -47,13 +47,9 @@ from ..ops.likelihood import LOG_2PI, _np64, _resolve_mean
 from .mesh import GRID_AXIS, Mesh
 
 
-def make_grid_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
-    """1-D mesh over the time grid: every rank of the initialized default
-    process group (``n_devices``, when given, must be their number)."""
-    mesh = Mesh(GRID_AXIS, device=device)
-    if n_devices is not None and n_devices != mesh.size:
-        raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size} ranks")
-    return mesh
+def make_grid_mesh(n_devices=None, device=None) -> Mesh:
+    """``Mesh.world`` along the grid axis (the JAX package's name)."""
+    return Mesh.world(GRID_AXIS, n_devices, device)
 
 
 class GridBlocks(NamedTuple):

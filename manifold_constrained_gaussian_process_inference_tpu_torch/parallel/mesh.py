@@ -62,6 +62,16 @@ class Mesh:
         self.host_device = self.device if self.backend == "nccl" else torch.device("cpu")
         self._root = 0 if group is None else dist.get_global_rank(group, 0)
 
+    @classmethod
+    def world(cls, axis_name: str, n_devices: Optional[int] = None, device=None) -> "Mesh":
+        """A mesh along ``axis_name`` over every rank of the initialized
+        default process group (``n_devices``, when given, must be their
+        number)."""
+        mesh = cls(axis_name, device=device)
+        if n_devices is not None and n_devices != mesh.size:
+            raise ValueError(f"n_devices={n_devices}, but the process group has {mesh.size} ranks")
+        return mesh
+
     @property
     def axis_names(self):
         return (self.axis_name,)
@@ -112,6 +122,14 @@ class Mesh:
         return t
 
     # -- host values -----------------------------------------------------------
+
+    def broadcast_object(self, obj):
+        """Rank 0's picklable ``obj`` (tensors keep their values bit for bit
+        and come back on the device they left); the others pass anything."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=self._root, group=self.group,
+                                   device=self.host_device)
+        return box[0]
 
     def max_int(self, value: int) -> int:
         """The largest of the ranks' host ints."""

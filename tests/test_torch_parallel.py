@@ -3,7 +3,8 @@ tests/test_parallel.py and its dry run): ranks are spawned over gloo on the
 CPU, float64. A mesh of one rank equals the unsharded run bit for bit
 (run_chains under both metrics, solve_magi with pooled NUTS and ChEES); on
 four ranks two executions are bitwise equal, every rank returns the same
-gathered result (solve_magi under every sampler too), each chain equals the
+gathered result (solve_magi under every sampler too, which every rank
+also runs on the same target and whitener), each chain equals the
 unsharded run's at the dry run's protocol (<= 1e-10), means and standard
 deviations on a Gaussian agree with the unsharded run as in the JAX
 package's tests, and a chain count that is not a multiple of the mesh size
@@ -26,6 +27,9 @@ from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import d
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference.chees import run_chees
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference.tempering import (
     run_parallel_tempering,
+)
+from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
+    make_centered_whitened_vg,
 )
 
 torch.set_num_threads(1)
@@ -77,14 +81,36 @@ SOLVE_CASES = {
 ONE_SOLVE_CASES = ("nuts-pooled", "chees")
 
 
-def _solve(case, mesh):
+def _solve_res(case, mesh):
     y, t = _solve_problem()
     config = mt.MagiConfig(niter_hmc=20, seed=3, sigma=[0.2, 0.2], phi=np.array([[1.0, 1.0],
                            [1.5, 1.5]]), x_whitened=True, theta_constrained=True,
                            chain_init_jitter=0.05, device="cpu", **SOLVE_CASES[case])
-    res = mt.solve_magi(y, t, mt.FN_SYSTEM, config, mesh=mesh)
+    return mt.solve_magi(y, t, mt.FN_SYSTEM, config, mesh=mesh)
+
+
+def _draws(res):
     return np.concatenate([res.theta.ravel(), res.x_sampled.ravel(), res.sigma.ravel(),
                            res.lp.ravel()])
+
+
+def _solve(case, mesh):
+    return _draws(_solve_res(case, mesh))
+
+
+def _sampled_on(res) -> str:
+    """A hash of what this rank sampled, taken before any gather: its
+    target's tensors, its whitener, and the value-and-grad they make at a
+    point common to every rank."""
+    target, whitener = res.diagnostics["target"], res.diagnostics["whitener"]
+    z = torch.as_tensor(np.random.default_rng(1).normal(scale=0.1, size=(3, target.dimension)))
+    parts = [*target.data, target.sigma_init, *whitener,
+             *make_centered_whitened_vg(target, whitener)(z)]
+    h = hashlib.sha256()
+    for a in parts:
+        if torch.is_tensor(a):
+            h.update(np.ascontiguousarray(a.numpy()).tobytes())
+    return h.hexdigest()
 
 
 def _ranks_job(rank):
@@ -130,7 +156,9 @@ def _ranks_job(rank):
         out[f"gauss_{metric}"] = (s, info["inv_mass"])
     # solve_magi sharded over four ranks, every sampler
     for case in SOLVE_CASES:
-        out[f"four_solve_{case}"] = hashlib.sha256(_solve(case, four).tobytes()).hexdigest()
+        res = _solve_res(case, four)
+        out[f"four_solve_{case}"] = (hashlib.sha256(_draws(res).tobytes()).hexdigest(),
+                                     _sampled_on(res))
     # chain counts that do not split over the mesh
     z6 = torch.zeros((6, 2), dtype=torch.float64)
     errors = []
@@ -221,7 +249,7 @@ def test_a_mesh_needs_a_process_group():
 
 
 def test_dryrun_multichip_passes(capsys):
-    deltas = dryrun.dryrun_multichip(N_RANKS)
+    deltas = dryrun.dryrun_multichip(N_RANKS, device="cpu")
     assert "dryrun_multichip OK" in capsys.readouterr().out
     for what in ("chains", "grid_value", "pt", "chees"):
         assert deltas[what] <= 1e-10
