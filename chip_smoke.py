@@ -76,7 +76,15 @@ Phases:
    threshold turns into another trajectory); (c) a one-rank NCCL world (a
    subgroup of rank 0): (b)'s float32 ``run_chains`` bit-equal to the
    unsharded call;
-14. grid: on the same ranks, the grid-sharded value-and-grad of
+14. resume-mesh: on the same ranks, [resume]'s runs sharded with
+   ``solve_magi(mesh=...)`` (8 chains = 4 x 2, 4 PT replicas = 4 x 1, 16
+   ChEES chains = 4 x 4): pooled NUTS killed mid-warmup and resumed under
+   the mesh, bit-equal to the uninterrupted sharded run; diag NUTS, pooled
+   PT and ChEES sampling checkpoints written by rank 0, the same on every
+   rank (gathered carry, generator state), resumed unsharded on every rank
+   to one result that equals a single-process resume from the same file,
+   bit for bit (the checkpoint against the unsharded run's is printed);
+15. grid: on the same ranks, the grid-sharded value-and-grad of
    [likelihood-3169]'s workload (n=3169, band 160, sigma sampled; the
    blocks built here in float64) at C = 1 and 128 against the unsharded
    banded value-and-grad on the card: in float64 under the JAX dry run's
@@ -84,13 +92,26 @@ Phases:
    |g| + 1e-3), in float32 the value alike and the gradient within 1e-4 of
    max |g|, and float32 against float64 on the CPU; the same on every rank,
    exactly 4 launches per value-and-grad eager and replayed; then NUTS on
-   one chain on it.
+   one chain on it;
+16. envelope: [slice]'s recipe with ``divergence_envelope=True`` (step
+   jitter off, as in the JAX package's envelope runs), ENVELOPE_NITER
+   iterations of which ENVELOPE_ADAPTS warmup: the probes (exact float64
+   Hessians on the host) collected after the first window end and folded
+   at the second; at least one probe, 1 to 16 boosted directions per probe,
+   a finite SPD folded metric, exactly 4 kernel launches per
+   value-and-grad and [slice]'s recovery bars (R-hat printed, not held:
+   the envelope is a measured negative on FN);
+17. profile: [default]'s workload and config cut to PROFILE_NITER
+   iterations with ``profile_dir`` set: one torch.profiler trace file
+   holding the band kernels' launches from the replayed CUDA graphs, and
+   draws bit-equal to the same run without it.
 
 The cut runs of [pt] and [chees] are held to bars set from the JAX
 package's readings at the same cuts on the same data
 (``python -m tests.test_torch_reference_cuts``; PERF.md).
 
-The launches of each main path ([default], [slice], [pt], [chees]) are
+The launches of each main path ([default], [slice], [pt], [chees],
+[envelope], [profile]) are
 counted from 0 just before its ``solve_magi`` and read just after: each
 kernel's count is its launches per value-and-grad (2 single, 1 pair, 1
 pair_t: 4) times the run's value-and-grad evaluations.
@@ -174,8 +195,10 @@ PT_GRAPH_TOL = 1e-6  # float32: the replayed and eager values agree to rounding
 CHEES_NITER, CHEES_CHAINS = 600, 64
 CHEES_RHAT_MAX = 2.53
 CHEES_ACCEPT_RANGE, CHEES_MAX_DIVERGENT_SHARE = (0.6, 0.99), 0.1
-# resume: iterations (half warmup) and chunk of each short run
+# resume: iterations (half warmup) and chunk of each short run; under the
+# mesh ([resume-mesh]) half as many, for time
 RESUME_NITER, RESUME_CHUNK = 80, 20
+RESUME_MESH_NITER, RESUME_MESH_CHUNK = 40, 10
 # mesh: ranks (gloo, all on the one card) and [slice]'s recipe cut to
 # MESH_NITER iterations (half warmup; at 60, with 3 dual-averaging steps
 # after the one metric window, 12.7% of the draws diverged): recovery bars
@@ -189,6 +212,16 @@ GRID_CHAINS = (1, 128)
 # the one-rank world of [mesh] (c), and where the ranks' tensors live
 MESH_SOLO_BACKEND, DEVICE = "nccl", "cuda"
 GRID_NUTS = dict(n_samples=6, n_adapts=3, initial_step_size=1e-4, max_depth=4)
+# envelope: ENVELOPE_ADAPTS warmup iterations give two window ends (at 100
+# and 150; inference/adapt.py's schedule: init buffer 75, first window 25,
+# term buffer 50), so a probe collected after the first is folded at the
+# second; warmup chunks of ENVELOPE_CHUNK (at most one probe per chunk);
+# the sampling draws cut to 25 for time (the phase's first cut)
+ENVELOPE_NITER, ENVELOPE_ADAPTS, ENVELOPE_CHUNK = 225, 200, 25
+ENVELOPE_MAX_BOOST_DIMS = 16  # per probe: CurvatureEnvelope's max_boost_dims
+# profile: [default] cut to PROFILE_NITER iterations (a trace of the full
+# run would hold millions of events)
+PROFILE_NITER = 20
 
 
 def pt_config(seed: int = PT_SEED) -> dict:
@@ -636,6 +669,16 @@ def phase_diag_gauss():
           + "; ".join(parts), flush=True)
 
 
+def default_config(mt, niter: int):
+    """[default]'s MagiConfig at ``niter`` iterations: the library's
+    defaults plus the FN example's settings, on the band kernels."""
+    return mt.MagiConfig(
+        niter_hmc=niter, burnin_ratio=0.5, step_size_factor=0.06,
+        target_accept_ratio=0.8, jitter=1e-6, prior_temperature=(1.0, 1.0, 5.0),
+        seed=DEFAULT_SEED, band_impl="band", device="cuda", verbose=True,
+    )
+
+
 def _start_psi_check(y, t, config):
     """solve_magi's start Psi (NLML phi and sigma, interpolated x,
     bounds-midpoint theta) on the default path: the float32 band
@@ -686,11 +729,7 @@ def phase_default(mt, cb):
     )
 
     y, t = fn_bench_workload(seed=DEFAULT_SEED)
-    config = mt.MagiConfig(
-        niter_hmc=DEFAULT_NITER, burnin_ratio=0.5, step_size_factor=0.06,
-        target_accept_ratio=0.8, jitter=1e-6, prior_temperature=(1.0, 1.0, 5.0),
-        seed=DEFAULT_SEED, band_impl="band", device="cuda", verbose=True,
-    )
+    config = default_config(mt, DEFAULT_NITER)
     check(config.n_chains == 1 and config.mass_matrix == "diag" and not config.x_whitened
           and config.map_init_iterations == 0, "default: MagiConfig defaults changed")
     err, v64, gmax = _start_psi_check(y, t, config)
@@ -1245,6 +1284,129 @@ def _grid_rank(rank, grid_file):
     return out
 
 
+RESUME_MESH_CASES = {
+    "diag NUTS": dict(n_chains=8, chain_init_jitter=0.05),
+    "pooled PT": dict(sampler="pt-nuts", pt_temps=4, pt_replicas=4, mass_matrix="dense-pooled"),
+    "ChEES": dict(sampler="chees", n_chains=16, chain_init_jitter=0.05),
+}
+
+
+def _ckpt_arrays(ckpt) -> dict:
+    """A checkpoint's arrays by name (a SamplerCheckpoint or PT's dict)."""
+    if isinstance(ckpt, dict):
+        return {k: np.asarray(v) for k, v in ckpt.items()}
+    out = {f: np.asarray(getattr(ckpt, f)) for f in ("psi", "step_size", "inv_mass", "rng_state")}
+    out.update({f"st_{k}": np.asarray(v) for k, v in (ckpt.state or {}).items()})
+    return out
+
+
+class _KeepCheckpoint:
+    """Wraps the samplers' checkpoint writer: digests every checkpoint this
+    rank builds, and saves the first one ``want`` accepts to ``keep`` (on
+    the rank that writes)."""
+
+    def __init__(self, keep, want):
+        from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
+            chees, tempering,
+        )
+        from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import chains
+
+        self.modules, self.real = (chains, tempering, chees), chains.write_checkpoint
+        self.keep, self.want, self.built = keep, want, []
+
+    def __enter__(self):
+        from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
+            checkpoint as ck,
+        )
+
+        def write(mesh, path, ckpt, save=None):
+            self.built.append(digest(*_ckpt_arrays(ckpt).values()))
+            if not os.path.exists(self.keep) and self.want(ckpt) and (
+                    mesh is None or mesh.rank == 0):
+                (save or ck.save_checkpoint)(self.keep, ckpt)
+            self.real(mesh, path, ckpt, save)
+
+        for module in self.modules:
+            module.write_checkpoint = write
+        return self
+
+    def __exit__(self, *exc):
+        for module in self.modules:
+            module.write_checkpoint = self.real
+
+
+def _resume_mesh_rank(rank, mesh, tmp):
+    """[resume-mesh] on one rank: [resume]'s runs under the mesh, killed
+    and resumed; rank i also runs case i unsharded and resumes its mesh
+    checkpoint in this process alone."""
+    import dataclasses
+
+    import manifold_constrained_gaussian_process_inference_tpu_torch as mt
+    import torch.distributed as dist
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
+        checkpoint as ck, tempering as tt,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        PHI, SIGMA_TRUE, fn_bench_workload,
+    )
+
+    y, t = fn_bench_workload(n_obs=21, t_end=8.0, fill=1)
+    base = dict(niter_hmc=RESUME_MESH_NITER, burnin_ratio=0.5, chunk_size=RESUME_MESH_CHUNK,
+                seed=5, phi=PHI, sigma=np.full(2, SIGMA_TRUE), x_whitened=True,
+                band_impl="band", device=DEVICE)
+    draws = lambda res: digest(res.diagnostics["theta_per_chain"], res.x_sampled,  # noqa: E731
+                               res.diagnostics["lp_per_chain"])
+    out = {}
+    t0 = time.perf_counter()
+    pooled = mt.MagiConfig(**base, checkpoint_path=f"{tmp}/pooled.npz", n_chains=8,
+                           chain_init_jitter=0.05, mass_matrix="dense-pooled", step_jitter=0.125)
+    kept = f"{tmp}/pooled_kept.npz"
+    mid_warmup = lambda c: (not isinstance(c, dict) and c.phase == "warmup"  # noqa: E731
+                            and 0 < c.warmup["pos"] < RESUME_MESH_NITER // 2)
+    with _KeepCheckpoint(kept, mid_warmup) as rec:
+        full = mt.solve_magi(y, t, mt.FN_SYSTEM, pooled, mesh=mesh)
+    dist.barrier()
+    resumed = mt.solve_magi(y, t, mt.FN_SYSTEM, dataclasses.replace(
+        pooled, checkpoint_path=f"{tmp}/pooled_r.npz"), mesh=mesh, resume=kept)
+    out["pooled"] = dict(full=draws(full), resumed=draws(resumed), built=digest(*rec.built),
+                         n_built=len(rec.built), pos=ck.load_checkpoint(kept).warmup["pos"],
+                         key=digest(full.diagnostics["final_key"]), n_chains=8)
+    sampling = lambda c: isinstance(c, dict) or c.phase == "sampling"  # noqa: E731
+    more = RESUME_MESH_NITER // 2 - RESUME_MESH_CHUNK
+    rmesh = tt.make_replica_mesh(device=DEVICE)
+    for i, (case, extra) in enumerate(RESUME_MESH_CASES.items()):
+        pt = extra.get("sampler") == "pt-nuts"
+        load = tt.load_pt_checkpoint if pt else ck.load_checkpoint
+        config = mt.MagiConfig(**base, **extra, checkpoint_path=f"{tmp}/{i}.npz")
+        kept = f"{tmp}/{i}_kept.npz"
+        with _KeepCheckpoint(kept, sampling) as rec:
+            sharded = mt.solve_magi(y, t, mt.FN_SYSTEM, config, mesh=rmesh if pt else mesh)
+        dist.barrier()
+        leg = dataclasses.replace(config, niter_hmc=more, checkpoint_path=f"{tmp}/{i}_r.npz")
+        every = mt.solve_magi(y, t, mt.FN_SYSTEM, leg, mesh=rmesh if pt else mesh, resume=kept)
+        res = dict(built=digest(*rec.built), n_built=len(rec.built), resumed=draws(every),
+                   key=digest(sharded.diagnostics["final_key"]),
+                   n_chains=every.diagnostics["n_chains"], draws=more)
+        if rank == i % mesh.size:
+            plain_kept = f"{tmp}/{i}_plain_kept.npz"
+            with _KeepCheckpoint(plain_kept, sampling):
+                mt.solve_magi(y, t, mt.FN_SYSTEM, dataclasses.replace(
+                    config, checkpoint_path=f"{tmp}/{i}_plain.npz"))
+            alone = mt.solve_magi(y, t, mt.FN_SYSTEM, dataclasses.replace(
+                leg, checkpoint_path=f"{tmp}/{i}_alone.npz"), resume=kept)
+            a, b = _ckpt_arrays(load(kept)), _ckpt_arrays(load(plain_kept))
+            res.update(alone=draws(alone), same_fields=sorted(a) == sorted(b),
+                       rng_equal=bool(np.array_equal(a["rng_state"], b["rng_state"])),
+                       max_delta=max(float(np.abs(a[k].astype(np.float64)
+                                                  - b[k].astype(np.float64)).max())
+                                     for k in a if a[k].dtype.kind == "f"))
+        out[case] = res
+    dist.barrier()
+    out["tmp_files"] = [f for f in os.listdir(tmp) if f.endswith(".tmp")]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _mesh_rank(rank, y, t, grid_file, t_spawn):
     """One rank of [mesh] and [grid] (gloo, all ranks on the one card);
     ``t_spawn``: the parent's clock at the spawn."""
@@ -1276,9 +1438,11 @@ def _mesh_rank(rank, y, t, grid_file, t_spawn):
     dry = _mesh_dryrun(rank, mesh, vgs, solve_out["dim"], nccl_group)
     t2 = time.perf_counter()
     grid_out = _grid_rank(rank, grid_file)
-    return dict(solve=solve_out, dryrun=dry, grid=grid_out,
+    t3 = time.perf_counter()
+    resume_out = _resume_mesh_rank(rank, mesh, os.path.dirname(grid_file))
+    return dict(solve=solve_out, dryrun=dry, grid=grid_out, resume=resume_out,
                 seconds=dict(start=t_entry - t_spawn, solve=t1 - t0, dryrun=t2 - t1,
-                             grid=time.perf_counter() - t2), t_end=time.time())
+                             grid=t3 - t2, resume=time.perf_counter() - t3), t_end=time.time())
 
 
 def phase_mesh(y, t, grid):
@@ -1303,7 +1467,49 @@ def phase_mesh(y, t, grid):
     wall = time.perf_counter() - t0
     for r in ranks:
         r["seconds"]["stop"] = time.time() - r["t_end"]
-    return {"mesh": _report_mesh(ranks, wall), "grid": _report_grid(ranks, grid)}
+    reports = {"mesh": _report_mesh(ranks, wall), "grid": _report_grid(ranks, grid)}
+    _report_resume_mesh(ranks)
+    return reports
+
+
+def _report_resume_mesh(ranks):
+    res = [r["resume"] for r in ranks]
+    parts = []
+    p = res[0]["pooled"]
+    parts.append(f"pooled NUTS ({p['n_chains']} chains) killed at warmup iteration {p['pos']} "
+                 f"of {RESUME_MESH_NITER // 2}, resumed under the mesh: theta, x, lp bit-equal to the "
+                 f"uninterrupted sharded run on every rank "
+                 f"{all(r['pooled']['full'] == r['pooled']['resumed'] for r in res)}")
+    for i, case in enumerate(RESUME_MESH_CASES):
+        own = res[i % len(res)][case]
+        parts.append(
+            f"{case} ({own['n_chains']} chains): {own['n_built']} checkpoints, the same on "
+            f"every rank {len({r[case]['built'] for r in res}) == 1}; resumed unsharded on "
+            f"every rank ({own['draws']} draws) to one result "
+            f"{len({r[case]['resumed'] for r in res}) == 1}, bit-equal to a single-process "
+            f"resume {own['resumed'] == own['alone']}; vs the unsharded run's checkpoint: same "
+            f"fields {own['same_fields']}, generator state equal {own['rng_equal']}, max "
+            f"|delta| {own['max_delta']:.3e}")
+    print(f"[resume-mesh] {MESH_RANKS} gloo ranks on one card, [resume]'s whitened FN n=41 at "
+          f"{RESUME_MESH_NITER} iterations, float32, band kernels, rank 0 writing: " + "; ".join(parts)
+          + f"; generator states equal on every rank "
+          f"{all(len({r[c]['key'] for r in res}) == 1 for c in ('pooled', *RESUME_MESH_CASES))}"
+          f"; seconds per rank {[round(r['seconds'], 1) for r in res]}", flush=True)
+    for r in res:
+        check(r["pooled"]["full"] == r["pooled"]["resumed"],
+              "resume-mesh: the resumed pooled warmup differs from the uninterrupted run")
+        check(not r["tmp_files"], f"resume-mesh: partial files {r['tmp_files']}")
+    for case in ("pooled", *RESUME_MESH_CASES):
+        for what in ("built", "key"):
+            check(len({r[case][what] for r in res}) == 1,
+                  f"resume-mesh {case}: the ranks' {what} differ")
+    for i, case in enumerate(RESUME_MESH_CASES):
+        own = res[i % len(res)][case]
+        check(len({r[case]["resumed"] for r in res}) == 1,
+              f"resume-mesh {case}: the ranks' resumed results differ")
+        check(own["resumed"] == own["alone"],
+              f"resume-mesh {case}: the mesh resume differs from a single-process resume")
+        check(own["same_fields"], f"resume-mesh {case}: fields differ from the unsharded run's")
 
 
 def _ratios(launches, vg_evals):
@@ -1421,6 +1627,119 @@ def _report_grid(ranks, grid):
     return launches, nuts_per_vg[0], None
 
 
+def phase_envelope(mt, cb, y, t):
+    """[slice]'s recipe through solve_magi(divergence_envelope=True)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        SIGMA_TRUE, THETA_TRUE,
+    )
+
+    burnin = (ENVELOPE_ADAPTS + 0.5) / ENVELOPE_NITER
+    check(int(np.floor(ENVELOPE_NITER * burnin)) == ENVELOPE_ADAPTS, "envelope: warmup length")
+    config = mt.MagiConfig(**{**slice_config(ENVELOPE_NITER), "burnin_ratio": burnin,
+                              "step_jitter": 0.0, "chunk_size": ENVELOPE_CHUNK},
+                           divergence_envelope=True, verbose=True)
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+    wall = time.perf_counter() - t0
+    launches = dict(cb.KERNEL_LAUNCHES)
+    d = res.diagnostics
+    points, dirs = d["envelope_points"], d["envelope_boost_dirs"]
+    probe_s = d["envelope_probe_seconds"]
+    minv = np.asarray(d["inv_mass"], dtype=np.float64)
+    eig = np.linalg.eigvalsh(0.5 * (minv + minv.T)) if np.isfinite(minv).all() else [np.nan]
+    theta_rmse = rmse(res.theta.mean(0), THETA_TRUE)
+    sigma_rmse = rmse(res.sigma.mean(0), SIGMA_TRUE)
+    vg_evals = GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
+    leaf_ms, leaves_s = _leaf_times(d)
+    pt = d["phase_times_s"]
+    print(f"[envelope] [slice]'s recipe, divergence_envelope=True, step_jitter 0, niter_hmc="
+          f"{ENVELOPE_NITER} ({ENVELOPE_ADAPTS} warmup, chunks of {ENVELOPE_CHUNK}) chains="
+          f"{N_CHAINS} band_impl={d['band_impl']} dtype={d['dtype']}; wall {wall:.1f} s: nlml "
+          f"{pt['nlml_s']:.2f} s, gn_map {pt['gn_map_s']:.2f} s, hessian+whitener "
+          f"{pt['whitener_s']:.2f} s, warmup {pt['warmup_s']:.2f} s (probes included), sampling "
+          f"{pt['sampling_s']:.2f} s; envelope probes {points}, seconds per probe "
+          f"{np.round(probe_s, 2).tolist()}, boosted directions {dirs}, max precision ratio "
+          f"{d['envelope_boost_max']:.1f}; folded metric eigenvalues [{min(eig):.4g}, "
+          f"{max(eig):.4g}]; step size mean {float(np.mean(d['step_size'])):.5g}; "
+          f"{leaf_ms:.4f} ms per batched leaf, {leaves_s:.0f} leaves/s, "
+          f"{d['lockstep_leaves'] / d['transitions']:.1f} per transition; sampling divergences "
+          f"{d['n_divergent']} of {d['diverging'].size}; max R-hat "
+          f"{max_rhat(d['theta_per_chain']):.4f} (not held); theta mean "
+          f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
+          f"{sigma_rmse:.4f}; kernel launches {launches} in {vg_evals} value-and-grads",
+          flush=True)
+    for name in ("theta", "x_sampled", "sigma", "lp"):
+        check(np.isfinite(getattr(res, name)).all(), f"envelope: non-finite {name}")
+    check(d["band_impl"] == "band", f"envelope: band_impl {d['band_impl']}")
+    check(points >= 1, "envelope: no probe collected")
+    check(1 <= dirs <= ENVELOPE_MAX_BOOST_DIMS * points,
+          f"envelope: {dirs} boosted directions from {points} probes")
+    check(np.isfinite(minv).all() and np.array_equal(minv, minv.T) and min(eig) > 0,
+          "envelope: the folded metric is not finite and SPD")
+    per_vg = _per_vg(launches, vg_evals, "envelope")
+    check(theta_rmse <= THETA_RMSE_MAX, f"envelope: theta RMSE {theta_rmse:.4f}")
+    check(sigma_rmse <= SIGMA_RMSE_MAX, f"envelope: sigma RMSE {sigma_rmse:.4f}")
+    return launches, per_vg, leaf_ms
+
+
+def phase_profile(mt, cb):
+    """[default]'s run, cut to PROFILE_NITER, with profile_dir set, against
+    the same run without it."""
+    import dataclasses
+    import tempfile
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        fn_bench_workload,
+    )
+
+    y, t = fn_bench_workload(seed=DEFAULT_SEED)
+    config = dataclasses.replace(default_config(mt, PROFILE_NITER), verbose=False)
+    t0 = time.perf_counter()
+    plain = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+    plain_wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        cb.reset_launches()
+        t0 = time.perf_counter()
+        res = mt.solve_magi(y, t, mt.FN_SYSTEM, dataclasses.replace(config, profile_dir=tmp))
+        wall = time.perf_counter() - t0
+        launches = dict(cb.KERNEL_LAUNCHES)
+        files = os.listdir(tmp)
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+              f"profile: trace files {files}")
+        size_mb = os.path.getsize(os.path.join(tmp, files[0])) / 2**20
+        with open(os.path.join(tmp, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the three entry points launch instances of one template, band_matvec_kernel
+    k1 = {}
+    for e in kernels:
+        if "band_matvec_kernel" in e.get("name", ""):
+            k1[e["name"]] = k1.get(e["name"], 0) + 1
+    k1_any = sum(k1.values())
+    graph_launches = sum("cudaGraphLaunch" in e.get("name", "") for e in events)
+    d = res.diagnostics
+    vg_evals = GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
+    same = all(np.array_equal(getattr(res, name), getattr(plain, name))
+               for name in ("theta", "x_sampled", "sigma", "lp"))
+    print(f"[profile] [default]'s config at niter_hmc={PROFILE_NITER} with profile_dir: trace "
+          f"{files[0]} {size_mb:.1f} MB, {len(events)} events, {len(kernels)} device kernel "
+          f"events, {k1_any} band kernel events over {len(k1)} template instances "
+          f"{sorted(k1.values())}, {graph_launches} CUDA graph launches; "
+          f"wall {wall:.1f} s profiled vs {plain_wall:.1f} s plain; draws bit-equal to the "
+          f"unprofiled run: {same}; kernel launches {launches} in {vg_evals} value-and-grads",
+          flush=True)
+    check(k1_any > 0, "profile: no band kernel in the trace")
+    check(same, "profile: the profiled run's draws differ from the unprofiled run's")
+    return launches, _per_vg(launches, vg_evals, "profile"), None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1448,6 +1767,8 @@ def main() -> int:
         "chees": lambda: paths.__setitem__("chees", phase_chees(mt, cb, y, t)),
         "resume": lambda: phase_resume(mt),
         "mesh": lambda: paths.update(phase_mesh(y, t, out["likelihood-3169"])),
+        "envelope": lambda: paths.__setitem__("envelope", phase_envelope(mt, cb, y, t)),
+        "profile": lambda: paths.__setitem__("profile", phase_profile(mt, cb)),
     }
     out, phase_s = {}, {}
     for name, run in phases.items():
@@ -1470,7 +1791,7 @@ def main() -> int:
         "grid": {"shape": bt.SHAPES[grid_label(op)], **timing[(grid_label(op), op)]},
         "grid_c1": timing[(grid_label(op) + "_c1", op)],
     } for name, op in KERNELS.items()], "ms_per_leaf": {
-        path: paths[path][2] for path in ("default", "slice", "pt", "mesh")},
+        path: paths[path][2] for path in ("default", "slice", "pt", "mesh", "envelope")},
         "ms_per_chees_leapfrog_step": paths["chees"][2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

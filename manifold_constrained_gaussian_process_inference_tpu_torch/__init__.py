@@ -22,9 +22,20 @@ from .models import FN_SYSTEM, OdeSystem, get_system, registered_systems  # noqa
 from .ops import (  # noqa: E402,F401
     GPCov,
     build_gp_cov,
+    calculate_gp_covariances,
     log_likelihood_and_gradient_banded,
     log_posterior,
 )
-from .inference import MagiResult, MagiTarget, solve_magi  # noqa: E402,F401
+from .inference import MagiResult, MagiTarget, run_nuts, solve_magi  # noqa: E402,F401
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the postprocessing layer loads on first use (plot_magi imports
+    # matplotlib), as in the JAX package
+    if name in ("magi_summary", "results_to_chain", "plot_magi"):
+        from . import postprocess
+
+        return getattr(postprocess, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,6 +16,10 @@ checkpoint (its (C, 2) uint32 keys cannot seed a torch generator):
 ``from_jax_checkpoint`` converts one explicitly, starting the random state
 from a given seed.
 
+A file is written whole or not at all: into a temporary file beside it,
+then renamed over it, so a run killed mid-write leaves the previous
+checkpoint. Under a mesh rank 0 alone writes it (parallel/chains.py).
+
 Protocol:
   result = solve_magi(..., config with checkpoint_path=path)
   solve_magi(..., resume=path)        # or resume=load_checkpoint(path)
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,7 +55,9 @@ class SamplerCheckpoint:
     stopped during the warmup of the pooled dense NUTS path): ``warmup``
     then holds the iteration index ``pos``, the warmup carry by field name
     (``carry``: WARMUP_CARRY_FIELDS), the pooled metric's three factors,
-    the window moments accumulated so far and the warmup divergence flags.
+    the window moments accumulated so far, the warmup divergence flags and
+    the curvature envelope's probes (``envelope``: points and precisions,
+    or None), so a resumed warmup folds the same precisions.
     ``state`` holds named sampler arrays: ``logp`` and ``grad`` at ``psi``
     (a resumed run restores them instead of re-evaluating), the dense
     metric's factors, ChEES's principal component."""
@@ -133,6 +140,17 @@ def checkpoint_from_result(result) -> SamplerCheckpoint:
     )
 
 
+def savez_atomic(path: str, arrays: dict) -> None:
+    """``np.savez(path, **arrays)`` (the same file name: ``.npz`` added when
+    missing), written to a temporary file of this process and renamed over
+    ``path``: a reader never sees a partial file."""
+    final = path if path.endswith(".npz") else path + ".npz"
+    tmp = f"{final}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, final)
+
+
 def save_checkpoint(path: str, ckpt: SamplerCheckpoint) -> None:
     arrays = dict(
         psi=ckpt.psi,
@@ -156,7 +174,12 @@ def save_checkpoint(path: str, ckpt: SamplerCheckpoint) -> None:
         for i, mom in enumerate(w["moments"]):
             for j, part in enumerate(mom):
                 arrays[f"wu_mom_{i:03d}_{j}"] = np.asarray(part)
-    np.savez(path, **arrays)
+        env = w.get("envelope")
+        if env is not None:  # the JAX package's keys
+            for i, (pt, pr) in enumerate(zip(env["points"], env["precs"])):
+                arrays[f"wu_env_pt_{i:03d}"] = np.asarray(pt)
+                arrays[f"wu_env_prec_{i:03d}"] = np.asarray(pr)
+    savez_atomic(path, arrays)
 
 
 def load_checkpoint(path: str) -> SamplerCheckpoint:
@@ -168,6 +191,7 @@ def load_checkpoint(path: str) -> SamplerCheckpoint:
         warmup = None
         if phase == "warmup":
             n_moms = len({k[: len("wu_mom_000")] for k in z.files if k.startswith("wu_mom_")})
+            env_pts = sorted(k for k in z.files if k.startswith("wu_env_pt_"))
             warmup = {
                 "pos": int(z["wu_pos"]),
                 "carry": {name: z[f"wu_carry_{name}"] for name in WARMUP_CARRY_FIELDS},
@@ -175,6 +199,9 @@ def load_checkpoint(path: str) -> SamplerCheckpoint:
                             for i in range(n_moms)],
                 **{name: z[f"wu_{name}"]
                    for name in ("metric_minv", "metric_chol", "metric_pchol", "div")},
+                "envelope": ({"points": [z[k] for k in env_pts],
+                              "precs": [z[k.replace("_pt_", "_prec_")] for k in env_pts]}
+                             if env_pts else None),
             }
         state = {k[len("st_"):]: z[k] for k in z.files if k.startswith("st_")}
         return SamplerCheckpoint(
@@ -191,23 +218,53 @@ def load_checkpoint(path: str) -> SamplerCheckpoint:
         )
 
 
+# The leaves of the JAX package's pooled WarmupCarry in pytree order:
+# chain (q, logp, grad, key), dual averaging (5), Welford (count, mean, m2),
+# inv_mass. The port keeps the chain and dual-averaging fields.
+JAX_WARMUP_LEAVES = ("q", "logp", "grad", None, "log_eps", "log_eps_avg", "h_bar", "mu",
+                     "count", None, None, None, None)
+
+
+def _from_jax_warmup(w: dict) -> dict:
+    """A JAX warmup-phase ``warmup`` dict in the port's layout: the carry
+    by field name instead of by leaf, the rest (metric factors, moments,
+    divergence flags, the envelope's probes) as it is."""
+    if w is None:
+        raise MagiError("this JAX warmup-phase checkpoint holds no warmup state to convert.")
+    leaves = w["carry_leaves"]
+    if len(leaves) != len(JAX_WARMUP_LEAVES):
+        raise MagiError(f"a JAX warmup checkpoint has {len(JAX_WARMUP_LEAVES)} carry leaves; "
+                        f"this one has {len(leaves)}.")
+    carry = {name: np.asarray(leaf) for name, leaf in zip(JAX_WARMUP_LEAVES, leaves) if name}
+    env = w.get("envelope")
+    return {
+        "pos": int(w["pos"]), "carry": carry,
+        **{name: np.asarray(w[name]) for name in ("metric_minv", "metric_chol", "metric_pchol",
+                                                  "div")},
+        "moments": [tuple(np.asarray(p) for p in m) for m in w["moments"]],
+        "envelope": None if env is None else {
+            "points": [np.asarray(p) for p in env["points"]],
+            "precs": [np.asarray(p) for p in env["precs"]]},
+    }
+
+
 def from_jax_checkpoint(ckpt, seed: int, device="cpu"):
     """The port's checkpoint from a JAX package sampler checkpoint, loaded
-    as numpy: a NUTS or ChEES ``SamplerCheckpoint`` (sampling phase) or a
-    parallel-tempering dict. Positions, step sizes, inverse metrics
-    (diagonal, shared dense or per-rung dense), the ladder, the swap
-    counters and sweep parity, ChEES's trajectory length, its Adam state,
-    Halton index and principal component (when the checkpoint has one)
-    carry over unchanged. Threefry keys do not: the random state starts
-    from ``torch.Generator(device).manual_seed(seed)``."""
+    as numpy: a NUTS or ChEES ``SamplerCheckpoint`` (sampling or warmup
+    phase) or a parallel-tempering dict. Positions, step sizes, inverse
+    metrics (diagonal, shared dense or per-rung dense), the ladder, the
+    swap counters and sweep parity, ChEES's trajectory length, its Adam
+    state, Halton index and principal component (when the checkpoint has
+    one) carry over unchanged, and so does a pooled warmup's state: its
+    carry (mapped from pytree leaves to field names), metric, window
+    moments, divergence flags and envelope probes. Threefry keys do not:
+    the random state starts from ``torch.Generator(device).manual_seed(seed)``."""
     rng_state, rng_device = generator_state(torch.Generator(device=device).manual_seed(int(seed)))
     if isinstance(ckpt, dict):
         out = {k: np.asarray(v) for k, v in ckpt.items() if k != "key"}
         out.update(rng_state=rng_state, rng_device=np.asarray(rng_device))
         return out
-    if getattr(ckpt, "phase", "sampling") != "sampling":
-        raise MagiError("a JAX warmup-phase checkpoint stores its carry by pytree leaf "
-                        "order; only sampling-phase checkpoints convert.")
+    phase = getattr(ckpt, "phase", "sampling")
     meta = dict(ckpt.meta) if ckpt.meta else None
     state = None
     if meta and meta.get("pc") is not None:
@@ -215,7 +272,8 @@ def from_jax_checkpoint(ckpt, seed: int, device="cpu"):
     return SamplerCheckpoint(
         psi=np.asarray(ckpt.psi), step_size=np.asarray(ckpt.step_size),
         inv_mass=np.asarray(ckpt.inv_mass), rng_state=rng_state, rng_device=rng_device,
-        n_samples_drawn=int(ckpt.n_samples_drawn), meta=meta, state=state,
+        n_samples_drawn=int(ckpt.n_samples_drawn), meta=meta, state=state, phase=phase,
+        warmup=_from_jax_warmup(ckpt.warmup) if phase == "warmup" else None,
     )
 
 

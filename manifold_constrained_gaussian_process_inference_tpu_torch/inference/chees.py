@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from ..config import default_device, default_dtype
-from ..parallel.chains import GRAPH_WARMUP_CALLS, MESH_CHECKPOINT_REFUSAL, Counts, capture_graph
-from ..parallel.mesh import Mesh, local_draw
+from ..parallel.chains import GRAPH_WARMUP_CALLS, Counts, capture_graph, write_checkpoint
+from ..parallel.mesh import Mesh, gather_rows, local_draw
 from ..ops import cuda_band
 from . import checkpoint as ckpt_io
 from .adapt import DualAveragingState, build_window_schedule, da_init, da_update
@@ -310,11 +310,16 @@ def chees_refresh_mass(adapt: CheesAdaptState) -> CheesAdaptState:
 
 
 def chees_checkpoint(state: CheesState, adapt: CheesAdaptState, eps, inv_mass, traj_length,
-                     generator, n_samples_drawn: int = 0) -> ckpt_io.SamplerCheckpoint:
+                     generator, n_samples_drawn: int = 0,
+                     mesh: Mesh | None = None) -> ckpt_io.SamplerCheckpoint:
     """A sampling-phase SamplerCheckpoint for ChEES: the frozen step size,
     metric and trajectory length, the Halton index and the trajectory Adam
     state in ``meta`` (the JAX package's keys), and the log-densities,
-    gradients and principal component in ``state``."""
+    gradients and principal component in ``state``; under a chain mesh
+    every rank's chains, gathered (every rank must call it)."""
+    if mesh is not None:
+        state = state._replace(**{name: gather_rows(mesh, getattr(state, name))
+                                  for name in ("qs", "logps", "grads")})
     rng_state, rng_device = ckpt_io.generator_state(generator)
     return ckpt_io.SamplerCheckpoint(
         psi=state.qs.cpu().numpy(),
@@ -357,9 +362,10 @@ def _sample(vg_b, leapfrog, state, adapt, eps, inv_mass, traj, generator, n_keep
             parts[name].append(torch.stack(cols[name], dim=1).cpu().numpy())
         pos += length
         if checkpoint_path:
+            c_all = c * (1 if mesh is None else mesh.size)
             last = chees_checkpoint(state, adapt, eps, inv_mass, traj, generator,
-                                    drawn0 + c * pos)
-            ckpt_io.save_checkpoint(checkpoint_path, last)
+                                    drawn0 + c_all * pos, mesh)
+            write_checkpoint(mesh, checkpoint_path, last)
         if progress:
             logger.info("chees sampling %d/%d (%.1fs)", pos, n_keep, time.perf_counter() - t0)
     return state, parts, last
@@ -430,15 +436,13 @@ def run_chees(
     ``mesh`` (``parallel/chains.make_chain_mesh``): every rank calls with
     the same arguments (psi0 of all C chains, a generator seeded alike) and
     runs C/size chains (C must be a multiple of the mesh size); each returns
-    the draws of all C chains, with the rank's own counts.
-    ``checkpoint_path`` is not ported under a mesh (ROADMAP M17)."""
+    the draws of all C chains, with the rank's own counts; rank 0 writes
+    the checkpoints."""
     if criterion not in ("chees", "snaper"):
         raise ValueError(f"unknown trajectory criterion '{criterion}'")
     c, dim = psi0.shape
     n_keep = n_samples - n_adapts
     if mesh is not None:
-        if checkpoint_path:
-            raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
         mesh.check_divides(c, "n_chains")
     if init_jitter > 0 and c > 1:
         noise = init_jitter * torch.randn(psi0.shape, generator=generator, dtype=psi0.dtype,

@@ -34,6 +34,12 @@ Leaf state is packed as one (C, 5, dim) tensor [q, p, v, grad, M^-1 grad]
 so that each masked commit is one ``torch.where``. Random numbers come from
 one ``torch.Generator`` on the chains' device.
 
+``track_div_leaf`` (the curvature envelope's warmup, parallel/chains.py)
+also records each chain's last divergent leapfrog step: the position it was
+taken from (its edge) and the exploded leaf it produced. Off, the
+transition issues exactly the operations it issues without the option; on,
+it adds two masked copies per leaf and draws the same numbers.
+
 Under a chain mesh (``parallel/mesh.py``) each rank runs the transition of
 its block of chains in its own lockstep. Every rank draws each random
 tensor for all chains and keeps its block (``mesh.local_draw``), and at the
@@ -44,7 +50,7 @@ would draw unsharded.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -103,15 +109,19 @@ class SubTree(NamedTuple):
     turning: torch.Tensor
     leaves_run: int           # batched leapfrog steps run (host count)
     host_syncs: int
+    # the divergent step's edge and exploded leaf (C, dim), when tracked
+    div_edge: Optional[torch.Tensor] = None
+    div_leaf: Optional[torch.Tensor] = None
 
 
 def _build_subtree_b(
     vg_b, edge, num_leaves: int, eps_signed, metric, h0, alive0,
-    generator, max_delta_energy, mesh=None,
+    generator, max_delta_energy, mesh=None, track_div_leaf: bool = False,
 ) -> SubTree:
     """``num_leaves`` leapfrog steps outward from ``edge`` for every chain
     alive in ``alive0``. A chain commits each leaf while alive and freezes
-    at the leaf where it diverges or its sub-tree turns."""
+    at the leaf where it diverges or its sub-tree turns (so a tracked
+    divergent step is written once per sub-tree)."""
     C, _, dim = edge.shape
     dtype, device = edge.dtype, edge.device
     n_rows = max(num_leaves.bit_length() - 1, 1)
@@ -131,6 +141,10 @@ def _build_subtree_b(
     turning = torch.zeros(C, dtype=torch.bool, device=device)
     alive = alive0
     host_syncs = 0
+    div_edge = div_leaf = None
+    if track_div_leaf:
+        div_edge = torch.zeros((C, dim), dtype=dtype, device=device)
+        div_leaf = torch.zeros((C, dim), dtype=dtype, device=device)
 
     for j in range(num_leaves):
         q, p, v, g, mg = cur.unbind(1)
@@ -168,6 +182,10 @@ def _build_subtree_b(
             turning = torch.where(alive, turned, turning)
             stop = bad | turned
 
+        if track_div_leaf:
+            newly_bad = (alive & bad)[:, None]
+            div_edge = torch.where(newly_bad, q, div_edge)
+            div_leaf = torch.where(newly_bad, q_n, div_leaf)
         cur = torch.where(alive3, leaf, cur)
         log_sum_w = torch.where(alive, lsw, log_sum_w)
         sum_accept = sum_accept + torch.where(alive, accept, 0.0)
@@ -183,7 +201,7 @@ def _build_subtree_b(
         first=first, last=cur, rho=rho, prop=prop, logp_prop=logp_prop,
         log_sum_w=log_sum_w, sum_accept=sum_accept, num_leaves=n_leaves,
         diverging=diverging, turning=turning, leaves_run=j + 1,
-        host_syncs=host_syncs,
+        host_syncs=host_syncs, div_edge=div_edge, div_leaf=div_leaf,
     )
 
 
@@ -198,11 +216,14 @@ def nuts_transition_batched(
     max_depth: int = 10,
     max_delta_energy: float = MAX_DELTA_ENERGY,
     mesh=None,
+    track_div_leaf: bool = False,
 ):
     """One NUTS transition for all C chains under ``metric``.
     ``vg_b`` maps (C, dim) -> ((C,), (C, dim)). Under a chain ``mesh`` the
     C chains are this rank's block (see the module docstring). Returns
-    (q', logp', grad', NutsStats)."""
+    (q', logp', grad', NutsStats), and with ``track_div_leaf`` a fifth
+    output: (edge, leaf), each (C, dim), the two endpoints of each chain's
+    divergent leapfrog step (zeros for a chain that did not diverge)."""
     C, dim = q.shape
     dtype, device = q.dtype, q.device
     eps = torch.as_tensor(step_size, dtype=dtype, device=device).expand(C)
@@ -222,6 +243,9 @@ def nuts_transition_batched(
     depth = torch.zeros(C, dtype=torch.int32, device=device)
     done = torch.zeros(C, dtype=torch.bool, device=device)
     host_syncs = lockstep_leaves = doublings = 0
+    if track_div_leaf:
+        div_edge = torch.zeros((C, dim), dtype=dtype, device=device)
+        div_leaf = torch.zeros((C, dim), dtype=dtype, device=device)
 
     for i in range(max_depth):
         if i > 0:
@@ -236,7 +260,7 @@ def nuts_transition_batched(
         direction = torch.where(go_right, 1.0, -1.0).to(dtype)
         sub = _build_subtree_b(
             vg_b, torch.where(gr3, right, left), 1 << i, direction * eps,
-            metric, h0, upd, generator, max_delta_energy, mesh,
+            metric, h0, upd, generator, max_delta_energy, mesh, track_div_leaf,
         )
         lockstep_leaves += sub.leaves_run
         host_syncs += sub.host_syncs
@@ -263,6 +287,11 @@ def nuts_transition_batched(
         )
         sum_accept = sum_accept + torch.where(upd, sub.sum_accept, 0.0)
         num_leaves = num_leaves + torch.where(upd, sub.num_leaves, 0.0)
+        if track_div_leaf:
+            # one divergent sub-tree at most per transition: done is set
+            hit = (upd & sub.diverging)[:, None]
+            div_edge = torch.where(hit, sub.div_edge, div_edge)
+            div_leaf = torch.where(hit, sub.div_leaf, div_leaf)
         diverging = diverging | (upd & sub.diverging)
         done = done | (upd & (sub.diverging | sub.turning | turning_combined))
         depth = torch.where(upd, i + 1, depth)
@@ -285,6 +314,8 @@ def nuts_transition_batched(
         host_syncs=host_syncs,
         lockstep_leaves=lockstep_leaves,
     )
+    if track_div_leaf:
+        return prop[:, Q], logp_prop, prop[:, G], stats, (div_edge, div_leaf)
     return prop[:, Q], logp_prop, prop[:, G], stats
 
 
@@ -302,22 +333,25 @@ def init_warmup_carry_batched(vg_b, q0s: torch.Tensor, initial_step_size) -> War
 
 
 def make_warmup_step_pooled_batched(
-    vg_b, target_accept: float, max_depth: int, generator: torch.Generator, mesh=None
+    vg_b, target_accept: float, max_depth: int, generator: torch.Generator, mesh=None,
+    track_div_leaf: bool = False,
 ):
     """Warmup transition with per-chain dual averaging of the step size
     (restarted at adaptation-window ends) under the shared metric, which
-    the driver re-estimates between windows."""
+    the driver re-estimates between windows. Returns (carry, stats), and
+    with ``track_div_leaf`` also the divergent step's (edge, leaf)."""
 
     def warmup_step(carry: WarmupCarry, win_end: bool, metric):
         chain = carry.chain
-        q, logp, grad, stats = nuts_transition_batched(
+        q, logp, grad, stats, *div_pair = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
-            metric, generator, max_depth=max_depth, mesh=mesh,
+            metric, generator, max_depth=max_depth, mesh=mesh, track_div_leaf=track_div_leaf,
         )
         da = da_update(carry.da, stats.accept_prob, target_accept)
         if win_end:
             da = da_restart(da)
-        return WarmupCarry(chain=ChainState(q=q, logp=logp, grad=grad), da=da), stats
+        return (WarmupCarry(chain=ChainState(q=q, logp=logp, grad=grad), da=da), stats,
+                *div_pair)
 
     return warmup_step
 

@@ -16,13 +16,19 @@ sampler writes checkpoints (``checkpoint_path``) and resumes from them
 solve_magi with the same data and config: rank 0 runs the setup (NLML, MAP
 warm start, Gauss-Newton MAP, whitener) and broadcasts what feeds the
 sampler, the sampler is sharded over the ranks, and every rank returns the
-same gathered result. Checkpoints under a mesh, the divergence envelope and
-profile_dir raise NotImplementedError naming their ROADMAP item.
+same gathered result; rank 0 writes the checkpoints, and a resumed
+sampling leg runs unsharded on every rank, as in the JAX package.
+``divergence_envelope`` folds exact float64 Hessian probes at divergent
+warmup steps into the pooled metric (parallel/chains.py
+CurvatureEnvelope); ``profile_dir`` traces the sampling phase with
+torch.profiler.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -33,7 +39,7 @@ from ..config import MagiConfig, MagiError
 from ..models.base import OdeSystem
 from ..ops.gp_cov import build_gp_cov
 from ..ops.kernels import parse_kernel_type
-from ..parallel.chains import MESH_CHECKPOINT_REFUSAL, run_chains
+from ..parallel.chains import CurvatureEnvelope, run_chains
 from ..parallel.mesh import broadcast_tensors
 from .nlml import default_initial_guesses, optimize_gp_hyperparameters
 from .target import MagiTarget, check_band_impl
@@ -44,6 +50,7 @@ from .whiten import (
     build_psi_whitener_exact,
     gauss_newton_map,
     make_centered_whitened_vg,
+    make_exact_hessian_fn,
     zeta_to_psi_np,
 )
 
@@ -172,19 +179,49 @@ def map_warm_start(
     return out.to("cpu", torch.float64).numpy()
 
 
-def _check_supported(config: MagiConfig, mesh, resume) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if mesh is not None and (config.checkpoint_path or resume is not None):
-        raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
-    unported = [
-        (config.divergence_envelope, "divergence_envelope", "M18"),
-        (config.profile_dir is not None, "profile_dir", "M10"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP {item})."
-            )
+def envelope_probes(target_h: MagiTarget, whitener: PsiWhitener):
+    """The curvature envelope's ``hess_fn`` and ``logp_fn`` in the
+    sampler's coordinates z: the float64 host target ``target_h`` at
+    psi = center + W z, its exact Hessian conjugated through the whitener
+    as the local precision W^T (-(H + H^T)/2) W (the JAX package's solve.py
+    wiring). The whitener's factors are widened to float64 on the host."""
+    hess_psi = make_exact_hessian_fn(target_h)
+    logdensity = target_h.logdensity_fn()
+    w64 = whitener.W.double().cpu().numpy()
+    c64 = whitener.center.double().cpu().numpy()
+    like = target_h.data.mask
+
+    def hess_z(z):
+        h = hess_psi(c64 + w64 @ np.asarray(z, dtype=np.float64))
+        pz = w64.T @ (-0.5 * (h + h.T)) @ w64
+        return 0.5 * (pz + pz.T)
+
+    def logp_z(z):
+        psi = c64 + w64 @ np.asarray(z, dtype=np.float64)
+        with torch.no_grad():
+            return float(logdensity(torch.as_tensor(psi, dtype=like.dtype, device=like.device)))
+
+    return hess_z, logp_z
+
+
+def _trace_sampling(profile_dir, device, mesh):
+    """The JAX package's ``jax.profiler.trace(profile_dir)`` around the
+    sampling phase, as ``torch.profiler``: CPU activity, and the card's
+    under CUDA, written when the scope ends as one trace file per rank
+    (``magi_rank<r>.<timestamp>.pt.trace.json``, Chrome trace format,
+    readable by Perfetto or TensorBoard) into ``profile_dir``."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    rank = 0 if mesh is None else mesh.rank
+    return torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(
+            profile_dir, worker_name=f"magi_rank{rank}"),
+    )
 
 
 def _from_root(mesh, compute, *like):
@@ -221,15 +258,18 @@ def _normalize_pt(s_pt: np.ndarray, info: dict):
     return samples, info, samples.shape[0]
 
 
-def _load_resume(resume, config: MagiConfig, dimension: int):
+def _load_resume(resume, config: MagiConfig, dimension: int, mesh=None):
     """A checkpoint given by path or object, refused when it is the JAX
-    package's or its dimension is not the target's."""
+    package's or its dimension is not the target's. Under a mesh rank 0's
+    copy goes to every rank, so no rank reads another file state."""
     from .checkpoint import check_port_checkpoint, load_checkpoint
     from .tempering import load_pt_checkpoint
 
-    if isinstance(resume, str):
+    if isinstance(resume, str) and (mesh is None or mesh.rank == 0):
         load = load_pt_checkpoint if config.sampler == "pt-nuts" else load_checkpoint
         resume = load(resume)
+    if mesh is not None:
+        resume = mesh.broadcast_object(resume)
     check_port_checkpoint(resume)
     ck_dim = int(np.asarray(resume["qs"] if isinstance(resume, dict) else resume.psi).shape[-1])
     if ck_dim != dimension:
@@ -240,11 +280,15 @@ def _load_resume(resume, config: MagiConfig, dimension: int):
     return resume
 
 
-def _run_resumed(vg, ckpt, config: MagiConfig, dtype, device):
+def _run_resumed(vg, ckpt, config: MagiConfig, dtype, device, mesh=None):
     """A resumed sampling leg through the sampler's resumed runner, in the
-    (C, S) layout of the fresh runs. Returns (samples, info, n_chains)."""
+    (C, S) layout of the fresh runs. Returns (samples, info, n_chains).
+    Under a mesh every rank runs the whole leg unsharded, as the JAX
+    package does, and rank 0 alone writes its checkpoints."""
+    writer = mesh is None or mesh.rank == 0
     common = dict(chunk_size=config.chunk_size, dtype=dtype, device=device,
-                  checkpoint_path=config.checkpoint_path, progress=config.verbose)
+                  checkpoint_path=config.checkpoint_path if writer else None,
+                  progress=config.verbose)
     if config.sampler == "chees":
         from .chees import run_chees_resumed
 
@@ -296,10 +340,14 @@ def resolve_band_impl(config: MagiConfig, n_times: int, n_dims: int,
         check_band_impl(config.band_impl)
         return config.band_impl
     on_card = device.type == "cuda"
+    # the chains one value-and-grad evaluates: PT batches every rung of
+    # every replica, whatever n_chains says
+    eff_batch = (config.pt_temps * config.pt_replicas if config.sampler == "pt-nuts"
+                 else config.n_chains)
     dense_bytes = n_dims * 6 * n_times * n_times * 4
     if n_times <= (512 if on_card else 1024):
         return "dense"
-    if config.n_chains >= 8 and dense_bytes <= 2 << 30:
+    if eff_batch >= 8 and dense_bytes <= 2 << 30:
         return "dense"
     if bandsize > AUTO_BAND_MAX_BANDWIDTH:
         return "dense"
@@ -352,10 +400,10 @@ def solve_magi(
     and config and gets the same result: rank 0 runs the host setup (NLML,
     GP covariances, MAP warm start, Gauss-Newton, whitener) and broadcasts
     it. The diagnostics' counts (transitions, host_syncs, lockstep_leaves,
-    chain_leaves) are the rank's own. ``checkpoint_path`` and ``resume``
-    are not ported under a mesh (ROADMAP M17)."""
+    chain_leaves) are the rank's own. Under a mesh rank 0 writes the
+    checkpoints of every chain; a warmup checkpoint resumes sharded (each
+    rank takes its block), a sampling checkpoint unsharded on every rank."""
     config = config or MagiConfig()
-    _check_supported(config, mesh, resume)
     if config.sampler not in ("nuts", "pt-nuts", "chees"):
         raise MagiError(f"unknown sampler '{config.sampler}'")
     _check_precision()
@@ -516,7 +564,7 @@ def solve_magi(
         ),), psi0)
         phase_times["map_s"] = time.perf_counter() - t_phase
 
-    whitener = None
+    whitener = target_h = None
     if config.x_whitened:
         # --- staged Gauss-Newton MAP on a float64 dense CPU replica ---
         t_phase = time.perf_counter()
@@ -556,6 +604,20 @@ def solve_magi(
         vg = target.value_and_grad_fn()
         start = psi0
 
+    # --- the divergence-informed curvature envelope: exact float64 Hessian
+    # probes at divergent warmup steps, on the host replica target_h (rank
+    # 0's; the other ranks never probe) ---
+    envelope = None
+    if config.divergence_envelope and config.sampler == "nuts":
+        if config.mass_matrix != "dense-pooled" or whitener is None:
+            logger.warning(
+                "divergence_envelope requires sampler='nuts' with "
+                "mass_matrix='dense-pooled' and x_whitened=True; disabled."
+            )
+        else:
+            probes = envelope_probes(target_h, whitener) if target_h is not None else (None,)
+            envelope = CurvatureEnvelope(*probes, max_points=config.envelope_max_points)
+
     # --- the sampler on the sampling device ---
     n_chains = int(config.n_chains)
     n_adapts = int(np.floor(config.niter_hmc * config.burnin_ratio))
@@ -567,7 +629,7 @@ def solve_magi(
     put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     warmup_resume = None
     if resume is not None:
-        resume = _load_resume(resume, config, target.dimension)
+        resume = _load_resume(resume, config, target.dimension, mesh)
         if getattr(resume, "phase", "sampling") == "warmup":
             if config.sampler != "nuts" or config.mass_matrix != "dense-pooled":
                 raise MagiError(
@@ -575,54 +637,58 @@ def solve_magi(
                     "mass_matrix='dense-pooled'; other samplers restart warmup."
                 )
             warmup_resume, resume = resume, None
-    if resume is not None:
-        samples, info, n_chains = _run_resumed(vg, resume, config, dtype, device)
-    elif config.sampler == "chees":
-        from .chees import run_chees
+    with _trace_sampling(config.profile_dir, device, mesh):
+        if resume is not None:
+            samples, info, n_chains = _run_resumed(vg, resume, config, dtype, device, mesh)
+            if mesh is not None:  # rank 0's checkpoint file is complete
+                mesh.barrier()
+        elif config.sampler == "chees":
+            from .chees import run_chees
 
-        samples, info = run_chees(
-            vg, put(starts), generator, n_samples=config.niter_hmc, n_adapts=n_adapts,
-            initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
-            chunk_size=config.chunk_size, progress=config.verbose,
-            criterion=config.chees_criterion, checkpoint_path=config.checkpoint_path,
-            mesh=mesh,
-        )
-    elif config.sampler == "pt-nuts":
-        from .tempering import run_parallel_tempering
+            samples, info = run_chees(
+                vg, put(starts), generator, n_samples=config.niter_hmc, n_adapts=n_adapts,
+                initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
+                chunk_size=config.chunk_size, progress=config.verbose,
+                criterion=config.chees_criterion, checkpoint_path=config.checkpoint_path,
+                mesh=mesh,
+            )
+        elif config.sampler == "pt-nuts":
+            from .tempering import run_parallel_tempering
 
-        if n_chains != 1:
-            logger.warning("sampler='pt-nuts' runs pt_replicas independent temperature "
-                           "ladders; n_chains=%d ignored.", n_chains)
-        s_pt, info = run_parallel_tempering(
-            vg, put(starts[0]), generator, n_samples=config.niter_hmc, n_adapts=n_adapts,
-            n_temps=config.pt_temps, max_temp=config.pt_max_temp,
-            initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
-            max_depth=config.max_tree_depth, chunk_size=config.chunk_size,
-            progress=config.verbose, ladder_adapt=config.pt_ladder_adapt,
-            checkpoint_path=config.checkpoint_path, n_replicas=int(config.pt_replicas),
-            mass_matrix=config.mass_matrix, mesh=mesh,
-        )
-        samples, info, n_chains = _normalize_pt(s_pt, info)
-    else:
-        samples, info = run_chains(
-            vg,
-            put(starts),
-            generator,
-            n_samples=config.niter_hmc,
-            n_adapts=n_adapts,
-            initial_step_size=config.step_size_factor,
-            target_accept=config.target_accept_ratio,
-            max_depth=config.max_tree_depth,
-            chunk_size=config.chunk_size,
-            progress=config.verbose,
-            mass_matrix=config.mass_matrix,
-            step_jitter=config.step_jitter,
-            step_jitter_low=config.step_jitter_low,
-            jitter_rng=np.random.default_rng(config.seed + STEP_JITTER_SEED_OFFSET),
-            checkpoint_path=config.checkpoint_path,
-            resume_ckpt=warmup_resume,
-            mesh=mesh,
-        )
+            if n_chains != 1:
+                logger.warning("sampler='pt-nuts' runs pt_replicas independent temperature "
+                               "ladders; n_chains=%d ignored.", n_chains)
+            s_pt, info = run_parallel_tempering(
+                vg, put(starts[0]), generator, n_samples=config.niter_hmc, n_adapts=n_adapts,
+                n_temps=config.pt_temps, max_temp=config.pt_max_temp,
+                initial_step_size=config.step_size_factor, target_accept=config.target_accept_ratio,
+                max_depth=config.max_tree_depth, chunk_size=config.chunk_size,
+                progress=config.verbose, ladder_adapt=config.pt_ladder_adapt,
+                checkpoint_path=config.checkpoint_path, n_replicas=int(config.pt_replicas),
+                mass_matrix=config.mass_matrix, mesh=mesh,
+            )
+            samples, info, n_chains = _normalize_pt(s_pt, info)
+        else:
+            samples, info = run_chains(
+                vg,
+                put(starts),
+                generator,
+                n_samples=config.niter_hmc,
+                n_adapts=n_adapts,
+                initial_step_size=config.step_size_factor,
+                target_accept=config.target_accept_ratio,
+                max_depth=config.max_tree_depth,
+                chunk_size=config.chunk_size,
+                progress=config.verbose,
+                mass_matrix=config.mass_matrix,
+                step_jitter=config.step_jitter,
+                step_jitter_low=config.step_jitter_low,
+                jitter_rng=np.random.default_rng(config.seed + STEP_JITTER_SEED_OFFSET),
+                checkpoint_path=config.checkpoint_path,
+                resume_ckpt=warmup_resume,
+                envelope=envelope,
+                mesh=mesh,
+            )
     phase_times["warmup_s"] = info["warmup_time_s"]
     phase_times["sampling_s"] = info["sampling_time_s"]
 
@@ -684,7 +750,9 @@ def solve_magi(
     }
     for key in ("metric", "vg_evals", "trajectory_length",
                 "trajectory_warmup_trace", "swap_acceptance", "swap_acceptance_per_pair",
-                "temperatures", "accept_prob_per_rung", "tree_depth_per_rung"):
+                "temperatures", "accept_prob_per_rung", "tree_depth_per_rung",
+                "envelope_points", "envelope_boost_dirs", "envelope_boost_max",
+                "envelope_probe_seconds"):
         if key in info:
             diagnostics[key] = info[key]
     return MagiResult(

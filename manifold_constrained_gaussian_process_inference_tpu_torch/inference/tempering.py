@@ -28,7 +28,8 @@ ladders, so swaps stay on the rank. Between sub-chunks the swap counters
 are summed over the ranks and the pooled metric's window draws gathered,
 so every rank adapts the same ladder and the same per-rung metric (rank
 0's metric is broadcast); the ladder buffer that each rank's graph reads
-is the rank's own, updated in place.
+is the rank's own, updated in place. A checkpoint holds every replica:
+the ranks gather their ladders and rank 0 writes the file.
 """
 from __future__ import annotations
 
@@ -42,11 +43,11 @@ import torch
 from ..config import MagiError, default_device, default_dtype
 from ..parallel.chains import (
     GRAPH_WARMUP_CALLS,
-    MESH_CHECKPOINT_REFUSAL,
     Counts,
     GraphedValueAndGrad,
     dense_metric_from_minv,
     pooled_dense_metric_from_samples,
+    write_checkpoint,
 )
 from ..parallel.mesh import REPLICA_AXIS, Mesh, broadcast_tensors, gather_rows, local_draw
 from . import checkpoint as ckpt_io
@@ -256,8 +257,8 @@ def _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth, chu
         counts.host_syncs += 1
         pos += length
         if checkpoint_path:
-            last = pt_checkpoint(carry, eps, generator, drawn0 + pos, metric)
-            save_pt_checkpoint(checkpoint_path, last)
+            last = pt_checkpoint(carry, eps, generator, drawn0 + pos, metric, mesh)
+            write_checkpoint(mesh, checkpoint_path, last, save_pt_checkpoint)
         if progress:
             logger.info("PT sampling %d/%d (%.1fs)", pos, n_keep, time.perf_counter() - t0)
     return carry, parts, last
@@ -338,8 +339,7 @@ def run_parallel_tempering(
     ``mesh`` (``make_replica_mesh``): every rank calls with the same
     arguments and runs n_replicas/size ladders (n_replicas must be a
     multiple of the mesh size); each returns the results of all replicas,
-    with the rank's own counts. ``checkpoint_path`` is not ported under a
-    mesh (ROADMAP M17)."""
+    with the rank's own counts; rank 0 writes the checkpoints."""
     if mass_matrix not in ("diag", "dense-pooled"):
         raise ValueError(f"unknown mass_matrix '{mass_matrix}'")
     dtype, device = psi0.dtype, psi0.device
@@ -353,8 +353,6 @@ def run_parallel_tempering(
     k_temps = len(temperatures)
     psi0s = psi0.expand(n_rep, dim) if psi0.ndim == 1 else psi0
     if mesh is not None:
-        if checkpoint_path:
-            raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
         mesh.check_divides(n_rep, "n_replicas")
         n_rep //= mesh.size
         psi0s = psi0s[mesh.block(psi0s.shape[0])]
@@ -475,13 +473,21 @@ def run_parallel_tempering(
 # ---------------------------------------------------------------------------
 
 
-def pt_checkpoint(carry: PTCarry, eps, generator, n_samples_drawn: int = 0, metric=None) -> dict:
+def pt_checkpoint(carry: PTCarry, eps, generator, n_samples_drawn: int = 0, metric=None,
+                  mesh: Mesh | None = None) -> dict:
     """Everything needed to continue PT sampling, in the JAX package's keys
     (ladder-shaped arrays when R = 1, a leading replica axis otherwise):
     positions and untempered lp of every rung, per-chain step sizes and
     diagonal metrics, the ladder, swap counters and sweep parity; and the
     port's: the untempered gradients, the generator state, and under the
-    pooled metric the per-rung dense factors (``metric_minv`` etc.)."""
+    pooled metric the per-rung dense factors (``metric_minv`` etc.). Under
+    a replica mesh every rank's ladders, gathered (every rank must call
+    it)."""
+    if mesh is not None:
+        carry = carry._replace(**{name: mesh.all_gather(getattr(carry, name)) for name in
+                                  ("qs", "lp", "grads", "inv_mass", "n_swap_accept",
+                                   "n_swap_try")})
+        eps = mesh.all_gather(eps)
     k = carry.inv_temps.shape[0]
     n_rep = carry.qs.shape[0] // k
     sq = lambda a: a[0] if n_rep == 1 else a
@@ -509,7 +515,7 @@ def pt_checkpoint(carry: PTCarry, eps, generator, n_samples_drawn: int = 0, metr
 
 
 def save_pt_checkpoint(path: str, ckpt: dict) -> None:
-    np.savez(path, **ckpt)
+    ckpt_io.savez_atomic(path, ckpt)
 
 
 def load_pt_checkpoint(path: str) -> dict:

@@ -45,8 +45,10 @@ class PsiWhitener(NamedTuple):
 
     @classmethod
     def from_numpy(cls, W, L_T, center, dtype=torch.float64, device="cpu"):
+        # row-major whatever the numpy layout: a product's rounding depends on
+        # its operands' layout, and a broadcast over a mesh is row-major
         put = lambda a: torch.as_tensor(
-            np.array(a, dtype=np.float64), dtype=dtype, device=device
+            np.array(a, dtype=np.float64, order="C"), dtype=dtype, device=device
         )
         return cls(W=put(W), L_T=put(L_T), center=put(center))
 
@@ -401,6 +403,19 @@ def make_centered_whitened_vg(target, whitener: PsiWhitener):
         return ll + jac
 
     return value_and_grad(logdensity_z)
+
+
+def wrap_value_and_grad(vg, whitener: PsiWhitener):
+    """vg over psi -> vg over zeta, psi = center + W zeta (zeta (dim,) or
+    (C, dim)), by the chain rule: g_zeta = W^T g_psi. The production path
+    evaluates the mode-centered target instead (make_centered_whitened_vg)."""
+
+    def vg_zeta(zeta):
+        psi = whitener.center + zeta @ whitener.W.T
+        value, g_psi = vg(psi)
+        return value, g_psi @ whitener.W
+
+    return vg_zeta
 
 
 def zeta_to_psi_np(whitener: PsiWhitener, zeta: np.ndarray) -> np.ndarray:

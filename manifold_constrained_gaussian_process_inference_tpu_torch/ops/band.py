@@ -66,6 +66,15 @@ def band_storage_matvec_torch(
     return torch.sum(b_diag * x_win, dim=-1)
 
 
+def band_storage_matvec(band: torch.Tensor, x: torch.Tensor, bandwidth: int) -> torch.Tensor:
+    """The JAX package's name for ``band_storage_matvec_torch``, taking its
+    operands too: one (2b+1, n) band storage with x (..., n), or the
+    port's stacked (M, 2b+1, n) storage with xs (..., M, n)."""
+    if band.dim() == 2:
+        return band_storage_matvec_torch(band[None], x[..., None, :], bandwidth)[..., 0, :]
+    return band_storage_matvec_torch(band, x, bandwidth)
+
+
 def band_matvec_pair_torch(bands_a, bands_b, xs, bandwidth: int):
     """Plain version of the paired kernel: (A x, B x)."""
     return (band_storage_matvec_torch(bands_a, xs, bandwidth),

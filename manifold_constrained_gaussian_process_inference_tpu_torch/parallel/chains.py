@@ -1,6 +1,7 @@
 """Multi-chain NUTS driver (port of the JAX package's parallel/chains.py
-``run_chains``, without its envelope branch), under a shared pooled dense
-metric or per-chain diagonal ones.
+``run_chains``), under a shared pooled dense metric or per-chain diagonal
+ones, and the divergence-informed curvature envelope of the pooled metric
+(``CurvatureEnvelope``).
 
 All C chains advance together through ``inference/nuts_batched.py`` on one
 device, or, under a chain mesh (``make_chain_mesh``, ``parallel/mesh.py``),
@@ -23,6 +24,11 @@ With ``checkpoint_path`` a checkpoint (inference/checkpoint.py) is written
 after every sampling chunk, and on the pooled dense path after every warmup
 chunk too; ``resume_ckpt`` continues a pooled warmup from such a
 checkpoint, bit for bit, and ``sample_from_checkpoint`` continues sampling.
+Under a mesh the ranks gather the carry and rank 0 alone writes the file
+(atomically); a barrier after each write keeps every rank behind a
+complete file. The generators need no gathering: every rank draws every
+random number of all chains (``mesh.local_draw``), so rank 0's generator
+state is the run's.
 """
 from __future__ import annotations
 
@@ -54,12 +60,6 @@ from .mesh import CHAIN_AXIS, Mesh, broadcast_tensors, gather_rows
 
 logger = logging.getLogger(__name__)
 
-MESH_CHECKPOINT_REFUSAL = (
-    "checkpoint_path and resume under a mesh are not ported to PyTorch yet "
-    "(ROADMAP M17): the ranks' generators and the gathered state need their own design."
-)
-
-
 def make_chain_mesh(n_devices=None, device=None) -> Mesh:
     """``Mesh.world`` along the chain axis (the JAX package's name)."""
     return Mesh.world(CHAIN_AXIS, n_devices, device)
@@ -88,13 +88,15 @@ def _window_aligned_chunks(window_end: np.ndarray, chunk: int):
     return out
 
 
-def pooled_dense_metric_from_moments(moments, dim: int, dtype, prev: DenseMetric) -> DenseMetric:
+def pooled_dense_metric_from_moments(moments, dim: int, dtype, prev: DenseMetric,
+                                     envelope=None) -> DenseMetric:
     """DenseMetric from window moments: ``moments`` is a list of per-chunk
     tuples (cnt, s1, s2, n_win, n_div) -- the divergence-masked count, sum
     and sum of outer products of all chains' in-window draws, and the
     counts of in-window and of divergent in-window draws. Divergent draws
     are left out; a window where most draws diverged keeps ``prev``. The
-    metric lands on ``prev``'s device."""
+    metric lands on ``prev``'s device. ``envelope`` (a CurvatureEnvelope)
+    folds its probes into the shrunk covariance."""
     cnt = float(sum(float(m[0]) for m in moments))
     n_win = float(sum(float(m[3]) for m in moments))
     n_div = float(sum(float(m[4]) for m in moments))
@@ -115,7 +117,7 @@ def pooled_dense_metric_from_moments(moments, dim: int, dtype, prev: DenseMetric
     s2 = np.sum([np.asarray(m[2], np.float64) for m in moments], axis=0)
     mean = s1 / cnt
     cov = (s2 - cnt * np.outer(mean, mean)) / (cnt - 1.0)
-    return _metric_from_cov(cov, cnt, dim, dtype, prev)
+    return _metric_from_cov(cov, cnt, dim, dtype, prev, envelope)
 
 
 def _pooled_dense_metric(
@@ -151,11 +153,12 @@ def pooled_dense_metric_from_samples(flat: np.ndarray, dim: int, dtype,
     return _metric_from_cov(np.cov(flat, rowvar=False), flat.shape[0], dim, dtype, prev)
 
 
-def _metric_from_cov(cov: np.ndarray, n_s: float, dim: int, dtype, prev: DenseMetric) -> DenseMetric:
+def _metric_from_cov(cov: np.ndarray, n_s: float, dim: int, dtype, prev: DenseMetric,
+                     envelope=None) -> DenseMetric:
     """Covariance -> regularized DenseMetric (host, float64): shrink toward
-    the identity (the whitened unit scale) with weight n_s/(n_s+dim); keep
-    ``prev`` when the window barely moved (median variance < 1e-2) or the
-    estimate cannot be factored."""
+    the identity (the whitened unit scale) with weight n_s/(n_s+dim), then
+    fold ``envelope``'s probes in; keep ``prev`` when the window barely
+    moved (median variance < 1e-2) or the estimate cannot be factored."""
     median_var = float(np.median(np.diag(cov)))
     if median_var < 1e-2:
         logger.warning(
@@ -165,6 +168,8 @@ def _metric_from_cov(cov: np.ndarray, n_s: float, dim: int, dtype, prev: DenseMe
         return prev
     w = n_s / (n_s + dim)
     reg = w * cov + (1.0 - w) * np.eye(dim)
+    if envelope is not None:
+        reg = envelope.fold(reg)
     try:
         chol = np.linalg.cholesky(reg)
     except np.linalg.LinAlgError:
@@ -175,6 +180,182 @@ def _metric_from_cov(cov: np.ndarray, n_s: float, dim: int, dtype, prev: DenseMe
             return prev
     put = lambda a: torch.as_tensor(a, dtype=dtype, device=prev.minv.device)
     return DenseMetric(minv=put(reg), chol_minv=put(chol), p_chol=put(np.linalg.inv(chol).T))
+
+
+def _last_div_position(qs: torch.Tensor, div: torch.Tensor):
+    """Each chain's row of ``qs`` (C, L, dim) at its last divergent step of
+    a chunk (``div`` (C, L)): ((C, dim), (C,) has a divergence). A chain
+    without one gets row 0, which ``has_div`` marks as unused. One masked
+    argmax and a gather on the device; (C, dim) leaves it, not the chunk."""
+    order = torch.arange(1, qs.shape[1] + 1, dtype=qs.dtype, device=qs.device)
+    idx = torch.argmax(div.to(qs.dtype) * order, dim=1)
+    q_ld = torch.take_along_dim(qs, idx[:, None, None], dim=1)[:, 0, :]
+    return q_ld, div.any(dim=1)
+
+
+class CurvatureEnvelope:
+    """Divergence-informed curvature envelope of the pooled dense metric
+    (the JAX package's parallel/chains.py CurvatureEnvelope; host numpy,
+    float64).
+
+    The pooled covariance measures the posterior's bulk; a localized pocket
+    whose curvature exceeds the pooled precision in some direction makes
+    the leapfrog unstable there at the step size adapted for the bulk.
+    The envelope probes the local precision at positions where warmup
+    chains diverged and takes the PSD-max of the pooled precision with each
+    probe, P_env = max_PSD(P_pool, P_1, ...), so only the directions the
+    pocket needs get more mass. The metric stays fixed after warmup, so
+    sampling is a valid NUTS chain.
+
+    ``hess_fn(z)`` returns the NEGATIVE Hessian of the log-density in the
+    sampler's coordinates (solve_magi conjugates the exact float64 Hessian
+    through the whitener); ``logp_fn(z)``, when given, places the probe by
+    bisection between the divergent step's endpoints (``_probe_point``).
+    After each warmup chunk the chain with the most divergences donates
+    its last divergent step: at most one probe per chunk and
+    ``max_points`` per run, only from chunks whose divergent share is in
+    (0, ``max_div_frac``] (mass divergence means a wrong step size, not a
+    pocket) and once one adaptation window has ended. ``lam_cap`` bounds a
+    direction's boost, ``boost_margin`` gives boosted directions headroom
+    and ``max_boost_dims`` keeps a probe's strongest directions only."""
+
+    def __init__(self, hess_fn, logp_fn=None, max_points: int = 4, lam_cap: float = 1e4,
+                 max_div_frac: float = 0.05, max_boost_dims: int = 16,
+                 support_drop: float = 50.0, boost_margin: float = 16.0):
+        self.hess_fn = hess_fn
+        self.logp_fn = logp_fn
+        self.max_points = int(max_points)
+        self.lam_cap = float(lam_cap)
+        self.max_div_frac = float(max_div_frac)
+        self.max_boost_dims = int(max_boost_dims)
+        self.support_drop = float(support_drop)
+        self.boost_margin = float(boost_margin)
+        self.points: list = []   # probed positions z, (dim,) float64
+        self.precs: list = []    # their local precisions, (dim, dim) float64
+        self.probe_seconds: list = []  # host seconds of each probe
+        self.boost_dirs = 0      # diagnostics of the last fold
+        self.boost_max = 1.0
+
+    def _probe_point(self, edge: np.ndarray, leaf: np.ndarray) -> np.ndarray:
+        """The farthest point from ``edge`` toward ``leaf`` whose
+        log-density is within ``support_drop`` of the edge's, by halving
+        (the edge alone underestimates the pocket; the exploded leaf sits
+        where the curvature is huge in every direction). Without a
+        ``logp_fn`` the edge itself."""
+        if self.logp_fn is None:
+            return edge
+        d = leaf - edge
+        d = np.where(np.isfinite(d), d, 0.0)
+        # an exploded leaf can be far off: bound the segment to a multiple
+        # of the whitened unit scale
+        norm = float(np.linalg.norm(d))
+        max_norm = 16.0 * np.sqrt(d.shape[0])
+        if norm > max_norm:
+            d *= max_norm / norm
+        lp_edge = float(self.logp_fn(edge))
+        t = 1.0
+        for _ in range(10):
+            zt = edge + t * d
+            lp = float(self.logp_fn(zt))
+            if np.isfinite(lp) and lp > lp_edge - self.support_drop:
+                return zt
+            t *= 0.5
+        return edge
+
+    def collect(self, q_lastdiv, has_div, div, past_first_window: bool) -> None:
+        """Maybe probe one divergent step of a finished warmup chunk:
+        ``q_lastdiv`` (C, 2, dim) each chain's last divergent step's (edge,
+        leaf) (unused where ``has_div`` (C,) is False), ``div`` (C, L) the
+        chunk's divergence flags."""
+        if not past_first_window or len(self.points) >= self.max_points:
+            return
+        div = np.asarray(div, dtype=bool)
+        if div.size == 0:
+            return
+        frac = float(div.mean())
+        if frac <= 0.0 or frac > self.max_div_frac:
+            return
+        counts = div.sum(axis=1)
+        i = int(np.argmax(counts))
+        if not bool(np.asarray(has_div)[i]):
+            return
+        pair = np.asarray(q_lastdiv[i], dtype=np.float64)
+        t0 = time.perf_counter()
+        try:
+            z = self._probe_point(pair[0], pair[1])
+            prec = np.asarray(self.hess_fn(z), dtype=np.float64)
+        except Exception:  # the JAX package's behaviour: a failed probe is skipped
+            logger.warning("curvature envelope: Hessian probe failed; skipping point.")
+            return
+        self.probe_seconds.append(time.perf_counter() - t0)
+        self.points.append(z)
+        self.precs.append(0.5 * (prec + prec.T))
+        logger.info("curvature envelope: probe %d at a divergent position (chain %d, %d "
+                    "divergence(s) in chunk, |z| = %.1f, %.2f s).", len(self.points), i,
+                    int(counts[i]), float(np.linalg.norm(z)), self.probe_seconds[-1])
+
+    def fold(self, cov: np.ndarray) -> np.ndarray:
+        """The covariance whose precision is the PSD-max of ``cov``'s and
+        every probe's, by sequential congruence folds: with P = F F', probe
+        P_i whitens to S_i = F^-1 P_i F^-T, its eigenvalues above 1 are
+        boosted by ``boost_margin`` and capped at ``lam_cap`` (the rest
+        become 1: directions the pooled metric dominates, and negative
+        curvature, stay), the ``max_boost_dims`` largest kept, and F <- F Q
+        sqrt(lam). ``cov`` itself when nothing is boosted.
+
+        The kept directions are the top ``max_boost_dims`` by a stable sort,
+        so ties at the cap cannot keep more (the JAX package's ``>=`` on the
+        k-th value keeps every tie)."""
+        if not self.precs:
+            return cov
+        try:
+            chol = np.linalg.cholesky(cov)
+        except np.linalg.LinAlgError:
+            logger.warning("curvature envelope: pooled covariance not SPD; skipping fold.")
+            return cov
+        # P_pool = L^-T L^-1 = F F' with F = L^-T, F^-1 = L'
+        f_inv = chol.T
+        boost_dirs, boost_max = 0, 1.0
+        for prec in self.precs:
+            s = f_inv @ prec @ f_inv.T
+            lam, q = np.linalg.eigh(0.5 * (s + s.T))
+            lam_c = np.where(lam > 1.0, np.minimum(lam * self.boost_margin, self.lam_cap), 1.0)
+            # a pocket is low-dimensional: a probe that boosts half the
+            # space measured a pathological point
+            if int(np.sum(lam_c > 1.0 + 1e-9)) > self.max_boost_dims:
+                kept = np.zeros(lam_c.shape, dtype=bool)
+                kept[np.argsort(lam_c, kind="stable")[-self.max_boost_dims:]] = True
+                lam_c = np.where(kept, lam_c, 1.0)
+            nb = int(np.sum(lam_c > 1.0 + 1e-9))
+            if nb == 0:
+                continue
+            boost_dirs += nb
+            boost_max = max(boost_max, float(lam_c.max()))
+            f_inv = (q / np.sqrt(lam_c)).T @ f_inv
+        self.boost_dirs, self.boost_max = boost_dirs, boost_max
+        if boost_dirs == 0:
+            return cov
+        cov_env = f_inv.T @ f_inv
+        logger.info("curvature envelope: boosted %d direction(s), max precision ratio %.1f.",
+                    boost_dirs, boost_max)
+        return 0.5 * (cov_env + cov_env.T)
+
+    def state(self) -> dict:
+        """The probes, for a warmup-phase checkpoint."""
+        return {"points": [np.asarray(p) for p in self.points],
+                "precs": [np.asarray(p) for p in self.precs]}
+
+    def restore(self, st: dict) -> None:
+        self.points = [np.asarray(p, dtype=np.float64) for p in st.get("points", [])]
+        self.precs = [np.asarray(p, dtype=np.float64) for p in st.get("precs", [])]
+
+    def info(self) -> dict:
+        """The run info's envelope keys: the JAX package's three, and the
+        host seconds of each probe this run made."""
+        return {"envelope_points": len(self.points),
+                "envelope_boost_dirs": int(self.boost_dirs),
+                "envelope_boost_max": float(self.boost_max),
+                "envelope_probe_seconds": list(self.probe_seconds)}
 
 
 def dense_metric_from_minv(minv, dtype, device, chol=None, p_chol=None):
@@ -287,9 +468,21 @@ class Counts:
                     lockstep_leaves=self.lockstep_leaves, chain_leaves=float(self.chain_leaves))
 
 
-def _restore_warmup(ckpt, n_adapts, chunk_size, chunks, generator, dtype, device):
+def write_checkpoint(mesh: Mesh | None, path: str, ckpt, save=None) -> None:
+    """Write a checkpoint that every rank has gathered: rank 0 alone writes
+    it (atomically, ``inference/checkpoint.py``), and under a mesh every
+    rank waits at a barrier until the file is complete."""
+    if mesh is None or mesh.rank == 0:
+        (save or ckpt_io.save_checkpoint)(path, ckpt)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _restore_warmup(ckpt, n_adapts, chunk_size, chunks, generator, dtype, device, mesh=None,
+                    envelope=None):
     """The pooled warmup's state from a warmup-phase checkpoint, after
-    checking that it was written under this schedule."""
+    checking that it was written under this schedule; under a mesh the
+    rank's block of the chains."""
     if getattr(ckpt, "phase", "sampling") != "warmup":
         raise ValueError(
             "resume_ckpt must be a warmup-phase checkpoint; "
@@ -305,8 +498,10 @@ def _restore_warmup(ckpt, n_adapts, chunk_size, chunks, generator, dtype, device
             f"for n_adapts={n_adapts}, chunk_size={chunk_size}."
         )
     ckpt_io.set_generator_state(generator, ckpt.rng_state, ckpt.rng_device)
-    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    c = {name: put(v) for name, v in w["carry"].items()}
+    n_all = np.asarray(w["carry"]["q"]).shape[0]
+    block = slice(None) if mesh is None else mesh.block(n_all)
+    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)  # noqa: E731
+    c = {name: put(np.asarray(v)[block]) for name, v in w["carry"].items()}
     carry = WarmupCarry(
         chain=ChainState(q=c["q"], logp=c["logp"], grad=c["grad"]),
         da=DualAveragingState(c["log_eps"], c["log_eps_avg"], c["h_bar"], c["mu"], c["count"]),
@@ -314,28 +509,36 @@ def _restore_warmup(ckpt, n_adapts, chunk_size, chunks, generator, dtype, device
     metric = DenseMetric(*dense_metric_from_minv(w["metric_minv"], dtype, device,
                                                  w["metric_chol"], w["metric_pchol"]))
     moments = [tuple(np.asarray(p) for p in m) for m in w["moments"]]
-    div = np.asarray(w["div"])
+    div = np.asarray(w["div"])[block]
+    if envelope is not None and w.get("envelope") is not None:
+        envelope.restore(w["envelope"])
     return carry, metric, moments, ([div] if div.size else []), pos
 
 
-def _warmup_checkpoint(carry, metric, moments, div_chunks, pos, generator, meta):
-    n_chains = carry.chain.q.shape[0]
-    arrays = dict(q=carry.chain.q, logp=carry.chain.logp, grad=carry.chain.grad,
-                  **carry.da._asdict())
+def _warmup_checkpoint(carry, metric, moments, div_chunks, pos, generator, meta, mesh=None,
+                       envelope=None):
+    """The warmup-phase checkpoint of every chain (gathered over the ranks
+    of a mesh: every rank must call it)."""
+    rows = lambda a: gather_rows(mesh, a)  # noqa: E731
+    arrays = {name: rows(t).cpu().numpy() for name, t in
+              dict(q=carry.chain.q, logp=carry.chain.logp, grad=carry.chain.grad,
+                   **carry.da._asdict()).items()}
+    div = rows(np.concatenate(div_chunks, axis=1) if div_chunks
+               else np.zeros((carry.chain.q.shape[0], 0), dtype=bool))
     rng_state, rng_device = ckpt_io.generator_state(generator)
     return ckpt_io.SamplerCheckpoint(
-        psi=carry.chain.q.cpu().numpy(), step_size=np.zeros(0),
+        psi=arrays["q"], step_size=np.zeros(0),
         inv_mass=metric.minv.cpu().numpy(), rng_state=rng_state, rng_device=rng_device,
         meta=meta, phase="warmup",
         warmup={
             "pos": pos,
-            "carry": {name: arrays[name].cpu().numpy() for name in ckpt_io.WARMUP_CARRY_FIELDS},
+            "carry": {name: arrays[name] for name in ckpt_io.WARMUP_CARRY_FIELDS},
             "metric_minv": metric.minv.cpu().numpy(),
             "metric_chol": metric.chol_minv.cpu().numpy(),
             "metric_pchol": metric.p_chol.cpu().numpy(),
             "moments": list(moments),  # the live list grows after this chunk
-            "div": (np.concatenate(div_chunks, axis=1) if div_chunks
-                    else np.zeros((n_chains, 0), dtype=bool)),
+            "div": div,
+            "envelope": envelope.state() if envelope is not None else None,
         },
     )
 
@@ -348,42 +551,75 @@ def _psum_moments(mesh: Mesh, moments):
     return tuple(p.reshape(m.shape) for p, m in zip(parts, moments))
 
 
+def _collect_probe(envelope, edges, leaves, div, n_boundaries, mesh):
+    """The envelope's collection after a warmup chunk: each chain's last
+    divergent step (edge, leaf) from the chunk's (C, L, dim) stacks, and
+    the chunk's divergence flags, gathered over the ranks of a mesh; rank 0
+    alone probes (the other ranks never call ``hess_fn``)."""
+    edge, has_div = _last_div_position(edges, div)
+    leaf, _ = _last_div_position(leaves, div)
+    q_ld = torch.stack([edge, leaf], dim=1)
+    if mesh is not None:  # flags travel as bytes (gloo reduces no bool)
+        q_ld, has_div, div = (mesh.all_gather(t) for t in (
+            q_ld, has_div.to(torch.uint8), div.to(torch.uint8)))
+    if mesh is None or mesh.rank == 0:
+        envelope.collect(q_ld.cpu().numpy(), has_div.cpu().numpy(), div.cpu().numpy(),
+                         past_first_window=n_boundaries >= 1)
+
+
 def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
                    target_accept, max_depth, progress, counts, t0, mesh=None, resume_ckpt=None,
-                   checkpoint_path=None, meta=None):
+                   checkpoint_path=None, meta=None, envelope=None):
     """Warmup under the pooled dense metric: chunks aligned to the window
     ends, in-window moments accumulated on the device (and summed over the
     ranks of a mesh), the metric re-estimated on the host at each window
     end; a checkpoint after every chunk when ``checkpoint_path`` is set.
-    Returns (carry, metric, per-chunk (C, L) divergence flags)."""
+    With ``envelope`` each chain's last divergent step of a chunk is
+    offered to it (rank 0's, under a mesh) and its probes are folded into
+    every new metric, which rank 0 broadcasts; the transition tracks the
+    divergent steps only in the chunks whose probes the envelope takes, after
+    the first window end (tracking changes no draw). Returns (carry, metric,
+    per-chunk (C, L) divergence flags)."""
     n_chains, dim = psi0.shape
     dtype, device = psi0.dtype, psi0.device
     f64 = dict(dtype=torch.float64, device=device)
     in_window, window_end = build_window_schedule(n_adapts)
     chunks = _window_aligned_chunks(window_end, chunk_size)
-    warmup_step = make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator, mesh)
+    steps = {track: make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator, mesh,
+                                                    track_div_leaf=track)
+             for track in {False, envelope is not None}}
+    # only rank 0 probes and folds; the other ranks take its metric
+    folding = envelope if mesh is None or mesh.rank == 0 else None
     resume_pos = 0
     if resume_ckpt is not None:
         carry, metric, window_moments, div_chunks, resume_pos = _restore_warmup(
-            resume_ckpt, n_adapts, chunk_size, chunks, generator, dtype, device)
+            resume_ckpt, n_adapts, chunk_size, chunks, generator, dtype, device, mesh, folding)
     else:
         eye = torch.eye(dim, dtype=dtype, device=device)
         metric = DenseMetric(minv=eye, chol_minv=eye, p_chol=eye)
         carry = init_warmup_carry_batched(vg, psi0, initial_step_size)
         div_chunks, window_moments = [], []
+    n_boundaries = int(np.sum(window_end[:resume_pos]))
     pos = 0
     for length in chunks:
         if pos + length <= resume_pos:
             pos += length  # run before the checkpoint
             continue
         div = torch.zeros((n_chains, length), dtype=torch.bool, device=device)
+        track = envelope is not None and n_boundaries >= 1
+        warmup_step = steps[track]
+        if track:
+            edges = torch.empty((n_chains, length, dim), dtype=dtype, device=device)
+            leaves = torch.empty_like(edges)
         cnt, n_win, n_div = (torch.zeros((), **f64) for _ in range(3))
         s1 = torch.zeros(dim, **f64)
         s2 = torch.zeros((dim, dim), **f64)
         for t in range(length):
-            carry, stats = warmup_step(carry, bool(window_end[pos + t]), metric)
+            carry, stats, *div_pair = warmup_step(carry, bool(window_end[pos + t]), metric)
             counts.add(stats)
             div[:, t] = stats.diverging
+            if track:
+                edges[:, t], leaves[:, t] = div_pair[0]
             if in_window[pos + t]:
                 keep = (~stats.diverging).to(torch.float64)
                 q64 = carry.chain.q.to(torch.float64)
@@ -399,16 +635,19 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
             moments = _psum_moments(mesh, moments)
         window_moments.append(tuple(m.cpu().numpy() for m in moments))
         counts.host_syncs += 1
+        if track:
+            _collect_probe(envelope, edges, leaves, div, n_boundaries, mesh)
         pos += length
         if window_end[pos - 1]:
-            metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric)
+            metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric, folding)
             # every rank samples under rank 0's metric, whatever its host's
             # linear algebra rounds differently
             metric = broadcast_tensors(mesh, metric)
             window_moments = []
+            n_boundaries += 1
         if checkpoint_path:
-            ckpt_io.save_checkpoint(checkpoint_path, _warmup_checkpoint(
-                carry, metric, window_moments, div_chunks, pos, generator, meta))
+            write_checkpoint(mesh, checkpoint_path, _warmup_checkpoint(
+                carry, metric, window_moments, div_chunks, pos, generator, meta, mesh, folding))
         if progress:
             logger.info("warmup %d/%d (%.1fs, pooled dense metric)",
                         pos, n_adapts, time.perf_counter() - t0)
@@ -474,9 +713,10 @@ def _sample(vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter
         counts.host_syncs += 1
         pos += length
         if checkpoint_path:
+            n_all = n_chains * (1 if mesh is None else mesh.size)
             last = _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter,
-                                        step_jitter_low, drawn0 + n_chains * pos)
-            ckpt_io.save_checkpoint(checkpoint_path, last)
+                                        step_jitter_low, drawn0 + n_all * pos, mesh)
+            write_checkpoint(mesh, checkpoint_path, last)
         if progress:
             logger.info("sampling %d/%d (%.1fs)", pos, n_keep, time.perf_counter() - t0)
     cat = lambda parts: np.concatenate(parts, axis=1) if parts else np.zeros((n_chains, 0))
@@ -484,16 +724,19 @@ def _sample(vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter
 
 
 def _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter, step_jitter_low,
-                         n_drawn):
+                         n_drawn, mesh=None):
+    """The sampling-phase checkpoint of every chain (gathered over the
+    ranks of a mesh: every rank must call it)."""
     dense = isinstance(metric, DenseMetric)
+    rows = lambda t: gather_rows(mesh, t).cpu().numpy()  # noqa: E731
     rng_state, rng_device = ckpt_io.generator_state(generator)
-    state = {"logp": scarry.chain.logp.cpu().numpy(), "grad": scarry.chain.grad.cpu().numpy()}
+    state = {"logp": rows(scarry.chain.logp), "grad": rows(scarry.chain.grad)}
     if dense:
         state.update(metric_chol=metric.chol_minv.cpu().numpy(),
                      metric_pchol=metric.p_chol.cpu().numpy())
     return ckpt_io.SamplerCheckpoint(
-        psi=scarry.chain.q.cpu().numpy(), step_size=scarry.eps.cpu().numpy(),
-        inv_mass=(metric.minv if dense else metric.inv_mass).cpu().numpy(),
+        psi=rows(scarry.chain.q), step_size=rows(scarry.eps),
+        inv_mass=metric.minv.cpu().numpy() if dense else rows(metric.inv_mass),
         rng_state=rng_state, rng_device=rng_device, n_samples_drawn=int(n_drawn),
         meta={"metric": "dense-pooled" if dense else "diag",
               "step_jitter": float(step_jitter), "step_jitter_low": float(step_jitter_low),
@@ -545,6 +788,7 @@ def run_chains(
     resume_ckpt=None,
     envelope=None,
     mesh: Mesh | None = None,
+    batched_transition: bool = True,
 ):
     """Run C NUTS chains from psi0 (C, dim) with Stan warmup. ``vg`` maps
     (C, dim) -> ((C,), (C, dim)). Random numbers come from ``generator``
@@ -560,14 +804,22 @@ def run_chains(
     ``info["inv_mass"]`` is (C, dim). ``checkpoint_path``: a checkpoint
     after every sampling chunk (and every pooled warmup chunk).
     ``resume_ckpt``: a warmup-phase checkpoint of the same call to continue
-    from. ``envelope`` is not ported (ROADMAP M18).
+    from. ``envelope`` (dense-pooled only): a ``CurvatureEnvelope``, whose
+    probes of divergent warmup steps fold into the pooled metric at every
+    window end; info then has ``envelope_points``, ``envelope_boost_dirs``
+    and ``envelope_boost_max``.
+
+    ``batched_transition``: the JAX package's switch between its
+    hand-batched transition and a vmapped one, which give the same
+    trajectories; the port has one tree code, the batched one, and keeps
+    the switch for the JAX package's refusal of the envelope without it.
 
     ``mesh`` (``make_chain_mesh``): every rank calls run_chains with the
     same arguments (psi0 of all C chains, a generator seeded alike) and
     runs its block of C/size chains; C must be a multiple of the mesh size.
     Each rank returns the samples and per-chain info of all C chains; the
-    counts in info are the rank's own. ``checkpoint_path`` and
-    ``resume_ckpt`` are not ported under a mesh (ROADMAP M17)."""
+    counts in info are the rank's own. Checkpoints hold every chain (rank 0
+    writes them) and ``resume_ckpt`` gives each rank its block."""
     if mass_matrix not in ("dense-pooled", "diag"):
         raise ValueError(f"unknown mass_matrix '{mass_matrix}'")
     if mass_matrix == "diag":
@@ -586,11 +838,13 @@ def run_chains(
                 "step_jitter is implemented for mass_matrix='dense-pooled' "
                 "(the production path); the diag path keeps Stan parity."
             )
-    if envelope is not None:
-        raise NotImplementedError("envelope is not ported to PyTorch yet (ROADMAP M18).")
+    if envelope is not None and not batched_transition:
+        raise ValueError(
+            "the curvature envelope needs the divergent-leaf positions "
+            "only the batched transition tracks (nuts_batched "
+            "track_div_leaf); run with batched_transition=True."
+        )
     if mesh is not None:
-        if checkpoint_path or resume_ckpt is not None:
-            raise NotImplementedError(MESH_CHECKPOINT_REFUSAL)
         mesh.check_divides(psi0.shape[0], "n_chains")
         psi0 = psi0[mesh.block(psi0.shape[0])]
     if jitter_rng is None:
@@ -612,7 +866,8 @@ def run_chains(
                 "step_jitter_low": float(step_jitter_low), "n_adapts": int(n_adapts),
                 "chunk_size": int(chunk_size)}
         carry, metric, warmup_div_chunks = _warmup_pooled(
-            *warm_args, resume_ckpt=resume_ckpt, checkpoint_path=checkpoint_path, meta=meta)
+            *warm_args, resume_ckpt=resume_ckpt, checkpoint_path=checkpoint_path, meta=meta,
+            envelope=envelope)
     eps_final = torch.exp(carry.da.log_eps_avg)
     _sync(device)
     warmup_time = time.perf_counter() - t0
@@ -627,6 +882,10 @@ def run_chains(
                   else np.zeros((psi0.shape[0], 0)))
     info = _run_info(stats, metric, mass_matrix, step_jitter, step_jitter_low, eps_final, scarry,
                      generator, counts, warmup_div, warmup_time, time.perf_counter() - t1, mesh)
+    if envelope is not None:
+        # rank 0 probed and folded: its readings are the run's
+        env_info = envelope.info()
+        info.update(env_info if mesh is None else mesh.broadcast_object(env_info))
     return gather_rows(mesh, samples), info
 
 

@@ -121,6 +121,10 @@ class Mesh:
         dist.broadcast(t, src=self._root, group=self.group)
         return t
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh is here."""
+        dist.barrier(group=self.group)
+
     # -- host values -----------------------------------------------------------
 
     def broadcast_object(self, obj):

@@ -234,11 +234,9 @@ def test_traj_iterate_averaging_and_refresh_reset():
 
 
 def test_chees_refuses_the_chain_mesh_and_unknown_criterion():
-    """Under the chain mesh only checkpoints still raise (ROADMAP M17)."""
+    """An unknown trajectory criterion raises (the chain mesh takes
+    checkpoints now: tests/test_torch_mesh_checkpoint.py)."""
     z = torch.zeros((2, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="M17"):
-        tch.run_chees(_vg_t, z, torch.Generator(), 4, 2, mesh=object(),
-                      checkpoint_path="chees.npz")
     with pytest.raises(ValueError, match="criterion"):
         tch.run_chees(_vg_t, z, torch.Generator(), 4, 2, criterion="nuts")
 

@@ -454,7 +454,7 @@ def test_diag_driver_info_matches_jax():
 @pytest.mark.parametrize("kw,error", [
     (dict(step_jitter=0.125), ValueError), (dict(envelope=object()), ValueError),
     (dict(resume_ckpt=object()), ValueError), (dict(mass_matrix="dense"), ValueError),
-    (dict(mass_matrix="dense-pooled", envelope=object()), NotImplementedError),
+    (dict(mass_matrix="dense-pooled", envelope=object(), batched_transition=False), ValueError),
     (dict(mass_matrix="dense-pooled", resume_ckpt=object()), ValueError),
 ])
 def test_driver_refuses_options_of_the_other_metric(kw, error):

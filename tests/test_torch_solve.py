@@ -1,9 +1,10 @@
 """PyTorch port, orchestration: the NLML initialization reaches the JAX
 package's optimum, solve_magi runs the production recipe (128-chain
 pooled, whitened) end to end on the CPU with band_impl="band" and keeps the
-result contract, so does every other sampler and metric, and the options
-the port does not run yet raise NotImplementedError naming their ROADMAP
-item. The default path's cases are in tests/test_torch_solver_e2e.py."""
+result contract, and so does every other sampler and metric. The default
+path's cases are in tests/test_torch_solver_e2e.py; the envelope's, the
+profiler's and the mesh checkpoints' in tests/test_torch_envelope.py,
+tests/test_torch_api.py and tests/test_torch_mesh_checkpoint.py."""
 import dataclasses
 
 import numpy as np
@@ -147,36 +148,26 @@ def test_solve_magi_band_loose_recovery(solved):
     assert np.sqrt(np.nanmean((x_mean - y) ** 2)) < 0.3
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(divergence_envelope=True), "M18"),
-    (dict(profile_dir="prof"), "M10"),
-])
-def test_unported_options_raise(change, item):
-    y, t = _fn_data()
-    base = dict(mass_matrix="dense-pooled", x_whitened=True, device="cpu")
-    config = mt.MagiConfig(**{**base, **change})
-    with pytest.raises(NotImplementedError, match=item):
-        mt.solve_magi(y, t, mt.FN_SYSTEM, config)
-
-
-@pytest.mark.parametrize("kw,change,item", [
-    (dict(mesh=object(), resume="ckpt.npz"), {}, "M17"),
-    (dict(mesh=object()), dict(checkpoint_path="ckpt.npz"), "M17"),
-])
-def test_unported_entry_arguments_raise(kw, change, item):
-    """Under a mesh, checkpoints and resume still raise."""
-    y, t = _fn_data()
-    config = mt.MagiConfig(mass_matrix="dense-pooled", x_whitened=True, device="cpu", **change)
-    with pytest.raises(NotImplementedError, match=item):
-        mt.solve_magi(y, t, mt.FN_SYSTEM, config, **kw)
-
-
 def test_pallas_band_impl_names_band():
     y, t = _fn_data()
     config = mt.MagiConfig(mass_matrix="dense-pooled", x_whitened=True, device="cpu",
                            band_impl="pallas", niter_hmc=4, gp_optim_iterations=2)
     with pytest.raises(ValueError, match="'band'"):
         mt.solve_magi(y, t, mt.FN_SYSTEM, config)
+
+
+def _jax_auto_band_impl(config, n_times, n_dims, bandsize):
+    """The JAX package's band_impl="auto" rule (its solve.py) off a TPU,
+    with its own constant."""
+    from manifold_constrained_gaussian_process_inference_tpu.ops.pallas_band import (
+        _PALLAS_MAX_BANDWIDTH,
+    )
+
+    eff_batch = (config.pt_temps * config.pt_replicas if config.sampler == "pt-nuts"
+                 else config.n_chains)
+    if n_times <= 1024 or (eff_batch >= 8 and n_dims * 6 * n_times * n_times * 4 <= 2 << 30):
+        return "dense"
+    return "dense" if bandsize > _PALLAS_MAX_BANDWIDTH else "band"
 
 
 @pytest.mark.parametrize("device,n,chains,band,want", [
@@ -186,10 +177,19 @@ def test_pallas_band_impl_names_band():
     ("cuda", 3169, 1, 80, "dense"),
     ("cuda", 3169, 128, 40, "dense"),
     ("cpu", 1500, 1, 40, "band"),
+    # parallel tempering batches pt_temps * pt_replicas chains, whatever n_chains says
+    ("cpu", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 40, "dense"),
+    ("cuda", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 40, "dense"),
+    ("cpu", 1500, dict(sampler="pt-nuts", n_chains=16, pt_temps=3, pt_replicas=2), 40, "band"),
+    ("cpu", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 80, "dense"),
+    ("cpu", 1500, dict(sampler="nuts", n_chains=16, pt_temps=1, pt_replicas=1), 40, "dense"),
 ])
 def test_auto_band_policy(device, n, chains, band, want):
-    config = mt.MagiConfig(n_chains=chains)
+    options = chains if isinstance(chains, dict) else dict(n_chains=chains)
+    config = mt.MagiConfig(**options)
     assert tsolve.resolve_band_impl(config, n, 2, band, torch.device(device)) == want
+    if device == "cpu":  # the JAX package's rule off a TPU gives the same string
+        assert _jax_auto_band_impl(jconfig.MagiConfig(**options), n, 2, band) == want
     explicit = mt.MagiConfig(band_impl="band")
     assert tsolve.resolve_band_impl(explicit, n, 2, band, torch.device(device)) == "band"
 

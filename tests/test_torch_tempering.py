@@ -284,14 +284,6 @@ def test_pt_pooled_dense_metric_on_correlated_gaussian():
     assert info["inv_mass"][0][0, 1] > 0.3
 
 
-def test_pt_refuses_the_replica_mesh():
-    """Under the replica mesh only checkpoints still raise (ROADMAP M17)."""
-    with pytest.raises(NotImplementedError, match="M17"):
-        tt.run_parallel_tempering(_gauss_vg, torch.zeros(2, dtype=torch.float64), _gen(0),
-                                  n_samples=4, n_adapts=2, mesh=object(),
-                                  checkpoint_path="pt.npz")
-
-
 # -- the replica mesh: ranks spawned over gloo on the CPU ---------------------
 
 PT_DRYRUN = dict(n_samples=3, n_adapts=1, n_temps=3, max_temp=4.0, initial_step_size=0.01,
