@@ -28,8 +28,12 @@ Phases:
    backward; each timed per launch from a CUDA graph of back-to-back
    calls beside its plain version and the dense torch.matmul. The kernel
    is also checked and timed at the shapes of the other paths: C = 1 (the
-   default path; C = 5 is checked too) at both grids, [pt]'s (40 chains,
-   D = 3, b = 20, n = 33) and [chees]'s (64 chains at the main shape);
+   default path, on the row tile; C = 5 is checked too, and C = 2 and 3
+   at [grid]'s GK^T block) at both grids, [pt]'s (40 chains, D = 3,
+   b = 20, n = 33) and [chees]'s (64 chains at the main shape). Each
+   chain's outputs at C = 1, 2, 3 and the row tile's threshold's
+   neighbours equal its rows of a 128-chain launch (the chain tile) bit
+   for bit, in both dtypes, at both grids, the GK^T block and every edge;
 6. diag-gauss: the diag chain driver on the card at C = 4 on a
    799-dimensional independent Gaussian with scales log-spaced over
    [0.01, 10], trees capped at depth GAUSS_MAX_DEPTH: the draws' variances
@@ -114,7 +118,10 @@ The launches of each main path ([default], [slice], [pt], [chees],
 [envelope], [profile]) are
 counted from 0 just before its ``solve_magi`` and read just after: each
 kernel's count is its launches per value-and-grad (2 single, 1 pair, 1
-pair_t: 4) times the run's value-and-grad evaluations.
+pair_t: 4) times the run's value-and-grad evaluations, and each launch
+ran the tile of its chain count (the row tile at one chain: [default],
+[profile], [grid] at C = 1 and the MAP warm start of [pt]; the chain tile
+at 32 chains and more).
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -129,6 +136,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -157,6 +165,9 @@ GAUSS_MAX_DEPTH = 8
 GAUSS_VAR_TOL, GAUSS_MASS_RANGE, GAUSS_MASS_SHARE = 0.1, (0.5, 2.0), 0.95
 MAIN_BANDSIZE = 40  # the band after escalation on this workload (20 -> 40)
 LONG_FILL, LONG_BAND_START = 5, 80  # n = 3169; the band escalates to 160
+# (M, b, n) of [families]' grids (perf/workload.FAMILY_CASES: ptrans, hiv,
+# hes1log_fixg; build_gp_cov clips the default band of 20 to n - 1)
+FAMILY_SHAPES = ((5, 14, 15), (4, 11, 12), (3, 12, 13))
 KERNEL_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/band_matvec.cu"
 KERNEL_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/ops/pallas_band.py:52"
 # The kernels' C entry points and the ops of perf/band_timing.py they run.
@@ -535,6 +546,36 @@ def _autograd_errors(cb, plain, c, m, b, n, dtype, rng):
     }
 
 
+def _tile_equality(cb, shapes, chains, rng):
+    """Each chain's outputs of the three entry points at few chains against
+    its rows of one launch at 128 chains (the few are rows of that batch),
+    in float32 and float64: exactly equal. Returns the number of chains
+    compared."""
+    compared = 0
+    for m, b, n in shapes:
+        for dtype in (torch.float32, torch.float64):
+            put = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device="cuda")
+            ba, bb = put(m, 2 * b + 1, n), put(m, 2 * b + 1, n)
+            xa, xb = put(128, m, n), put(128, m, n)
+            ops = {
+                "single": lambda u, v: (cb.band_matvec_cuda(ba, u, b),),
+                "pair": lambda u, v: cb.band_matvec_pair_cuda(ba, bb, u, b),
+                "pair_t": lambda u, v: (cb.band_matvec_pair_t_cuda(ba, bb, u, v, b),),
+            }
+            full = {op: f(xa, xb) for op, f in ops.items()}
+            for c in chains:
+                idx = torch.as_tensor(np.sort(rng.choice(128, size=c, replace=False)),
+                                      device="cuda")
+                for op, f in ops.items():
+                    got = f(xa[idx].contiguous(), xb[idx].contiguous())
+                    same = all(torch.equal(u, w[idx]) for u, w in zip(got, full[op]))
+                    check(same, f"kernel {op} at C={c}, (M, b, n)={(m, b, n)}, {dtype}: a "
+                                f"chain's outputs differ from its rows of a 128-chain launch")
+                compared += c
+    torch.cuda.synchronize()
+    return compared
+
+
 def phase_kernel(cb):
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops.band import (
         band_matvec_pair_t_torch, band_matvec_pair_torch, band_storage_matvec_torch,
@@ -544,16 +585,28 @@ def phase_kernel(cb):
     plain = {"single": band_storage_matvec_torch, "pair": band_matvec_pair_torch,
              "pair_t": band_matvec_pair_t_torch}
     rng = np.random.default_rng(0)
+    cb.reset_launches()
     main, long = bt.SHAPES["main"], bt.SHAPES["long"]
-    # the default path's shapes: one chain (and five) at both grids; [pt]'s,
-    # [chees]'s, a [mesh] rank's and [grid]'s blocks
+    # the default path's shapes: one chain (and five) at both grids, two and
+    # three at [grid]'s GK^T block; [pt]'s, [chees]'s, a [mesh] rank's and
+    # [grid]'s blocks
     few = [(c, *shape[1:]) for shape in (main, long) for c in (1, 5)]
+    few += [(c, *bt.SHAPES["grid_single"][1:]) for c in (2, 3)]
     few += [bt.SHAPES[k] for k in ("pt", "chees", "mesh", "grid_pair", "grid_single",
                                    "grid_pair_c1", "grid_single_c1")]
+    # one chain at [pt]'s shape (its MAP warm start) and at [families]'
+    few += [(1, *bt.SHAPES["pt"][1:])] + [(1, *s) for s in FAMILY_SHAPES]
     # n < 2b+1, b = 0, n not a multiple of a tile, b at the TPU kernel's
     # limit, b > 64 with n < 2b+1, and C not a multiple of the chain tile
     edges = [(3, 2, 5, 7), (2, 3, 0, 130), (4, 2, 3, 129), (1, 2, 64, 200), (5, 2, 40, 50),
              (3, 2, 70, 150), (33, 2, 100, 170)]
+    # the row tile's chain counts and the threshold's neighbours, each
+    # chain against a 128-chain launch (the chain tile) at both grids,
+    # [grid]'s GK^T block and every edge's (M, b, n)
+    equal_chains = sorted({1, 2, 3, cb.ROW_TILE_BELOW - 1, cb.ROW_TILE_BELOW})
+    equal_shapes = [(2, 40, 397), (2, 160, 1113), (2, 160, 3169), bt.SHAPES["pt"][1:],
+                    *FAMILY_SHAPES] + [e[1:] for e in edges]
+    n_equal = _tile_equality(cb, equal_shapes, equal_chains, rng)
     worst, main_err = {}, {}
     for shape in [main, long] + few + edges:
         for dtype in (torch.float64, torch.float32):
@@ -570,6 +623,7 @@ def phase_kernel(cb):
     want = band_storage_matvec_torch(bs2, x2, MAIN_BANDSIZE)
     rel2 = float((cb.band_matvec_cuda(bs2, x2, MAIN_BANDSIZE) - want).abs().max() / want.abs().max())
     check(rel2 <= TOL_F64, f"kernel (M, n) form: rel {rel2:.3e}")
+    checked_tiles = dict(cb.TILE_LAUNCHES)
     timing = {}
     for label in TIMED_SHAPES:
         shape = bt.SHAPES[label]
@@ -583,33 +637,61 @@ def phase_kernel(cb):
             timing[(label, op)] = dict(
                 ms=float(np.mean(times["kernel"])), plain_ms=times["plain"][0],
                 library_ms=times["library"][0], bound_ms=case["bound"][0],
-                bound_by=case["bound"][1],
+                bound_by=case["bound"][1], tile=cb.tile_for(shape[0], shape[2], torch.float32),
             )
     cells = "; ".join(
-        f"{label} {op}: kernel {v['ms']:.5f} plain {v['plain_ms']:.5f} matmul "
+        f"{label} {op} ({v['tile']}): kernel {v['ms']:.5f} plain {v['plain_ms']:.5f} matmul "
         f"{v['library_ms']:.5f} bound {v['bound_ms']:.5f} ({v['bound_by']})"
         for (label, op), v in timing.items()
     )
+    # one chain: the row tile against the GEMV and its plain version
+    one_chain = {f"{label} {op}": v["ms"] <= min(v["library_ms"], v["plain_ms"])
+                 for (label, op), v in timing.items() if bt.SHAPES[label][0] == 1}
     print(f"[kernel] single, pair and pair_t against their plain versions, forward and backward, "
-          f"at {2 + len(few) + len(edges)} shapes (C in 1, 5, 128 at both grids, [pt]'s "
-          f"{bt.SHAPES['pt']}, [chees]'s {bt.SHAPES['chees']}, a [mesh] rank's "
+          f"at {2 + len(few) + len(edges)} shapes (C in 1, 5, 128 at both grids, 2 and 3 at "
+          f"{bt.SHAPES['grid_single'][1:]}, [pt]'s "
+          f"{bt.SHAPES['pt']} and at C = 1, [families]' {FAMILY_SHAPES} at C = 1, [chees]'s "
+          f"{bt.SHAPES['chees']}, a [mesh] rank's "
           f"{bt.SHAPES['mesh']}, [grid]'s blocks {bt.SHAPES['grid_pair']} and "
           f"{bt.SHAPES['grid_single']} at C = 128 and 1): worst rel float64 "
           f"{worst[torch.float64]:.3e} (tol {TOL_F64}), float32 {worst[torch.float32]:.3e} (tol "
-          f"{TOL_F32}); max abs err at the main shape float32 {main_err}; ms per launch (CUDA "
-          f"graph of {bt.COUNT}, CUDA events) at (C, M, b, n) "
-          f"{[bt.SHAPES[k] for k in TIMED_SHAPES]}: {cells}", flush=True)
+          f"{TOL_F32}); max abs err at the main shape float32 {main_err}; each chain at C in "
+          f"{equal_chains} (row tile below {cb.ROW_TILE_BELOW}) bit-equal to its rows of a "
+          f"128-chain launch, float32 and float64, all three entry points, at (M, b, n) "
+          f"{equal_shapes}: {n_equal} chains; launches by tile in these checks {checked_tiles}; "
+          f"ms per launch (CUDA graph of {bt.COUNT}, CUDA events) at (C, M, b, n) "
+          f"{[bt.SHAPES[k] for k in TIMED_SHAPES]}: {cells}; at one chain no slower than the "
+          f"GEMV and the plain version: {one_chain}", flush=True)
     return main_err, timing
 
 
-def _per_vg(launches, vg_evals, what):
-    """Launches per value-and-grad of one main path's run, which must be
-    exactly LAUNCHES_PER_VG."""
+def _per_vg(launches, vg_evals, what, chains, one_chain_evals=0):
+    """Launches per value-and-grad of one main path's run (entry points and
+    tiles, as ``cuda_band.counts`` gives them), which must be exactly
+    LAUNCHES_PER_VG, each on the tile that its value-and-grad's chains run
+    (``_tile_kind``): ``chains`` chains, but one chain in the first
+    ``one_chain_evals`` (a MAP warm start's)."""
     for name, k in LAUNCHES_PER_VG.items():
         check(launches[name] == k * vg_evals,
               f"{what}: {name} {launches[name]} launches in {vg_evals} value-and-grads, "
               f"want {k} each")
+    per_eval = sum(LAUNCHES_PER_VG.values())
+    want = {"row": 0, "chain": 0}
+    want[_tile_kind(1)] += per_eval * one_chain_evals
+    want[_tile_kind(chains)] += per_eval * (vg_evals - one_chain_evals)
+    got = {kind: sum(k for name, k in launches.items() if name.startswith(kind + "_"))
+           for kind in want}
+    check(got == want, f"{what}: launches by tile kind {got}, want {want} ({chains} chains)")
     return {name: k / vg_evals for name, k in launches.items()}
+
+
+def _tile_kind(chains: int) -> str:
+    """The kind of K1 tile ("row" or "chain") that ``cuda_band.tile_for``
+    gives a launch of ``chains`` chains (the kind does not depend on the
+    band or the dtype)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+
+    return cb.tile_for(chains, 0, torch.float32).split("_")[0]
 
 
 def _leaf_times(d):
@@ -737,7 +819,7 @@ def phase_default(mt, cb):
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
     wall = time.perf_counter() - t0
-    launches = dict(cb.KERNEL_LAUNCHES)
+    launches = cb.counts()
     d = res.diagnostics
     vg_evals = GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
     leaf_ms, leaves_s = _leaf_times(d)
@@ -768,22 +850,32 @@ def phase_default(mt, cb):
     check(d["band_impl"] == "band", f"default: band_impl {d['band_impl']}")
     check(DEFAULT_ACCEPT[0] <= accept <= DEFAULT_ACCEPT[1], f"default: accept {accept:.4f}")
     check(div_share <= DEFAULT_MAX_DIVERGENT_SHARE, f"default: divergent share {div_share:.3f}")
-    return launches, _per_vg(launches, vg_evals, "default"), leaf_ms
+    return launches, _per_vg(launches, vg_evals, "default", config.n_chains), leaf_ms
 
 
-def phase_families(mt):
+def phase_families(mt, cb):
     """The JAX package's model-family end-to-end workloads on the card in
-    float32, under that test's assertions."""
+    float32, under that test's assertions. "auto" runs them on band (the
+    layout sweep's rule at their grids); each run's K1 launches are read
+    around its solve_magi: exactly LAUNCHES_PER_VG per value-and-grad (the
+    MAP warm start's and the sampler's), all on the row tile (one chain).
+    Returns the path's launches and launches per value-and-grad."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GRAPH_WARMUP_CALLS,
+    )
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
         FAMILY_CASES, family_problem,
     )
 
-    parts = []
+    parts, runs = [], []
     for name, case in FAMILY_CASES.items():
         system, y, t, options = family_problem(name)
+        config = mt.MagiConfig(device="cuda", **options)
+        cb.reset_launches()
         t0 = time.perf_counter()
-        res = mt.solve_magi(y, t, system, mt.MagiConfig(device="cuda", **options))
+        res = mt.solve_magi(y, t, system, config)
         wall = time.perf_counter() - t0
+        launches = cb.counts()
         n_keep = options["niter_hmc"] // 2
         check(res.theta.shape == (n_keep, system.theta_size), f"{name}: theta shape")
         for what in ("theta", "x_sampled", "lp"):
@@ -791,12 +883,25 @@ def phase_families(mt):
         if case["positive"]:
             check(bool((res.theta > 0).all()), f"{name}: theta not positive")
         d = res.diagnostics
-        parts.append(f"{name} (n={len(t)}, D={y.shape[1]}, k={system.theta_size}) {wall:.1f} s, "
+        # the MAP warm start's value-and-grads (start, one per Adam step,
+        # end) and the sampler's (graph warm-up, start, one per leaf)
+        vg_evals = config.map_init_iterations + 2 + GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
+        runs.append((name, d["band_impl"], launches, vg_evals))
+        parts.append(f"{name} (n={len(t)}, D={y.shape[1]}, k={system.theta_size}, "
+                     f"band_impl={d['band_impl']}, bandsize={d['bandsize']}) {wall:.1f} s, "
                      f"map {d['phase_times_s']['map_s']:.2f} s, accept "
                      f"{d['accept_prob'].mean():.3f}, tree depth mean {d['tree_depth'].mean():.2f}, "
                      f"theta mean {np.round(res.theta.mean(0), 4).tolist()} "
-                     f"(true {case['theta']})")
+                     f"(true {case['theta']}); kernel launches {launches} in {vg_evals} "
+                     f"value-and-grads")
     print("[families] float32 on the card: " + "; ".join(parts), flush=True)
+    total, total_evals = Counter(), 0
+    for name, band_impl, launches, vg_evals in runs:
+        check(band_impl == "band", f"families {name}: band_impl {band_impl}")
+        _per_vg(launches, vg_evals, f"families {name}", 1)
+        total.update(launches)
+        total_evals += vg_evals
+    return dict(total), {name: k / total_evals for name, k in total.items()}, None
 
 
 def phase_slice(mt, cb, y, t):
@@ -815,7 +920,7 @@ def phase_slice(mt, cb, y, t):
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
     wall = time.perf_counter() - t0
-    launches = dict(cb.KERNEL_LAUNCHES)
+    launches = cb.counts()
     d = res.diagnostics
     tpc = d["theta_per_chain"]
     ess_min = min(ess(tpc[:, :, j]) for j in range(tpc.shape[-1]))
@@ -850,7 +955,7 @@ def phase_slice(mt, cb, y, t):
     check(res.x_sampled.shape == (N_CHAINS * (NITER_HMC // 2), 397, 2), "x_sampled shape")
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    per_vg = _per_vg(launches, vg_evals, "slice")
+    per_vg = _per_vg(launches, vg_evals, "slice", N_CHAINS)
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
@@ -904,7 +1009,7 @@ def phase_pt(mt, cb):
         t0 = time.perf_counter()
         res = mt.solve_magi(y, t_grid, HES1LOG_FIXF_SYSTEM, config)
         wall = time.perf_counter() - t0
-        launches = dict(cb.KERNEL_LAUNCHES)
+        launches = cb.counts()
     finally:
         tt._tempered_vg = real_tempered
     d = res.diagnostics
@@ -949,7 +1054,7 @@ def phase_pt(mt, cb):
     check(d["bandsize"] == PT_BANDSIZE, f"pt: bandsize {d['bandsize']} != {PT_BANDSIZE}")
     check(graph_gap <= PT_GRAPH_TOL,
           f"pt: replayed tempered value vs raw value x final ladder {graph_gap:.3e}")
-    per_vg = _per_vg(launches, vg_evals, "pt")
+    per_vg = _per_vg(launches, vg_evals, "pt", n_chains, config.map_init_iterations + 2)
     check(theta_rmse < THETA_RMSE_MAX, f"pt: theta RMSE {theta_rmse:.4f}")
     check(h_rmse < PT_H_RMSE_MAX, f"pt: unobserved-H RMSE {h_rmse:.4f}")
     check(PT_SWAP_RANGE[0] <= swap <= PT_SWAP_RANGE[1], f"pt: swap acceptance {swap:.3f}")
@@ -973,7 +1078,7 @@ def phase_chees(mt, cb, y, t):
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
     wall = time.perf_counter() - t0
-    launches = dict(cb.KERNEL_LAUNCHES)
+    launches = cb.counts()
     d = res.diagnostics
     tpc = d["theta_per_chain"]
     rhat_max = max_rhat(tpc)
@@ -1004,7 +1109,7 @@ def phase_chees(mt, cb, y, t):
         check(np.isfinite(getattr(res, name)).all(), f"chees: non-finite {name}")
     check(d["band_impl"] == "band", f"chees: band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"chees: bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    per_vg = _per_vg(launches, d["vg_evals"], "chees")
+    per_vg = _per_vg(launches, d["vg_evals"], "chees", CHEES_CHAINS)
     check(theta_rmse <= THETA_RMSE_MAX, f"chees: theta RMSE {theta_rmse:.4f}")
     check(rhat_max <= CHEES_RHAT_MAX, f"chees: max R-hat {rhat_max:.4f} > {CHEES_RHAT_MAX}")
     check(np.isfinite(traj) and traj > eps, f"chees: trajectory length {traj} vs step {eps}")
@@ -1118,7 +1223,7 @@ def _mesh_solve(rank, mesh, y, t):
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**slice_config(MESH_NITER)),
                         mesh=mesh)
     wall = time.perf_counter() - t0
-    launches = dict(cb.KERNEL_LAUNCHES)
+    launches = cb.counts()
     d = res.diagnostics
     pt = d["phase_times_s"]
     target, whitener = d["target"], d["whitener"]
@@ -1262,11 +1367,11 @@ def _grid_rank(rank, grid_file):
         x = psi[:chains]
         cb.reset_launches()
         v, g = vg(x)
-        eager = dict(cb.KERNEL_LAUNCHES)
+        eager = cb.counts()
         graphed = GraphedValueAndGrad(vg, x)
         cb.reset_launches()
         vr, gr = graphed(x)
-        replayed = dict(cb.KERNEL_LAUNCHES)
+        replayed = cb.counts()
         host = [a.double().cpu().numpy() for a in (v, g, vr, gr)]
         out[chains] = dict(value=host[0], grad=host[1], digest=digest(*host),
                            replay_equal=bool(np.array_equal(host[0], host[2])
@@ -1277,7 +1382,7 @@ def _grid_rank(rank, grid_file):
     samples, info = run_chains(vg, psi[:1], torch.Generator(device=DEVICE).manual_seed(11),
                                mass_matrix="diag", **GRID_NUTS)
     out["nuts"] = dict(digest=digest(samples), finite=bool(np.isfinite(samples).all()),
-                       launches=dict(cb.KERNEL_LAUNCHES), wall=time.perf_counter() - t0,
+                       launches=cb.counts(), wall=time.perf_counter() - t0,
                        vg_evals=GRAPH_WARMUP_CALLS + 1 + info["lockstep_leaves"],
                        leaves=info["lockstep_leaves"], accept=float(info["accept_prob"].mean()))
     out["blocks"] = (mesh.rank, data.nloc, tuple(vg.mphi.shape), tuple(vg.gkt.shape))
@@ -1549,7 +1654,8 @@ def _report_mesh(ranks, wall):
     for name in ("sampled_on", "result", "adapted"):
         check(len({r[name] for r in sol}) == 1, f"mesh: the ranks' {name} differ")
     check(a["finite"], "mesh: non-finite draws")
-    per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}") for i, r in enumerate(sol)]
+    per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}", N_CHAINS // MESH_RANKS)
+              for i, r in enumerate(sol)]
     check(a["theta_rmse"] <= THETA_RMSE_MAX, f"mesh: theta RMSE {a['theta_rmse']:.4f}")
     check(a["sigma_rmse"] <= SIGMA_RMSE_MAX, f"mesh: sigma RMSE {a['sigma_rmse']:.4f}")
     check(a["divergent"] <= MESH_MAX_DIVERGENT_SHARE, f"mesh: divergent {a['divergent']:.4f}")
@@ -1564,7 +1670,7 @@ def _report_mesh(ranks, wall):
           f"mesh: float32 sharded chains vs unsharded in row blocks {dry['chains_blocked'][0]:.3e}")
     check(dry["nccl"] == (MESH_SOLO_BACKEND, 1, True),
           f"mesh: one-rank NCCL run_chains vs unsharded {dry['nccl']}")
-    launches = {name: sum(r["launches"][name] for r in sol) for name in KERNELS}
+    launches = {name: sum(r["launches"][name] for r in sol) for name in sol[0]["launches"]}
     return launches, per_vg[0], float(np.mean(leaf_ms))
 
 
@@ -1617,13 +1723,13 @@ def _report_grid(ranks, grid):
         check(g0[chains]["replay_equal"], f"grid C={chains}: replayed differs from eager")
         for r in ranks:
             for how in ("eager", "replayed"):
-                _per_vg(r["grid"][chains][how], 1, f"grid C={chains} {how}")
+                _per_vg(r["grid"][chains][how], 1, f"grid C={chains} {how}", chains)
     check(e_val <= TOL_VALUE and e_grad <= TOL_GRAD,
           f"grid vs float64 CPU: value rel {e_val:.3e}, grad {e_grad:.3e}")
     check(all(n["finite"] for n in nuts), "grid NUTS: non-finite draws")
     check(len({n["digest"] for n in nuts}) == 1, "grid NUTS: the ranks' draws differ")
-    nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS") for n in nuts]
-    launches = {name: sum(n["launches"][name] for n in nuts) for name in KERNELS}
+    nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS", 1) for n in nuts]
+    launches = {name: sum(n["launches"][name] for n in nuts) for name in nuts[0]["launches"]}
     return launches, nuts_per_vg[0], None
 
 
@@ -1645,7 +1751,7 @@ def phase_envelope(mt, cb, y, t):
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, config)
     wall = time.perf_counter() - t0
-    launches = dict(cb.KERNEL_LAUNCHES)
+    launches = cb.counts()
     d = res.diagnostics
     points, dirs = d["envelope_points"], d["envelope_boost_dirs"]
     probe_s = d["envelope_probe_seconds"]
@@ -1680,7 +1786,7 @@ def phase_envelope(mt, cb, y, t):
           f"envelope: {dirs} boosted directions from {points} probes")
     check(np.isfinite(minv).all() and np.array_equal(minv, minv.T) and min(eig) > 0,
           "envelope: the folded metric is not finite and SPD")
-    per_vg = _per_vg(launches, vg_evals, "envelope")
+    per_vg = _per_vg(launches, vg_evals, "envelope", N_CHAINS)
     check(theta_rmse <= THETA_RMSE_MAX, f"envelope: theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"envelope: sigma RMSE {sigma_rmse:.4f}")
     return launches, per_vg, leaf_ms
@@ -1709,7 +1815,7 @@ def phase_profile(mt, cb):
         t0 = time.perf_counter()
         res = mt.solve_magi(y, t, mt.FN_SYSTEM, dataclasses.replace(config, profile_dir=tmp))
         wall = time.perf_counter() - t0
-        launches = dict(cb.KERNEL_LAUNCHES)
+        launches = cb.counts()
         files = os.listdir(tmp)
         check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
               f"profile: trace files {files}")
@@ -1717,10 +1823,11 @@ def phase_profile(mt, cb):
         with open(os.path.join(tmp, files[0])) as f:
             events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    # the three entry points launch instances of one template, band_matvec_kernel
+    # the three entry points launch instances of two templates,
+    # band_matvec_kernel (the chain tile) and band_matvec_row_kernel
     k1 = {}
     for e in kernels:
-        if "band_matvec_kernel" in e.get("name", ""):
+        if "band_matvec_" in e.get("name", ""):
             k1[e["name"]] = k1.get(e["name"], 0) + 1
     k1_any = sum(k1.values())
     graph_launches = sum("cudaGraphLaunch" in e.get("name", "") for e in events)
@@ -1737,7 +1844,7 @@ def phase_profile(mt, cb):
           flush=True)
     check(k1_any > 0, "profile: no band kernel in the trace")
     check(same, "profile: the profiled run's draws differ from the unprofiled run's")
-    return launches, _per_vg(launches, vg_evals, "profile"), None
+    return launches, _per_vg(launches, vg_evals, "profile", config.n_chains), None
 
 
 def main() -> int:
@@ -1761,7 +1868,7 @@ def main() -> int:
         "kernel": lambda: phase_kernel(cb),
         "diag-gauss": phase_diag_gauss,
         "default": lambda: paths.__setitem__("default", phase_default(mt, cb)),
-        "families": lambda: phase_families(mt),
+        "families": lambda: paths.__setitem__("families", phase_families(mt, cb)),
         "slice": lambda: paths.__setitem__("slice", phase_slice(mt, cb, y, t)),
         "pt": lambda: paths.__setitem__("pt", phase_pt(mt, cb)),
         "chees": lambda: paths.__setitem__("chees", phase_chees(mt, cb, y, t)),
@@ -1779,9 +1886,12 @@ def main() -> int:
           flush=True)
     main_err, timing = out["kernel"]
     grid_label = lambda op: "grid_single" if op == "single" else "grid_pair"  # noqa: E731
-    print(json.dumps({"launches_per_vg": sum(paths["slice"][1].values()), "kernels": [{
+    tiles_by_path = {path: {tile: p[0][tile] for tile in cb.TILES} for path, p in paths.items()}
+    print(json.dumps({"launches_per_vg": sum(paths["slice"][1][name] for name in KERNELS),
+                      "tile_launches_by_path": tiles_by_path, "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": sum(p[0][name] for p in paths.values()),
+        "tile_launches": {tile: sum(p[tile] for p in tiles_by_path.values()) for tile in cb.TILES},
         "launches_by_path": {path: p[0][name] for path, p in paths.items()},
         "launches_per_vg": {path: p[1][name] for path, p in paths.items()},
         "max_abs_err": main_err[name], **timing[("main", op)],

@@ -153,7 +153,7 @@ class Leapfrog:
         self.lp = torch.zeros(c, dtype=qs.dtype, device=qs.device)
         self.eps = torch.zeros((), dtype=qs.dtype, device=qs.device)
         self.inv_mass = torch.ones(dim, dtype=qs.dtype, device=qs.device)
-        self.graph, self.kernel_launches, _ = capture_graph(self._step, qs.device)
+        self.graph, self.launches, _ = capture_graph(self._step, qs.device)
         self.eager_calls = GRAPH_WARMUP_CALLS
 
     def _step(self):
@@ -169,7 +169,7 @@ class Leapfrog:
             buf.copy_(value)
         for _ in range(n_steps):
             self.graph.replay()
-        cuda_band.add_launches({k: n * n_steps for k, n in self.kernel_launches.items()})
+        cuda_band.add_launches({k: n * n_steps for k, n in self.launches.items()})
         return self.q.clone(), self.p.clone(), self.g.clone(), self.lp.clone()
 
 

@@ -63,10 +63,25 @@ INIT_JITTER_SEED_OFFSET = 1
 STEP_JITTER_SEED_OFFSET = 2
 # The JAX package's auto policy puts a band above this on the dense layout
 # (its solve.py: past it dense einsums won on the TPU even sequentially, and
-# the Pallas kernel stopped compiling). The CUDA kernel takes any bandwidth;
-# "auto" keeps the TPU's threshold until it is re-derived on the H100
-# (ROADMAP M11). An explicit band_impl="band" runs at any bandwidth.
+# the Pallas kernel stopped compiling); the port's rule off the card keeps
+# it. An explicit band_impl="band" runs at any bandwidth.
 AUTO_BAND_MAX_BANDWIDTH = 64
+# On the card dense is ahead only for a band that is wide, long and batched
+# (the layout sweep, perf/layout_sweep.py; PERF.md §6, H100):
+# - wide, b > n / AUTO_WIDE_BAND_DIVISOR: band was ahead at every chain
+#   count at b/n = 0.1 (n = 793 to 3169, b = 80 and 160); at b/n = 0.16
+#   (n = 397, b = 64) dense was ahead at 9 to 16 chains and within 3% at
+#   more;
+# - long, b >= AUTO_DENSE_MIN_BANDWIDTH: at n = 199 band was ahead at b = 32
+#   and 48 at every chain count, dense from b = 64 at 9 chains and more; the
+#   model families' grids (b = 11 to 14) and config 3's (b = 20) ran band
+#   ahead at every chain count from 1 to 128;
+# - batched, AUTO_DENSE_MIN_BATCH chains or more: at 8 chains band was
+#   ahead, or dense within 1%, at every wide point; at 9 dense was ahead by
+#   8% (n = 397, b = 80) and 20% (b = 160).
+AUTO_WIDE_BAND_DIVISOR = 8
+AUTO_DENSE_MIN_BANDWIDTH = 64
+AUTO_DENSE_MIN_BATCH = 9
 # optax.adam's defaults, which the JAX package's MAP warm start uses.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -331,25 +346,42 @@ def _check_precision() -> None:
         )
 
 
+def resolve_gp_mean(gp_mean, y_obs: np.ndarray):
+    """``gp_mean`` as the target takes it: "observed" becomes each
+    component's mean observation (0 where it has none)."""
+    if not isinstance(gp_mean, str):
+        return gp_mean
+    if gp_mean != "observed":
+        raise MagiError(f"unknown gp_mean mode '{gp_mean}'")
+    return np.array([
+        float(col[np.isfinite(col)].mean()) if np.isfinite(col).any() else 0.0
+        for col in y_obs.T
+    ])
+
+
 def resolve_band_impl(config: MagiConfig, n_times: int, n_dims: int,
                       bandsize: int, device: torch.device) -> str:
-    """``band_impl="auto"`` by the JAX package's policy, with the TPU test
-    replaced by "the device is CUDA" and the Pallas path by "band". Its
-    thresholds were set on a TPU (ROADMAP M11)."""
+    """``band_impl="auto"``. Off the card, the JAX package's policy off a
+    TPU (dense for n <= 1024, for an effective batch >= 8 while the dense
+    stacks fit in 2 GiB, and for b > 64; else band). On the card, the rule
+    of the layout sweep on the H100 (ms per replayed value-and-grad, n = 12
+    to 3169, 1 to 128 chains; PERF.md §6): dense for a band that is
+    wide, long and batched (the constants above) while the dense stacks fit
+    in 2 GiB; else band."""
     if config.band_impl != "auto":
         check_band_impl(config.band_impl)
         return config.band_impl
-    on_card = device.type == "cuda"
     # the chains one value-and-grad evaluates: PT batches every rung of
     # every replica, whatever n_chains says
     eff_batch = (config.pt_temps * config.pt_replicas if config.sampler == "pt-nuts"
                  else config.n_chains)
-    dense_bytes = n_dims * 6 * n_times * n_times * 4
-    if n_times <= (512 if on_card else 1024):
-        return "dense"
-    if eff_batch >= 8 and dense_bytes <= 2 << 30:
-        return "dense"
-    if bandsize > AUTO_BAND_MAX_BANDWIDTH:
+    dense_fits = n_dims * 6 * n_times * n_times * 4 <= 2 << 30
+    if device.type == "cuda":
+        wide = AUTO_WIDE_BAND_DIVISOR * bandsize > n_times
+        long = bandsize >= AUTO_DENSE_MIN_BANDWIDTH
+        batched = eff_batch >= AUTO_DENSE_MIN_BATCH
+        return "dense" if wide and long and batched and dense_fits else "band"
+    if n_times <= 1024 or (eff_batch >= 8 and dense_fits) or bandsize > AUTO_BAND_MAX_BANDWIDTH:
         return "dense"
     return "band"
 
@@ -513,14 +545,7 @@ def solve_magi(
     if config.theta_constrained:
         theta_transform = make_theta_transform(lo, hi)
 
-    gp_mean = config.gp_mean
-    if isinstance(gp_mean, str):
-        if gp_mean != "observed":
-            raise MagiError(f"unknown gp_mean mode '{gp_mean}'")
-        gp_mean = np.array([
-            float(col[np.isfinite(col)].mean()) if np.isfinite(col).any() else 0.0
-            for col in y_obs.T
-        ])
+    gp_mean = resolve_gp_mean(config.gp_mean, y_obs)
 
     def build_target(cov, temps, impl):
         return MagiTarget.build(

@@ -16,6 +16,14 @@ gradient is the same contraction on the transposed storage
 data in MAGI). Any bandwidth runs: the kernel's shared memory is sized by
 its chunk of diagonals, not by the band.
 
+Which tile runs is decided here, by ``tile_for``, and passed to the
+kernel: below ``ROW_TILE_BELOW`` chains the row tile (16 rows of every
+chain a block, bound by the band's bytes), from it on the chain tile (a
+tile of 32 or 64 chains a block); each in the Small order, or in float32
+from a band width 2b+1 of ``LARGE_FROM_WIDTH`` on in the Large order. The
+two tiles sum every output in the same order, so a chain's result does not
+depend on how many chains share its launch.
+
 The kernel is compiled at first use with the installed CUDA toolkit's
 ``nvcc`` for sm_90a into ``<package>/build/``, keyed by a hash of the
 source, and bound with ctypes through its plain C interface.
@@ -35,13 +43,24 @@ import torch
 from .band import band_matvec_pair_t_torch, band_matvec_pair_torch, band_storage_matvec_torch
 
 # The kernel's C entry points, each in _f32 and _f64, with their number of
-# pointer arguments (then n_chains, n_mat, n, bandwidth, stream).
+# pointer arguments (then n_chains, n_mat, n, bandwidth, tile, stream).
 N_POINTERS = {"band_matvec": 3, "band_matvec_pair": 5, "band_matvec_pair_t": 5}
+# The kernel's tiles, numbered as its TileCode: the chain tile and the row
+# tile, each in the Small or the Large summation order.
+TILES = ("chain_small", "chain_large", "row_small", "row_large")
+# The row tile runs below this many chains: up to the 8 it takes (the
+# kernel's kRowMaxChains), where the C sweep of perf/band_timing.py found
+# it ahead of the chain tile or within 3% (PERF.md).
+ROW_TILE_BELOW = 9
+# Band width 2b+1 from which float32 sums in the Large order (float64
+# always in the Small one).
+LARGE_FROM_WIDTH = 128
 
-# Kernel launches since the last reset, by C entry point: each wrapper adds
-# one per launch, and a CUDA-graph replay the launches it replays
-# (parallel/chains.GraphedValueAndGrad).
+# Kernel launches since the last reset, by C entry point and by tile: each
+# wrapper adds one to each per launch, and a CUDA-graph replay the launches
+# it replays (parallel/chains.GraphedValueAndGrad).
 KERNEL_LAUNCHES = dict.fromkeys(N_POINTERS, 0)
+TILE_LAUNCHES = dict.fromkeys(TILES, 0)
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "band_matvec.cu"
@@ -112,15 +131,14 @@ def build(source: Path = SOURCE) -> Path:
 
 
 def load(source: Path = SOURCE):
-    """Build ``source`` and bind the C entry points it has (a source with
-    the same interface, such as an older commit's kernel, loads too)."""
+    """Build ``source`` and bind its C entry points."""
     lib = ctypes.CDLL(str(build(source)))
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, k in N_POINTERS.items():
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"{name}_{suffix}", None)
             if fn is not None:
-                fn.argtypes = [p] * k + [i, i, i, i, p]
+                fn.argtypes = [p] * k + [i] * 5 + [p]
                 fn.restype = i
     return lib
 
@@ -132,20 +150,36 @@ def _library():
     return _LIB
 
 
+def tile_for(n_chains: int, bandwidth: int, dtype: torch.dtype) -> str:
+    """The tile a launch of ``n_chains`` chains at ``bandwidth`` runs: the
+    row tile below ROW_TILE_BELOW chains, else the chain tile; in the Large
+    order for float32 at 2b+1 >= LARGE_FROM_WIDTH, else the Small one."""
+    kind = "row" if n_chains < ROW_TILE_BELOW else "chain"
+    large = dtype == torch.float32 and 2 * bandwidth + 1 >= LARGE_FROM_WIDTH
+    return f"{kind}_{'large' if large else 'small'}"
+
+
 def launches() -> int:
     """Kernel launches since the last reset, all entry points together."""
     return sum(KERNEL_LAUNCHES.values())
 
 
+def counts() -> dict:
+    """Every launch count: by entry point, then by tile."""
+    return {**KERNEL_LAUNCHES, **TILE_LAUNCHES}
+
+
 def reset_launches() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    for table in (KERNEL_LAUNCHES, TILE_LAUNCHES):
+        for name in table:
+            table[name] = 0
 
 
-def add_launches(counts: dict) -> None:
-    """Count launches made outside the wrappers (a CUDA-graph replay)."""
-    for name, k in counts.items():
-        KERNEL_LAUNCHES[name] += k
+def add_launches(added: dict) -> None:
+    """Count launches made outside the wrappers (a CUDA-graph replay):
+    entry point or tile names, as ``counts`` gives them."""
+    for name, k in added.items():
+        (KERNEL_LAUNCHES if name in KERNEL_LAUNCHES else TILE_LAUNCHES)[name] += k
 
 
 def _checked(name, bands, xs, bandwidth):
@@ -180,16 +214,21 @@ def _checked(name, bands, xs, bandwidth):
 def _launch(name, tensors, dims, bandwidth, like) -> None:
     suffix = "f32" if like.dtype == torch.float32 else "f64"
     fn = getattr(_library(), f"{name}_{suffix}")
+    tile = tile_for(dims[0], bandwidth, like.dtype)
     stream = torch.cuda.current_stream(like.device).cuda_stream
-    err = fn(*(t.data_ptr() for t in tensors), *dims, bandwidth, stream)
+    err = fn(*(t.data_ptr() for t in tensors), *dims, bandwidth, TILES.index(tile), stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch ({tile} tile) failed: CUDA error {err}")
     KERNEL_LAUNCHES[name] += 1
+    TILE_LAUNCHES[tile] += 1
 
 
 def band_matvec_cuda(bands: torch.Tensor, xs: torch.Tensor, bandwidth: int) -> torch.Tensor:
     """y = A x on the current stream. bands (M, 2b+1, n), xs (M, n) or
-    (C, M, n), contiguous, on one CUDA device, float32 or float64."""
+    (C, M, n), contiguous, on one CUDA device, float32 or float64. The
+    tile is ``tile_for(C, b, dtype)``: the row tile at C < ROW_TILE_BELOW,
+    the chain tile from it on; each chain's output is the same bits
+    either way."""
     dims = _checked("band_matvec_cuda", [bands], [xs], bandwidth)
     ys = torch.empty_like(xs)
     if ys.numel():

@@ -395,8 +395,9 @@ class GraphedValueAndGrad:
     ~0.4 ms of device time (PERF.md); a replay issues them as one graph.
     The warm-up calls (on a side stream) run ``vg`` eagerly and count
     their band-matvec launches; the capture records the kernels without
-    running them, so its launches are read (``kernel_launches``) and taken
-    back out of ``cuda_band``'s counts; each replay adds them again.
+    running them, so its launches are read (``launches``: by entry point,
+    ``kernel_launches``, and by tile, ``tile_launches``) and taken back out
+    of ``cuda_band``'s counts; each replay adds them again.
     Outputs are cloned out of the graph's static buffers. Tensors that
     ``vg`` reads besides its input (parallel tempering's inverse
     temperatures) are captured by address: update them in place.
@@ -409,14 +410,24 @@ class GraphedValueAndGrad:
         self.static_in = example.detach().clone()
         local = getattr(vg, "local", vg)
         self.reduce = getattr(vg, "reduce", None)
-        self.graph, self.kernel_launches, out = capture_graph(
+        self.graph, self.launches, out = capture_graph(
             lambda: local(self.static_in), example.device, n_warmup)
         self.static_lp, self.static_grad = out
+
+    @property
+    def kernel_launches(self) -> dict:
+        """Band-matvec launches per replay, by entry point."""
+        return {name: self.launches[name] for name in cuda_band.KERNEL_LAUNCHES}
+
+    @property
+    def tile_launches(self) -> dict:
+        """Band-matvec launches per replay, by tile."""
+        return {name: self.launches[name] for name in cuda_band.TILE_LAUNCHES}
 
     def __call__(self, zeta: torch.Tensor):
         self.static_in.copy_(zeta)
         self.graph.replay()
-        cuda_band.add_launches(self.kernel_launches)
+        cuda_band.add_launches(self.launches)
         if self.reduce is not None:
             return self.reduce(self.static_lp, self.static_grad)
         return self.static_lp.clone(), self.static_grad.clone()
@@ -425,8 +436,9 @@ class GraphedValueAndGrad:
 def capture_graph(fn, device, n_warmup: int = GRAPH_WARMUP_CALLS):
     """Run ``fn`` ``n_warmup`` times eagerly on a side stream, then capture
     one call in a CUDA graph. Returns (graph, band-matvec launches per
-    replay, the captured call's outputs); the capture's launches are taken
-    back out of ``cuda_band``'s counts."""
+    replay as ``cuda_band.counts`` gives them, the captured call's
+    outputs); the capture's launches are taken back out of ``cuda_band``'s
+    counts."""
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -434,11 +446,11 @@ def capture_graph(fn, device, n_warmup: int = GRAPH_WARMUP_CALLS):
             fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = dict(cuda_band.KERNEL_LAUNCHES)
+    before = cuda_band.counts()
     with torch.cuda.graph(graph):
         out = fn()
-    launches = {name: k - before[name] for name, k in cuda_band.KERNEL_LAUNCHES.items()}
-    cuda_band.KERNEL_LAUNCHES.update(before)
+    launches = {name: k - before[name] for name, k in cuda_band.counts().items()}
+    cuda_band.add_launches({name: -k for name, k in launches.items()})
     return graph, launches, out
 
 

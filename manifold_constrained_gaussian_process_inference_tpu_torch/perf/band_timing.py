@@ -1,9 +1,11 @@
 """Device time of the band-matvec kernels (csrc/band_matvec.cu) against
 their bound, their plain PyTorch versions and the dense ``torch.matmul``,
-and a profiler trace of the slice's replayed value-and-grad.
+the C sweep of the row tile against the chain tile, and a profiler trace
+of the slice's replayed value-and-grad.
 
     python3 -m manifold_constrained_gaussian_process_inference_tpu_torch.perf.band_timing \
-        [--baseline OTHER.cu] [--variants small,large,fma_only,staging_only] [--profile] \
+        [--shapes main,long] [--baseline OTHER.cu] \
+        [--variants fma_only,staging_only,row_stages3,row_stages8] [--csweep] [--profile] \
         [--out chiprun_out/band_timing.json]
 
 Each time is per launch: CUDA events around one replay of a CUDA graph of
@@ -11,14 +13,20 @@ Each time is per launch: CUDA events around one replay of a CUDA graph of
 ``REPS`` replays after warm-up; the "eager" column times the same calls
 launched one by one from Python, host enqueue included. Callers run in
 turns (kernel, baseline, plain, library, ..., kernel) in one process.
-``--baseline`` builds another source with the same C interface (for
-example an older commit's kernel) and times it beside this one.
-``--variants`` also times variants of the kernel, each built from its
-source with one of the measurement defines the source names: "small" and
-"large" force a tile for every shape; "fma_only" skips the staging (it
-multiplies whatever shared memory holds) and "staging_only" skips the FMA
-loop, so their outputs are wrong by design, and their times say which half
-holds the kernel back. ``--profile`` traces ``PROFILE_CALLS`` replays of the slice's
+``--baseline`` builds another source with the C interface (for example an
+older commit's kernel, whose entry points may take no tile) and times it
+beside this one; ``equal_to_kernel`` says whether its outputs are the
+kernel's bit for bit. ``--variants`` also times variants of the kernel,
+each built from its source with one of the measurement defines the source
+names: "fma_only" skips the staging (it multiplies whatever shared memory
+holds) and "staging_only" skips the FMA loop, so their outputs are wrong
+by design, and their times say which half holds the kernel back;
+"row_stagesK" keeps K chunks of the row tile in flight. ``--csweep`` times
+the row tile against the chain tile, in turns, at every C of
+``CSWEEP_CHAINS`` and every (M, b, n) of ``CSWEEP_SHAPES``, each tile's
+outputs held bit-equal to the other's (the sweep that set
+``ops/cuda_band.ROW_TILE_BELOW``; the variants' row tiles are timed beside
+them). ``--profile`` traces ``PROFILE_CALLS`` replays of the slice's
 value-and-grad (C=128, n=397, band and dense) with ``torch.profiler`` and
 reports each kernel's share of the device time and the device's idle
 share over the window. Runs on a CUDA card only.
@@ -48,6 +56,11 @@ SHAPES = {"main": (128, 2, 40, 397), "long": (128, 2, 160, 3169),
           "mesh": (32, 2, 40, 397),
           "grid_pair": (128, 2, 160, 1433), "grid_single": (128, 2, 160, 1113),
           "grid_pair_c1": (1, 2, 160, 1433), "grid_single_c1": (1, 2, 160, 1113)}
+# The C sweep: (M, b, n) of the slice's grid, [grid]'s blocks (GK^T's and
+# the paired storages') and the filllevel-5 grid, each at every C here.
+CSWEEP_SHAPES = {"main": (2, 40, 397), "grid_single": (2, 160, 1113),
+                 "grid_pair": (2, 160, 1433), "long": (2, 160, 3169)}
+CSWEEP_CHAINS = (1, 2, 3, 4, 5, 8)
 # NVIDIA H100 SXM: float32 outside the tensor cores, and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -113,10 +126,10 @@ def eager_ms(fn, count=COUNT, reps=REPS) -> float:
 
 # The measurement defines of csrc/band_matvec.cu, one per --variants name.
 VARIANTS = {
-    "small": "BAND_FORCE_TILE 1",
-    "large": "BAND_FORCE_TILE 2",
     "fma_only": "BAND_ABLATE_NO_STAGE",
     "staging_only": "BAND_ABLATE_NO_FMA",
+    "row_stages3": "BAND_ROW_STAGES 3",
+    "row_stages8": "BAND_ROW_STAGES 8",
 }
 
 
@@ -128,6 +141,26 @@ def _variant(name: str) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(f"#define {VARIANTS[name]}\n{cb.SOURCE.read_text()}")
     return path
+
+
+def load_any(source: Path):
+    """Build and bind ``source``, of this interface or an older one: a source
+    from before the row tile has entry points without the tile argument
+    (``lib.takes_tile`` False)."""
+    import ctypes
+
+    from ..ops import cuda_band as cb
+
+    lib = ctypes.CDLL(str(cb.build(source)))
+    lib.takes_tile = "int tile" in source.read_text()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, k in cb.N_POINTERS.items():
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{name}_{suffix}", None)
+            if fn is not None:
+                fn.argtypes = [p] * k + [i] * (5 if lib.takes_tile else 4) + [p]
+                fn.restype = i
+    return lib
 
 
 def _dense(bands: torch.Tensor, b: int) -> torch.Tensor:
@@ -149,7 +182,8 @@ OPS = {"single": "band_matvec", "pair": "band_matvec_pair", "pair_t": "band_matv
 def op_cases(shape, dtype, rng):
     """Inputs on the card for the three ops at one shape, and per op: its
     wrapper call, a raw launch of a library's entry point (for another
-    source's kernel), its plain version, the dense torch.matmul computing
+    source's kernel; ``raw(fn, *tile)``: the tile argument where the entry
+    point takes one), its plain version, the dense torch.matmul computing
     the same function (the yardstick), its bound, and its outputs."""
     from ..ops import cuda_band as cb
     from ..ops.band import band_matvec_pair_t_torch, band_matvec_pair_torch
@@ -171,8 +205,8 @@ def op_cases(shape, dtype, rng):
     return {
         "single": dict(
             wrapper=lambda: cb.band_matvec_cuda(ba, xa, b),
-            raw=lambda fn: lambda: fn(ba.data_ptr(), xa.data_ptr(), ya.data_ptr(), *dims,
-                                      stream()),
+            raw=lambda fn, *tile: lambda: fn(ba.data_ptr(), xa.data_ptr(), ya.data_ptr(),
+                                             *dims, *tile, stream()),
             out=(ya,),
             plain=lambda: twin(ba, xa, b),
             library=lambda: torch.matmul(da, xa_t),
@@ -180,8 +214,9 @@ def op_cases(shape, dtype, rng):
         ),
         "pair": dict(
             wrapper=lambda: cb.band_matvec_pair_cuda(ba, bb, xa, b),
-            raw=lambda fn: lambda: fn(ba.data_ptr(), bb.data_ptr(), xa.data_ptr(),
-                                      ya.data_ptr(), yb.data_ptr(), *dims, stream()),
+            raw=lambda fn, *tile: lambda: fn(ba.data_ptr(), bb.data_ptr(), xa.data_ptr(),
+                                             ya.data_ptr(), yb.data_ptr(), *dims, *tile,
+                                             stream()),
             out=(ya, yb),
             plain=lambda: band_matvec_pair_torch(ba, bb, xa, b),
             library=lambda: torch.matmul(d_pair, xa_t),
@@ -189,8 +224,9 @@ def op_cases(shape, dtype, rng):
         ),
         "pair_t": dict(
             wrapper=lambda: cb.band_matvec_pair_t_cuda(ba, bb, xa, xb, b),
-            raw=lambda fn: lambda: fn(ba.data_ptr(), bb.data_ptr(), xa.data_ptr(),
-                                      xb.data_ptr(), ya.data_ptr(), *dims, stream()),
+            raw=lambda fn, *tile: lambda: fn(ba.data_ptr(), bb.data_ptr(), xa.data_ptr(),
+                                             xb.data_ptr(), ya.data_ptr(), *dims, *tile,
+                                             stream()),
             out=(ya,),
             plain=lambda: band_matvec_pair_t_torch(ba, bb, xa, xb, b),
             library=lambda: torch.matmul(d_cat, x_cat),
@@ -215,11 +251,32 @@ def time_in_turns(fns: dict, order) -> dict:
     return times
 
 
+def _tile_args(lib, n_chains, bandwidth, dtype, tile=None):
+    """The tile argument of a library's entry points: ``tile``, by default
+    the wrapper's choice; none for a source that takes none."""
+    from ..ops import cuda_band as cb
+
+    if not lib.takes_tile:
+        return ()
+    return (cb.TILES.index(tile or cb.tile_for(n_chains, bandwidth, dtype)),)
+
+
+def _outputs(fn, out):
+    """Clones of ``out`` after one call of fn (the outputs NaN-filled
+    before it)."""
+    for t in out:
+        t.fill_(float("nan"))
+    fn()
+    return tuple(t.clone() for t in out)
+
+
 def time_shape(name, shape, libs, rng, dtype=torch.float32, timed=True):
     """Every op at one shape: the raw launches of each library that has
-    them, each checked against its plain version, then timed in turns
-    beside it and the dense torch.matmul."""
+    them, each checked against its plain version (and, bit for bit, against
+    the kernel's outputs), then timed in turns beside it and the dense
+    torch.matmul."""
     suffix = "f32" if dtype == torch.float32 else "f64"
+    c, _, b, _ = shape
     rows = []
     for op, case in op_cases(shape, dtype, rng).items():
         kernels = {}
@@ -227,26 +284,27 @@ def time_shape(name, shape, libs, rng, dtype=torch.float32, timed=True):
             fn = getattr(lib, f"{OPS[op]}_{suffix}", None)
             if fn is None:
                 continue
-            kernels[tag] = _raising(case["raw"](fn))
+            kernels[tag] = _raising(case["raw"](fn, *_tile_args(lib, c, b, dtype)))
         if not kernels:
             continue
         want = case["plain"]()
-        errs = {}
+        errs, outs = {}, {}
         for tag, fn in kernels.items():
-            for t in case["out"]:
-                t.fill_(float("nan"))
-            fn()
-            errs[tag] = rel_err(case["out"], want)
+            outs[tag] = _outputs(fn, case["out"])
+            errs[tag] = rel_err(outs[tag], want)
+        same = {tag: all(torch.equal(u, v) for u, v in zip(got, outs["kernel"]))
+                for tag, got in outs.items() if tag != "kernel"}
         print(f"[check] {name} {op} {suffix} (C,M,b,n)={shape}: max rel err vs plain "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + "".join(f"; {k} bit-equal to kernel: {v}" for k, v in same.items()), flush=True)
         if not timed:
-            rows.append(dict(shape=name, op=op, dtype=suffix, rel_err=errs))
+            rows.append(dict(shape=name, op=op, dtype=suffix, rel_err=errs, equal_to_kernel=same))
             continue
         fns = {**kernels, "plain": case["plain"], "library": case["library"]}
         times = time_in_turns(fns, list(kernels) + ["plain", "library"] + list(kernels)[::-1])
         bound, bound_by = case["bound"]
         row = dict(shape=name, op=op, c=shape[0], m=shape[1], b=shape[2], n=shape[3],
-                   bound_ms=bound, bound_by=bound_by, rel_err=errs)
+                   bound_ms=bound, bound_by=bound_by, rel_err=errs, equal_to_kernel=same)
         for tag, pairs in times.items():
             row[f"{tag}_ms"] = [p[0] for p in pairs]
             row[f"{tag}_eager_ms"] = [p[1] for p in pairs]
@@ -256,6 +314,50 @@ def time_shape(name, shape, libs, rng, dtype=torch.float32, timed=True):
         )
         print(f"[time] {name} {op} (C,M,b,n)={shape}: bound {bound:.5f} ms ({bound_by}); "
               f"graph ms/launch: {cells}", flush=True)
+    return rows
+
+
+def c_sweep(libs, rng) -> list:
+    """The row tile against the chain tile at every C of CSWEEP_CHAINS and
+    (M, b, n) of CSWEEP_SHAPES, float32, each op: both tiles' outputs
+    bit-equal and against the plain version, then the device ms per launch
+    in turns (row, chain, the variants' row tiles, plain, library, and back
+    in reverse)."""
+    from ..ops import cuda_band as cb
+
+    rows = []
+    for name, (m, b, n) in CSWEEP_SHAPES.items():
+        order = cb.tile_for(cb.ROW_TILE_BELOW, b, torch.float32).split("_")[1]
+        for c in CSWEEP_CHAINS:
+            for op, case in op_cases((c, m, b, n), torch.float32, rng).items():
+                fns = {}
+                for tag, lib in libs.items():
+                    if not lib.takes_tile or tag in ("fma_only", "staging_only"):
+                        continue
+                    fn = getattr(lib, f"{OPS[op]}_f32")
+                    for kind in ("row", "chain") if tag == "kernel" else ("row",):
+                        tile = _tile_args(lib, c, b, torch.float32, f"{kind}_{order}")
+                        fns[kind if tag == "kernel" else f"row@{tag}"] = _raising(
+                            case["raw"](fn, *tile))
+                want = case["plain"]()
+                outs = {tag: _outputs(fn, case["out"]) for tag, fn in fns.items()}
+                equal = all(torch.equal(u, v) for got in outs.values()
+                            for u, v in zip(got, outs["chain"]))
+                err = max(rel_err(got, want) for got in outs.values())
+                fns.update(plain=case["plain"], library=case["library"])
+                order_of_turns = list(fns) + list(fns)[-3::-1]
+                times = {}
+                for tag in order_of_turns:
+                    times.setdefault(tag, []).append(graph_ms(fns[tag]))
+                bound, bound_by = case["bound"]
+                row = dict(shape=name, op=op, c=c, m=m, b=b, n=n, bound_ms=bound,
+                           bound_by=bound_by, tiles_bit_equal=equal, rel_err=err,
+                           **{f"{tag}_ms": v for tag, v in times.items()})
+                rows.append(row)
+                print(f"[csweep] {name} {op} (C,M,b,n)=({c},{m},{b},{n}): tiles bit-equal "
+                      f"{equal}, rel err vs plain {err:.2e}; bound {bound:.5f} ms ({bound_by}); "
+                      + "; ".join(f"{tag} {', '.join(f'{v:.5f}' for v in t)}"
+                                  for tag, t in times.items()), flush=True)
     return rows
 
 
@@ -338,6 +440,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--csweep", action="store_true",
+                    help="time the row tile against the chain tile at few chains")
     ap.add_argument("--shapes", default="main,long")
     ap.add_argument("--variants", default="",
                     help=f"also time these builds of the kernel, of {','.join(VARIANTS)}")
@@ -353,18 +457,20 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    libs = {"kernel": cb.load()}
+    libs = {"kernel": load_any(cb.SOURCE)}
     if args.baseline is not None:
-        libs["baseline"] = cb.load(args.baseline)
-    libs.update({name: cb.load(_variant(name)) for name in args.variants.split(",") if name})
+        libs["baseline"] = load_any(args.baseline)
+    libs.update({name: load_any(_variant(name)) for name in args.variants.split(",") if name})
     for tag, lib in libs.items():
         log = Path(lib._name).with_suffix(".log")
         print(f"[ptxas] {tag}:\n{log.read_text() if log.exists() else '(no log)'}", flush=True)
     rng = np.random.default_rng(0)
     result = dict(device=smi, rows=[])
-    for name in args.shapes.split(","):
+    for name in filter(None, args.shapes.split(",")):
         result["rows"] += time_shape(name, SHAPES[name], libs, rng, torch.float64, timed=False)
         result["rows"] += time_shape(name, SHAPES[name], libs, rng)
+    if args.csweep:
+        result["csweep"] = c_sweep(libs, rng)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     if args.profile:
         result["profile"] = profile_vg(args.out.parent)

@@ -57,7 +57,9 @@ class SliceLikelihood(NamedTuple):
         return make_centered_whitened_vg(self.target(cov, impl), wh)
 
 
-def slice_likelihood(y, t, bandsize: int) -> SliceLikelihood:
+def slice_likelihood(y, t, bandsize: int, auto_escalate: bool = True) -> SliceLikelihood:
+    """The likelihood at ``bandsize``, escalated as ``build_gp_cov`` settles
+    it unless ``auto_escalate`` is False."""
     from ..inference.solve import _init_x_interpolation
     from ..inference.target import MagiTarget
     from ..inference.transforms import make_theta_transform, unconstrain
@@ -65,7 +67,8 @@ def slice_likelihood(y, t, bandsize: int) -> SliceLikelihood:
     from ..models import FN_SYSTEM
     from ..ops.gp_cov import build_gp_cov
 
-    cov64 = build_gp_cov("matern52", PHI, t, bandsize=bandsize)
+    cov64 = build_gp_cov("matern52", PHI, t, bandsize=bandsize,
+                         auto_escalate_bandsize=auto_escalate)
     tr = make_theta_transform(FN_SYSTEM.theta_lower_bound, FN_SYSTEM.theta_upper_bound)
     sigma0 = np.array([SIGMA_TRUE, SIGMA_TRUE])
 

@@ -6,7 +6,8 @@ shapes (tests/test_torch_band_wide.py adds a bandwidth above the TPU
 kernel's limit of 64). On a CPU tensor
 the wrappers run the plain versions; the kernels themselves are checked
 against them by the tests marked ``cuda``, which run on the card only."""
-from functools import partial
+import re
+from functools import lru_cache, partial
 
 import jax
 import jax.experimental.pallas as plx
@@ -221,6 +222,17 @@ def test_kernel_build_is_keyed_by_source():
     assert cb.SOURCE.exists() and cb.SOURCE.suffix == ".cu"
 
 
+def test_kernel_source_agrees_with_the_wrapper():
+    """The tile numbers and the row tile's chain limit the wrapper passes
+    are the kernel source's."""
+    src = cb.SOURCE.read_text()
+    codes = dict(re.findall(r"k(ChainSmall|ChainLarge|RowSmall|RowLarge) = (\d)", src))
+    assert {re.sub(r"(?<!^)([A-Z])", r"_\1", k).lower(): int(v) for k, v in codes.items()} == {
+        tile: i for i, tile in enumerate(cb.TILES)}
+    (row_max,) = re.findall(r"constexpr int kRowMaxChains = (\d+);", src)
+    assert 2 <= cb.ROW_TILE_BELOW <= int(row_max) + 1
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -263,3 +275,92 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, tol):
                   (gx2, band_matvec_pair_t_torch(bst, bst2, g, g2, b))]
         for got, want in pairs:
             assert float((got - want).abs().max()) <= tol * float(want.abs().max()), (c, m, b, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bandwidth", [40, 63, 64, 160])
+def test_tile_for_at_the_threshold(dtype, bandwidth):
+    """The row tile below ROW_TILE_BELOW chains, the chain tile from it on;
+    the Large order for float32 from a band width 2b+1 of LARGE_FROM_WIDTH
+    on (b = 64: 129), the Small order for float64 at every width."""
+    order = ("large" if dtype == torch.float32 and 2 * bandwidth + 1 >= cb.LARGE_FROM_WIDTH
+             else "small")
+    assert cb.LARGE_FROM_WIDTH == 128
+    below = cb.ROW_TILE_BELOW
+    for chains, kind in ((1, "row"), (below - 1, "row"), (below, "chain"), (below + 1, "chain"),
+                         (128, "chain")):
+        tile = cb.tile_for(chains, bandwidth, dtype)
+        assert tile == f"{kind}_{order}" and tile in cb.TILES, (chains, tile)
+    assert (order == "large") == (dtype == torch.float32 and bandwidth >= 64)
+
+
+def test_launch_counts_by_entry_point_and_tile():
+    """``counts`` gives every count, ``add_launches`` (a CUDA-graph
+    replay's) adds entry points and tiles, ``reset_launches`` zeroes both."""
+    before = cb.counts()
+    assert set(before) == set(cb.N_POINTERS) | set(cb.TILES)
+    try:
+        cb.add_launches({"band_matvec": 2, "band_matvec_pair": 1, "row_small": 2,
+                         "chain_large": 1})
+        after = cb.counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 0,
+            "chain_small": 0, "chain_large": 1, "row_small": 2, "row_large": 0}
+        assert cb.launches() == sum(before[k] for k in cb.N_POINTERS) + 3
+        cb.reset_launches()
+        assert set(cb.counts().values()) == {0}
+    finally:
+        cb.reset_launches()
+        cb.add_launches(before)
+
+
+@lru_cache(maxsize=None)
+def _jit_pallas(m, n, b):
+    """The Pallas kernel in interpret mode for (m, n) storages at b,
+    compiled once (the cases below share it)."""
+    kernel = partial(pb._band_matvec_kernel, bandwidth=b, n=n, m=m)
+    return jax.jit(plx.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((m, n), jnp.float64), interpret=True))
+
+
+@pytest.mark.parametrize("n,b", [(200, 64), (100, 64)])
+@pytest.mark.parametrize("chains", [1, 2, 3])
+def test_few_chains_match_the_pallas_kernel(n, b, chains):
+    """At the row tile's chain counts, the plain versions of the three
+    entry points (the kernel's CPU path and oracle) against the JAX
+    package's Pallas kernel in interpret mode, chain by chain, float64:
+    b at the TPU kernel's limit, and n < 2b+1."""
+    a, b_, xs = _pair_problem(n, b, c=chains)
+    t = torch.as_tensor
+    got_a, got_b = band_matvec_pair_torch(t(a[1]), t(b_[1]), t(xs), b)
+    got_t = band_matvec_pair_t_torch(t(a[2]), t(b_[2]), t(xs), t(xs[::-1].copy()), b)
+    pallas = lambda storage, x: np.asarray(_jit_pallas(*storage.shape[::2], b)(storage, x))
+    want_a = np.stack([pallas(a[1], x) for x in xs])
+    want_b = np.stack([pallas(b_[1], x) for x in xs])
+    want_t = np.stack([pallas(a[2], x) + pallas(b_[2], v) for x, v in zip(xs, xs[::-1])])
+    np.testing.assert_allclose(band_storage_matvec_torch(t(a[1]), t(xs), b).numpy(), want_a,
+                               rtol=1e-12, atol=1e-12)
+    for got, want in ((got_a, want_a), (got_b, want_b), (got_t, want_t)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_row_tile_keeps_every_chains_bits(cuda_device, dtype):
+    """Each chain's outputs at few chains (the row tile, and the chain tile
+    from the threshold on) equal its rows of one 128-chain launch, bit for
+    bit, for the three entry points."""
+    for (m, b, n) in [(2, 40, 397), (2, 160, 1113), (2, 5, 7), (3, 0, 130), (2, 70, 150)]:
+        rng = np.random.default_rng(b + n)
+        put = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=dtype, device=cuda_device)
+        ba, bb, xa, xb = put(m, 2 * b + 1, n), put(m, 2 * b + 1, n), put(128, m, n), put(128, m, n)
+        ops = [lambda u, v: (cb.band_matvec_cuda(ba, u, b),),
+               lambda u, v: cb.band_matvec_pair_cuda(ba, bb, u, b),
+               lambda u, v: (cb.band_matvec_pair_t_cuda(ba, bb, u, v, b),)]
+        for op in ops:
+            full = op(xa, xb)
+            for c in sorted({1, 2, 3, cb.ROW_TILE_BELOW - 1, cb.ROW_TILE_BELOW}):
+                idx = torch.as_tensor(np.sort(rng.choice(128, size=c, replace=False)),
+                                      device=cuda_device)
+                got = op(xa[idx].contiguous(), xb[idx].contiguous())
+                assert all(torch.equal(u, w[idx]) for u, w in zip(got, full)), (m, b, n, c)

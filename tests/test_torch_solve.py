@@ -18,6 +18,7 @@ from manifold_constrained_gaussian_process_inference_tpu.models import FN_SYSTEM
 import manifold_constrained_gaussian_process_inference_tpu_torch as mt
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference import nlml as tnlml
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference import solve as tsolve
+from manifold_constrained_gaussian_process_inference_tpu_torch.perf import layout_sweep
 from manifold_constrained_gaussian_process_inference_tpu_torch.utils.integrators import (
     integrate_system,
     sample_on_grid,
@@ -172,14 +173,32 @@ def _jax_auto_band_impl(config, n_times, n_dims, bandsize):
 
 @pytest.mark.parametrize("device,n,chains,band,want", [
     ("cpu", 397, 128, 40, "dense"),
-    ("cuda", 397, 128, 40, "dense"),
+    # the card: dense only for a band that is wide (b > n/8), long (b >= 64)
+    # and batched (9 chains or more) while the dense stacks fit in 2 GiB
+    ("cuda", 397, 128, 40, "band"),
     ("cuda", 3169, 1, 40, "band"),
-    ("cuda", 3169, 1, 80, "dense"),
-    ("cuda", 3169, 128, 40, "dense"),
+    ("cuda", 3169, 1, 80, "band"),
+    ("cuda", 3169, 128, 40, "band"),
+    ("cuda", 3169, 128, 160, "band"),
+    ("cuda", 512, 128, 64, "band"),
+    ("cuda", 511, 128, 64, "dense"),
+    ("cuda", 397, 128, 63, "band"),
+    ("cuda", 397, 128, 64, "dense"),
+    ("cuda", 319, 128, 40, "band"),
+    ("cuda", 15, 1, 14, "band"),
+    ("cuda", 15, 128, 14, "band"),
+    ("cuda", 397, 8, 160, "band"),
+    ("cuda", 397, 9, 160, "dense"),
+    ("cuda", 6688, 128, 1000, "dense"),
+    ("cuda", 6689, 128, 1000, "band"),
     ("cpu", 1500, 1, 40, "band"),
     # parallel tempering batches pt_temps * pt_replicas chains, whatever n_chains says
     ("cpu", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 40, "dense"),
-    ("cuda", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 40, "dense"),
+    ("cuda", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 40, "band"),
+    ("cuda", 397, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 160, "dense"),
+    ("cuda", 397, dict(sampler="pt-nuts", n_chains=16, pt_temps=4, pt_replicas=2), 160, "band"),
+    # config 3: 10 rungs x 4 replicas at n = 33, b = 20
+    ("cuda", 33, dict(sampler="pt-nuts", n_chains=1, pt_temps=10, pt_replicas=4), 20, "band"),
     ("cpu", 1500, dict(sampler="pt-nuts", n_chains=16, pt_temps=3, pt_replicas=2), 40, "band"),
     ("cpu", 1500, dict(sampler="pt-nuts", n_chains=1, pt_temps=8, pt_replicas=4), 80, "dense"),
     ("cpu", 1500, dict(sampler="nuts", n_chains=16, pt_temps=1, pt_replicas=1), 40, "dense"),
@@ -192,6 +211,104 @@ def test_auto_band_policy(device, n, chains, band, want):
         assert _jax_auto_band_impl(jconfig.MagiConfig(**options), n, 2, band) == want
     explicit = mt.MagiConfig(band_impl="band")
     assert tsolve.resolve_band_impl(explicit, n, 2, band, torch.device(device)) == "band"
+
+
+# The layout sweep on the H100 (perf/layout_sweep.py; PERF.md §6):
+# (n, M, b, chains, ms per replayed value-and-grad on band (the mean of its
+# two turns), on dense): FN at n = 199 to 3169, then the model families'
+# and config 3's grids.
+LAYOUT_SWEEP = [
+    (199, 2, 20, 1, 0.2296, 0.2405), (199, 2, 20, 8, 0.2771, 0.3028),
+    (199, 2, 20, 40, 0.2547, 0.2810), (199, 2, 20, 128, 0.2666, 0.2927),
+    (397, 2, 20, 1, 0.2278, 0.2455), (397, 2, 20, 8, 0.2523, 0.2808),
+    (397, 2, 20, 40, 0.2727, 0.3161), (397, 2, 20, 128, 0.2954, 0.3574),
+    (793, 2, 80, 1, 0.2386, 0.2624), (793, 2, 80, 8, 0.2816, 0.3251),
+    (793, 2, 80, 40, 0.3774, 0.4430), (793, 2, 80, 128, 0.4120, 0.4945),
+    (1585, 2, 160, 1, 0.2813, 0.3487), (1585, 2, 160, 8, 0.3870, 0.4968),
+    (1585, 2, 160, 40, 0.5118, 0.6939), (1585, 2, 160, 128, 0.5950, 0.8494),
+    (3169, 2, 160, 1, 0.3967, 0.5496), (3169, 2, 160, 8, 0.6049, 0.9630),
+    (3169, 2, 160, 40, 0.6947, 1.2972), (3169, 2, 160, 128, 1.0346, 1.9290),
+    (1585, 2, 40, 1, 0.2531, 0.3412), (1585, 2, 40, 8, 0.3576, 0.5018),
+    (1585, 2, 40, 40, 0.4308, 0.6908), (1585, 2, 40, 128, 0.5356, 0.8606),
+    (1585, 2, 80, 1, 0.2669, 0.3387), (1585, 2, 80, 8, 0.3688, 0.4994),
+    (1585, 2, 80, 40, 0.4677, 0.6932), (1585, 2, 80, 128, 0.5815, 0.8598),
+    (1585, 2, 160, 1, 0.2769, 0.3500), (1585, 2, 160, 8, 0.3879, 0.5012),
+    (1585, 2, 160, 40, 0.5154, 0.6917), (1585, 2, 160, 128, 0.6108, 0.8715),
+    (199, 2, 32, 1, 0.2286, 0.2437), (199, 2, 32, 8, 0.2846, 0.3073),
+    (199, 2, 32, 9, 0.2858, 0.3117), (199, 2, 32, 12, 0.2820, 0.3064),
+    (199, 2, 32, 16, 0.2555, 0.2781), (199, 2, 32, 24, 0.2652, 0.2904),
+    (199, 2, 32, 40, 0.2574, 0.2819), (199, 2, 32, 128, 0.2783, 0.3066),
+    (199, 2, 48, 1, 0.2296, 0.2404), (199, 2, 48, 8, 0.2887, 0.3100),
+    (199, 2, 48, 9, 0.2871, 0.3114), (199, 2, 48, 12, 0.2905, 0.3123),
+    (199, 2, 48, 16, 0.2585, 0.2763), (199, 2, 48, 24, 0.2714, 0.2946),
+    (199, 2, 48, 40, 0.2620, 0.2827), (199, 2, 48, 128, 0.2758, 0.2994),
+    (199, 2, 64, 1, 0.2513, 0.2429), (199, 2, 64, 8, 0.2878, 0.3041),
+    (199, 2, 64, 9, 0.3159, 0.3084), (199, 2, 64, 12, 0.3196, 0.3081),
+    (199, 2, 64, 16, 0.2933, 0.2774), (199, 2, 64, 24, 0.3002, 0.2874),
+    (199, 2, 64, 40, 0.2977, 0.2839), (199, 2, 64, 128, 0.3159, 0.2974),
+    (199, 2, 80, 1, 0.2470, 0.2407), (199, 2, 80, 8, 0.2890, 0.3055),
+    (199, 2, 80, 9, 0.3267, 0.3116), (199, 2, 80, 12, 0.3262, 0.3079),
+    (199, 2, 80, 16, 0.3102, 0.2885), (199, 2, 80, 24, 0.3067, 0.2864),
+    (199, 2, 80, 40, 0.3115, 0.2872), (199, 2, 80, 128, 0.3321, 0.3071),
+    (397, 2, 64, 1, 0.2271, 0.2439), (397, 2, 64, 8, 0.2644, 0.2803),
+    (397, 2, 64, 9, 0.2888, 0.2813), (397, 2, 64, 12, 0.2955, 0.2821),
+    (397, 2, 64, 16, 0.2930, 0.2837), (397, 2, 64, 24, 0.2960, 0.3023),
+    (397, 2, 64, 40, 0.3108, 0.3148), (397, 2, 64, 128, 0.3351, 0.3443),
+    (397, 2, 80, 1, 0.2388, 0.2499), (397, 2, 80, 8, 0.2629, 0.2753),
+    (397, 2, 80, 9, 0.3056, 0.2817), (397, 2, 80, 12, 0.3089, 0.2885),
+    (397, 2, 80, 16, 0.3006, 0.2857), (397, 2, 80, 24, 0.3047, 0.3093),
+    (397, 2, 80, 40, 0.3281, 0.3179), (397, 2, 80, 128, 0.3446, 0.3497),
+    (397, 2, 160, 1, 0.2376, 0.2396), (397, 2, 160, 8, 0.2760, 0.2743),
+    (397, 2, 160, 9, 0.3376, 0.2820), (397, 2, 160, 12, 0.3442, 0.2882),
+    (397, 2, 160, 16, 0.3513, 0.2892), (397, 2, 160, 24, 0.3455, 0.3066),
+    (397, 2, 160, 40, 0.3721, 0.3269), (397, 2, 160, 128, 0.3912, 0.3468),
+    (15, 5, 14, 1, 0.2584, 0.2720), (15, 5, 14, 8, 0.2979, 0.3332),
+    (15, 5, 14, 9, 0.2923, 0.3094), (15, 5, 14, 12, 0.2997, 0.3157),
+    (15, 5, 14, 16, 0.2944, 0.3094), (15, 5, 14, 24, 0.2978, 0.3111),
+    (15, 5, 14, 40, 0.3041, 0.3192), (15, 5, 14, 128, 0.3144, 0.3294),
+    (12, 4, 11, 1, 0.3214, 0.3300), (12, 4, 11, 8, 0.3343, 0.3497),
+    (12, 4, 11, 9, 0.3401, 0.3545), (12, 4, 11, 12, 0.3561, 0.3702),
+    (12, 4, 11, 16, 0.3586, 0.3716), (12, 4, 11, 24, 0.3585, 0.3712),
+    (12, 4, 11, 40, 0.3826, 0.3902), (12, 4, 11, 128, 0.3837, 0.4038),
+    (13, 3, 12, 1, 0.2326, 0.2452), (13, 3, 12, 8, 0.2338, 0.2473),
+    (13, 3, 12, 9, 0.2386, 0.2554), (13, 3, 12, 12, 0.2526, 0.2630),
+    (13, 3, 12, 16, 0.2486, 0.2633), (13, 3, 12, 24, 0.2514, 0.2662),
+    (13, 3, 12, 40, 0.2597, 0.2757), (13, 3, 12, 128, 0.2651, 0.2825),
+    (33, 3, 20, 1, 0.2213, 0.2312), (33, 3, 20, 8, 0.2483, 0.2603),
+    (33, 3, 20, 9, 0.2533, 0.2713), (33, 3, 20, 12, 0.2511, 0.2692),
+    (33, 3, 20, 16, 0.2604, 0.2784), (33, 3, 20, 24, 0.2604, 0.2784),
+    (33, 3, 20, 40, 0.2588, 0.2804), (33, 3, 20, 128, 0.2600, 0.2737),
+]
+
+
+def test_auto_band_follows_the_layout_sweep():
+    """On the card "auto" picks, at every point of the sweep, the layout
+    that was faster there or one within 5% of it."""
+    for n, m, b, chains, band_ms, dense_ms in LAYOUT_SWEEP:
+        pick = tsolve.resolve_band_impl(mt.MagiConfig(n_chains=chains), n, m, b,
+                                        torch.device("cuda"))
+        took = band_ms if pick == "band" else dense_ms
+        assert took <= 1.05 * min(band_ms, dense_ms), (n, b, chains, pick)
+
+
+@pytest.mark.parametrize("name", layout_sweep.PROBLEMS)
+def test_layout_sweep_problem_points(name):
+    """The sweep's points below n = 199 build solve_magi's raw target of a
+    model family or of config 3 at the grid and band that chip_smoke.py
+    holds K1's row tile to at one chain; its band and dense layouts give
+    one value and gradient (float64, CPU)."""
+    import chip_smoke as smoke
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf import band_timing
+
+    config, cov64, build, center = layout_sweep.problem_targets(name)
+    shape = (cov64.phi.shape[0], cov64.bandsize, cov64.tvec.shape[0])
+    assert shape in (*smoke.FAMILY_SHAPES, band_timing.SHAPES["pt"][1:])
+    psi = torch.as_tensor(center + np.random.default_rng(0).normal(size=(3, center.size)) * 0.01)
+    (v_band, g_band), (v_dense, g_dense) = (
+        build(impl, torch.float64, "cpu").value_and_grad_fn()(psi) for impl in ("band", "dense"))
+    np.testing.assert_allclose(v_band.numpy(), v_dense.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(g_band.numpy(), g_dense.numpy(), rtol=1e-9,
+                               atol=1e-12 * float(g_dense.abs().max()))
 
 
 def test_default_device_is_the_card():
