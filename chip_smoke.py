@@ -5,8 +5,12 @@
 Drives the port's main paths with the likelihood on the band-storage
 layout, so every gradient evaluation runs the hand-written CUDA
 band-matvec kernels: the paired launch (mphi and GC^T on one input) and
-the single launch (GK^T) forward, and their two launches backward. The
-paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
+the single launch (GK^T) forward, and their two launches backward. Every
+NUTS path runs its tree as CUDA graphs, one per doubling depth, whose leaf
+pairs sit under IF nodes set by the hand-written one-thread kernel of
+csrc/graph_if.cu (the JAX package's leaf-loop condition on the device);
+each path line prints its host reads per transition, at most the
+transition's doublings + 1. The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
 metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
 default ``solve_magi`` (one chain, the diagonal Welford metric, raw Psi) on
 the FitzHugh-Nagumo workload (n=397, D=2); parallel-tempering NUTS on
@@ -34,6 +38,16 @@ Phases:
    chain's outputs at C = 1, 2, 3 and the row tile's threshold's
    neighbours equal its rows of a 128-chain launch (the chain tile) bit
    for bit, in both dtypes, at both grids, the GK^T block and every edge;
+5a. graph-if: the IF node's set kernel against its plain version, the
+   host branch, on GRAPH_IF_NODES conditions (a depth-9 doubling's
+   pairs): the bodies that ran, then again after the conditions flip in
+   place; timed per node from a graph of skipped bodies;
+5b. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
+   iterations, each run twice through ``solve_magi``: on the graphed tree
+   and on the eager tree (the CPU path, chosen by patching
+   ``nuts_batched.tree_graphed``); draws, log-densities, every statistic,
+   the step sizes, metric and the generator's final state bit for bit, the
+   graphed run's host reads at most its doublings + 1 per transition;
 6. diag-gauss: the diag chain driver on the card at C = 4 on a
    799-dimensional independent Gaussian with scales log-spaced over
    [0.01, 10], trees capped at depth GAUSS_MAX_DEPTH: the draws' variances
@@ -130,6 +144,8 @@ device the script exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -233,6 +249,20 @@ ENVELOPE_MAX_BOOST_DIMS = 16  # per probe: CurvatureEnvelope's max_boost_dims
 # profile: [default] cut to PROFILE_NITER iterations (a trace of the full
 # run would hold millions of events)
 PROFILE_NITER = 20
+# The IF nodes' set kernel (csrc/graph_if.cu): the JAX leaf loop's
+# condition it takes to the device; checked and timed on GRAPH_IF_NODES
+# conditions, a depth-9 doubling's pairs after the first (255)
+GRAPH_IF_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/graph_if.cu"
+GRAPH_IF_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:222"
+GRAPH_IF_NODES, GRAPH_IF_REPS = 255, 20
+HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
+# tree: the cut of each path run graphed and eager ([envelope] with
+# TREE_ENVELOPE_ADAPTS warmup: one window end, then tracked chunks; [pt]'s
+# MAP warm start cut to TREE_PT_MAP_ITERS Adam steps)
+TREE_NITER = {"slice": 60, "default": 20, "pt": 20, "envelope": 50}
+TREE_ENVELOPE_ADAPTS, TREE_PT_MAP_ITERS = 40, 300
+# counts that differ between the graphed and the eager tree by design
+TREE_HOST_COUNTS = ("host_syncs", "tree_reads", "graph_capture_s")
 
 
 def pt_config(seed: int = PT_SEED) -> dict:
@@ -351,9 +381,15 @@ def phase_device():
 
 
 def phase_build(cb):
+    """nvcc of every CUDA source of the port, one process each, together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if
+
     t0 = time.perf_counter()
-    so = cb.build()
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        sos = list(pool.map(cb.build, (cb.SOURCE, graph_if.SOURCE)))
+    print(f"[build] {[so.name for so in sos]} in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def _vg_rates(vg, x):
@@ -665,6 +701,180 @@ def phase_kernel(cb):
     return main_err, timing
 
 
+class _Launches:
+    """ops/cuda_band's launch counts with the IF nodes' set kernel
+    (ops/graph_if) beside them; everything else is cuda_band's."""
+
+    def __init__(self, cb, gi):
+        self._cb, self._gi = cb, gi
+
+    def __getattr__(self, name):
+        return getattr(self._cb, name)
+
+    def reset_launches(self) -> None:
+        self._cb.reset_launches()
+        self._gi.LAUNCHES[self._gi.KERNEL] = 0
+
+    def counts(self) -> dict:
+        return {**self._cb.counts(), **self._gi.LAUNCHES}
+
+
+def _host_reads(d, what) -> str:
+    """A result's host reads per transition in its NUTS trees against its
+    doublings per transition: each transition reads at most its doublings
+    + 1 (one read per doubling, and a ``max`` over the ranks of a mesh);
+    and the seconds its trees' graph captures took."""
+    per, dbl = d["tree_reads"] / d["transitions"], d["doublings"] / d["transitions"]
+    check(d["tree_reads"] <= d["doublings"] + d["transitions"],
+          f"{what}: {per:.2f} host reads per transition over {dbl:.2f} doublings")
+    return (f"host reads/transition {per:.3f} (doublings {dbl:.3f}), graph capture "
+            f"{d['graph_capture_s']:.2f} s")
+
+
+def phase_graph_if():
+    """The IF node's set kernel against the host branch: GRAPH_IF_NODES
+    seeded conditions, each guarding one increment, captured in one graph;
+    replayed, and replayed again after the conditions flip in place; timed
+    per node from replays in which every body is skipped."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if as gi
+
+    dev = torch.device(DEVICE)
+    preds = torch.as_tensor(np.random.default_rng(0).random(GRAPH_IF_NODES) < 0.5, device=dev)
+    hits = torch.zeros(GRAPH_IF_NODES, device=dev)
+    if_nodes = gi.IfNodes(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(GRAPH_IF_NODES):
+            with if_nodes.body(preds[k]):
+                hits[k].add_(1.0)
+    errs = []
+    for _ in range(2):
+        hits.zero_()
+        graph.replay()
+        plain = torch.zeros_like(hits)
+        for k in range(GRAPH_IF_NODES):  # the plain version: the host branch
+            if bool(preds[k]):
+                plain[k].add_(1.0)
+        errs.append(float((hits - plain).abs().max()))
+        preds.logical_not_()  # the graph reads the conditions at each replay
+    preds.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    start.record()
+    for _ in range(GRAPH_IF_REPS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (GRAPH_IF_REPS * GRAPH_IF_NODES)
+    t0 = time.perf_counter()
+    for k in range(GRAPH_IF_NODES):
+        bool(preds[k])
+    plain_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_IF_NODES
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=1.0 / HBM_BYTES_PER_MS, bound_by="bytes",
+                  library_ms=None)
+    print(f"[graph-if] {GRAPH_IF_NODES} IF nodes in one CUDA graph (set kernel "
+          f"{gi.KERNEL}, built from {gi.SOURCE.name}): bodies run vs the host branch, max abs "
+          f"err {errs[0]:.1f}, after the conditions flipped in place {errs[1]:.1f}; "
+          f"{if_nodes.body_nodes} body nodes; ms per node (set kernel and the skipped "
+          f"conditional) {ms:.5f} vs the host branch's read {plain_ms:.5f}; bound (one byte "
+          f"read) {timing['bound_ms']:.3e}", flush=True)
+    check(max(errs) == 0.0, f"graph-if: the IF nodes' bodies differ from the host branch {errs}")
+    return max(errs), timing
+
+
+@contextlib.contextmanager
+def _eager_tree():
+    """The eager tree (the CPU path's) on the card, for every sampler made
+    inside the block."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
+        nuts_batched as nb,
+    )
+
+    real = nb.tree_graphed
+    nb.tree_graphed = lambda device, vg_b: False
+    try:
+        yield
+    finally:
+        nb.tree_graphed = real
+
+
+def _differing(a: dict, b: dict) -> list:
+    """Keys of two results' diagnostics whose values differ (times and the
+    host counts that differ by design left out)."""
+    out = []
+    for key, x in a.items():
+        if "time" in key or "seconds" in key or key in TREE_HOST_COUNTS or key not in b:
+            continue
+        y = b[key]
+        if isinstance(x, (np.ndarray, int, float, np.number)):
+            x, y = np.asarray(x), np.asarray(y)
+            same = x.shape == y.shape and (
+                np.array_equal(x, y, equal_nan=True) if x.dtype.kind == "f"
+                else np.array_equal(x, y))
+            if not same:
+                out.append(key)
+    return out
+
+
+def phase_tree(mt, y, t):
+    """[slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER, each
+    through solve_magi on the graphed tree and on the eager one."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.models import (
+        HES1LOG_FIXF_SYSTEM,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        fn_bench_workload, hes1_workload,
+    )
+
+    t_h, y_h, _ = hes1_workload(seed=PT_SEED)
+    y_d, t_d = fn_bench_workload(seed=DEFAULT_SEED)
+    n_env = TREE_NITER["envelope"]
+    cases = {
+        "slice": (mt.FN_SYSTEM, y, t, mt.MagiConfig(**slice_config(TREE_NITER["slice"]))),
+        "default": (mt.FN_SYSTEM, y_d, t_d, dataclasses.replace(
+            default_config(mt, TREE_NITER["default"]), verbose=False)),
+        "pt": (HES1LOG_FIXF_SYSTEM, y_h, t_h, mt.MagiConfig(**{
+            **pt_config(), "niter_hmc": TREE_NITER["pt"],
+            "map_init_iterations": TREE_PT_MAP_ITERS}, band_impl="band", device=DEVICE)),
+        "envelope": (mt.FN_SYSTEM, y, t, mt.MagiConfig(**{
+            **slice_config(n_env), "burnin_ratio": (TREE_ENVELOPE_ADAPTS + 0.5) / n_env,
+            "step_jitter": 0.0, "chunk_size": ENVELOPE_CHUNK}, divergence_envelope=True)),
+    }
+    parts, failed = [], []
+    for name, (system, yy, tt_, config) in cases.items():
+        runs = {}
+        for kind in ("graphed", "eager"):
+            with _eager_tree() if kind == "eager" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                runs[kind] = (mt.solve_magi(yy, tt_, system, config), time.perf_counter() - t0)
+        (g, g_wall), (e, e_wall) = runs["graphed"], runs["eager"]
+        gd, ed = g.diagnostics, e.diagnostics
+        diff = [f for f in ("theta", "x_sampled", "sigma", "lp")
+                if not np.array_equal(getattr(g, f), getattr(e, f), equal_nan=True)]
+        diff += _differing(gd, ed)
+        lp_g, lp_e = np.asarray(gd["lp_per_chain"]), np.asarray(ed["lp_per_chain"])
+        bad = np.nonzero(~np.all((lp_g == lp_e) | (np.isnan(lp_g) & np.isnan(lp_e)),
+                                 axis=tuple(range(lp_g.ndim - 1))))[0] if lp_g.ndim else []
+        ms = [1e3 * (r.diagnostics["phase_times_s"]["warmup_s"]
+                     + r.diagnostics["phase_times_s"]["sampling_s"]) / r.diagnostics[
+                         "lockstep_leaves"] for r in (g, e)]
+        parts.append(
+            f"{name} ({config.niter_hmc} iterations): bit-equal {not diff}"
+            + (f" (differ: {diff}; first differing sampling draw {int(bad[0]) if len(bad) else None})"
+               if diff else "")
+            + f", {gd['transitions']} transitions, {gd['lockstep_leaves']} batched leaves "
+            f"({gd['lockstep_leaves'] / gd['transitions']:.1f} per transition); graphed "
+            f"{_host_reads(gd, f'tree {name}')}, eager host reads/transition "
+            f"{ed['tree_reads'] / ed['transitions']:.3f}; ms per batched leaf graphed "
+            f"{ms[0]:.4f} vs eager {ms[1]:.4f}; wall {g_wall:.1f} vs {e_wall:.1f} s")
+        if diff:
+            failed.append(name)
+        check(ed["tree_reads"] > gd["tree_reads"], f"tree {name}: the eager run read no more")
+    print("[tree] graphed vs eager tree through solve_magi on the card: " + "; ".join(parts),
+          flush=True)
+    check(not failed, f"tree: the graphed and eager trees differ on {failed}")
+
+
 def _per_vg(launches, vg_evals, what, chains, one_chain_evals=0):
     """Launches per value-and-grad of one main path's run (entry points and
     tiles, as ``cuda_band.counts`` gives them), which must be exactly
@@ -742,7 +952,8 @@ def phase_diag_gauss():
             f"C={c}: wall {wall:.1f} s, median |var/scale^2 - 1| {np.median(var_err):.4f}, "
             f"inv_mass/scale^2 in [{lo}, {hi}] for {share.min():.4f} (worst chain), step size "
             f"{np.round(info['step_size'], 4).tolist()}, {info['lockstep_leaves']} batched leaves "
-            f"({1e3 * nuts_s / info['lockstep_leaves']:.3f} ms each), sampling accept "
+            f"({1e3 * nuts_s / info['lockstep_leaves']:.3f} ms each), "
+            f"{_host_reads(info, f'diag-gauss C={c}')}, sampling accept "
             f"{info['accept_prob'].mean():.3f}, sampling tree depth mean "
             f"{info['tree_depth'].mean():.2f}"
         )
@@ -837,7 +1048,7 @@ def phase_default(mt, cb):
           f"{wall:.1f} s: nlml {pt['nlml_s']:.2f} s, warmup {pt['warmup_s']:.2f} s, sampling "
           f"{pt['sampling_s']:.2f} s; {d['lockstep_leaves']} leaves "
           f"({d['lockstep_leaves'] / d['transitions']:.1f} per transition), {leaf_ms:.4f} ms per "
-          f"leaf, {leaves_s:.0f} leaves/s; host syncs/transition "
+          f"leaf, {leaves_s:.0f} leaves/s; {_host_reads(d, 'default')}, all host syncs/transition "
           f"{d['host_syncs'] / d['transitions']:.2f}; sampling tree depths (0..10) "
           f"{depth_hist.tolist()}; step size {float(d['step_size'][0]):.5g}; accept {accept:.4f}; "
           f"divergent {div_share:.3f}; theta ESS {np.round(ess_theta, 1).tolist()}; theta mean "
@@ -891,6 +1102,7 @@ def phase_families(mt, cb):
                      f"band_impl={d['band_impl']}, bandsize={d['bandsize']}) {wall:.1f} s, "
                      f"map {d['phase_times_s']['map_s']:.2f} s, accept "
                      f"{d['accept_prob'].mean():.3f}, tree depth mean {d['tree_depth'].mean():.2f}, "
+                     f"{_host_reads(d, name)}, "
                      f"theta mean {np.round(res.theta.mean(0), 4).tolist()} "
                      f"(true {case['theta']}); kernel launches {launches} in {vg_evals} "
                      f"value-and-grads")
@@ -943,7 +1155,8 @@ def phase_slice(mt, cb, y, t):
           f"{device_evals / nuts_s:.0f} (useful sampling leapfrogs/s "
           f"{d['gradient_evals'] / pt['sampling_s']:.0f}); {leaf_ms:.4f} ms per batched leaf, "
           f"{leaves_s:.0f} leaves/s, {d['lockstep_leaves'] / d['transitions']:.1f} per "
-          f"transition; host syncs/transition {d['host_syncs'] / d['transitions']:.2f}; sampling "
+          f"transition; {_host_reads(d, 'slice')}, all host syncs/transition "
+          f"{d['host_syncs'] / d['transitions']:.2f}; sampling "
           f"tree depths (0..10, chains x draws) {depth_hist.tolist()}; min-theta ESS "
           f"{ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.3f} (total wall); max R-hat {rhat_max:.4f}; theta mean "
@@ -1039,7 +1252,7 @@ def phase_pt(mt, cb):
           f"{pt['warmup_s']:.2f} s, "
           f"sampling {pt['sampling_s']:.2f} s; {d['lockstep_leaves']} batched leaves, "
           f"{leaf_ms:.4f} ms per batched leaf; leaves per transition batched {batched:.1f} vs "
-          f"mean per chain {per_chain:.1f}; host syncs/transition "
+          f"mean per chain {per_chain:.1f}; {_host_reads(d, 'pt')}, all host syncs/transition "
           f"{d['host_syncs'] / d['transitions']:.2f}; final ladder T "
           f"{np.round(d['temperatures'], 4).tolist()}; swap acceptance {swap:.3f} per pair "
           f"{np.round(d['swap_acceptance_per_pair'], 3).tolist()}; cold-rung accept {accept:.4f}, "
@@ -1124,7 +1337,6 @@ def phase_resume(mt):
     problem (n=41, phi and sigma fixed) on the band kernels in float32. The
     checkpoint writer is wrapped to keep the checkpoint that a run killed
     there would have left, and the resumed call loads it from its file."""
-    import dataclasses
     import tempfile
 
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
@@ -1210,7 +1422,7 @@ def _mesh_solve(rank, mesh, y, t):
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
         make_centered_whitened_vg,
     )
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band, graph_if
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
         GRAPH_WARMUP_CALLS,
     )
@@ -1218,6 +1430,7 @@ def _mesh_solve(rank, mesh, y, t):
         SIGMA_TRUE, THETA_TRUE,
     )
 
+    cb = _Launches(cuda_band, graph_if)
     cb.reset_launches()
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**slice_config(MESH_NITER)),
@@ -1248,13 +1461,13 @@ def _mesh_solve(rank, mesh, y, t):
         chain_leaves=d["chain_leaves"] / (N_CHAINS // mesh.size),
         leaf_ms=1e3 * (pt["warmup_s"] + pt["sampling_s"]) / d["lockstep_leaves"],
         bandsize=d["bandsize"], dim=int(d["final_psi"].shape[-1]),
+        reads={k: d[k] for k in ("tree_reads", "doublings", "transitions", "graph_capture_s")},
     )
 
 
 def _float64_twin(target, whitener):
     """(a)'s whitened value-and-grad in float64 on the card: its float32
     data and whitener widened."""
-    import dataclasses
 
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
         make_centered_whitened_vg,
@@ -1444,8 +1657,6 @@ def _resume_mesh_rank(rank, mesh, tmp):
     """[resume-mesh] on one rank: [resume]'s runs under the mesh, killed
     and resumed; rank i also runs case i unsharded and resumes its mesh
     checkpoint in this process alone."""
-    import dataclasses
-
     import manifold_constrained_gaussian_process_inference_tpu_torch as mt
     import torch.distributed as dist
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference import (
@@ -1631,7 +1842,9 @@ def _report_mesh(ranks, wall):
           f"{wall:.1f} s (rank 0: solve_magi {a['wall']:.1f} s, nlml {tp['nlml_s']:.2f}, gn_map "
           f"{tp['gn_map_s']:.2f}, whitener {tp['whitener_s']:.2f}, warmup {tp['warmup_s']:.2f}, "
           f"sampling {tp['sampling_s']:.2f} s); ms per batched leaf per rank "
-          f"{np.round(leaf_ms, 4).tolist()}; batched leaves per transition per rank "
+          f"{np.round(leaf_ms, 4).tolist()}; per rank "
+          f"{[_host_reads(r['reads'], f'mesh rank {i}') for i, r in enumerate(sol)]}; "
+          f"batched leaves per transition per rank "
           f"{[round(r['leaves'] / r['transitions'], 1) for r in sol]} vs mean per chain "
           f"{[round(r['chain_leaves'] / r['transitions'], 1) for r in sol]}; max R-hat "
           f"{a['rhat']:.4f}; theta RMSE {a['theta_rmse']:.4f}, sigma RMSE {a['sigma_rmse']:.4f}, "
@@ -1772,7 +1985,8 @@ def phase_envelope(mt, cb, y, t):
           f"{d['envelope_boost_max']:.1f}; folded metric eigenvalues [{min(eig):.4g}, "
           f"{max(eig):.4g}]; step size mean {float(np.mean(d['step_size'])):.5g}; "
           f"{leaf_ms:.4f} ms per batched leaf, {leaves_s:.0f} leaves/s, "
-          f"{d['lockstep_leaves'] / d['transitions']:.1f} per transition; sampling divergences "
+          f"{d['lockstep_leaves'] / d['transitions']:.1f} per transition; "
+          f"{_host_reads(d, 'envelope')}; sampling divergences "
           f"{d['n_divergent']} of {d['diverging'].size}; max R-hat "
           f"{max_rhat(d['theta_per_chain']):.4f} (not held); theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
@@ -1795,7 +2009,6 @@ def phase_envelope(mt, cb, y, t):
 def phase_profile(mt, cb):
     """[default]'s run, cut to PROFILE_NITER, with profile_dir set, against
     the same run without it."""
-    import dataclasses
     import tempfile
 
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
@@ -1823,6 +2036,12 @@ def phase_profile(mt, cb):
         with open(os.path.join(tmp, files[0])) as f:
             events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the card's idle share over the traced sampling phase: one minus the
+    # kernels' summed durations over the trace's span (its events' first
+    # start to last end)
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    span = max(e["ts"] + e["dur"] for e in timed) - min(e["ts"] for e in timed)
+    idle = 1.0 - sum(e["dur"] for e in kernels) / span
     # the three entry points launch instances of two templates,
     # band_matvec_kernel (the chain tile) and band_matvec_row_kernel
     k1 = {}
@@ -1838,9 +2057,11 @@ def phase_profile(mt, cb):
     print(f"[profile] [default]'s config at niter_hmc={PROFILE_NITER} with profile_dir: trace "
           f"{files[0]} {size_mb:.1f} MB, {len(events)} events, {len(kernels)} device kernel "
           f"events, {k1_any} band kernel events over {len(k1)} template instances "
-          f"{sorted(k1.values())}, {graph_launches} CUDA graph launches; "
+          f"{sorted(k1.values())}, {graph_launches} CUDA graph launches; device idle share "
+          f"{idle:.3f} over the trace's {1e-6 * span:.2f} s; "
           f"wall {wall:.1f} s profiled vs {plain_wall:.1f} s plain; draws bit-equal to the "
-          f"unprofiled run: {same}; kernel launches {launches} in {vg_evals} value-and-grads",
+          f"unprofiled run: {same}; {_host_reads(d, 'profile')}; kernel launches {launches} in "
+          f"{vg_evals} value-and-grads",
           flush=True)
     check(k1_any > 0, "profile: no band kernel in the trace")
     check(same, "profile: the profiled run's draws differ from the unprofiled run's")
@@ -1851,13 +2072,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     import manifold_constrained_gaussian_process_inference_tpu_torch as mt
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band, graph_if
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import band_timing as bt
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
         fn_bench_workload,
     )
 
     t_start = time.perf_counter()
+    cb = _Launches(cuda_band, graph_if)
     smi = phase_device()
     phase_build(cb)
     y, t = fn_bench_workload()
@@ -1866,6 +2088,8 @@ def main() -> int:
         "likelihood": lambda: phase_likelihood(y, t),
         "likelihood-3169": phase_likelihood_3169,
         "kernel": lambda: phase_kernel(cb),
+        "graph-if": phase_graph_if,
+        "tree": lambda: phase_tree(mt, y, t),
         "diag-gauss": phase_diag_gauss,
         "default": lambda: paths.__setitem__("default", phase_default(mt, cb)),
         "families": lambda: paths.__setitem__("families", phase_families(mt, cb)),
@@ -1887,6 +2111,10 @@ def main() -> int:
     main_err, timing = out["kernel"]
     grid_label = lambda op: "grid_single" if op == "single" else "grid_pair"  # noqa: E731
     tiles_by_path = {path: {tile: p[0][tile] for tile in cb.TILES} for path, p in paths.items()}
+    if_err, if_timing = out["graph-if"]
+    if_launches = {path: p[0].get(graph_if.KERNEL) for path, p in paths.items()}
+    for path in ("default", "slice", "pt", "envelope"):
+        check(if_launches[path] > 0, f"{path}: no IF-node set kernel launched")
     print(json.dumps({"launches_per_vg": sum(paths["slice"][1][name] for name in KERNELS),
                       "tile_launches_by_path": tiles_by_path, "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -1900,7 +2128,12 @@ def main() -> int:
         "chees": timing[("chees", op)], "mesh": timing[("mesh", op)],
         "grid": {"shape": bt.SHAPES[grid_label(op)], **timing[(grid_label(op), op)]},
         "grid_c1": timing[(grid_label(op) + "_c1", op)],
-    } for name, op in KERNELS.items()], "ms_per_leaf": {
+    } for name, op in KERNELS.items()] + [{
+        "name": graph_if.KERNEL, "route": "cuda", "source": GRAPH_IF_SOURCE,
+        "replaces": GRAPH_IF_REPLACES,
+        "launches": sum(k for k in if_launches.values() if k is not None),
+        "launches_by_path": if_launches, "max_abs_err": if_err, **if_timing,
+    }], "ms_per_leaf": {
         path: paths[path][2] for path in ("default", "slice", "pt", "mesh", "envelope")},
         "ms_per_chees_leapfrog_step": paths["chees"][2]}))
     print(smi)

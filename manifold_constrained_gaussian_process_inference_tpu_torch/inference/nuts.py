@@ -90,9 +90,9 @@ class DiagMetric(NamedTuple):
 
 class NutsStats(NamedTuple):
     """Per-chain statistics of one batched transition, plus two host
-    counts of the lockstep loop: ``host_syncs`` (device-to-host reads of
-    the done flags) and ``lockstep_leaves`` (batched leapfrog steps run,
-    paid by every chain)."""
+    counts of the lockstep loop: ``host_syncs`` (device-to-host reads) and
+    ``lockstep_leaves`` (batched leapfrog steps run, paid by every
+    chain)."""
 
     accept_prob: torch.Tensor
     num_leapfrog: torch.Tensor
@@ -131,9 +131,9 @@ class SampleCarry(NamedTuple):
 
 
 def _popcount32(x: int) -> int:
-    """Population count of a non-negative int (the leaf counter is a host
-    integer in the port, so the JAX package's branchless SWAR form is
-    unnecessary)."""
+    """Population count of a non-negative int (a leaf's index is a constant
+    of its doubling in the port, so the JAX package's branchless SWAR form
+    is unnecessary)."""
     return bin(int(x)).count("1")
 
 
@@ -167,21 +167,25 @@ def init_warmup_carry(vg_b, q0s: torch.Tensor, initial_step_size) -> WarmupCarry
 
 
 def make_warmup_step(vg_b, target_accept: float, max_depth: int, generator: torch.Generator,
-                     mesh=None):
+                     mesh=None, tree=None):
     """One warmup transition per chain under its own diagonal metric, with
     Stan's adaptation: dual averaging every step; the draw joins the
     window's Welford moments when ``in_win``, and at ``win_end`` the inverse
     mass becomes the regularized window variance, the moments restart and
     dual averaging restarts. The window flags are host booleans shared by
     all chains (``adapt.build_window_schedule``). Under a chain ``mesh``
-    the carry holds this rank's block of chains."""
-    from .nuts_batched import nuts_transition_batched
+    the carry holds this rank's block of chains. The transitions run on
+    ``tree`` (a new ``nuts_batched.LockstepTree`` by default)."""
+    from .nuts_batched import LockstepTree, nuts_transition_batched
+
+    if tree is None:
+        tree = LockstepTree(vg_b, generator, max_depth, mesh=mesh)
 
     def warmup_step(carry: WarmupCarry, in_win: bool, win_end: bool):
         chain = carry.chain
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
-            DiagMetric(carry.inv_mass), generator, max_depth=max_depth, mesh=mesh,
+            DiagMetric(carry.inv_mass), generator, max_depth=max_depth, mesh=mesh, tree=tree,
         )
         da = da_update(carry.da, stats.accept_prob, target_accept)
         welford, inv_mass = carry.welford, carry.inv_mass

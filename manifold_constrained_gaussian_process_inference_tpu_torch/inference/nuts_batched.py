@@ -10,29 +10,37 @@ iterative NUTS, divergence at MAX_DELTA_ENERGY. The metric is a
 ``z / sqrt(inv_mass)``); the tree code only calls its ``momentum`` and
 ``velocity``.
 
-The JAX package keeps both lockstep loops on the device. Eager PyTorch
-cannot branch on device values without a host synchronisation, so the
-loops are arranged around that cost:
+The JAX package keeps both lockstep loops on the device: the doublings
+run while any chain is not done and, inside a doubling, the leaves while
+any chain is alive (two ``lax.while_loop``s). Here a doubling of depth i is
+one function (``LockstepTree._doubling``) over a tree state held in
+preallocated (C, ...) buffers that it updates in place. Its 2^i leaves run
+in pairs (2k, 2k+1); pair k >= 1 runs only if some chain is still alive
+(``_when``), which is the JAX leaf loop's condition read where its U-turn
+checks run. The checkpoint rows a leaf writes or checks (popcount(j >> 1))
+are constants of the depth. That one function runs two ways:
 
-- the leaf counter j and the doubling counter i are host integers; the
-  checkpoint row a leaf writes or checks (popcount(j >> 1)) is therefore a
-  host integer, and even leaves skip the U-turn sweep by a Python branch;
-- a doubling runs its 2^i leaves as batched leapfrog steps with per-chain
-  ``alive`` masks (a chain that diverged or turned stops committing
-  state);
-- the done flags are read on the host once per doubling, to stop when
-  every chain is done, and the ``alive`` flags after every odd leaf of a
-  doubling (where the U-turn checks run), to stop the doubling once no
-  chain is still building it, as the JAX package's loop condition does.
-  A transition that runs L batched leaves over d doublings costs about
-  L/2 + d host synchronisations, counted in ``NutsStats.host_syncs``.
-  Each batched leaf costs milliseconds of host time in eager PyTorch
-  (PERF.md), so a read that skips the rest of a doubling is worth far
-  more than the synchronisation it costs.
+- on the card it is captured lazily into one CUDA graph per depth, with
+  the value-and-grad's own eager function inside it and each pair k >= 1
+  under an IF node that the device evaluates at every replay
+  (``ops/graph_if.py``); the host replays one graph per doubling and reads
+  the done flags and the leaves run (a device counter) once after it, so a
+  transition of d doublings costs d host reads;
+- eagerly (on the CPU, and on the card for a value-and-grad that ends in a
+  collective, which a graph cannot capture: ``tree_graphed``) the host
+  reads ``alive.any()`` before each pair k >= 1 and ``done.all()`` after
+  each doubling but the last possible one, about L/2 + d reads for L
+  batched leaves.
+
+Both make the same draws and the same arithmetic, so they give the same
+bits. ``NutsStats.host_syncs`` counts the reads.
 
 Leaf state is packed as one (C, 5, dim) tensor [q, p, v, grad, M^-1 grad]
 so that each masked commit is one ``torch.where``. Random numbers come from
-one ``torch.Generator`` on the chains' device.
+one ``torch.Generator`` on the chains' device: per transition the momenta
+(drawn eagerly), per doubling a direction and a subtree-merge uniform
+(2, C) and one uniform per leaf (2^i, C), drawn inside the doubling's
+graph, whose replays advance the generator as the eager draws do.
 
 ``track_div_leaf`` (the curvature envelope's warmup, parallel/chains.py)
 also records each chain's last divergent leapfrog step: the position it was
@@ -50,7 +58,8 @@ would draw unsharded.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import time
+from typing import Callable, Optional
 
 import torch
 
@@ -96,113 +105,374 @@ def _is_iterative_turning_b(p_leaf, v_leaf, rho_cum, ckpts):
     return torch.any(t_left | t_right, dim=1)
 
 
-class SubTree(NamedTuple):
-    first: torch.Tensor       # (C, 5, dim) first leaf in build order
-    last: torch.Tensor        # (C, 5, dim) last committed leaf
-    rho: torch.Tensor         # (C, dim) sum of the committed momenta
-    prop: torch.Tensor        # (C, 5, dim) proposal leaf
-    logp_prop: torch.Tensor
-    log_sum_w: torch.Tensor
-    sum_accept: torch.Tensor
-    num_leaves: torch.Tensor
-    diverging: torch.Tensor
-    turning: torch.Tensor
-    leaves_run: int           # batched leapfrog steps run (host count)
-    host_syncs: int
-    # the divergent step's edge and exploded leaf (C, dim), when tracked
-    div_edge: Optional[torch.Tensor] = None
-    div_leaf: Optional[torch.Tensor] = None
+def tree_graphed(device, vg_b) -> bool:
+    """Whether a tree on ``device`` for ``vg_b`` runs as CUDA graphs: on a
+    CUDA device, unless the value-and-grad ends in a collective (a
+    ``reduce``, parallel/grid.py), which a graph cannot capture; that one
+    keeps the eager tree."""
+    return torch.device(device).type == "cuda" and getattr(vg_b, "reduce", None) is None
 
 
-def _build_subtree_b(
-    vg_b, edge, num_leaves: int, eps_signed, metric, h0, alive0,
-    generator, max_delta_energy, mesh=None, track_div_leaf: bool = False,
-) -> SubTree:
-    """``num_leaves`` leapfrog steps outward from ``edge`` for every chain
-    alive in ``alive0``. A chain commits each leaf while alive and freezes
-    at the leaf where it diverges or its sub-tree turns (so a tracked
-    divergent step is written once per sub-tree)."""
-    C, _, dim = edge.shape
-    dtype, device = edge.dtype, edge.device
-    n_rows = max(num_leaves.bit_length() - 1, 1)
-    ckpts = torch.zeros((C, n_rows, 3, dim), dtype=dtype, device=device)
-    u_leaf = local_draw(torch.rand, generator, (num_leaves, C), 1, mesh, dtype, device)
-    half = (0.5 * eps_signed)[:, None]
-    step = eps_signed[:, None]
+def _when(pred: torch.Tensor, body: Callable[[], None], if_nodes=None) -> bool:
+    """Run ``body()`` if the one-element bool ``pred`` holds. Under CUDA
+    graph capture the body becomes an IF node of the graph (``if_nodes``,
+    ``ops/graph_if.IfNodes``), which the device evaluates at every replay;
+    otherwise the host reads ``pred``. Returns False if the host skipped the
+    body."""
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        with if_nodes.body(pred):
+            body()
+        return True
+    if not bool(pred):
+        return False
+    body()
+    return True
 
-    cur, first = edge, edge
-    rho = torch.zeros((C, dim), dtype=dtype, device=device)
-    prop = edge
-    logp_prop = torch.zeros(C, dtype=dtype, device=device)
-    log_sum_w = torch.full((C,), -torch.inf, dtype=dtype, device=device)
-    sum_accept = torch.zeros(C, dtype=dtype, device=device)
-    n_leaves = torch.zeros(C, dtype=dtype, device=device)
-    diverging = torch.zeros(C, dtype=torch.bool, device=device)
-    turning = torch.zeros(C, dtype=torch.bool, device=device)
-    alive = alive0
-    host_syncs = 0
-    div_edge = div_leaf = None
-    if track_div_leaf:
-        div_edge = torch.zeros((C, dim), dtype=dtype, device=device)
-        div_leaf = torch.zeros((C, dim), dtype=dtype, device=device)
 
-    for j in range(num_leaves):
-        q, p, v, g, mg = cur.unbind(1)
+class _TreeState:
+    """The transition's buffers, (C, ...) on the chains' device, updated in
+    place: the trajectory (``left``, ``right``, ``rho``, ``prop`` ...), the
+    sub-tree a doubling builds (``cur``, ``first``, ``s_*``, ``alive``,
+    ``ckpts`` = [p, v, rho] per checkpoint row) and ``readout`` = (all
+    chains done, leaves run by the last doubling)."""
+
+    def __init__(self, c, dim, dtype, device, max_depth, track):
+        self.key = (c, dim, dtype, device)
+        f = dict(dtype=dtype, device=device)
+        b = dict(dtype=torch.bool, device=device)
+        self.eps, self.h0 = torch.zeros(c, **f), torch.zeros(c, **f)
+        self.left, self.right, self.prop, self.cur, self.first, self.s_prop = (
+            torch.zeros((c, 5, dim), **f) for _ in range(6))
+        self.rho, self.s_rho = torch.zeros((c, dim), **f), torch.zeros((c, dim), **f)
+        (self.logp_prop, self.log_sum_w, self.sum_accept, self.num_leaves, self.s_logp_prop,
+         self.s_lsw, self.s_sum_accept, self.s_n_leaves) = (torch.zeros(c, **f) for _ in range(8))
+        self.diverging, self.done, self.s_div, self.s_turn, self.alive = (
+            torch.zeros(c, **b) for _ in range(5))
+        self.depth = torch.zeros(c, dtype=torch.int32, device=device)
+        self.ckpts = torch.zeros((c, max(max_depth - 1, 1), 3, dim), **f)
+        self.n_run = torch.zeros((), dtype=torch.int64, device=device)
+        self.readout = torch.zeros(2, dtype=torch.int64, device=device)
+        if track:
+            self.div_edge, self.div_leaf, self.s_div_edge, self.s_div_leaf = (
+                torch.zeros((c, dim), **f) for _ in range(4))
+
+
+class LockstepTree:
+    """The NUTS transition of C chains (``nuts_transition_batched``) over
+    a tree state that persists across calls, for one value-and-grad
+    ``vg_b`` (C, dim) -> ((C,), (C, dim)), ``generator``, ``max_depth``,
+    ``max_delta_energy``, chain ``mesh`` and ``track_div_leaf``. See the
+    module docstring.
+
+    ``graphed`` (default ``tree_graphed(generator.device, vg_b)``): run each
+    doubling as a CUDA graph captured at its first use (``graphs``, by
+    depth; ``graph_info`` has each one's top-level and IF-body node counts,
+    capture seconds and memory-pool bytes). The graph captures
+    ``vg_b.eager`` where ``vg_b`` has one (a ``GraphedValueAndGrad``'s own
+    function: a replay cannot be captured), and reads by address the
+    tree's copies of the step sizes and the metric, which each call writes
+    in place. A value-and-grad's band-kernel launches are counted at its
+    first capture, per leaf, and each replay adds them times the leaves it
+    ran (``ops/cuda_band``), and the IF nodes' set-kernel launches of its
+    graph (``ops/graph_if``). A capture or a replay that fails raises."""
+
+    def __init__(self, vg_b, generator: torch.Generator, max_depth: int = 10,
+                 max_delta_energy: float = MAX_DELTA_ENERGY, mesh=None,
+                 track_div_leaf: bool = False, graphed: Optional[bool] = None):
+        self.vg_b, self.generator, self.mesh = vg_b, generator, mesh
+        self.max_depth, self.max_delta_energy = int(max_depth), max_delta_energy
+        self.track = bool(track_div_leaf)
+        self.graphed = tree_graphed(generator.device, vg_b) if graphed is None else bool(graphed)
+        self.leaf_vg = getattr(vg_b, "eager", vg_b) if self.graphed else vg_b
+        self.st = self.metric = None
+        self.if_nodes = self.pool = self.stream = None  # of the graphs, made at the first capture
+        self.graphs, self.graph_info = {}, {}
+        self.per_leaf = None  # band-kernel launches per leaf in a graph
+
+    @property
+    def capture_seconds(self) -> float:
+        """Host seconds spent capturing this tree's graphs."""
+        return sum(info["capture_s"] for info in self.graph_info.values())
+
+    # -- the state ----------------------------------------------------------
+
+    def _bind(self, q, step_size, metric):
+        """The state buffers for q's shape (new ones drop the graphs), the
+        step sizes written in; the metric the doublings read: the caller's
+        when eager, else the tree's copy, rewritten in place."""
+        c, dim = q.shape
+        key = (c, dim, q.dtype, q.device)
+        if self.st is None or self.st.key != key:
+            self.st = _TreeState(c, dim, q.dtype, q.device, self.max_depth, self.track)
+            self.graphs.clear()
+        self.st.eps.copy_(torch.as_tensor(step_size, dtype=q.dtype, device=q.device).expand(c))
+        if not self.graphed:
+            return metric
+        # the copies keep the caller's layout (a product's rounding on the
+        # card follows it); an expanded tensor (a shared diagonal) is copied
+        # whole, which only elementwise products read
+        if (type(metric) is not type(self.metric)
+                or any(a.shape != b.shape or a.dtype != b.dtype
+                       or (a.stride() != b.stride() and 0 not in b.stride())
+                       for a, b in zip(self.metric, metric))):
+            self.metric = type(metric)(*(t.clone() for t in metric))
+            self.graphs.clear()
+        else:
+            for buf, t in zip(self.metric, metric):
+                buf.copy_(t)
+        return self.metric
+
+    # -- one leaf, one doubling ------------------------------------------------
+
+    def _leaf(self, metric, half, step, u_leaf, j: int) -> None:
+        """Leapfrog step j of the sub-tree from ``cur``, committed for the
+        chains alive; a chain freezes at the leaf where it diverges or its
+        sub-tree turns (so a tracked divergent step is written once per
+        sub-tree)."""
+        st = self.st
+        alive = st.alive
+        q, p, v, g, mg = st.cur.unbind(1)
         p_half = p + half * g
         v_half = v + half * mg
         q_n = q + step * v_half
-        logp_n, g_n = vg_b(q_n)
+        logp_n, g_n = self.leaf_vg(q_n)
         mg_n = metric.velocity(g_n)
         p_n = p_half + half * g_n
         v_n = v_half + half * mg_n
         leaf = torch.stack([q_n, p_n, v_n, g_n, mg_n], dim=1)
 
-        delta = -logp_n + 0.5 * _rowdot(p_n, v_n) - h0
-        bad = ~(delta <= max_delta_energy)  # NaN -> True
+        delta = -logp_n + 0.5 * _rowdot(p_n, v_n) - st.h0
+        bad = ~(delta <= self.max_delta_energy)  # NaN -> True
         w = torch.where(bad, -torch.inf, -delta)
         accept = torch.where(bad, 0.0, torch.exp(torch.clamp(-delta, max=0.0)))
-        lsw = torch.logaddexp(log_sum_w, w)
+        lsw = torch.logaddexp(st.s_lsw, w)
         take = alive & (u_leaf[j] < torch.exp(w - lsw))
-        prop = torch.where(take[:, None, None], leaf, prop)
-        logp_prop = torch.where(take, logp_n, logp_prop)
+        torch.where(take[:, None, None], leaf, st.s_prop, out=st.s_prop)
+        torch.where(take, logp_n, st.s_logp_prop, out=st.s_logp_prop)
 
         alive3 = alive[:, None, None]
-        rho = torch.where(alive[:, None], rho + p_n, rho)
+        torch.where(alive[:, None], st.s_rho + p_n, st.s_rho, out=st.s_rho)
         if j == 0:
-            first = torch.where(alive3, leaf, first)
+            torch.where(alive3, leaf, st.first, out=st.first)
         if j % 2 == 0:
             row = _popcount32(j >> 1)
-            ckpts[:, row] = torch.where(
-                alive3, torch.stack([p_n, v_n, rho], dim=1), ckpts[:, row]
+            st.ckpts[:, row] = torch.where(
+                alive3, torch.stack([p_n, v_n, st.s_rho], dim=1), st.ckpts[:, row]
             )
             stop = bad
         else:
             lo, hi = _leaf_idx_to_ckpt_idxs(j)
-            turned = _is_iterative_turning_b(p_n, v_n, rho, ckpts[:, lo : hi + 1])
-            turning = torch.where(alive, turned, turning)
+            turned = _is_iterative_turning_b(p_n, v_n, st.s_rho, st.ckpts[:, lo : hi + 1])
+            torch.where(alive, turned, st.s_turn, out=st.s_turn)
             stop = bad | turned
 
-        if track_div_leaf:
+        if self.track:
             newly_bad = (alive & bad)[:, None]
-            div_edge = torch.where(newly_bad, q, div_edge)
-            div_leaf = torch.where(newly_bad, q_n, div_leaf)
-        cur = torch.where(alive3, leaf, cur)
-        log_sum_w = torch.where(alive, lsw, log_sum_w)
-        sum_accept = sum_accept + torch.where(alive, accept, 0.0)
-        n_leaves = n_leaves + alive
-        diverging = diverging | (alive & bad)
-        alive = alive & ~stop
-        if j % 2 == 1 and j + 1 < num_leaves:
-            host_syncs += 1
-            if not bool(alive.any()):
+            torch.where(newly_bad, q, st.s_div_edge, out=st.s_div_edge)
+            torch.where(newly_bad, q_n, st.s_div_leaf, out=st.s_div_leaf)
+        torch.where(alive3, leaf, st.cur, out=st.cur)
+        torch.where(alive, lsw, st.s_lsw, out=st.s_lsw)
+        st.s_sum_accept += torch.where(alive, accept, 0.0)
+        st.s_n_leaves += alive
+        st.s_div |= alive & bad
+        alive &= ~stop
+
+    def _doubling(self, metric, i: int):
+        """Doubling i: a sub-tree of 2^i leaves in a random direction from
+        the trajectory's edge, merged into the trajectory. Returns the
+        leaves run and the host reads made (both meaningful when eager)."""
+        st = self.st
+        c = st.done.shape[0]
+        dtype, device = st.eps.dtype, st.eps.device
+        n_leaves = 1 << i
+        upd = ~st.done
+        u = local_draw(torch.rand, self.generator, (2, c), 1, self.mesh, dtype, device)
+        go_right = u[0] < 0.5
+        gr3 = go_right[:, None, None]
+        eps_signed = torch.where(go_right, 1.0, -1.0).to(dtype) * st.eps
+
+        edge = torch.where(gr3, st.right, st.left)
+        for buf in (st.cur, st.first, st.s_prop):
+            buf.copy_(edge)
+        for buf in (st.s_rho, st.s_logp_prop, st.s_sum_accept, st.s_n_leaves, st.s_div,
+                    st.s_turn):
+            buf.zero_()
+        st.s_lsw.fill_(-torch.inf)
+        st.alive.copy_(upd)
+        st.ckpts[:, : max(i, 1)].zero_()
+        if self.track:
+            st.s_div_edge.zero_()
+            st.s_div_leaf.zero_()
+        u_leaf = local_draw(torch.rand, self.generator, (n_leaves, c), 1, self.mesh, dtype,
+                            device)
+        half = (0.5 * eps_signed)[:, None]
+        step = eps_signed[:, None]
+
+        def pair(k):
+            self._leaf(metric, half, step, u_leaf, 2 * k)
+            self._leaf(metric, half, step, u_leaf, 2 * k + 1)
+            st.n_run.add_(2)
+
+        leaves = min(n_leaves, 2)
+        st.n_run.fill_(leaves)
+        for j in range(leaves):
+            self._leaf(metric, half, step, u_leaf, j)
+        reads = 0
+        for k in range(1, n_leaves // 2):
+            reads += 1
+            if not _when(st.alive.any(), lambda k=k: pair(k), self.if_nodes):
+                break
+            leaves += 2
+
+        # the sub-tree's last leaf is the new outer edge in its direction
+        valid = upd & ~(st.s_div | st.s_turn)
+        take_new = valid & (
+            u[1] < torch.exp(torch.clamp(st.s_lsw - st.log_sum_w, max=0.0))
+        )
+        torch.where(take_new[:, None, None], st.s_prop, st.prop, out=st.prop)
+        torch.where(take_new, st.s_logp_prop, st.logp_prop, out=st.logp_prop)
+        new_left = torch.where(gr3, st.left, st.cur)
+        new_right = torch.where(gr3, st.cur, st.right)
+        new_rho = st.rho + st.s_rho
+        turning_combined = _is_turning_b(
+            new_left[:, P], new_left[:, V], new_right[:, P], new_right[:, V], new_rho
+        )
+        valid3 = valid[:, None, None]
+        torch.where(valid3, new_left, st.left, out=st.left)
+        torch.where(valid3, new_right, st.right, out=st.right)
+        torch.where(valid[:, None], new_rho, st.rho, out=st.rho)
+        torch.where(valid, torch.logaddexp(st.log_sum_w, st.s_lsw), st.log_sum_w,
+                    out=st.log_sum_w)
+        st.sum_accept += torch.where(upd, st.s_sum_accept, 0.0)
+        st.num_leaves += torch.where(upd, st.s_n_leaves, 0.0)
+        if self.track:
+            # one divergent sub-tree at most per transition: done is set
+            hit = (upd & st.s_div)[:, None]
+            torch.where(hit, st.s_div_edge, st.div_edge, out=st.div_edge)
+            torch.where(hit, st.s_div_leaf, st.div_leaf, out=st.div_leaf)
+        st.diverging |= upd & st.s_div
+        st.done |= upd & (st.s_div | st.s_turn | turning_combined)
+        st.depth.masked_fill_(upd, i + 1)
+        torch.stack([st.done.all().to(torch.int64), st.n_run], out=st.readout)
+        return leaves, reads
+
+    # -- the CUDA graphs -------------------------------------------------------
+
+    def _capture(self, metric, i: int) -> torch.cuda.CUDAGraph:
+        """Capture doubling i into a CUDA graph (no kernel runs), the pairs
+        k >= 1 under IF nodes; its band-kernel launches are taken back out
+        of ``cuda_band``'s counts and must be ``per_leaf`` times 2^i."""
+        from ..ops import cuda_band, graph_if
+
+        device = self.st.eps.device
+        if self.if_nodes is None:
+            self.if_nodes = graph_if.IfNodes(device)
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before, body_before = cuda_band.counts(), self.if_nodes.body_nodes
+        ifs_before = graph_if.LAUNCHES[graph_if.KERNEL]
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            self._doubling(metric, i)
+            nodes = graph_if.capture_nodes(self.stream)
+        seconds = time.perf_counter() - t0
+        launches = {name: k - before[name] for name, k in cuda_band.counts().items()}
+        cuda_band.add_launches({name: -k for name, k in launches.items()})
+        if_nodes = graph_if.LAUNCHES[graph_if.KERNEL] - ifs_before
+        graph_if.LAUNCHES[graph_if.KERNEL] = ifs_before
+        n_leaves = 1 << i
+        if self.per_leaf is None:
+            self.per_leaf = {name: k // n_leaves for name, k in launches.items()}
+        if any(k != self.per_leaf[name] * n_leaves for name, k in launches.items()):
+            raise RuntimeError(f"doubling {i}'s graph captured {launches} band-kernel launches, "
+                               f"not {self.per_leaf} per leaf times {n_leaves}")
+        pools = (self.pool, self.if_nodes.pool)
+        pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                         if tuple(seg.get("segment_pool_id", ())) in pools)
+        self.graph_info[i] = dict(nodes=nodes, body_nodes=self.if_nodes.body_nodes - body_before,
+                                  if_nodes=if_nodes, capture_s=seconds, pool_bytes=pool_bytes)
+        return graph
+
+    def _replay(self, metric, i: int):
+        """Doubling i from its graph, then one host read: (all chains done,
+        leaves run)."""
+        from ..ops import cuda_band, graph_if
+
+        graph = self.graphs.get(i)
+        if graph is None:
+            graph = self.graphs[i] = self._capture(metric, i)
+        graph.replay()
+        all_done, leaves = self.st.readout.tolist()
+        cuda_band.add_launches({name: k * leaves for name, k in self.per_leaf.items()})
+        graph_if.LAUNCHES[graph_if.KERNEL] += self.graph_info[i]["if_nodes"]
+        return bool(all_done), leaves
+
+    # -- the transition ----------------------------------------------------------
+
+    def __call__(self, q, logp, grad, step_size, metric):
+        """One transition from (q (C, dim), logp (C,), grad (C, dim)) at
+        ``step_size`` (scalar or (C,)) under ``metric``; returns as
+        ``nuts_transition_batched``."""
+        c, dim = q.shape
+        dtype, device = q.dtype, q.device
+        metric = self._bind(q, step_size, metric)
+        st = self.st
+        z = local_draw(torch.randn, self.generator, (c, dim), 0, self.mesh, dtype, device)
+        p0 = metric.momentum(z)
+        v0 = metric.velocity(p0)
+        st.h0.copy_(-logp + 0.5 * _rowdot(p0, v0))
+        torch.stack([q, p0, v0, grad, metric.velocity(grad)], dim=1, out=st.left)
+        st.right.copy_(st.left)
+        st.prop.copy_(st.left)
+        st.rho.copy_(p0)
+        st.logp_prop.copy_(logp)
+        for buf in (st.log_sum_w, st.sum_accept, st.num_leaves, st.diverging, st.depth, st.done):
+            buf.zero_()
+        if self.track:
+            st.div_edge.zero_()
+            st.div_leaf.zero_()
+
+        host_syncs = lockstep_leaves = doublings = 0
+        for i in range(self.max_depth):
+            doublings += 1
+            if self.graphed:
+                all_done, leaves = self._replay(metric, i)
+                host_syncs += 1
+            else:
+                leaves, reads = self._doubling(metric, i)
+                host_syncs += reads
+                all_done = False
+                if i + 1 < self.max_depth:
+                    host_syncs += 1
+                    all_done = bool(st.done.all())
+            lockstep_leaves += leaves
+            if all_done:
                 break
 
-    return SubTree(
-        first=first, last=cur, rho=rho, prop=prop, logp_prop=logp_prop,
-        log_sum_w=log_sum_w, sum_accept=sum_accept, num_leaves=n_leaves,
-        diverging=diverging, turning=turning, leaves_run=j + 1,
-        host_syncs=host_syncs, div_edge=div_edge, div_leaf=div_leaf,
-    )
+        if self.mesh is not None:
+            # the draws of the doublings the deepest rank ran and this one did not
+            host_syncs += 1
+            full = c * self.mesh.size
+            for i in range(doublings, self.mesh.max_int(doublings)):
+                torch.rand((2, full), generator=self.generator, dtype=dtype, device=device)
+                torch.rand((1 << i, full), generator=self.generator, dtype=dtype, device=device)
+
+        stats = NutsStats(
+            accept_prob=st.sum_accept / torch.clamp(st.num_leaves, min=1.0),
+            num_leapfrog=st.num_leaves.clone(),
+            tree_depth=st.depth.clone(),
+            diverging=st.diverging.clone(),
+            energy=st.h0.clone(),
+            step_size=st.eps.clone(),
+            host_syncs=host_syncs,
+            lockstep_leaves=lockstep_leaves,
+        )
+        out = (st.prop[:, Q].clone(), st.logp_prop.clone(), st.prop[:, G].clone(), stats)
+        if self.track:
+            return (*out, (st.div_edge.clone(), st.div_leaf.clone()))
+        return out
 
 
 def nuts_transition_batched(
@@ -211,112 +481,33 @@ def nuts_transition_batched(
     logp: torch.Tensor,      # (C,)
     grad: torch.Tensor,      # (C, dim)
     step_size,               # scalar or (C,)
-    metric,                  # DenseMetric or DiagMetric
+    metric,                  # DenseMetric, RungDenseMetric or DiagMetric
     generator: torch.Generator,
     max_depth: int = 10,
     max_delta_energy: float = MAX_DELTA_ENERGY,
     mesh=None,
     track_div_leaf: bool = False,
+    tree: Optional[LockstepTree] = None,
 ):
     """One NUTS transition for all C chains under ``metric``.
     ``vg_b`` maps (C, dim) -> ((C,), (C, dim)). Under a chain ``mesh`` the
     C chains are this rank's block (see the module docstring). Returns
     (q', logp', grad', NutsStats), and with ``track_div_leaf`` a fifth
     output: (edge, leaf), each (C, dim), the two endpoints of each chain's
-    divergent leapfrog step (zeros for a chain that did not diverge)."""
-    C, dim = q.shape
-    dtype, device = q.dtype, q.device
-    eps = torch.as_tensor(step_size, dtype=dtype, device=device).expand(C)
+    divergent leapfrog step (zeros for a chain that did not diverge).
 
-    z = local_draw(torch.randn, generator, (C, dim), 0, mesh, dtype, device)
-    p0 = metric.momentum(z)
-    v0 = metric.velocity(p0)
-    h0 = -logp + 0.5 * _rowdot(p0, v0)
-    left = right = torch.stack([q, p0, v0, grad, metric.velocity(grad)], dim=1)
-    rho = p0
-    prop = left
-    logp_prop = logp
-    log_sum_w = torch.zeros(C, dtype=dtype, device=device)
-    sum_accept = torch.zeros(C, dtype=dtype, device=device)
-    num_leaves = torch.zeros(C, dtype=dtype, device=device)
-    diverging = torch.zeros(C, dtype=torch.bool, device=device)
-    depth = torch.zeros(C, dtype=torch.int32, device=device)
-    done = torch.zeros(C, dtype=torch.bool, device=device)
-    host_syncs = lockstep_leaves = doublings = 0
-    if track_div_leaf:
-        div_edge = torch.zeros((C, dim), dtype=dtype, device=device)
-        div_leaf = torch.zeros((C, dim), dtype=dtype, device=device)
-
-    for i in range(max_depth):
-        if i > 0:
-            host_syncs += 1
-            if bool(done.all()):
-                break
-        doublings += 1
-        upd = ~done
-        u = local_draw(torch.rand, generator, (2, C), 1, mesh, dtype, device)
-        go_right = u[0] < 0.5
-        gr3 = go_right[:, None, None]
-        direction = torch.where(go_right, 1.0, -1.0).to(dtype)
-        sub = _build_subtree_b(
-            vg_b, torch.where(gr3, right, left), 1 << i, direction * eps,
-            metric, h0, upd, generator, max_delta_energy, mesh, track_div_leaf,
-        )
-        lockstep_leaves += sub.leaves_run
-        host_syncs += sub.host_syncs
-        valid = upd & ~(sub.diverging | sub.turning)
-        take_new = valid & (
-            u[1] < torch.exp(torch.clamp(sub.log_sum_w - log_sum_w, max=0.0))
-        )
-        prop = torch.where(take_new[:, None, None], sub.prop, prop)
-        logp_prop = torch.where(take_new, sub.logp_prop, logp_prop)
-
-        # the sub-tree's last leaf is the new outer edge in its direction
-        new_left = torch.where(gr3, left, sub.last)
-        new_right = torch.where(gr3, sub.last, right)
-        new_rho = rho + sub.rho
-        turning_combined = _is_turning_b(
-            new_left[:, P], new_left[:, V], new_right[:, P], new_right[:, V], new_rho
-        )
-        valid3 = valid[:, None, None]
-        left = torch.where(valid3, new_left, left)
-        right = torch.where(valid3, new_right, right)
-        rho = torch.where(valid[:, None], new_rho, rho)
-        log_sum_w = torch.where(
-            valid, torch.logaddexp(log_sum_w, sub.log_sum_w), log_sum_w
-        )
-        sum_accept = sum_accept + torch.where(upd, sub.sum_accept, 0.0)
-        num_leaves = num_leaves + torch.where(upd, sub.num_leaves, 0.0)
-        if track_div_leaf:
-            # one divergent sub-tree at most per transition: done is set
-            hit = (upd & sub.diverging)[:, None]
-            div_edge = torch.where(hit, sub.div_edge, div_edge)
-            div_leaf = torch.where(hit, sub.div_leaf, div_leaf)
-        diverging = diverging | (upd & sub.diverging)
-        done = done | (upd & (sub.diverging | sub.turning | turning_combined))
-        depth = torch.where(upd, i + 1, depth)
-
-    if mesh is not None:
-        # the draws of the doublings the deepest rank ran and this one did not
-        host_syncs += 1
-        full = C * mesh.size
-        for i in range(doublings, mesh.max_int(doublings)):
-            torch.rand((2, full), generator=generator, dtype=dtype, device=device)
-            torch.rand((1 << i, full), generator=generator, dtype=dtype, device=device)
-
-    stats = NutsStats(
-        accept_prob=sum_accept / torch.clamp(num_leaves, min=1.0),
-        num_leapfrog=num_leaves,
-        tree_depth=depth,
-        diverging=diverging,
-        energy=h0,
-        step_size=eps,
-        host_syncs=host_syncs,
-        lockstep_leaves=lockstep_leaves,
-    )
-    if track_div_leaf:
-        return prop[:, Q], logp_prop, prop[:, G], stats, (div_edge, div_leaf)
-    return prop[:, Q], logp_prop, prop[:, G], stats
+    ``tree``: a ``LockstepTree`` made with these ``vg_b``, ``generator``,
+    ``max_depth``, ``max_delta_energy``, ``mesh`` and ``track_div_leaf``,
+    whose buffers (and, on the card, CUDA graphs) the samplers keep across
+    transitions; None runs a new tree eagerly."""
+    if tree is None:
+        tree = LockstepTree(vg_b, generator, max_depth, max_delta_energy, mesh, track_div_leaf,
+                            graphed=False)
+    elif (tree.vg_b is not vg_b or tree.generator is not generator or tree.mesh is not mesh
+          or (tree.max_depth, tree.max_delta_energy, tree.track)
+          != (max_depth, max_delta_energy, track_div_leaf)):
+        raise ValueError("nuts_transition_batched: the tree was made for another transition")
+    return tree(q, logp, grad, step_size, metric)
 
 
 # ---------------------------------------------------------------------------
@@ -334,18 +525,22 @@ def init_warmup_carry_batched(vg_b, q0s: torch.Tensor, initial_step_size) -> War
 
 def make_warmup_step_pooled_batched(
     vg_b, target_accept: float, max_depth: int, generator: torch.Generator, mesh=None,
-    track_div_leaf: bool = False,
+    track_div_leaf: bool = False, tree: Optional[LockstepTree] = None,
 ):
     """Warmup transition with per-chain dual averaging of the step size
     (restarted at adaptation-window ends) under the shared metric, which
     the driver re-estimates between windows. Returns (carry, stats), and
-    with ``track_div_leaf`` also the divergent step's (edge, leaf)."""
+    with ``track_div_leaf`` also the divergent step's (edge, leaf). The
+    transitions run on ``tree`` (a new ``LockstepTree`` by default)."""
+    if tree is None:
+        tree = LockstepTree(vg_b, generator, max_depth, mesh=mesh, track_div_leaf=track_div_leaf)
 
     def warmup_step(carry: WarmupCarry, win_end: bool, metric):
         chain = carry.chain
         q, logp, grad, stats, *div_pair = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
             metric, generator, max_depth=max_depth, mesh=mesh, track_div_leaf=track_div_leaf,
+            tree=tree,
         )
         da = da_update(carry.da, stats.accept_prob, target_accept)
         if win_end:
@@ -356,17 +551,21 @@ def make_warmup_step_pooled_batched(
     return warmup_step
 
 
-def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator, mesh=None):
+def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator, mesh=None,
+                             tree: Optional[LockstepTree] = None):
     """Post-warmup transition at the frozen per-chain step sizes, scaled by
     an optional step-size multiplier shared by all chains (``step_jitter``
-    in parallel/chains.py), under ``metric``."""
+    in parallel/chains.py), under ``metric``, on ``tree`` (a new
+    ``LockstepTree`` by default)."""
+    if tree is None:
+        tree = LockstepTree(vg_b, generator, max_depth, mesh=mesh)
 
     def sample_step(carry: SampleCarry, eps_mult, metric):
         chain = carry.chain
         eps = carry.eps if eps_mult is None else carry.eps * eps_mult
         q, logp, grad, stats = nuts_transition_batched(
             vg_b, chain.q, chain.logp, chain.grad, eps, metric, generator,
-            max_depth=max_depth, mesh=mesh,
+            max_depth=max_depth, mesh=mesh, tree=tree,
         )
         return carry._replace(chain=ChainState(q=q, logp=logp, grad=grad)), (q, logp, stats)
 

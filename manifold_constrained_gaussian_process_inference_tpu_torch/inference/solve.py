@@ -431,8 +431,9 @@ def solve_magi(
     (``pt_replicas``) or ChEES chains. Every rank calls with the same data
     and config and gets the same result: rank 0 runs the host setup (NLML,
     GP covariances, MAP warm start, Gauss-Newton, whitener) and broadcasts
-    it. The diagnostics' counts (transitions, host_syncs, lockstep_leaves,
-    chain_leaves) are the rank's own. Under a mesh rank 0 writes the
+    it. The diagnostics' counts (transitions, host_syncs, tree_reads,
+    doublings, lockstep_leaves, chain_leaves, graph_capture_s) are the
+    rank's own. Under a mesh rank 0 writes the
     checkpoints of every chain; a warmup checkpoint resumes sharded (each
     rank takes its block), a sampling checkpoint unsharded on every rank."""
     config = config or MagiConfig()
@@ -759,6 +760,9 @@ def solve_magi(
         "gradient_evals": float(np.sum(info["num_leapfrog"])),
         "transitions": info["transitions"],
         "host_syncs": info["host_syncs"],
+        "tree_reads": info["tree_reads"],
+        "doublings": info["doublings"],
+        "graph_capture_s": info["graph_capture_s"],
         "lockstep_leaves": info["lockstep_leaves"],
         "chain_leaves": info["chain_leaves"],
         "sigma_is_fixed": sigma_is_fixed,

@@ -17,11 +17,13 @@ the R*K chains are one (C, dim) batch laid out replica-major (chain
 c = r*K + k is rung k of replica r), and one PT transition is ONE call of
 ``nuts_transition_batched``: per-chain step sizes (C,), a per-chain
 ``DiagMetric`` or the per-rung ``RungDenseMetric``, and the tempered
-value-and-grad (v * beta_c, g * beta_c). The inverse temperatures beta live
-in a device buffer that the tempered value-and-grad reads; on the card that
-function is replayed from a CUDA graph, so a ladder update writes the
-buffer in place and the graph sees it. Log-densities and gradients are
-un-tempered after the transition, as in the JAX package.
+value-and-grad (v * beta_c, g * beta_c), on one ``LockstepTree`` for the
+whole run (on the card, one CUDA graph per doubling). The inverse
+temperatures beta live in a device buffer that the tempered value-and-grad
+reads; on the card that function is captured in CUDA graphs (its own and
+the tree's), so a ladder update writes the buffer in place and the graphs
+see it. Log-densities and gradients are un-tempered after the transition,
+as in the JAX package.
 
 Under a replica mesh (``make_replica_mesh``) each rank runs R/size whole
 ladders, so swaps stay on the rank. Between sub-chunks the swap counters
@@ -63,7 +65,7 @@ from .adapt import (
     welford_variance_regularized,
 )
 from .nuts import DenseMetric, DiagMetric, RungDenseMetric
-from .nuts_batched import nuts_transition_batched
+from .nuts_batched import LockstepTree, nuts_transition_batched
 
 logger = logging.getLogger(__name__)
 
@@ -170,16 +172,17 @@ def swap_sweep(qs, lp, grads, diverging, inv_temps, u, iteration: int):
     )
 
 
-def _pt_step(vg_t, beta, carry: PTCarry, eps, metric, generator, max_depth: int, mesh=None):
+def _pt_step(vg_t, beta, carry: PTCarry, eps, metric, generator, max_depth: int, mesh=None,
+             tree=None):
     """K tempered NUTS transitions of every replica (of this rank's block
-    under a mesh) as one batched call, then one swap sweep. Returns (carry,
-    stats of the rung-ordered transitions, swap-permuted divergence flags
-    (R, K))."""
+    under a mesh) as one batched call on ``tree``, then one swap sweep.
+    Returns (carry, stats of the rung-ordered transitions, swap-permuted
+    divergence flags (R, K))."""
     c, dim = carry.qs.shape
     k = carry.inv_temps.shape[0]
     q, lp_t, g_t, stats = nuts_transition_batched(
         vg_t, carry.qs, carry.lp * beta, carry.grads * beta[:, None], eps, metric, generator,
-        max_depth=max_depth, mesh=mesh,
+        max_depth=max_depth, mesh=mesh, tree=tree,
     )
     u = local_draw(torch.rand, generator, (c // k, k), 0, mesh, q.dtype, q.device)
     qs, lp, grads, div, tried, accepted = swap_sweep(
@@ -229,7 +232,7 @@ def _tempered_vg(vg, beta, example):
 
 
 def _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth, chunk_size,
-               counts, progress, t0, checkpoint_path, drawn0=0, mesh=None):
+               counts, progress, t0, checkpoint_path, drawn0=0, mesh=None, tree=None):
     """The sampling phase at frozen step sizes, metrics and ladder; a PT
     checkpoint after every chunk when ``checkpoint_path`` is set. Returns
     (carry, per-chunk host arrays: cold-rung draws (L, R, dim), cold lp
@@ -245,7 +248,7 @@ def _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth, chu
         cols = {name: [] for name in parts}
         for _ in range(length):
             carry, stats, div = _pt_step(vg_t, beta, carry, eps, metric, generator, max_depth,
-                                         mesh)
+                                         mesh, tree)
             counts.add(stats)
             cols["samples"].append(carry.qs.view(n_rep, k, -1)[:, 0])
             cols["lp"].append(carry.lp.view(n_rep, k)[:, 0])
@@ -365,6 +368,7 @@ def run_parallel_tempering(
     beta = inv_temps.repeat(n_rep)
     lp0, g0 = vg(qs0)
     vg_t, eager_calls = _tempered_vg(vg, beta, qs0)
+    tree = LockstepTree(vg_t, generator, max_depth, mesh=mesh)
     zeros_rk = torch.zeros((n_rep, k_temps), dtype=torch.int32, device=device)
     carry = PTCarry(
         qs=qs0, lp=lp0, grads=g0,
@@ -398,7 +402,7 @@ def run_parallel_tempering(
         for t in range(pos, pos + length):
             step_metric = metric if pooled else DiagMetric(carry.inv_mass)
             carry, stats, div = _pt_step(vg_t, beta, carry, torch.exp(carry.da.log_eps),
-                                         step_metric, generator, max_depth, mesh)
+                                         step_metric, generator, max_depth, mesh, tree)
             counts.add(stats)
             da = da_update(carry.da, stats.accept_prob, target_accept)
             welford, inv_mass = carry.welford, carry.inv_mass
@@ -455,8 +459,10 @@ def run_parallel_tempering(
     warmup_time = time.perf_counter() - t0
     t1 = time.perf_counter()
     carry, parts, _ = _pt_sample(vg_t, beta, carry, eps, metric, generator, n_keep, max_depth,
-                                 chunk_size, counts, progress, t0, checkpoint_path, mesh=mesh)
+                                 chunk_size, counts, progress, t0, checkpoint_path, mesh=mesh,
+                                 tree=tree)
     sampling_time = time.perf_counter() - t1
+    counts.capture_s += tree.capture_seconds
     vg_evals = 1 + eager_calls + counts.lockstep_leaves
     if mesh is not None:  # every replica's state and draws, on every rank
         carry = carry._replace(**{name: mesh.all_gather(getattr(carry, name)) for name in
@@ -580,9 +586,11 @@ def run_parallel_tempering_resumed(
         metric = DiagMetric(carry.inv_mass)
     temperatures = 1.0 / np.asarray(ckpt["inv_temps"], dtype=np.float64).reshape(n_rep, k_temps)[0]
     drawn0 = int(ckpt.get("n_samples_drawn", 0))
+    tree = LockstepTree(vg_t, generator, max_depth)
     carry, parts, last = _pt_sample(vg_t, beta, carry, eps, metric, generator, n_samples,
                                     max_depth, chunk_size, counts, progress, t0, checkpoint_path,
-                                    drawn0)
+                                    drawn0, tree=tree)
+    counts.capture_s += tree.capture_seconds
     if last is None:
         last = pt_checkpoint(carry, eps, generator, drawn0 + n_samples, metric)
     vg_evals = resumed_evals + eager_calls + counts.lockstep_leaves

@@ -96,15 +96,15 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the band "
-            "matvec kernel cannot be built."
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the port's "
+            "CUDA sources cannot be built."
         )
     return found
 
 
 def library_path(source: Path = SOURCE) -> Path:
     key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"band_matvec_{key.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}_{key.hexdigest()[:16]}.so"
 
 
 def build(source: Path = SOURCE) -> Path:

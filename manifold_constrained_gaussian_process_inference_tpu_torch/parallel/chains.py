@@ -51,6 +51,7 @@ from ..inference.nuts import (
     make_warmup_step,
 )
 from ..inference.nuts_batched import (
+    LockstepTree,
     init_warmup_carry_batched,
     make_sample_step_batched,
     make_warmup_step_pooled_batched,
@@ -178,7 +179,10 @@ def _metric_from_cov(cov: np.ndarray, n_s: float, dim: int, dtype, prev: DenseMe
             chol = np.linalg.cholesky(reg)
         except np.linalg.LinAlgError:
             return prev
-    put = lambda a: torch.as_tensor(a, dtype=dtype, device=prev.minv.device)
+    # row-major factors, as every metric of a run (a product's rounding on
+    # the card follows its operands' layout)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,  # noqa: E731
+                                    device=prev.minv.device)
     return DenseMetric(minv=put(reg), chol_minv=put(chol), p_chol=put(np.linalg.inv(chol).T))
 
 
@@ -360,13 +364,13 @@ class CurvatureEnvelope:
 
 def dense_metric_from_minv(minv, dtype, device, chol=None, p_chol=None):
     """A DenseMetric (or, for a (K, dim, dim) stack, the factors of one
-    per rung) from M^-1; the Cholesky factors are computed in float64 on
-    the host unless given."""
+    per rung) from M^-1, row-major; the Cholesky factors are computed in
+    float64 on the host unless given."""
     minv64 = np.asarray(minv, dtype=np.float64)
     if chol is None:
         chol = np.linalg.cholesky(minv64)
         p_chol = np.swapaxes(np.linalg.inv(chol), -1, -2)
-    put = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
     return put(minv), put(chol), put(p_chol)
 
 
@@ -404,11 +408,16 @@ class GraphedValueAndGrad:
 
     A value-and-grad that ends in a collective (``parallel/grid.py``) has a
     ``local`` part and a ``reduce``: only the local part is captured (a
-    collective cannot be), and ``reduce`` runs after each replay."""
+    collective cannot be), and ``reduce`` runs after each replay.
+
+    ``eager`` is the captured function itself, which the NUTS tree's own
+    graphs capture (``inference/nuts_batched.LockstepTree``): a replay
+    cannot be captured inside another graph."""
 
     def __init__(self, vg, example: torch.Tensor, n_warmup: int = GRAPH_WARMUP_CALLS):
         self.static_in = example.detach().clone()
         local = getattr(vg, "local", vg)
+        self.eager = local
         self.reduce = getattr(vg, "reduce", None)
         self.graph, self.launches, out = capture_graph(
             lambda: local(self.static_in), example.device, n_warmup)
@@ -460,24 +469,34 @@ def _sync(device: torch.device) -> None:
 
 
 class Counts:
-    """Host counts of one run: transitions, device-to-host reads, batched
-    leapfrog steps (paid by every chain in lockstep) and, on the device,
-    the leapfrog steps the chains' own trees needed (``chain_leaves``,
-    summed over chains)."""
+    """Host counts of one run: transitions, device-to-host reads (all of
+    them, ``host_syncs``, and the NUTS trees' own, ``tree_reads``), batched
+    leapfrog steps (paid by every chain in lockstep) and, on the device, the
+    leapfrog steps the chains' own trees needed (``chain_leaves``, summed
+    over chains) and the doublings the trees ran (``doublings``: each
+    transition's deepest chain); the host seconds spent capturing the NUTS
+    trees' CUDA graphs (``capture_s``, inside the warmup and sampling
+    times)."""
 
     def __init__(self):
-        self.transitions = self.host_syncs = self.lockstep_leaves = 0
-        self.chain_leaves = 0.0
+        self.transitions = self.host_syncs = self.tree_reads = self.lockstep_leaves = 0
+        self.chain_leaves = self.doublings = 0.0
+        self.capture_s = 0.0
 
     def add(self, stats) -> None:
         self.transitions += 1
         self.host_syncs += stats.host_syncs
         self.lockstep_leaves += stats.lockstep_leaves
         self.chain_leaves = self.chain_leaves + stats.num_leapfrog.sum()
+        if stats.tree_depth is not None:  # a NUTS tree
+            self.tree_reads += stats.host_syncs
+            self.doublings = self.doublings + stats.tree_depth.max()
 
     def info(self) -> dict:
         return dict(transitions=self.transitions, host_syncs=self.host_syncs,
-                    lockstep_leaves=self.lockstep_leaves, chain_leaves=float(self.chain_leaves))
+                    tree_reads=self.tree_reads, lockstep_leaves=self.lockstep_leaves,
+                    chain_leaves=float(self.chain_leaves), doublings=int(self.doublings),
+                    graph_capture_s=self.capture_s)
 
 
 def write_checkpoint(mesh: Mesh | None, path: str, ckpt, save=None) -> None:
@@ -580,8 +599,8 @@ def _collect_probe(envelope, edges, leaves, div, n_boundaries, mesh):
 
 
 def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
-                   target_accept, max_depth, progress, counts, t0, mesh=None, resume_ckpt=None,
-                   checkpoint_path=None, meta=None, envelope=None):
+                   target_accept, max_depth, progress, counts, t0, mesh=None, tree=None,
+                   resume_ckpt=None, checkpoint_path=None, meta=None, envelope=None):
     """Warmup under the pooled dense metric: chunks aligned to the window
     ends, in-window moments accumulated on the device (and summed over the
     ranks of a mesh), the metric re-estimated on the host at each window
@@ -590,16 +609,20 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
     offered to it (rank 0's, under a mesh) and its probes are folded into
     every new metric, which rank 0 broadcasts; the transition tracks the
     divergent steps only in the chunks whose probes the envelope takes, after
-    the first window end (tracking changes no draw). Returns (carry, metric,
-    per-chunk (C, L) divergence flags)."""
+    the first window end (tracking changes no draw), on a tree of their own.
+    The other chunks run on ``tree``. Returns (carry, metric, per-chunk
+    (C, L) divergence flags)."""
     n_chains, dim = psi0.shape
     dtype, device = psi0.dtype, psi0.device
     f64 = dict(dtype=torch.float64, device=device)
     in_window, window_end = build_window_schedule(n_adapts)
     chunks = _window_aligned_chunks(window_end, chunk_size)
-    steps = {track: make_warmup_step_pooled_batched(vg, target_accept, max_depth, generator, mesh,
-                                                    track_div_leaf=track)
-             for track in {False, envelope is not None}}
+    trees = {False: tree}
+    if envelope is not None:
+        trees[True] = LockstepTree(vg, generator, max_depth, mesh=mesh, track_div_leaf=True)
+    steps = {track: make_warmup_step_pooled_batched(
+        vg, target_accept, max_depth, generator, mesh, track_div_leaf=track, tree=t)
+        for track, t in trees.items()}
     # only rank 0 probes and folds; the other ranks take its metric
     folding = envelope if mesh is None or mesh.rank == 0 else None
     resume_pos = 0
@@ -663,16 +686,19 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
         if progress:
             logger.info("warmup %d/%d (%.1fs, pooled dense metric)",
                         pos, n_adapts, time.perf_counter() - t0)
+    if envelope is not None:
+        counts.capture_s += trees[True].capture_seconds
     return carry, metric, div_chunks
 
 
 def _warmup_diag(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
-                 target_accept, max_depth, progress, counts, t0, mesh=None):
+                 target_accept, max_depth, progress, counts, t0, mesh=None, tree=None):
     """Warmup under per-chain diagonal metrics (Stan's windowed Welford
     adaptation, ``inference/nuts.make_warmup_step``), in chunks of
-    ``chunk_size``. Returns (carry, per-chunk (C, L) divergence flags)."""
+    ``chunk_size``, on ``tree``. Returns (carry, per-chunk (C, L)
+    divergence flags)."""
     carry = init_warmup_carry(vg, psi0, initial_step_size)
-    warmup_step = make_warmup_step(vg, target_accept, max_depth, generator, mesh)
+    warmup_step = make_warmup_step(vg, target_accept, max_depth, generator, mesh, tree)
     in_window, window_end = build_window_schedule(n_adapts)
     div_chunks = []
     pos = 0
@@ -696,15 +722,15 @@ SAMPLE_STATS = ("lp", "accept_prob", "num_leapfrog", "tree_depth", "diverging", 
 
 def _sample(vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng,
             step_jitter, step_jitter_low, counts, progress, t0, checkpoint_path=None,
-            drawn0=0, mesh=None):
+            drawn0=0, mesh=None, tree=None):
     """The sampling phase at frozen step sizes and ``metric`` (shared dense
-    or per-chain diagonal), in chunks of ``chunk_size``; a checkpoint after
-    every chunk when ``checkpoint_path`` is set. Returns (carry, samples
-    (C, S, dim) numpy, dict of per-draw stats (C, S), the last
-    checkpoint or None)."""
+    or per-chain diagonal), in chunks of ``chunk_size``, on ``tree``; a
+    checkpoint after every chunk when ``checkpoint_path`` is set. Returns
+    (carry, samples (C, S, dim) numpy, dict of per-draw stats (C, S), the
+    last checkpoint or None)."""
     n_chains, dim = scarry.chain.q.shape
     dense = isinstance(metric, DenseMetric)
-    step = make_sample_step_batched(vg, max_depth, generator, mesh)
+    step = make_sample_step_batched(vg, max_depth, generator, mesh, tree)
     out = {name: [] for name in ("samples",) + SAMPLE_STATS}
     pos, last = 0, None
     for length in _chunk_lengths(n_keep, chunk_size):
@@ -806,8 +832,10 @@ def run_chains(
     (C, dim) -> ((C,), (C, dim)). Random numbers come from ``generator``
     (on psi0's device) and the step-jitter multipliers from the host
     ``jitter_rng``. On a CUDA device ``vg`` is replayed from a CUDA graph
-    (GraphedValueAndGrad), C = 1 included. Returns (samples (C, S, dim)
-    numpy, info dict of numpy arrays with a leading chain axis).
+    (GraphedValueAndGrad), C = 1 included, and the NUTS tree runs one CUDA
+    graph per doubling (``LockstepTree``, shared by warmup and sampling).
+    Returns (samples (C, S, dim) numpy, info dict of numpy arrays with a
+    leading chain axis).
 
     ``mass_matrix``: "dense-pooled", one dense metric shared by all chains
     and estimated from their pooled in-window draws (``step_jitter``,
@@ -868,8 +896,9 @@ def run_chains(
     t0 = time.perf_counter()
     if device.type == "cuda":
         vg = GraphedValueAndGrad(vg, psi0)
+    tree = LockstepTree(vg, generator, max_depth, mesh=mesh)
     warm_args = (vg, psi0, generator, n_adapts, chunk_size, initial_step_size, target_accept,
-                 max_depth, progress, counts, t0, mesh)
+                 max_depth, progress, counts, t0, mesh, tree)
     if mass_matrix == "diag":
         carry, warmup_div_chunks = _warmup_diag(*warm_args)
         metric = DiagMetric(carry.inv_mass)
@@ -888,8 +917,9 @@ def run_chains(
     scarry = SampleCarry(chain=carry.chain, eps=eps_final)
     scarry, samples, stats, _ = _sample(
         vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng, step_jitter,
-        step_jitter_low, counts, progress, t0, checkpoint_path, mesh=mesh)
+        step_jitter_low, counts, progress, t0, checkpoint_path, mesh=mesh, tree=tree)
     _sync(device)
+    counts.capture_s += tree.capture_seconds
     warmup_div = (np.concatenate(warmup_div_chunks, axis=1) if warmup_div_chunks
                   else np.zeros((psi0.shape[0], 0)))
     info = _run_info(stats, metric, mass_matrix, step_jitter, step_jitter_low, eps_final, scarry,
@@ -932,11 +962,13 @@ def sample_from_checkpoint(vg, ckpt, n_samples, max_depth, dtype, device, chunk_
         logp, grad = vg(psi)
     eps = put(ckpt.step_size).expand(n_chains)
     scarry = SampleCarry(chain=ChainState(q=psi, logp=logp, grad=grad), eps=eps)
+    tree = LockstepTree(vg, generator, max_depth)
     scarry, samples, stats, last = _sample(
         vg, scarry, metric, generator, n_samples, max_depth, chunk_size, jitter_rng,
         step_jitter, step_jitter_low, counts, progress, t0, checkpoint_path,
-        drawn0=int(ckpt.n_samples_drawn))
+        drawn0=int(ckpt.n_samples_drawn), tree=tree)
     _sync(device)
+    counts.capture_s += tree.capture_seconds
     if last is None:
         last = _sampling_checkpoint(scarry, metric, generator, jitter_rng, step_jitter,
                                     step_jitter_low, ckpt.n_samples_drawn + samples[:, :, 0].size)

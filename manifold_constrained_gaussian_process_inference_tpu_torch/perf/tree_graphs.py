@@ -1,0 +1,210 @@
+"""The NUTS tree's CUDA graphs on the card (inference/nuts_batched.py
+``LockstepTree``): per depth, the graph's nodes, capture seconds and
+memory-pool bytes; the graphed tree against the eager one on the same
+transitions; the device time of a batched leaf and of its bookkeeping;
+the device's idle share under each.
+
+    python3 -m manifold_constrained_gaussian_process_inference_tpu_torch.perf.tree_graphs \\
+        [--chains 128] [--transitions 6] [--max-depth 10] [--out tree_graphs.json]
+
+The value-and-grad is [slice]'s (FN, n = 397, whitened and mode-centered,
+band kernels, float32; ``perf/workload.slice_likelihood``), replayed from
+its own CUDA graph (``GraphedValueAndGrad``). The chains start at 0.5
+N(0, I) in the whitened coordinates under the identity metric, with step
+sizes spread geometrically over ``STEP_RANGE``, so that the trees reach
+deep doublings, as [slice]'s do (574 batched leaves per transition). The graphed and the eager tree run the same
+transitions from generators seeded alike; their draws, log-densities,
+gradients and statistics must be equal bit for bit.
+
+A third tree captures every depth up front (0 to max depth - 1), to give
+the graphs the transitions did not reach: per depth its top-level and IF
+body nodes, capture seconds (instantiation included) and pool bytes, and
+the device memory all of them take (``torch.cuda.mem_get_info`` before and
+after); one transition then runs on them.
+
+Per transition: host wall (after a synchronize), host reads, batched
+leaves, whether it captured a graph. Device time per batched leaf: CUDA
+events around every doubling's replay, over the leaves they ran (the
+skipped pairs' conditions included); the bookkeeping's device time per
+leaf is that less the value-and-grad's replay (CUDA events, mean of
+``VG_REPS``); ``replay_share``: the replays' device time over the host
+wall of the transitions that captured nothing. Idle share: one minus the
+summed kernel durations of a ``torch.profiler`` trace over the host wall
+of ``PROFILE_TRANSITIONS`` transitions, for each tree. Runs on a CUDA card
+only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+VG_REPS = 50
+PROFILE_TRANSITIONS = 2
+STEP_RANGE = (0.0005, 0.05)
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _vg_ms(vg, q) -> float:
+    """Device ms of one replay of the value-and-grad's graph."""
+    vg(q)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(VG_REPS):
+        vg.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / VG_REPS
+
+
+def _timed_replays(tree):
+    """Wrap ``tree._replay`` to time each doubling's replay with CUDA events
+    (returns the list the (ms, leaves) pairs go to; a replay right after its
+    capture is not timed: the card idles while the host captures)."""
+    log, real = [], tree._replay
+
+    def replay(metric, i):
+        if i not in tree.graphs:
+            return real(metric, i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(metric, i)  # ends in a host read: the events have completed
+        end.record()
+        end.synchronize()
+        log.append((start.elapsed_time(end), out[1]))
+        return out
+
+    tree._replay = replay
+    return log
+
+
+def _idle_share(run) -> dict:
+    """Kernel-busy and idle share of the card over ``run()``'s host wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = 1e-6 * sum(e.get("dur", 0.0) for e in kernels)
+    return dict(wall_s=wall, kernel_s=busy, kernels=len(kernels), idle_share=1.0 - busy / wall)
+
+
+def main(argv=None) -> int:
+    from ..inference.nuts import DenseMetric
+    from ..inference.nuts_batched import LockstepTree
+    from ..ops import cuda_band
+    from ..parallel.chains import GraphedValueAndGrad
+    from .workload import fn_bench_workload, slice_likelihood
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--chains", type=int, default=128)
+    ap.add_argument("--transitions", type=int, default=6)
+    ap.add_argument("--max-depth", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tree_graphs: no CUDA device")
+    card = _card()
+    print(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    y, t = fn_bench_workload()
+    lik = slice_likelihood(y, t, 20)
+    c, dim = args.chains, lik.dimension
+    q0 = torch.as_tensor(0.5 * np.random.default_rng(0).normal(size=(c, dim)),
+                         dtype=torch.float32, device="cuda")
+    vg = GraphedValueAndGrad(lik.vg("band"), q0)
+    eps = torch.as_tensor(np.geomspace(*STEP_RANGE, c), dtype=torch.float32, device="cuda")
+    eye = torch.eye(dim, dtype=torch.float32, device="cuda")
+    metric = DenseMetric(eye, eye, eye)
+    vg_ms = _vg_ms(vg, q0)
+
+    runs = {}
+    for kind in ("graphed", "eager"):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        tree = LockstepTree(vg, gen, args.max_depth, graphed=kind == "graphed")
+        log = _timed_replays(tree) if tree.graphed else None
+        q, (lp, g) = q0, vg(q0)
+        per, outs = [], []
+        cuda_band.reset_launches()
+        for _ in range(args.transitions):
+            n_graphs, n_log = len(tree.graphs), len(log or ())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, lp, g, stats = tree(q, lp, g, eps, metric)
+            torch.cuda.synchronize()
+            per.append(dict(wall_s=time.perf_counter() - t0, host_reads=stats.host_syncs,
+                            leaves=stats.lockstep_leaves,
+                            max_depth=int(stats.tree_depth.max()),
+                            captured=len(tree.graphs) > n_graphs,
+                            replay_ms=sum(ms for ms, _ in (log or [])[n_log:])))
+            outs.append([q, lp, g, *stats[:6]])
+        launches = cuda_band.counts()
+        leaves = sum(p["leaves"] for p in per)
+        run = dict(transitions=per, launches=launches, leaves=leaves,
+                   ms_per_transition=[1e3 * p["wall_s"] for p in per],
+                   host_ms_per_leaf=1e3 * sum(p["wall_s"] for p in per) / leaves,
+                   host_reads_per_transition=sum(p["host_reads"] for p in per) / len(per))
+        if tree.graphed:
+            first = {i: dict(info) for i, info in sorted(tree.graph_info.items())}
+            dev_ms = sum(ms for ms, _ in log) / max(sum(n for _, n in log), 1)
+            steady = [p for p in per if not p["captured"]]
+            run.update(graphs=first, device_ms_per_leaf=dev_ms,
+                       replay_share=sum(p["replay_ms"] for p in steady)
+                       / max(1e3 * sum(p["wall_s"] for p in steady), 1e-9),
+                       bookkeeping_device_ms_per_leaf=dev_ms - vg_ms, per_leaf_launches=tree.per_leaf)
+        run["profile"] = _idle_share(lambda: [tree(q, lp, g, eps, metric)
+                                              for _ in range(PROFILE_TRANSITIONS)])
+        runs[kind] = (run, outs)
+        print(f"[{kind}] " + json.dumps({k: v for k, v in run.items() if k != "transitions"}),
+              flush=True)
+        for p in per:
+            print(f"[{kind}] transition {json.dumps(p)}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tree = LockstepTree(vg, gen, args.max_depth, graphed=True)
+    bound = tree._bind(q0, eps, metric)
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    for i in range(args.max_depth):
+        tree.graphs[i] = tree._capture(bound, i)
+    torch.cuda.synchronize()
+    all_depths = dict(graphs={i: dict(info) for i, info in sorted(tree.graph_info.items())},
+                      device_bytes=free0 - torch.cuda.mem_get_info()[0])
+    _, lp0, _, stats = tree(q0, *vg(q0), eps, metric)
+    all_depths["transition_ok"] = bool(torch.isfinite(lp0).all())
+    print("[all depths] " + json.dumps(all_depths), flush=True)
+
+    (g_run, g_outs), (e_run, e_outs) = runs["graphed"], runs["eager"]
+    first_diff = next((t for t, (a, b) in enumerate(zip(g_outs, e_outs))
+                       if not all(torch.equal(x, y) for x, y in zip(a, b))), None)
+    result = dict(device=card, chains=c, dim=dim, vg_device_ms=vg_ms, graphed=g_run, eager=e_run,
+                  all_depths=all_depths,
+                  bit_equal=first_diff is None, first_differing_transition=first_diff)
+    print(json.dumps(dict(vg_device_ms=vg_ms, bit_equal=first_diff is None,
+                          first_differing_transition=first_diff)), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0 if first_diff is None else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
