@@ -10,7 +10,9 @@ NUTS path runs its tree as CUDA graphs, one per doubling depth, whose leaf
 pairs sit under IF nodes set by the hand-written one-thread kernel of
 csrc/graph_if.cu (the JAX package's leaf-loop condition on the device);
 each path line prints its host reads per transition, at most the
-transition's doublings + 1. The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
+transition's doublings + 1. Every leaf of every NUTS tree runs the two
+hand-written kernels of csrc/nuts_leaf.cu around its value-and-grad (L1
+the drift, L2 the commit: the JAX package's fused leaf body). The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
 metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
 default ``solve_magi`` (one chain, the diagonal Welford metric, raw Psi) on
 the FitzHugh-Nagumo workload (n=397, D=2); parallel-tempering NUTS on
@@ -42,7 +44,18 @@ Phases:
    host branch, on GRAPH_IF_NODES conditions (a depth-9 doubling's
    pairs): the bodies that ran, then again after the conditions flip in
    place; timed per node from a graph of skipped bodies;
-5b. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
+5b. leaf: L1 and L2 against their plain versions (ops/leaf.py) from the
+   same inputs at every leaf of a depth-4 sub-tree, at [slice]'s shape
+   (128 chains, dim 799, dense metric), [default]'s (one chain, a diagonal
+   per chain), a shared diagonal (32 chains) and [pt]'s (40 chains, dim 105,
+   one dense metric per rung), track_div_leaf on, float64 (1e-12) and
+   float32 (1e-5; the energy sums to the energy's scale): the decisions
+   (take, divergent, turned, alive) equal where no margin is within the
+   tolerance (the flips within it printed), the state of the chains that
+   agree; each chain's bits at C = 1, 3 and 32 equal to its rows of the
+   128-chain launch; each kernel and its plain version timed per launch
+   from a CUDA graph of 200 launches, beside its bytes bound;
+5c. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
    iterations, each run twice through ``solve_magi``: on the graphed tree
    and on the eager tree (the CPU path, chosen by patching
    ``nuts_batched.tree_graphed``); draws, log-densities, every statistic,
@@ -135,7 +148,9 @@ kernel's count is its launches per value-and-grad (2 single, 1 pair, 1
 pair_t: 4) times the run's value-and-grad evaluations, and each launch
 ran the tile of its chain count (the row tile at one chain: [default],
 [profile], [grid] at C = 1 and the MAP warm start of [pt]; the chain tile
-at 32 chains and more).
+at 32 chains and more). The leaf kernels' are exactly one L1 and one L2
+per batched leaf on every NUTS path ([families], [mesh] on every rank and
+[grid]'s eager tree included), 0 on [chees].
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -256,6 +271,19 @@ GRAPH_IF_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csr
 GRAPH_IF_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:222"
 GRAPH_IF_NODES, GRAPH_IF_REPS = 255, 20
 HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
+# The NUTS leaf's kernels (csrc/nuts_leaf.cu, L1 and L2): the JAX package's
+# fused leaf body they take the place of; checked over one depth-LEAF_DEPTH
+# sub-tree at (chains, dim, metric) of [slice], [default], a shared
+# diagonal and [pt] (LEAF_RUNGS rungs), with LEAF_ROWS checkpoint rows (a
+# depth-10 tree's); a chain's bits at LEAF_SUBSETS' chains of [slice]'s
+# launch; timed over LEAF_REPS launches
+LEAF_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/nuts_leaf.cu"
+LEAF_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:225"
+LEAF_KERNELS = {"nuts_leaf_drift": "drift", "nuts_leaf_commit": "commit"}
+LEAF_SHAPES = {"slice": (128, 799, "dense"), "default": (1, 799, "diag"),
+               "shared": (32, 799, "shared"), "pt": (40, 105, "rung")}
+LEAF_RUNGS, LEAF_DEPTH, LEAF_ROWS, LEAF_REPS = 10, 4, 9, 200
+LEAF_SUBSETS = {1: (5,), 3: (7, 8, 9), 32: tuple(range(32, 64))}
 # tree: the cut of each path run graphed and eager ([envelope] with
 # TREE_ENVELOPE_ADAPTS warmup: one window end, then tracked chunks; [pt]'s
 # MAP warm start cut to TREE_PT_MAP_ITERS Adam steps)
@@ -384,11 +412,12 @@ def phase_build(cb):
     """nvcc of every CUDA source of the port, one process each, together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if, leaf
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        sos = list(pool.map(cb.build, (cb.SOURCE, graph_if.SOURCE)))
+    with ThreadPoolExecutor(3) as pool:
+        sos = list(pool.map(cb.build, (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE)))
+    check(set(LEAF_KERNELS) == set(leaf.LAUNCHES), f"leaf kernels {sorted(leaf.LAUNCHES)}")
     print(f"[build] {[so.name for so in sos]} in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
@@ -703,10 +732,13 @@ def phase_kernel(cb):
 
 class _Launches:
     """ops/cuda_band's launch counts with the IF nodes' set kernel
-    (ops/graph_if) beside them; everything else is cuda_band's."""
+    (ops/graph_if) and the leaf kernels (ops/leaf) beside them; everything
+    else is cuda_band's."""
 
     def __init__(self, cb, gi):
-        self._cb, self._gi = cb, gi
+        from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+        self._cb, self._gi, self._leaf = cb, gi, leaf
 
     def __getattr__(self, name):
         return getattr(self._cb, name)
@@ -714,9 +746,18 @@ class _Launches:
     def reset_launches(self) -> None:
         self._cb.reset_launches()
         self._gi.LAUNCHES[self._gi.KERNEL] = 0
+        self._leaf.reset_launches()
 
     def counts(self) -> dict:
-        return {**self._cb.counts(), **self._gi.LAUNCHES}
+        return {**self._cb.counts(), **self._gi.LAUNCHES, **self._leaf.LAUNCHES}
+
+
+def _leaf_launches(launches, leaves, what) -> None:
+    """A path's leaf-kernel launches: exactly one L1 and one L2 per batched
+    leaf it ran (``leaves``; 0 where no NUTS tree runs)."""
+    got = {name: launches[name] for name in LEAF_KERNELS}
+    check(got == dict.fromkeys(LEAF_KERNELS, leaves),
+          f"{what}: leaf-kernel launches {got}, want {leaves} each (its batched leaves)")
 
 
 def _host_reads(d, what) -> str:
@@ -780,6 +821,323 @@ def phase_graph_if():
           f"read) {timing['bound_ms']:.3e}", flush=True)
     check(max(errs) == 0.0, f"graph-if: the IF nodes' bodies differ from the host branch {errs}")
     return max(errs), timing
+
+
+class _GivenVelocity:
+    """A metric whose product is given: the plain commit then times the
+    bookkeeping alone, as L2 does after a dense metric's matmul."""
+
+    def __init__(self, mg):
+        self.mg = mg
+
+    def velocity(self, g):
+        return self.mg
+
+
+def _leaf_case(name, dtype):
+    """[leaf]'s inputs at one of LEAF_SHAPES: a sub-tree's start (every
+    chain's q, p, grad consistent with its metric, every 7th chain not
+    alive), its metric, signed steps spread over [0.01, 0.5], the uniforms
+    of a depth-LEAF_DEPTH sub-tree and a Gaussian value-and-grad in which
+    one chain's leaves diverge and another's turn NaN after a few leaves."""
+    from types import SimpleNamespace
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        DenseMetric, DiagMetric, RungDenseMetric,
+    )
+
+    c, dim, kind = LEAF_SHAPES[name]
+    rng = np.random.default_rng(sorted(LEAF_SHAPES).index(name))
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)  # noqa: E731
+    if kind in ("dense", "rung"):
+        k = LEAF_RUNGS if kind == "rung" else 1
+        a = rng.normal(size=(k, dim, dim)) / np.sqrt(dim)
+        minv = put(0.3 * a @ a.transpose(0, 2, 1) + np.eye(dim))
+        metric = (RungDenseMetric(minv, minv, minv) if kind == "rung"
+                  else DenseMetric(minv[0], minv[0], minv[0]))
+    else:
+        metric = DiagMetric(put(rng.uniform(0.5, 2.0, size=(dim,) if kind == "shared"
+                                            else (c, dim))))
+    scale = put(rng.uniform(0.5, 2.0, size=dim))
+    calls = [0]
+
+    def vg(q):
+        lp = -0.5 * (scale * q * q).sum(-1)
+        if c > 2 and calls[0] >= 4:
+            lp[c - 1] = float("nan")
+        if c > 2 and calls[0] >= 6:
+            lp[2] -= 5e3
+        calls[0] += 1
+        return lp, -scale * q
+
+    q, p = put(rng.normal(size=(c, dim))), put(rng.normal(size=(c, dim)))
+    g = -scale * q
+    cur = torch.stack([q, p, metric.velocity(p), g, metric.velocity(g)], dim=1).contiguous()
+    f = dict(dtype=dtype, device=DEVICE)
+    st = SimpleNamespace(
+        cur=cur, first=cur.clone(), s_prop=cur.clone(), s_rho=torch.zeros(c, dim, **f),
+        s_logp_prop=torch.zeros(c, **f), s_sum_accept=torch.zeros(c, **f),
+        s_n_leaves=torch.zeros(c, **f), s_lsw=torch.full((c,), -torch.inf, **f),
+        s_div=torch.zeros(c, dtype=torch.bool, device=DEVICE),
+        s_turn=torch.zeros(c, dtype=torch.bool, device=DEVICE),
+        alive=torch.as_tensor(np.arange(c) % 7 != 6, device=DEVICE),
+        h0=0.5 * (scale * q * q).sum(-1) + 0.5 * (p * metric.velocity(p)).sum(-1),
+        ckpts=torch.zeros(c, LEAF_ROWS, 3, dim, **f), s_div_edge=torch.zeros(c, dim, **f),
+        s_div_leaf=torch.zeros(c, dim, **f))
+    signs = np.where(rng.random(c) < 0.5, -1.0, 1.0)
+    eps = put(np.geomspace(0.01, 0.5, c) * signs if c > 1 else [0.05])
+    u_leaf = put(rng.random((1 << LEAF_DEPTH, c)))
+    return st, metric, eps, u_leaf, vg
+
+
+def _clone_state(st, idx=None):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{k: (t if idx is None else t[idx]).clone()
+                              for k, t in vars(st).items()})
+
+
+def _leaf_margins(plain_before, drift, q_n, lp, mg, g, half, u, j, rows, tol):
+    """The plain version's decision quantities in float64 and, per chain,
+    whether each decision (bad, take, turned) is within ``tol`` of its
+    threshold: there a flip is rounding, not a fault. Returns (flags of
+    "near" per decision, the energy scale)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        MAX_DELTA_ENERGY,
+    )
+
+    d = lambda t: t.double()  # noqa: E731
+    _, p_half, v_half = drift
+    p_n = d(p_half) + d(half) * d(g)
+    v_n = d(v_half) + d(half) * d(mg)
+    kin = 0.5 * (p_n * v_n).sum(-1)
+    h0 = d(plain_before.h0)
+    scale = torch.maximum(torch.maximum(kin.abs(), h0.abs()), d(lp).abs().nan_to_num())
+    delta = -d(lp) + kin - h0
+    near_bad = (delta - MAX_DELTA_ENERGY).abs() <= tol * scale
+    w = torch.where(delta <= MAX_DELTA_ENERGY, -delta, -torch.inf)
+    lsw = torch.logaddexp(d(plain_before.s_lsw), w)
+    near_take = (torch.log(d(u)) - (w - lsw)).abs() <= 4 * tol * scale
+    near_turn = torch.zeros_like(near_bad)
+    if j % 2:
+        lo, hi = rows
+        rho = d(plain_before.s_rho) + p_n
+        for r in range(lo, hi + 1):
+            rk, vk, rhok = (d(plain_before.ckpts[:, r, i]) for i in range(3))
+            rc = rho - rhok + rk - 0.5 * (rk + p_n)
+            for a, b in ((vk, rc), (rc, v_n)):
+                near_turn |= (a * b).sum(-1).abs() <= tol * (a * b).abs().sum(-1)
+    return dict(bad=near_bad, take=near_take, turned=near_turn), scale
+
+
+def _leaf_check(name, dtype, tol):
+    """L1 and L2 against their plain versions from the same inputs at every
+    leaf of a depth-LEAF_DEPTH sub-tree (the kernels' state restarts from
+    the plain one at each leaf). Returns (max abs errors of L1 and L2's
+    leaf state, flags that differ, of them outside the margin, launches,
+    the decisions seen)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    plain, metric, eps, u_leaf, vg = _leaf_case(name, dtype)
+    half, step = (0.5 * eps)[:, None], eps[:, None]
+    errs, differ, outside = [0.0, 0.0], Counter(), Counter()
+    seen = Counter()
+    launches = dict(leaf.LAUNCHES)
+    for j in range(1 << LEAF_DEPTH):
+        rows = _leaf_idx_to_ckpt_idxs(j)
+        plain.s_div.zero_()  # the kernel's state starts from the plain one, flags lowered
+        plain.s_turn.zero_()
+        before = _clone_state(plain)
+        kern = _clone_state(plain)
+        q_n, drift = leaf.leaf_drift_torch(plain.cur, half, step)
+        q_k = leaf.leaf_drift_cuda(kern.cur, half, step)
+        errs[0] = max(errs[0], float((q_k - q_n).abs().max()))
+        lp, g = vg(q_n)
+        mg = metric.velocity(g)
+        leaf.leaf_commit_torch(plain, metric, half, drift, q_n, lp, g, u_leaf, j, rows,
+                               MAX_DELTA_ENERGY, True)
+        inv_mass = metric.diagonal()
+        leaf.leaf_commit_cuda(kern, half, q_n, lp, g, None if inv_mass is not None else mg,
+                              inv_mass, u_leaf[j], j, rows, MAX_DELTA_ENERGY, True)
+        torch.cuda.synchronize()
+        near, scale = _leaf_margins(before, drift, q_n, lp, mg, g, half, u_leaf[j], j, rows, tol)
+        alive0 = before.alive
+        took = {s: (st.s_prop != before.s_prop).flatten(1).any(1) for s, st in
+                (("plain", plain), ("kern", kern))}
+        near_any = near["bad"] | near["take"] | near["turned"]
+        flags = dict(take=(took["plain"], took["kern"]), bad=(plain.s_div, kern.s_div),
+                     turned=(plain.s_turn, kern.s_turn), alive=(plain.alive, kern.alive))
+        agree = torch.ones_like(alive0)
+        for what, (a, b) in flags.items():
+            diff = alive0 & (a != b)
+            differ[what] += int(diff.sum())
+            outside[what] += int((diff & ~near_any).sum())
+            agree &= ~diff
+            seen[what] += int((alive0 & a).sum())
+        # the state of the chains whose decisions agree: rows relative to
+        # their largest magnitude, the energy sums to the energy scale
+        for key in ("cur", "s_prop", "first", "s_rho", "ckpts", "s_div_edge", "s_div_leaf",
+                    "s_lsw", "s_sum_accept", "s_logp_prop", "s_n_leaves"):
+            a, b = getattr(kern, key)[agree], getattr(plain, key)[agree]
+            fin = torch.isfinite(b)
+            check(torch.equal(fin, torch.isfinite(a)) and torch.equal(
+                a[~fin].nan_to_num(), b[~fin].nan_to_num()),
+                f"leaf {name} {dtype} leaf {j}: {key} differs in its non-finite entries")
+            if not fin.any():
+                continue
+            err = float((a[fin] - b[fin]).abs().max())
+            if key == "cur":
+                errs[1] = max(errs[1], err)
+            ref = (float(scale[agree].max()) if key in ("s_lsw", "s_sum_accept")
+                   else float(b[fin].abs().max()))
+            check(err <= tol * max(ref, 1.0) if key in ("s_lsw", "s_sum_accept")
+                  else err <= tol * ref,
+                  f"leaf {name} {dtype} leaf {j}: {key} max abs err {err:.3e} (scale {ref:.3e})")
+    made = {k: leaf.LAUNCHES[k] - launches[k] for k in launches}
+    check(made == dict.fromkeys(launches, 1 << LEAF_DEPTH),
+          f"leaf {name}: {made} launches for {1 << LEAF_DEPTH} leaves")
+    return errs, dict(differ), dict(outside), dict(seen)
+
+
+def _leaf_sub_batches(dtype):
+    """Each chain's bits at LEAF_SUBSETS' chain counts against its rows of a
+    LEAF_SHAPES["slice"] launch, L1 and L2, at every leaf of the sub-tree."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    full, metric, eps, u_leaf, vg = _leaf_case("slice", dtype)
+    half, step = (0.5 * eps)[:, None], eps[:, None]
+    same = True
+    for j in range(1 << LEAF_DEPTH):
+        rows = _leaf_idx_to_ckpt_idxs(j)
+        subs = {n: (torch.as_tensor(idx, device=DEVICE), _clone_state(full, list(idx)))
+                for n, idx in LEAF_SUBSETS.items()}
+        q_n = leaf.leaf_drift_cuda(full.cur, half, step)
+        lp, g = vg(q_n)
+        mg = metric.velocity(g)
+        for n, (idx, sub) in subs.items():
+            q_s = leaf.leaf_drift_cuda(sub.cur, half[idx], step[idx])
+            same &= torch.equal(q_s, q_n[idx])
+            leaf.leaf_commit_cuda(sub, half[idx], q_n[idx].contiguous(), lp[idx].contiguous(),
+                                  g[idx].contiguous(), mg[idx].contiguous(), None,
+                                  u_leaf[j][idx].contiguous(), j, rows, MAX_DELTA_ENERGY, True)
+        leaf.leaf_commit_cuda(full, half, q_n, lp, g, mg, None, u_leaf[j], j, rows,
+                              MAX_DELTA_ENERGY, True)
+        for n, (idx, sub) in subs.items():
+            for k in vars(full):
+                a, b = getattr(sub, k), getattr(full, k)[idx]
+                same &= torch.equal(a, b) if a.dtype == torch.bool else (
+                    torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(),
+                                                                      b.nan_to_num()))
+    return same
+
+
+def _leaf_kernel_times(name):
+    """Device ms per launch of L1 and L2 and of their plain versions at
+    LEAF_SHAPES[name] in float32, each from a replayed CUDA graph of
+    LEAF_REPS launches over the sub-tree's leaves in turn (every chain alive
+    and taking: alive set before each launch, whose own time is taken out;
+    the uniforms 0, no divergent chain), with the bound of each from the
+    bytes it must move at 3.35 TB/s."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    st, metric, eps, _, vg = _leaf_case(name, torch.float32)
+    c, dim, kind = LEAF_SHAPES[name]
+    half, step = (0.5 * eps)[:, None], eps[:, None]
+    q_n, drift = leaf.leaf_drift_torch(st.cur, half, step)
+    lp, g = vg(q_n)
+    mg = metric.velocity(g)
+    inv_mass = metric.diagonal()
+    given = metric if inv_mass is not None else _GivenVelocity(mg)
+    u_zero = torch.zeros((1 << LEAF_DEPTH, c), dtype=torch.float32, device=DEVICE)
+    js = [k % (1 << LEAF_DEPTH) for k in range(LEAF_REPS)]
+    launches = dict(leaf.LAUNCHES)
+
+    def timed(body):
+        body()  # warm-up (allocations, first launch)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for j in js:
+                body(j)
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / len(js)
+
+    def commit_kernel(j=0):
+        st.alive.fill_(True)
+        leaf.leaf_commit_cuda(st, half, q_n, lp, g, None if inv_mass is not None else mg,
+                              inv_mass, u_zero[j], j, _leaf_idx_to_ckpt_idxs(j),
+                              MAX_DELTA_ENERGY, False)
+
+    def commit_plain(j=0):
+        st.alive.fill_(True)
+        leaf.leaf_commit_torch(st, given, half, drift, q_n, lp, g, u_zero, j,
+                               _leaf_idx_to_ckpt_idxs(j), MAX_DELTA_ENERGY, False)
+
+    fill = timed(lambda j=0: st.alive.fill_(True))
+    out = {
+        "drift": dict(ms=timed(lambda j=0: leaf.leaf_drift_cuda(st.cur, half, step)),
+                      plain_ms=timed(lambda j=0: leaf.leaf_drift_torch(st.cur, half, step)),
+                      bound_ms=leaf.drift_bytes(c, dim, 4) / HBM_BYTES_PER_MS),
+        "commit": dict(ms=timed(commit_kernel) - fill, plain_ms=timed(commit_plain) - fill),
+    }
+    metric_kind = "shared" if kind == "shared" else ("diag" if kind == "diag" else "dense")
+    out["commit"]["bound_ms"] = float(np.mean([leaf.commit_bytes(
+        c, dim, 4, j, _leaf_idx_to_ckpt_idxs(j), c, c, 0, metric_kind, False) for j in js])
+    ) / HBM_BYTES_PER_MS
+    for k in out.values():
+        k.update(bound_by="bytes", library_ms=None)
+    for name_k in launches:  # timing launches are not a path's
+        leaf.LAUNCHES[name_k] = launches[name_k]
+    return out
+
+
+def phase_leaf():
+    """[leaf]: the NUTS leaf's kernels (csrc/nuts_leaf.cu) against their
+    plain versions on the card at LEAF_SHAPES, float64 and float32; a
+    chain's bits at LEAF_SUBSETS' chain counts; device times."""
+    errs, parts = {}, []
+    for name in LEAF_SHAPES:
+        for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+            e, differ, outside, seen = _leaf_check(name, dtype, tol)
+            errs[name, dtype] = e
+            parts.append(f"{name} {LEAF_SHAPES[name]} {str(dtype)[6:]}: max abs err L1 "
+                         f"{e[0]:.2e}, L2 state {e[1]:.2e}; flags differing {differ} (outside "
+                         f"the margin {outside}); decisions seen {seen}")
+            check(not any(outside.values()),
+                  f"leaf {name} {dtype}: decisions differ outside their margin {outside}")
+            if LEAF_SHAPES[name][0] > 2:
+                check(seen.get("take", 0) and seen.get("bad", 0) and seen.get("turned", 0),
+                      f"leaf {name} {dtype}: decisions not all seen {seen}")
+    same = {str(dtype)[6:]: _leaf_sub_batches(dtype) for dtype in (torch.float64, torch.float32)}
+    times = {name: _leaf_kernel_times(name) for name in LEAF_SHAPES}
+    t = times["slice"]
+    print("[leaf] L1 nuts_leaf_drift and L2 nuts_leaf_commit (csrc/nuts_leaf.cu) vs their plain "
+          f"versions over a depth-{LEAF_DEPTH} sub-tree, track_div_leaf on: " + "; ".join(parts)
+          + f"; a chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of a "
+          f"{LEAF_SHAPES['slice'][0]}-chain launch: {same}; ms per launch (float32, graph of "
+          f"{LEAF_REPS}) kernel / plain / bytes bound: "
+          + ", ".join(f"{n} L1 {v['drift']['ms']:.5f} / {v['drift']['plain_ms']:.5f} / "
+                      f"{v['drift']['bound_ms']:.5f}, L2 {v['commit']['ms']:.5f} / "
+                      f"{v['commit']['plain_ms']:.5f} / {v['commit']['bound_ms']:.5f}"
+                      for n, v in times.items()), flush=True)
+    check(all(same.values()), f"leaf: a chain's bits depend on the launch's chain count {same}")
+    max_err = {"drift": max(e[0] for e in errs.values()),
+               "commit": errs["slice", torch.float32][1]}
+    return max_err, {k: {**t[k], **{n: v[k] for n, v in times.items() if n != "slice"}}
+                     for k in ("drift", "commit")}
 
 
 @contextlib.contextmanager
@@ -1061,6 +1419,7 @@ def phase_default(mt, cb):
     check(d["band_impl"] == "band", f"default: band_impl {d['band_impl']}")
     check(DEFAULT_ACCEPT[0] <= accept <= DEFAULT_ACCEPT[1], f"default: accept {accept:.4f}")
     check(div_share <= DEFAULT_MAX_DIVERGENT_SHARE, f"default: divergent share {div_share:.3f}")
+    _leaf_launches(launches, d["lockstep_leaves"], "default")
     return launches, _per_vg(launches, vg_evals, "default", config.n_chains), leaf_ms
 
 
@@ -1097,7 +1456,7 @@ def phase_families(mt, cb):
         # the MAP warm start's value-and-grads (start, one per Adam step,
         # end) and the sampler's (graph warm-up, start, one per leaf)
         vg_evals = config.map_init_iterations + 2 + GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
-        runs.append((name, d["band_impl"], launches, vg_evals))
+        runs.append((name, d["band_impl"], launches, vg_evals, d["lockstep_leaves"]))
         parts.append(f"{name} (n={len(t)}, D={y.shape[1]}, k={system.theta_size}, "
                      f"band_impl={d['band_impl']}, bandsize={d['bandsize']}) {wall:.1f} s, "
                      f"map {d['phase_times_s']['map_s']:.2f} s, accept "
@@ -1108,9 +1467,10 @@ def phase_families(mt, cb):
                      f"value-and-grads")
     print("[families] float32 on the card: " + "; ".join(parts), flush=True)
     total, total_evals = Counter(), 0
-    for name, band_impl, launches, vg_evals in runs:
+    for name, band_impl, launches, vg_evals, leaves in runs:
         check(band_impl == "band", f"families {name}: band_impl {band_impl}")
         _per_vg(launches, vg_evals, f"families {name}", 1)
+        _leaf_launches(launches, leaves, f"families {name}")
         total.update(launches)
         total_evals += vg_evals
     return dict(total), {name: k / total_evals for name, k in total.items()}, None
@@ -1169,6 +1529,7 @@ def phase_slice(mt, cb, y, t):
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
     per_vg = _per_vg(launches, vg_evals, "slice", N_CHAINS)
+    _leaf_launches(launches, d["lockstep_leaves"], "slice")
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
@@ -1268,6 +1629,7 @@ def phase_pt(mt, cb):
     check(graph_gap <= PT_GRAPH_TOL,
           f"pt: replayed tempered value vs raw value x final ladder {graph_gap:.3e}")
     per_vg = _per_vg(launches, vg_evals, "pt", n_chains, config.map_init_iterations + 2)
+    _leaf_launches(launches, d["lockstep_leaves"], "pt")
     check(theta_rmse < THETA_RMSE_MAX, f"pt: theta RMSE {theta_rmse:.4f}")
     check(h_rmse < PT_H_RMSE_MAX, f"pt: unobserved-H RMSE {h_rmse:.4f}")
     check(PT_SWAP_RANGE[0] <= swap <= PT_SWAP_RANGE[1], f"pt: swap acceptance {swap:.3f}")
@@ -1323,6 +1685,7 @@ def phase_chees(mt, cb, y, t):
     check(d["band_impl"] == "band", f"chees: band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"chees: bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
     per_vg = _per_vg(launches, d["vg_evals"], "chees", CHEES_CHAINS)
+    _leaf_launches(launches, 0, "chees")  # ChEES runs no NUTS tree
     check(theta_rmse <= THETA_RMSE_MAX, f"chees: theta RMSE {theta_rmse:.4f}")
     check(rhat_max <= CHEES_RHAT_MAX, f"chees: max R-hat {rhat_max:.4f} > {CHEES_RHAT_MAX}")
     check(np.isfinite(traj) and traj > eps, f"chees: trajectory length {traj} vs step {eps}")
@@ -1551,6 +1914,7 @@ def _grid_rank(rank, grid_file):
     spawned processes took ~0.3 s per MB)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.models import FN_SYSTEM
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import (
         make_grid_mesh, make_grid_value_and_grad, run_chains,
     )
@@ -1590,12 +1954,13 @@ def _grid_rank(rank, grid_file):
                            replay_equal=bool(np.array_equal(host[0], host[2])
                                              and np.array_equal(host[1], host[3])),
                            eager=eager, replayed=replayed, ms=wall_ms(lambda: graphed(x)))
-    cb.reset_launches()
+    counted = _Launches(cb, graph_if)  # the eager tree's leaf kernels too
+    counted.reset_launches()
     t0 = time.perf_counter()
     samples, info = run_chains(vg, psi[:1], torch.Generator(device=DEVICE).manual_seed(11),
                                mass_matrix="diag", **GRID_NUTS)
     out["nuts"] = dict(digest=digest(samples), finite=bool(np.isfinite(samples).all()),
-                       launches=cb.counts(), wall=time.perf_counter() - t0,
+                       launches=counted.counts(), wall=time.perf_counter() - t0,
                        vg_evals=GRAPH_WARMUP_CALLS + 1 + info["lockstep_leaves"],
                        leaves=info["lockstep_leaves"], accept=float(info["accept_prob"].mean()))
     out["blocks"] = (mesh.rank, data.nloc, tuple(vg.mphi.shape), tuple(vg.gkt.shape))
@@ -1869,6 +2234,8 @@ def _report_mesh(ranks, wall):
     check(a["finite"], "mesh: non-finite draws")
     per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}", N_CHAINS // MESH_RANKS)
               for i, r in enumerate(sol)]
+    for i, r in enumerate(sol):
+        _leaf_launches(r["launches"], r["leaves"], f"mesh rank {i}")
     check(a["theta_rmse"] <= THETA_RMSE_MAX, f"mesh: theta RMSE {a['theta_rmse']:.4f}")
     check(a["sigma_rmse"] <= SIGMA_RMSE_MAX, f"mesh: sigma RMSE {a['sigma_rmse']:.4f}")
     check(a["divergent"] <= MESH_MAX_DIVERGENT_SHARE, f"mesh: divergent {a['divergent']:.4f}")
@@ -1942,6 +2309,8 @@ def _report_grid(ranks, grid):
     check(all(n["finite"] for n in nuts), "grid NUTS: non-finite draws")
     check(len({n["digest"] for n in nuts}) == 1, "grid NUTS: the ranks' draws differ")
     nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS", 1) for n in nuts]
+    for i, n in enumerate(nuts):
+        _leaf_launches(n["launches"], n["leaves"], f"grid NUTS rank {i}")
     launches = {name: sum(n["launches"][name] for n in nuts) for name in nuts[0]["launches"]}
     return launches, nuts_per_vg[0], None
 
@@ -2001,6 +2370,7 @@ def phase_envelope(mt, cb, y, t):
     check(np.isfinite(minv).all() and np.array_equal(minv, minv.T) and min(eig) > 0,
           "envelope: the folded metric is not finite and SPD")
     per_vg = _per_vg(launches, vg_evals, "envelope", N_CHAINS)
+    _leaf_launches(launches, d["lockstep_leaves"], "envelope")
     check(theta_rmse <= THETA_RMSE_MAX, f"envelope: theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"envelope: sigma RMSE {sigma_rmse:.4f}")
     return launches, per_vg, leaf_ms
@@ -2065,6 +2435,7 @@ def phase_profile(mt, cb):
           flush=True)
     check(k1_any > 0, "profile: no band kernel in the trace")
     check(same, "profile: the profiled run's draws differ from the unprofiled run's")
+    _leaf_launches(launches, d["lockstep_leaves"], "profile")
     return launches, _per_vg(launches, vg_evals, "profile", config.n_chains), None
 
 
@@ -2089,6 +2460,7 @@ def main() -> int:
         "likelihood-3169": phase_likelihood_3169,
         "kernel": lambda: phase_kernel(cb),
         "graph-if": phase_graph_if,
+        "leaf": phase_leaf,
         "tree": lambda: phase_tree(mt, y, t),
         "diag-gauss": phase_diag_gauss,
         "default": lambda: paths.__setitem__("default", phase_default(mt, cb)),
@@ -2115,6 +2487,10 @@ def main() -> int:
     if_launches = {path: p[0].get(graph_if.KERNEL) for path, p in paths.items()}
     for path in ("default", "slice", "pt", "envelope"):
         check(if_launches[path] > 0, f"{path}: no IF-node set kernel launched")
+    leaf_err, leaf_timing = out["leaf"]
+    for path in ("default", "families", "slice", "pt", "envelope", "profile", "mesh", "grid"):
+        check(all(paths[path][0][name] > 0 for name in LEAF_KERNELS),
+              f"{path}: a leaf kernel was not launched")
     print(json.dumps({"launches_per_vg": sum(paths["slice"][1][name] for name in KERNELS),
                       "tile_launches_by_path": tiles_by_path, "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -2133,7 +2509,12 @@ def main() -> int:
         "replaces": GRAPH_IF_REPLACES,
         "launches": sum(k for k in if_launches.values() if k is not None),
         "launches_by_path": if_launches, "max_abs_err": if_err, **if_timing,
-    }], "ms_per_leaf": {
+    }] + [{
+        "name": name, "route": "cuda", "source": LEAF_SOURCE, "replaces": LEAF_REPLACES,
+        "launches": sum(p[0][name] for p in paths.values()),
+        "launches_by_path": {path: p[0][name] for path, p in paths.items()},
+        "max_abs_err": leaf_err[key], **leaf_timing[key],
+    } for name, key in LEAF_KERNELS.items()], "ms_per_leaf": {
         path: paths[path][2] for path in ("default", "slice", "pt", "mesh", "envelope")},
         "ms_per_chees_leapfrog_step": paths["chees"][2]}))
     print(smi)

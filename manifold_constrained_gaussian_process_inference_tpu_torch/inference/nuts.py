@@ -13,7 +13,10 @@ Three metrics, one tree code: ``DenseMetric`` (a full M^-1 shared by all
 chains), ``RungDenseMetric`` (one full M^-1 per tempering rung) and
 ``DiagMetric`` (a per-chain diagonal M^-1, Stan's
 ``DiagEuclideanMetric``). The transition only calls ``momentum(z)`` (a
-draw p ~ N(0, M) from z ~ N(0, I)) and ``velocity(p)`` (M^-1 p).
+draw p ~ N(0, M) from z ~ N(0, I)) and ``velocity(p)`` (M^-1 p), and the
+leaf's kernel ``diagonal()`` (the diagonal metric's inverse mass, whose
+product it computes itself; None for the other two, whose product stays a
+matmul: ops/leaf.py).
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ class DenseMetric(NamedTuple):
     def velocity(self, p: torch.Tensor) -> torch.Tensor:
         return p @ self.minv.T
 
+    def diagonal(self) -> None:
+        return None
+
 
 class RungDenseMetric(NamedTuple):
     """One full inverse-mass metric per temperature rung, shared by the
@@ -74,6 +80,9 @@ class RungDenseMetric(NamedTuple):
     def velocity(self, p: torch.Tensor) -> torch.Tensor:
         return self._apply(self.minv, p)
 
+    def diagonal(self) -> None:
+        return None
+
 
 class DiagMetric(NamedTuple):
     """Diagonal inverse-mass metric: ``inv_mass`` (C, dim) per chain, or
@@ -86,6 +95,9 @@ class DiagMetric(NamedTuple):
 
     def velocity(self, p: torch.Tensor) -> torch.Tensor:
         return self.inv_mass * p
+
+    def diagonal(self) -> torch.Tensor:
+        return self.inv_mass
 
 
 class NutsStats(NamedTuple):

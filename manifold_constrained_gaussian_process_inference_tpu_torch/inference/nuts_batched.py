@@ -36,7 +36,11 @@ Both make the same draws and the same arithmetic, so they give the same
 bits. ``NutsStats.host_syncs`` counts the reads.
 
 Leaf state is packed as one (C, 5, dim) tensor [q, p, v, grad, M^-1 grad]
-so that each masked commit is one ``torch.where``. Random numbers come from
+so that each masked commit is one ``torch.where``. A leaf is
+``ops/leaf.py``'s: on the card two hand-written kernels around the
+value-and-grad (the drift L1, and the commit L2, which does in one launch
+what the JAX package's fused leaf body does after the value-and-grad), on
+the CPU their plain versions. Random numbers come from
 one ``torch.Generator`` on the chains' device: per transition the momenta
 (drawn eagerly), per doubling a direction and a subtree-merge uniform
 (2, C) and one uniform per leaf (2^i, C), drawn inside the doubling's
@@ -63,6 +67,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops import leaf as leaf_ops
 from ..parallel.mesh import local_draw
 from .adapt import da_init, da_restart, da_update
 from .nuts import (
@@ -72,37 +77,17 @@ from .nuts import (
     SampleCarry,
     WarmupCarry,
     _leaf_idx_to_ckpt_idxs,
-    _popcount32,
 )
 
 # rows of the packed leaf state
 Q, P, V, G, MG = range(5)
 
 
-def _rowdot(a, b):
-    """Per-chain dot product: (C, dim) x (C, dim) -> (C,). An elementwise
-    product summed along its rows rounds a row alike at any C; an einsum
-    is a batched GEMM on the card, whose rounding of a row depends on the
-    batch's size, so a chain would not compute the same energy in a shard
-    of a mesh as in the whole batch."""
-    return (a * b).sum(-1)
-
-
 def _is_turning_b(p_left, v_left, p_right, v_right, rho):
     """(C,) generalized U-turn check with the boundary-momentum correction;
     v_* are the carried M^-1 p_*."""
     rho_c = rho - 0.5 * (p_left + p_right)
-    return (_rowdot(v_left, rho_c) <= 0.0) | (_rowdot(v_right, rho_c) <= 0.0)
-
-
-def _is_iterative_turning_b(p_leaf, v_leaf, rho_cum, ckpts):
-    """U-turn checks of every sub-tree ending at this odd leaf, over the
-    active checkpoint rows ``ckpts`` (C, R, 3, dim) = [p, v, rho]."""
-    r, v_ck, rho_ck = ckpts.unbind(2)
-    rho_c = rho_cum[:, None, :] - rho_ck + r - 0.5 * (r + p_leaf[:, None, :])
-    t_left = (v_ck * rho_c).sum(-1) <= 0.0
-    t_right = (rho_c * v_leaf[:, None, :]).sum(-1) <= 0.0
-    return torch.any(t_left | t_right, dim=1)
+    return (leaf_ops.rowdot(v_left, rho_c) <= 0.0) | (leaf_ops.rowdot(v_right, rho_c) <= 0.0)
 
 
 def tree_graphed(device, vg_b) -> bool:
@@ -173,8 +158,9 @@ class LockstepTree:
     tree's copies of the step sizes and the metric, which each call writes
     in place. A value-and-grad's band-kernel launches are counted at its
     first capture, per leaf, and each replay adds them times the leaves it
-    ran (``ops/cuda_band``), and the IF nodes' set-kernel launches of its
-    graph (``ops/graph_if``). A capture or a replay that fails raises."""
+    ran (``ops/cuda_band``), the leaf kernels' likewise (``ops/leaf``, one
+    of each per leaf), and the IF nodes' set-kernel launches of its graph
+    (``ops/graph_if``). A capture or a replay that fails raises."""
 
     def __init__(self, vg_b, generator: torch.Generator, max_depth: int = 10,
                  max_delta_energy: float = MAX_DELTA_ENERGY, mesh=None,
@@ -226,56 +212,13 @@ class LockstepTree:
 
     def _leaf(self, metric, half, step, u_leaf, j: int) -> None:
         """Leapfrog step j of the sub-tree from ``cur``, committed for the
-        chains alive; a chain freezes at the leaf where it diverges or its
-        sub-tree turns (so a tracked divergent step is written once per
-        sub-tree)."""
+        chains alive (``ops/leaf.py``: on the card the kernels L1 and L2
+        around the value-and-grad, on the CPU their plain versions)."""
         st = self.st
-        alive = st.alive
-        q, p, v, g, mg = st.cur.unbind(1)
-        p_half = p + half * g
-        v_half = v + half * mg
-        q_n = q + step * v_half
+        q_n, drift = leaf_ops.leaf_drift(st.cur, half, step)
         logp_n, g_n = self.leaf_vg(q_n)
-        mg_n = metric.velocity(g_n)
-        p_n = p_half + half * g_n
-        v_n = v_half + half * mg_n
-        leaf = torch.stack([q_n, p_n, v_n, g_n, mg_n], dim=1)
-
-        delta = -logp_n + 0.5 * _rowdot(p_n, v_n) - st.h0
-        bad = ~(delta <= self.max_delta_energy)  # NaN -> True
-        w = torch.where(bad, -torch.inf, -delta)
-        accept = torch.where(bad, 0.0, torch.exp(torch.clamp(-delta, max=0.0)))
-        lsw = torch.logaddexp(st.s_lsw, w)
-        take = alive & (u_leaf[j] < torch.exp(w - lsw))
-        torch.where(take[:, None, None], leaf, st.s_prop, out=st.s_prop)
-        torch.where(take, logp_n, st.s_logp_prop, out=st.s_logp_prop)
-
-        alive3 = alive[:, None, None]
-        torch.where(alive[:, None], st.s_rho + p_n, st.s_rho, out=st.s_rho)
-        if j == 0:
-            torch.where(alive3, leaf, st.first, out=st.first)
-        if j % 2 == 0:
-            row = _popcount32(j >> 1)
-            st.ckpts[:, row] = torch.where(
-                alive3, torch.stack([p_n, v_n, st.s_rho], dim=1), st.ckpts[:, row]
-            )
-            stop = bad
-        else:
-            lo, hi = _leaf_idx_to_ckpt_idxs(j)
-            turned = _is_iterative_turning_b(p_n, v_n, st.s_rho, st.ckpts[:, lo : hi + 1])
-            torch.where(alive, turned, st.s_turn, out=st.s_turn)
-            stop = bad | turned
-
-        if self.track:
-            newly_bad = (alive & bad)[:, None]
-            torch.where(newly_bad, q, st.s_div_edge, out=st.s_div_edge)
-            torch.where(newly_bad, q_n, st.s_div_leaf, out=st.s_div_leaf)
-        torch.where(alive3, leaf, st.cur, out=st.cur)
-        torch.where(alive, lsw, st.s_lsw, out=st.s_lsw)
-        st.s_sum_accept += torch.where(alive, accept, 0.0)
-        st.s_n_leaves += alive
-        st.s_div |= alive & bad
-        alive &= ~stop
+        leaf_ops.leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j,
+                             _leaf_idx_to_ckpt_idxs(j), self.max_delta_energy, self.track)
 
     def _doubling(self, metric, i: int):
         """Doubling i: a sub-tree of 2^i leaves in a random direction from
@@ -361,7 +304,8 @@ class LockstepTree:
     def _capture(self, metric, i: int) -> torch.cuda.CUDAGraph:
         """Capture doubling i into a CUDA graph (no kernel runs), the pairs
         k >= 1 under IF nodes; its band-kernel launches are taken back out
-        of ``cuda_band``'s counts and must be ``per_leaf`` times 2^i."""
+        of ``cuda_band``'s counts and must be ``per_leaf`` times 2^i, and its
+        leaf kernels' out of ``ops/leaf``'s, exactly one of each per leaf."""
         from ..ops import cuda_band, graph_if
 
         device = self.st.eps.device
@@ -373,6 +317,7 @@ class LockstepTree:
         graph.register_generator_state(self.generator)
         before, body_before = cuda_band.counts(), self.if_nodes.body_nodes
         ifs_before = graph_if.LAUNCHES[graph_if.KERNEL]
+        leaf_before = dict(leaf_ops.LAUNCHES)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             self._doubling(metric, i)
@@ -382,7 +327,12 @@ class LockstepTree:
         cuda_band.add_launches({name: -k for name, k in launches.items()})
         if_nodes = graph_if.LAUNCHES[graph_if.KERNEL] - ifs_before
         graph_if.LAUNCHES[graph_if.KERNEL] = ifs_before
+        leaf_launches = {name: k - leaf_before[name] for name, k in leaf_ops.LAUNCHES.items()}
+        leaf_ops.LAUNCHES.update(leaf_before)
         n_leaves = 1 << i
+        if any(k != n_leaves for k in leaf_launches.values()):
+            raise RuntimeError(f"doubling {i}'s graph captured {leaf_launches} leaf-kernel "
+                               f"launches, not one of each per leaf ({n_leaves})")
         if self.per_leaf is None:
             self.per_leaf = {name: k // n_leaves for name, k in launches.items()}
         if any(k != self.per_leaf[name] * n_leaves for name, k in launches.items()):
@@ -407,6 +357,8 @@ class LockstepTree:
         all_done, leaves = self.st.readout.tolist()
         cuda_band.add_launches({name: k * leaves for name, k in self.per_leaf.items()})
         graph_if.LAUNCHES[graph_if.KERNEL] += self.graph_info[i]["if_nodes"]
+        for name in leaf_ops.LAUNCHES:
+            leaf_ops.LAUNCHES[name] += leaves
         return bool(all_done), leaves
 
     # -- the transition ----------------------------------------------------------
@@ -422,7 +374,7 @@ class LockstepTree:
         z = local_draw(torch.randn, self.generator, (c, dim), 0, self.mesh, dtype, device)
         p0 = metric.momentum(z)
         v0 = metric.velocity(p0)
-        st.h0.copy_(-logp + 0.5 * _rowdot(p0, v0))
+        st.h0.copy_(-logp + 0.5 * leaf_ops.rowdot(p0, v0))
         torch.stack([q, p0, v0, grad, metric.velocity(grad)], dim=1, out=st.left)
         st.right.copy_(st.left)
         st.prop.copy_(st.left)

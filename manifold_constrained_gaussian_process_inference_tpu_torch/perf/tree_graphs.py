@@ -18,20 +18,25 @@ gradients and statistics must be equal bit for bit.
 
 A third tree captures every depth up front (0 to max depth - 1), to give
 the graphs the transitions did not reach: per depth its top-level and IF
-body nodes, capture seconds (instantiation included) and pool bytes, and
-the device memory all of them take (``torch.cuda.mem_get_info`` before and
-after); one transition then runs on them.
+body nodes, the nodes per captured leaf, capture seconds (instantiation
+included) and pool bytes, and the device memory all of them take
+(``torch.cuda.mem_get_info`` before and after); one transition then runs on
+them.
 
 Per transition: host wall (after a synchronize), host reads, batched
 leaves, whether it captured a graph. Device time per batched leaf: CUDA
 events around every doubling's replay, over the leaves they ran (the
 skipped pairs' conditions included); the bookkeeping's device time per
 leaf is that less the value-and-grad's replay (CUDA events, mean of
-``VG_REPS``); ``replay_share``: the replays' device time over the host
+``VG_REPS``), and holds the dense metric's product ``velocity_device_ms``
+(timed alike); ``replay_share``: the replays' device time over the host
 wall of the transitions that captured nothing. Idle share: one minus the
 summed kernel durations of a ``torch.profiler`` trace over the host wall
-of ``PROFILE_TRANSITIONS`` transitions, for each tree. Runs on a CUDA card
-only.
+of ``PROFILE_TRANSITIONS`` transitions, for each tree; from the same trace
+the leaf kernels' (ops/leaf.py, L1 and L2) device ms per leaf run and
+their kernel events per leaf (one each, where the trace sees every kernel
+the graphs replay). Launch counts: the band kernels' and the leaf
+kernels'. Runs on a CUDA card only.
 """
 from __future__ import annotations
 
@@ -67,6 +72,23 @@ def _vg_ms(vg, q) -> float:
     return start.elapsed_time(end) / VG_REPS
 
 
+def _graph_ms(fn) -> float:
+    """Device ms of one ``fn()`` from a replayed CUDA graph of ``VG_REPS``
+    calls."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(VG_REPS):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / VG_REPS
+
+
 def _timed_replays(tree):
     """Wrap ``tree._replay`` to time each doubling's replay with CUDA events
     (returns the list the (ms, leaves) pairs go to; a replay right after its
@@ -88,8 +110,10 @@ def _timed_replays(tree):
     return log
 
 
-def _idle_share(run) -> dict:
-    """Kernel-busy and idle share of the card over ``run()``'s host wall."""
+def _idle_share(run, names=()) -> dict:
+    """Kernel-busy and idle share of the card over ``run()``'s host wall,
+    and the summed device ms and events of the kernels whose names hold
+    each of ``names``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -104,13 +128,16 @@ def _idle_share(run) -> dict:
         events = json.loads(path.read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     busy = 1e-6 * sum(e.get("dur", 0.0) for e in kernels)
-    return dict(wall_s=wall, kernel_s=busy, kernels=len(kernels), idle_share=1.0 - busy / wall)
+    named = {name: [e for e in kernels if name in e.get("name", "")] for name in names}
+    return dict(wall_s=wall, kernel_s=busy, kernels=len(kernels), idle_share=1.0 - busy / wall,
+                by_name={name: dict(ms=1e-3 * sum(e.get("dur", 0.0) for e in ev), events=len(ev))
+                         for name, ev in named.items()})
 
 
 def main(argv=None) -> int:
     from ..inference.nuts import DenseMetric
     from ..inference.nuts_batched import LockstepTree
-    from ..ops import cuda_band
+    from ..ops import cuda_band, leaf
     from ..parallel.chains import GraphedValueAndGrad
     from .workload import fn_bench_workload, slice_likelihood
 
@@ -135,6 +162,7 @@ def main(argv=None) -> int:
     eye = torch.eye(dim, dtype=torch.float32, device="cuda")
     metric = DenseMetric(eye, eye, eye)
     vg_ms = _vg_ms(vg, q0)
+    velocity_ms = _graph_ms(lambda: metric.velocity(q0))  # the dense metric's product
 
     runs = {}
     for kind in ("graphed", "eager"):
@@ -144,6 +172,7 @@ def main(argv=None) -> int:
         q, (lp, g) = q0, vg(q0)
         per, outs = [], []
         cuda_band.reset_launches()
+        leaf.reset_launches()
         for _ in range(args.transitions):
             n_graphs, n_log = len(tree.graphs), len(log or ())
             torch.cuda.synchronize()
@@ -156,7 +185,7 @@ def main(argv=None) -> int:
                             captured=len(tree.graphs) > n_graphs,
                             replay_ms=sum(ms for ms, _ in (log or [])[n_log:])))
             outs.append([q, lp, g, *stats[:6]])
-        launches = cuda_band.counts()
+        launches = {**cuda_band.counts(), **leaf.LAUNCHES}
         leaves = sum(p["leaves"] for p in per)
         run = dict(transitions=per, launches=launches, leaves=leaves,
                    ms_per_transition=[1e3 * p["wall_s"] for p in per],
@@ -170,8 +199,14 @@ def main(argv=None) -> int:
                        replay_share=sum(p["replay_ms"] for p in steady)
                        / max(1e3 * sum(p["wall_s"] for p in steady), 1e-9),
                        bookkeeping_device_ms_per_leaf=dev_ms - vg_ms, per_leaf_launches=tree.per_leaf)
-        run["profile"] = _idle_share(lambda: [tree(q, lp, g, eps, metric)
-                                              for _ in range(PROFILE_TRANSITIONS)])
+        traced = []
+        run["profile"] = _idle_share(
+            lambda: traced.extend(tree(q, lp, g, eps, metric) for _ in range(PROFILE_TRANSITIONS)),
+            names=tuple(leaf.LAUNCHES))
+        traced_leaves = sum(out[3].lockstep_leaves for out in traced)
+        run["leaf_kernels_per_leaf"] = {
+            name: dict(device_ms=k["ms"] / traced_leaves, events=k["events"] / traced_leaves)
+            for name, k in run["profile"]["by_name"].items()}
         runs[kind] = (run, outs)
         print(f"[{kind}] " + json.dumps({k: v for k, v in run.items() if k != "transitions"}),
               flush=True)
@@ -186,8 +221,10 @@ def main(argv=None) -> int:
     for i in range(args.max_depth):
         tree.graphs[i] = tree._capture(bound, i)
     torch.cuda.synchronize()
-    all_depths = dict(graphs={i: dict(info) for i, info in sorted(tree.graph_info.items())},
-                      device_bytes=free0 - torch.cuda.mem_get_info()[0])
+    graphs = {i: dict(info, nodes_per_leaf=(info["nodes"] + info["body_nodes"]) / (1 << i))
+              for i, info in sorted(tree.graph_info.items())}
+    all_depths = dict(graphs=graphs, device_bytes=free0 - torch.cuda.mem_get_info()[0],
+                      capture_s=tree.capture_seconds)
     _, lp0, _, stats = tree(q0, *vg(q0), eps, metric)
     all_depths["transition_ok"] = bool(torch.isfinite(lp0).all())
     print("[all depths] " + json.dumps(all_depths), flush=True)
@@ -195,10 +232,12 @@ def main(argv=None) -> int:
     (g_run, g_outs), (e_run, e_outs) = runs["graphed"], runs["eager"]
     first_diff = next((t for t, (a, b) in enumerate(zip(g_outs, e_outs))
                        if not all(torch.equal(x, y) for x, y in zip(a, b))), None)
-    result = dict(device=card, chains=c, dim=dim, vg_device_ms=vg_ms, graphed=g_run, eager=e_run,
+    result = dict(device=card, chains=c, dim=dim, vg_device_ms=vg_ms,
+                  velocity_device_ms=velocity_ms, graphed=g_run, eager=e_run,
                   all_depths=all_depths,
                   bit_equal=first_diff is None, first_differing_transition=first_diff)
-    print(json.dumps(dict(vg_device_ms=vg_ms, bit_equal=first_diff is None,
+    print(json.dumps(dict(vg_device_ms=vg_ms, velocity_device_ms=velocity_ms,
+                          bit_equal=first_diff is None,
                           first_differing_transition=first_diff)), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -36,6 +36,7 @@ from manifold_constrained_gaussian_process_inference_tpu_torch.inference import 
     nuts_batched as nb,
 )
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference import solve as tsolve
+from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf as leaf_ops
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
     MAX_DELTA_ENERGY,
     DenseMetric,
@@ -328,7 +329,7 @@ def test_tracking_keeps_the_draws_and_records_the_divergent_step(monkeypatch):
     leaf)."""
     _, vg = _pocket()
     events = []
-    real_dot = nb._rowdot
+    real_dot = leaf_ops.rowdot  # the tree's row dots: the start energy's and each leaf's
 
     def vg_logged(q):
         lp, g = vg(q)
@@ -361,7 +362,7 @@ def test_tracking_keeps_the_draws_and_records_the_divergent_step(monkeypatch):
     assert any(bool(out[3].diverging.any()) for out in runs[True])
 
     # one tracked transition with the energies logged
-    monkeypatch.setattr(nb, "_rowdot", dot_logged)
+    monkeypatch.setattr(leaf_ops, "rowdot", dot_logged)
     lp, g = vg(q)
     q_n, lp_n, _, stats, (edge, leaf) = nb.nuts_transition_batched(
         vg_logged, q, lp, g, 0.5, metric, torch.Generator().manual_seed(11), max_depth=6,
