@@ -6,13 +6,14 @@ Drives the port's main paths with the likelihood on the band-storage
 layout, so every gradient evaluation runs the hand-written CUDA
 band-matvec kernels: the paired launch (mphi and GC^T on one input) and
 the single launch (GK^T) forward, and their two launches backward. Every
-NUTS path runs its tree as CUDA graphs, one per doubling depth, whose leaf
-pairs sit under IF nodes set by the hand-written one-thread kernel of
-csrc/graph_if.cu (the JAX package's leaf-loop condition on the device);
-each path line prints its host reads per transition, at most the
-transition's doublings + 1. Every leaf of every NUTS tree runs the two
-hand-written kernels of csrc/nuts_leaf.cu around its value-and-grad (L1
-the drift, L2 the commit: the JAX package's fused leaf body). The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
+NUTS path runs its tree as CUDA graphs, one per doubling depth: leaves 0
+and 1, then one WHILE node (csrc/graph_if.cu) whose body is one leaf pair,
+run again while the condition that the commit kernel L2 sets holds (the
+JAX package's leaf loop on the device); each path line prints its host
+reads per transition, at most the transition's doublings + 1. Every leaf
+of every NUTS tree runs the two hand-written kernels of csrc/nuts_leaf.cu
+around its value-and-grad (L1 the drift, L2 the commit: the JAX package's
+fused leaf body, with the leaf counter on the device). The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
 metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
 default ``solve_magi`` (one chain, the diagonal Welford metric, raw Psi) on
 the FitzHugh-Nagumo workload (n=397, D=2); parallel-tempering NUTS on
@@ -40,27 +41,36 @@ Phases:
    chain's outputs at C = 1, 2, 3 and the row tile's threshold's
    neighbours equal its rows of a 128-chain launch (the chain tile) bit
    for bit, in both dtypes, at both grids, the GK^T block and every edge;
-5a. graph-if: the IF node's set kernel against its plain version, the
-   host branch, on GRAPH_IF_NODES conditions (a depth-9 doubling's
-   pairs): the bodies that ran, then again after the conditions flip in
-   place; timed per node from a graph of skipped bodies;
+5a. graph-if: a WHILE node (csrc/graph_if.cu) against its plain version,
+   the host loop: its body one kernel that advances a device counter and
+   sets the condition counter < limit, the limit read from the device, so
+   the replays run GRAPH_WHILE_ITERS iterations, then 0, 1 and 76 after the
+   limit changes in place; timed per iteration;
 5b. leaf: L1 and L2 against their plain versions (ops/leaf.py) from the
-   same inputs at every leaf of a depth-4 sub-tree, at [slice]'s shape
-   (128 chains, dim 799, dense metric), [default]'s (one chain, a diagonal
-   per chain), a shared diagonal (32 chains) and [pt]'s (40 chains, dim 105,
-   one dense metric per rung), track_div_leaf on, float64 (1e-12) and
-   float32 (1e-5; the energy sums to the energy's scale): the decisions
-   (take, divergent, turned, alive) equal where no margin is within the
-   tolerance (the flips within it printed), the state of the chains that
-   agree; each chain's bits at C = 1, 3 and 32 equal to its rows of the
-   128-chain launch; each kernel and its plain version timed per launch
-   from a CUDA graph of 200 launches, beside its bytes bound;
+   same inputs at every leaf of a depth-4 sub-tree, L2 in device-counter
+   mode (the leaf index from the pair counter, as in the tree) and replayed
+   from a CUDA graph, at [slice]'s shape (128 chains, dim 799, dense
+   metric), [default]'s (one chain, a diagonal per chain), a shared
+   diagonal (32 chains) and [pt]'s (40 chains, dim 105, one dense metric
+   per rung), and at [grid]'s dim (6345: p_n, v_n and rho kept in shared
+   memory) and a wider one (20000: kept in place), track_div_leaf on,
+   float64 (1e-12) and float32 (1e-5; the energy sums to the energy's
+   scale): the decisions (take, divergent, turned, alive) equal where no
+   margin is within the tolerance (the flips within it printed), the state
+   of the chains that agree, the pair counter, and on every odd leaf the
+   condition L2 set, read through a WHILE node on its handle, equal to the
+   plain version's (k < 2^4 / 2 and any chain alive); each chain's bits at
+   C = 1, 3 and 32 equal to its rows of the 128-chain launch; each kernel
+   and its plain version timed per launch from a CUDA graph of 200
+   launches, beside its bytes bound and the previous L2 design's time;
 5c. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
    iterations, each run twice through ``solve_magi``: on the graphed tree
    and on the eager tree (the CPU path, chosen by patching
    ``nuts_batched.tree_graphed``); draws, log-densities, every statistic,
    the step sizes, metric and the generator's final state bit for bit, the
-   graphed run's host reads at most its doublings + 1 per transition;
+   graphed run's host reads at most its doublings + 1 per transition; then
+   every depth of a 128-chain [slice] tree captured up front: per depth the
+   leaves captured (min(2^i, 4)), its WHILE node, capture seconds and MiB;
 6. diag-gauss: the diag chain driver on the card at C = 4 on a
    799-dimensional independent Gaussian with scales log-spaced over
    [0.01, 10], trees capped at depth GAUSS_MAX_DEPTH: the draws' variances
@@ -264,12 +274,14 @@ ENVELOPE_MAX_BOOST_DIMS = 16  # per probe: CurvatureEnvelope's max_boost_dims
 # profile: [default] cut to PROFILE_NITER iterations (a trace of the full
 # run would hold millions of events)
 PROFILE_NITER = 20
-# The IF nodes' set kernel (csrc/graph_if.cu): the JAX leaf loop's
-# condition it takes to the device; checked and timed on GRAPH_IF_NODES
-# conditions, a depth-9 doubling's pairs after the first (255)
-GRAPH_IF_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/graph_if.cu"
-GRAPH_IF_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:222"
-GRAPH_IF_NODES, GRAPH_IF_REPS = 255, 20
+# The WHILE node (csrc/graph_if.cu) that keeps the JAX leaf loop on the
+# device: checked and timed at GRAPH_WHILE_ITERS iterations (a depth-9
+# doubling's pairs after the first, 255), then at the limits of
+# GRAPH_WHILE_LIMITS set in place; timed over GRAPH_WHILE_REPS replays
+GRAPH_WHILE_ITERS, GRAPH_WHILE_REPS = 255, 20
+WHILE_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/graph_if.cu"
+WHILE_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:222"
+GRAPH_WHILE_LIMITS = (GRAPH_WHILE_ITERS + 1, 1, 2, 77)
 HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
 # The NUTS leaf's kernels (csrc/nuts_leaf.cu, L1 and L2): the JAX package's
 # fused leaf body they take the place of; checked over one depth-LEAF_DEPTH
@@ -282,13 +294,25 @@ LEAF_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/n
 LEAF_KERNELS = {"nuts_leaf_drift": "drift", "nuts_leaf_commit": "commit"}
 LEAF_SHAPES = {"slice": (128, 799, "dense"), "default": (1, 799, "diag"),
                "shared": (32, 799, "shared"), "pt": (40, 105, "rung")}
+# checked, not timed: L2's other ways of keeping a chain's rows, in shared
+# memory ([grid]'s dim) and in place (three rows over a block's shared memory)
+LEAF_STASH_SHAPES = {"grid": (1, 6345, "diag"), "wide": (2, 20000, "shared")}
+LEAF_SEEDS = {name: k for k, name in enumerate(sorted(LEAF_SHAPES) + list(LEAF_STASH_SHAPES))}
 LEAF_RUNGS, LEAF_DEPTH, LEAF_ROWS, LEAF_REPS = 10, 4, 9, 200
 LEAF_SUBSETS = {1: (5,), 3: (7, 8, 9), 32: tuple(range(32, 64))}
+# L2's previous design (one block per chain passing over its rows three to
+# five times), ms per launch at LEAF_SHAPES on the H100 (PERF.md), printed
+# beside this run's; the target at [slice] is its bytes bound of 0.0029 ms
+# over one half, 0.0058 ms
+LEAF_PREVIOUS_COMMIT_MS = {"slice": 0.00781, "default": 0.00650, "shared": 0.00723,
+                           "pt": 0.00364}
+LEAF_COMMIT_TARGET_MS = 0.0058
 # tree: the cut of each path run graphed and eager ([envelope] with
 # TREE_ENVELOPE_ADAPTS warmup: one window end, then tracked chunks; [pt]'s
 # MAP warm start cut to TREE_PT_MAP_ITERS Adam steps)
 TREE_NITER = {"slice": 60, "default": 20, "pt": 20, "envelope": 50}
 TREE_ENVELOPE_ADAPTS, TREE_PT_MAP_ITERS = 40, 300
+TREE_DEPTHS = 10  # of the tree whose every depth [tree] captures up front
 # counts that differ between the graphed and the eager tree by design
 TREE_HOST_COUNTS = ("host_syncs", "tree_reads", "graph_capture_s")
 
@@ -731,25 +755,23 @@ def phase_kernel(cb):
 
 
 class _Launches:
-    """ops/cuda_band's launch counts with the IF nodes' set kernel
-    (ops/graph_if) and the leaf kernels (ops/leaf) beside them; everything
-    else is cuda_band's."""
+    """ops/cuda_band's launch counts with the leaf kernels' (ops/leaf)
+    beside them; everything else is cuda_band's."""
 
-    def __init__(self, cb, gi):
+    def __init__(self, cb):
         from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
 
-        self._cb, self._gi, self._leaf = cb, gi, leaf
+        self._cb, self._leaf = cb, leaf
 
     def __getattr__(self, name):
         return getattr(self._cb, name)
 
     def reset_launches(self) -> None:
         self._cb.reset_launches()
-        self._gi.LAUNCHES[self._gi.KERNEL] = 0
         self._leaf.reset_launches()
 
     def counts(self) -> dict:
-        return {**self._cb.counts(), **self._gi.LAUNCHES, **self._leaf.LAUNCHES}
+        return {**self._cb.counts(), **self._leaf.LAUNCHES}
 
 
 def _leaf_launches(launches, leaves, what) -> None:
@@ -772,55 +794,74 @@ def _host_reads(d, what) -> str:
             f"{d['graph_capture_s']:.2f} s")
 
 
+def _host_loop(limit: int) -> int:
+    """The WHILE node's plain version: the host's loop of the probe's body
+    (counter += 1 while counter < limit, after the first test upstream)."""
+    k = 1
+    while k < limit:
+        k += 1
+    return k
+
+
 def phase_graph_if():
-    """The IF node's set kernel against the host branch: GRAPH_IF_NODES
-    seeded conditions, each guarding one increment, captured in one graph;
-    replayed, and replayed again after the conditions flip in place; timed
-    per node from replays in which every body is skipped."""
+    """A WHILE node against the host loop: one graph holds a probe kernel
+    (ops/graph_if.probe: counter += 1, the condition set to counter <
+    limit) and a WHILE node whose body is that kernel again; the limit is
+    read from the device, so one capture runs each of GRAPH_WHILE_LIMITS
+    after it is set in place. Timed per iteration from replays of
+    GRAPH_WHILE_ITERS iterations less replays of none."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if as gi
 
     dev = torch.device(DEVICE)
-    preds = torch.as_tensor(np.random.default_rng(0).random(GRAPH_IF_NODES) < 0.5, device=dev)
-    hits = torch.zeros(GRAPH_IF_NODES, device=dev)
-    if_nodes = gi.IfNodes(dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    limit = torch.zeros(1, dtype=torch.int32, device=dev)
+    loops = gi.WhileNodes(dev)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for k in range(GRAPH_IF_NODES):
-            with if_nodes.body(preds[k]):
-                hits[k].add_(1.0)
-    errs = []
-    for _ in range(2):
-        hits.zero_()
+        counter.zero_()
+        handle = loops.handle()
+        gi.probe(handle, counter, limit)  # the first test, upstream of the node
+        loops.loop(handle, lambda: gi.probe(handle, counter, limit))
+    got = {}
+    for lim in GRAPH_WHILE_LIMITS:
+        limit.fill_(lim)
         graph.replay()
-        plain = torch.zeros_like(hits)
-        for k in range(GRAPH_IF_NODES):  # the plain version: the host branch
-            if bool(preds[k]):
-                plain[k].add_(1.0)
-        errs.append(float((hits - plain).abs().max()))
-        preds.logical_not_()  # the graph reads the conditions at each replay
-    preds.zero_()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    graph.replay()
-    start.record()
-    for _ in range(GRAPH_IF_REPS):
+        got[lim] = int(counter.item())
+    want = {lim: _host_loop(lim) for lim in GRAPH_WHILE_LIMITS}
+    err = max(abs(got[lim] - want[lim]) for lim in GRAPH_WHILE_LIMITS)
+
+    def replays_ms(lim):
+        limit.fill_(lim)
         graph.replay()
-    end.record()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAPH_WHILE_REPS):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / GRAPH_WHILE_REPS
+
+    ms = (replays_ms(GRAPH_WHILE_ITERS + 1) - replays_ms(1)) / GRAPH_WHILE_ITERS
+    # the host loop on the card: the counter advanced and the condition read
+    # by the host at every iteration, as the eager tree reads alive.any()
+    counter.zero_()
+    limit.fill_(GRAPH_WHILE_ITERS + 1)
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (GRAPH_IF_REPS * GRAPH_IF_NODES)
     t0 = time.perf_counter()
-    for k in range(GRAPH_IF_NODES):
-        bool(preds[k])
-    plain_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_IF_NODES
-    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=1.0 / HBM_BYTES_PER_MS, bound_by="bytes",
-                  library_ms=None)
-    print(f"[graph-if] {GRAPH_IF_NODES} IF nodes in one CUDA graph (set kernel "
-          f"{gi.KERNEL}, built from {gi.SOURCE.name}): bodies run vs the host branch, max abs "
-          f"err {errs[0]:.1f}, after the conditions flipped in place {errs[1]:.1f}; "
-          f"{if_nodes.body_nodes} body nodes; ms per node (set kernel and the skipped "
-          f"conditional) {ms:.5f} vs the host branch's read {plain_ms:.5f}; bound (one byte "
-          f"read) {timing['bound_ms']:.3e}", flush=True)
-    check(max(errs) == 0.0, f"graph-if: the IF nodes' bodies differ from the host branch {errs}")
-    return max(errs), timing
+    while True:
+        counter.add_(1)
+        if not bool(counter < limit):
+            break
+    plain_ms = 1e3 * (time.perf_counter() - t0) / GRAPH_WHILE_ITERS
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=12 / HBM_BYTES_PER_MS, bound_by="bytes",
+                  library_ms=None, iterations=GRAPH_WHILE_ITERS)
+    print(f"[graph-if] one WHILE node ({gi.SOURCE.name}) against the host loop: counters after "
+          f"the replays at limits {list(GRAPH_WHILE_LIMITS)}: {list(got.values())} (host loop "
+          f"{list(want.values())}), max abs err {err}; {loops.body_nodes} body node; ms per "
+          f"iteration (the body's kernel and the condition) {ms:.5f} vs the host loop's "
+          f"{plain_ms:.5f}; bound (12 bytes) {timing['bound_ms']:.3e}", flush=True)
+    check(err == 0, f"graph-if: the WHILE node ran other iterations than the host loop {got}")
+    return err, timing
 
 
 class _GivenVelocity:
@@ -846,8 +887,8 @@ def _leaf_case(name, dtype):
         DenseMetric, DiagMetric, RungDenseMetric,
     )
 
-    c, dim, kind = LEAF_SHAPES[name]
-    rng = np.random.default_rng(sorted(LEAF_SHAPES).index(name))
+    c, dim, kind = {**LEAF_SHAPES, **LEAF_STASH_SHAPES}[name]
+    rng = np.random.default_rng(LEAF_SEEDS[name])
     put = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)  # noqa: E731
     if kind in ("dense", "rung"):
         k = LEAF_RUNGS if kind == "rung" else 1
@@ -883,7 +924,8 @@ def _leaf_case(name, dtype):
         alive=torch.as_tensor(np.arange(c) % 7 != 6, device=DEVICE),
         h0=0.5 * (scale * q * q).sum(-1) + 0.5 * (p * metric.velocity(p)).sum(-1),
         ckpts=torch.zeros(c, LEAF_ROWS, 3, dim, **f), s_div_edge=torch.zeros(c, dim, **f),
-        s_div_leaf=torch.zeros(c, dim, **f))
+        s_div_leaf=torch.zeros(c, dim, **f),
+        counters=torch.zeros(3, dtype=torch.int32, device=DEVICE))
     signs = np.where(rng.random(c) < 0.5, -1.0, 1.0)
     eps = put(np.geomspace(0.01, 0.5, c) * signs if c > 1 else [0.05])
     u_leaf = put(rng.random((1 << LEAF_DEPTH, c)))
@@ -891,9 +933,11 @@ def _leaf_case(name, dtype):
 
 
 def _clone_state(st, idx=None):
+    """A copy of a leaf state, of chains ``idx`` only where given (the pair
+    counter is the launch's, not a chain's: copied whole)."""
     from types import SimpleNamespace
 
-    return SimpleNamespace(**{k: (t if idx is None else t[idx]).clone()
+    return SimpleNamespace(**{k: (t if idx is None or k == "counters" else t[idx]).clone()
                               for k, t in vars(st).items()})
 
 
@@ -933,12 +977,17 @@ def _leaf_margins(plain_before, drift, q_n, lp, mg, g, half, u, j, rows, tol):
 def _leaf_check(name, dtype, tol):
     """L1 and L2 against their plain versions from the same inputs at every
     leaf of a depth-LEAF_DEPTH sub-tree (the kernels' state restarts from
-    the plain one at each leaf). Returns (max abs errors of L1 and L2's
-    leaf state, flags that differ, of them outside the margin, launches,
-    the decisions seen)."""
+    the plain one at each leaf), both with the pair counter (L2 takes the
+    leaf index from it). L2 runs from a CUDA graph; on an odd leaf with a
+    WHILE node on the handle it sets, whose body (ops/graph_if.probe, limit
+    0) runs once if the condition holds, so the body's count reads the
+    condition L2 set. Returns (max abs errors of L1 and L2's leaf state,
+    flags that differ, of them outside the margin, the decisions seen, the
+    odd leaves whose condition was read)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
     )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if as gi
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
 
     plain, metric, eps, u_leaf, vg = _leaf_case(name, dtype)
@@ -946,6 +995,10 @@ def _leaf_check(name, dtype, tol):
     errs, differ, outside = [0.0, 0.0], Counter(), Counter()
     seen = Counter()
     launches = dict(leaf.LAUNCHES)
+    loops = gi.WhileNodes(DEVICE)
+    ran = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    never = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    conditions = 0
     for j in range(1 << LEAF_DEPTH):
         rows = _leaf_idx_to_ckpt_idxs(j)
         plain.s_div.zero_()  # the kernel's state starts from the plain one, flags lowered
@@ -958,10 +1011,17 @@ def _leaf_check(name, dtype, tol):
         lp, g = vg(q_n)
         mg = metric.velocity(g)
         leaf.leaf_commit_torch(plain, metric, half, drift, q_n, lp, g, u_leaf, j, rows,
-                               MAX_DELTA_ENERGY, True)
+                               MAX_DELTA_ENERGY, True, plain.counters)
         inv_mass = metric.diagonal()
-        leaf.leaf_commit_cuda(kern, half, q_n, lp, g, None if inv_mass is not None else mg,
-                              inv_mass, u_leaf[j], j, rows, MAX_DELTA_ENERGY, True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ran.zero_()
+            handle = loops.handle() if j % 2 else None
+            leaf.leaf_commit_cuda(kern, half, q_n, lp, g, None if inv_mass is not None else mg,
+                                  inv_mass, u_leaf, j % 2, j == 0, MAX_DELTA_ENERGY, True, handle)
+            if handle is not None:
+                loops.loop(handle, lambda: gi.probe(handle, ran, never))
+        graph.replay()
         torch.cuda.synchronize()
         near, scale = _leaf_margins(before, drift, q_n, lp, mg, g, half, u_leaf[j], j, rows, tol)
         alive0 = before.alive
@@ -977,6 +1037,18 @@ def _leaf_check(name, dtype, tol):
             outside[what] += int((diff & ~near_any).sum())
             agree &= ~diff
             seen[what] += int((alive0 & a).sum())
+        # the pair counter, and the condition L2 set (where no chain's alive
+        # flag flipped within its margin): in counters[2] and in its handle
+        k, arrived, cond = kern.counters.tolist()
+        check(k == plain.counters[0].item() == (j + 1) // 2 and arrived == 0,
+              f"leaf {name} {dtype} leaf {j}: counters {kern.counters.tolist()}, plain "
+              f"{plain.counters.tolist()}")
+        if j % 2 and torch.equal(plain.alive, kern.alive):
+            want = int(plain.counters[2].item())
+            check(cond == want and int(ran.item()) == want,
+                  f"leaf {name} {dtype} leaf {j}: condition {cond}, through the handle "
+                  f"{int(ran.item())}, plain {want}")
+            conditions += 1
         # the state of the chains whose decisions agree: rows relative to
         # their largest magnitude, the energy sums to the energy scale
         for key in ("cur", "s_prop", "first", "s_rho", "ckpts", "s_div_edge", "s_div_leaf",
@@ -999,14 +1071,15 @@ def _leaf_check(name, dtype, tol):
     made = {k: leaf.LAUNCHES[k] - launches[k] for k in launches}
     check(made == dict.fromkeys(launches, 1 << LEAF_DEPTH),
           f"leaf {name}: {made} launches for {1 << LEAF_DEPTH} leaves")
-    return errs, dict(differ), dict(outside), dict(seen)
+    return errs, dict(differ), dict(outside), dict(seen), conditions
 
 
 def _leaf_sub_batches(dtype):
     """Each chain's bits at LEAF_SUBSETS' chain counts against its rows of a
-    LEAF_SHAPES["slice"] launch, L1 and L2, at every leaf of the sub-tree."""
+    LEAF_SHAPES["slice"] launch, L1 and L2, at every leaf of the sub-tree
+    (each launch with its own pair counter, which must advance alike)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
-        MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
+        MAX_DELTA_ENERGY,
     )
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
 
@@ -1014,7 +1087,6 @@ def _leaf_sub_batches(dtype):
     half, step = (0.5 * eps)[:, None], eps[:, None]
     same = True
     for j in range(1 << LEAF_DEPTH):
-        rows = _leaf_idx_to_ckpt_idxs(j)
         subs = {n: (torch.as_tensor(idx, device=DEVICE), _clone_state(full, list(idx)))
                 for n, idx in LEAF_SUBSETS.items()}
         q_n = leaf.leaf_drift_cuda(full.cur, half, step)
@@ -1025,11 +1097,15 @@ def _leaf_sub_batches(dtype):
             same &= torch.equal(q_s, q_n[idx])
             leaf.leaf_commit_cuda(sub, half[idx], q_n[idx].contiguous(), lp[idx].contiguous(),
                                   g[idx].contiguous(), mg[idx].contiguous(), None,
-                                  u_leaf[j][idx].contiguous(), j, rows, MAX_DELTA_ENERGY, True)
-        leaf.leaf_commit_cuda(full, half, q_n, lp, g, mg, None, u_leaf[j], j, rows,
+                                  u_leaf[:, idx].contiguous(), j % 2, j == 0, MAX_DELTA_ENERGY,
+                                  True)
+        leaf.leaf_commit_cuda(full, half, q_n, lp, g, mg, None, u_leaf, j % 2, j == 0,
                               MAX_DELTA_ENERGY, True)
         for n, (idx, sub) in subs.items():
+            same &= bool(sub.counters[0] == full.counters[0])  # the pair counter
             for k in vars(full):
+                if k == "counters":
+                    continue
                 a, b = getattr(sub, k), getattr(full, k)[idx]
                 same &= torch.equal(a, b) if a.dtype == torch.bool else (
                     torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(),
@@ -1041,9 +1117,12 @@ def _leaf_kernel_times(name):
     """Device ms per launch of L1 and L2 and of their plain versions at
     LEAF_SHAPES[name] in float32, each from a replayed CUDA graph of
     LEAF_REPS launches over the sub-tree's leaves in turn (every chain alive
-    and taking: alive set before each launch, whose own time is taken out;
-    the uniforms 0, no divergent chain), with the bound of each from the
-    bytes it must move at 3.35 TB/s."""
+    and taking: alive set before each launch and L2's pair counter zeroed
+    before each sub-tree, whose own time is taken out; the uniforms 0, no
+    divergent chain), with the bound of each from the bytes it must move at
+    3.35 TB/s. L2 runs in device-counter mode, as in the tree (an odd leaf's
+    arrivals and condition included); its plain version with the host's
+    j."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
     )
@@ -1075,18 +1154,22 @@ def _leaf_kernel_times(name):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / len(js)
 
-    def commit_kernel(j=0):
+    def prepare(j=0):
         st.alive.fill_(True)
+        if j == 0:
+            st.counters.zero_()
+
+    def commit_kernel(j=0):
+        prepare(j)
         leaf.leaf_commit_cuda(st, half, q_n, lp, g, None if inv_mass is not None else mg,
-                              inv_mass, u_zero[j], j, _leaf_idx_to_ckpt_idxs(j),
-                              MAX_DELTA_ENERGY, False)
+                              inv_mass, u_zero, j % 2, j == 0, MAX_DELTA_ENERGY, False)
 
     def commit_plain(j=0):
-        st.alive.fill_(True)
+        prepare(j)
         leaf.leaf_commit_torch(st, given, half, drift, q_n, lp, g, u_zero, j,
                                _leaf_idx_to_ckpt_idxs(j), MAX_DELTA_ENERGY, False)
 
-    fill = timed(lambda j=0: st.alive.fill_(True))
+    fill = timed(prepare)
     out = {
         "drift": dict(ms=timed(lambda j=0: leaf.leaf_drift_cuda(st.cur, half, step)),
                       plain_ms=timed(lambda j=0: leaf.leaf_drift_torch(st.cur, half, step)),
@@ -1106,33 +1189,42 @@ def _leaf_kernel_times(name):
 
 def phase_leaf():
     """[leaf]: the NUTS leaf's kernels (csrc/nuts_leaf.cu) against their
-    plain versions on the card at LEAF_SHAPES, float64 and float32; a
-    chain's bits at LEAF_SUBSETS' chain counts; device times."""
-    errs, parts = {}, []
-    for name in LEAF_SHAPES:
+    plain versions on the card at LEAF_SHAPES and LEAF_STASH_SHAPES, float64
+    and float32, L2 in device-counter mode; a chain's bits at LEAF_SUBSETS'
+    chain counts; device times at LEAF_SHAPES."""
+    errs, parts, conditions = {}, [], 0
+    for name, (c, _, _) in {**LEAF_SHAPES, **LEAF_STASH_SHAPES}.items():
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
-            e, differ, outside, seen = _leaf_check(name, dtype, tol)
+            e, differ, outside, seen, n_cond = _leaf_check(name, dtype, tol)
             errs[name, dtype] = e
-            parts.append(f"{name} {LEAF_SHAPES[name]} {str(dtype)[6:]}: max abs err L1 "
-                         f"{e[0]:.2e}, L2 state {e[1]:.2e}; flags differing {differ} (outside "
-                         f"the margin {outside}); decisions seen {seen}")
+            conditions += n_cond
+            parts.append(f"{name} {({**LEAF_SHAPES, **LEAF_STASH_SHAPES})[name]} "
+                         f"{str(dtype)[6:]}: max abs err L1 {e[0]:.2e}, L2 state {e[1]:.2e}; "
+                         f"flags differing {differ} (outside the margin {outside}); decisions "
+                         f"seen {seen}")
             check(not any(outside.values()),
                   f"leaf {name} {dtype}: decisions differ outside their margin {outside}")
-            if LEAF_SHAPES[name][0] > 2:
+            if c > 2:
                 check(seen.get("take", 0) and seen.get("bad", 0) and seen.get("turned", 0),
                       f"leaf {name} {dtype}: decisions not all seen {seen}")
     same = {str(dtype)[6:]: _leaf_sub_batches(dtype) for dtype in (torch.float64, torch.float32)}
     times = {name: _leaf_kernel_times(name) for name in LEAF_SHAPES}
     t = times["slice"]
     print("[leaf] L1 nuts_leaf_drift and L2 nuts_leaf_commit (csrc/nuts_leaf.cu) vs their plain "
-          f"versions over a depth-{LEAF_DEPTH} sub-tree, track_div_leaf on: " + "; ".join(parts)
-          + f"; a chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of a "
+          f"versions over a depth-{LEAF_DEPTH} sub-tree, track_div_leaf on, L2 with the pair "
+          "counter: " + "; ".join(parts)
+          + f"; the pair counter equal at every leaf, the condition L2 set (read through a WHILE "
+          f"node on its handle) equal to the plain version's at {conditions} odd leaves; a "
+          f"chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of a "
           f"{LEAF_SHAPES['slice'][0]}-chain launch: {same}; ms per launch (float32, graph of "
-          f"{LEAF_REPS}) kernel / plain / bytes bound: "
+          f"{LEAF_REPS}) kernel / plain / bytes bound, L2 beside its previous design's: "
           + ", ".join(f"{n} L1 {v['drift']['ms']:.5f} / {v['drift']['plain_ms']:.5f} / "
                       f"{v['drift']['bound_ms']:.5f}, L2 {v['commit']['ms']:.5f} / "
-                      f"{v['commit']['plain_ms']:.5f} / {v['commit']['bound_ms']:.5f}"
-                      for n, v in times.items()), flush=True)
+                      f"{v['commit']['plain_ms']:.5f} / {v['commit']['bound_ms']:.5f} (previous "
+                      f"{LEAF_PREVIOUS_COMMIT_MS[n]:.5f})"
+                      for n, v in times.items())
+          + f"; L2 at slice within the target {LEAF_COMMIT_TARGET_MS} ms: "
+          f"{t['commit']['ms'] <= LEAF_COMMIT_TARGET_MS}", flush=True)
     check(all(same.values()), f"leaf: a chain's bits depend on the launch's chain count {same}")
     max_err = {"drift": max(e[0] for e in errs.values()),
                "commit": errs["slice", torch.float32][1]}
@@ -1228,9 +1320,53 @@ def phase_tree(mt, y, t):
         if diff:
             failed.append(name)
         check(ed["tree_reads"] > gd["tree_reads"], f"tree {name}: the eager run read no more")
-    print("[tree] graphed vs eager tree through solve_magi on the card: " + "; ".join(parts),
-          flush=True)
+    depths = _tree_capture_depths()
+    print("[tree] graphed vs eager tree through solve_magi on the card: " + "; ".join(parts)
+          + "; " + depths, flush=True)
     check(not failed, f"tree: the graphed and eager trees differ on {failed}")
+
+
+def _tree_capture_depths() -> str:
+    """Every depth of a graphed [slice] tree (N_CHAINS chains, the replayed
+    value-and-grad of perf/tree_graphs.py) captured up front: each depth
+    holds min(2^i, 4) leaves, from depth 2 under one WHILE node; per depth
+    the capture seconds and the pools' MiB, and one transition on them."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        DenseMetric,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
+        GraphedValueAndGrad,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.tree_graphs import (
+        STEP_RANGE, capture_all_depths,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
+        fn_bench_workload, slice_likelihood,
+    )
+
+    y, t = fn_bench_workload()
+    lik = slice_likelihood(y, t, 20)
+    dim = lik.dimension
+    f = dict(dtype=torch.float32, device=DEVICE)
+    q0 = torch.as_tensor(0.5 * np.random.default_rng(0).normal(size=(N_CHAINS, dim)), **f)
+    eye = torch.eye(dim, **f)
+    out = capture_all_depths(
+        GraphedValueAndGrad(lik.vg("band"), q0), q0,
+        torch.as_tensor(np.geomspace(*STEP_RANGE, N_CHAINS), **f), DenseMetric(eye, eye, eye),
+        TREE_DEPTHS, torch.Generator(device=DEVICE).manual_seed(7))
+    g = out["graphs"]
+    for i, info in g.items():
+        check(info["captured_leaves"] == min(1 << i, 4) and info["while_nodes"] == int(i >= 2),
+              f"tree: depth {i} captured {info['captured_leaves']} leaves, "
+              f"{info['while_nodes']} WHILE nodes")
+    check(out["transition_ok"], "tree: a transition on the captured graphs is not finite")
+    return (f"{TREE_DEPTHS} depths of a {N_CHAINS}-chain [slice] tree captured up front: leaves "
+            f"captured {[info['captured_leaves'] for info in g.values()]}, WHILE nodes "
+            f"{sum(info['while_nodes'] for info in g.values())}, nodes per doubling graph "
+            f"{[info['nodes'] + info['body_nodes'] for info in g.values()]}, capture s "
+            f"{[round(info['capture_s'], 3) for info in g.values()]} (total "
+            f"{out['capture_s']:.3f}), pool MiB {[round(info['pool_bytes'] / 2**20, 1) for info in g.values()]}, "
+            f"device MiB {out['device_bytes'] / 2**20:.1f}")
 
 
 def _per_vg(launches, vg_evals, what, chains, one_chain_evals=0):
@@ -1785,7 +1921,7 @@ def _mesh_solve(rank, mesh, y, t):
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.whiten import (
         make_centered_whitened_vg,
     )
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band, graph_if
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.chains import (
         GRAPH_WARMUP_CALLS,
     )
@@ -1793,7 +1929,7 @@ def _mesh_solve(rank, mesh, y, t):
         SIGMA_TRUE, THETA_TRUE,
     )
 
-    cb = _Launches(cuda_band, graph_if)
+    cb = _Launches(cuda_band)
     cb.reset_launches()
     t0 = time.perf_counter()
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**slice_config(MESH_NITER)),
@@ -1914,7 +2050,6 @@ def _grid_rank(rank, grid_file):
     spawned processes took ~0.3 s per MB)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.models import FN_SYSTEM
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band as cb
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import (
         make_grid_mesh, make_grid_value_and_grad, run_chains,
     )
@@ -1954,7 +2089,7 @@ def _grid_rank(rank, grid_file):
                            replay_equal=bool(np.array_equal(host[0], host[2])
                                              and np.array_equal(host[1], host[3])),
                            eager=eager, replayed=replayed, ms=wall_ms(lambda: graphed(x)))
-    counted = _Launches(cb, graph_if)  # the eager tree's leaf kernels too
+    counted = _Launches(cb)  # the eager tree's leaf kernels too
     counted.reset_launches()
     t0 = time.perf_counter()
     samples, info = run_chains(vg, psi[:1], torch.Generator(device=DEVICE).manual_seed(11),
@@ -2443,14 +2578,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     import manifold_constrained_gaussian_process_inference_tpu_torch as mt
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band, graph_if
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import band_timing as bt
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
         fn_bench_workload,
     )
 
     t_start = time.perf_counter()
-    cb = _Launches(cuda_band, graph_if)
+    cb = _Launches(cuda_band)
     smi = phase_device()
     phase_build(cb)
     y, t = fn_bench_workload()
@@ -2483,10 +2618,7 @@ def main() -> int:
     main_err, timing = out["kernel"]
     grid_label = lambda op: "grid_single" if op == "single" else "grid_pair"  # noqa: E731
     tiles_by_path = {path: {tile: p[0][tile] for tile in cb.TILES} for path, p in paths.items()}
-    if_err, if_timing = out["graph-if"]
-    if_launches = {path: p[0].get(graph_if.KERNEL) for path, p in paths.items()}
-    for path in ("default", "slice", "pt", "envelope"):
-        check(if_launches[path] > 0, f"{path}: no IF-node set kernel launched")
+    _, while_timing = out["graph-if"]
     leaf_err, leaf_timing = out["leaf"]
     for path in ("default", "families", "slice", "pt", "envelope", "profile", "mesh", "grid"):
         check(all(paths[path][0][name] > 0 for name in LEAF_KERNELS),
@@ -2505,15 +2637,12 @@ def main() -> int:
         "grid": {"shape": bt.SHAPES[grid_label(op)], **timing[(grid_label(op), op)]},
         "grid_c1": timing[(grid_label(op) + "_c1", op)],
     } for name, op in KERNELS.items()] + [{
-        "name": graph_if.KERNEL, "route": "cuda", "source": GRAPH_IF_SOURCE,
-        "replaces": GRAPH_IF_REPLACES,
-        "launches": sum(k for k in if_launches.values() if k is not None),
-        "launches_by_path": if_launches, "max_abs_err": if_err, **if_timing,
-    }] + [{
         "name": name, "route": "cuda", "source": LEAF_SOURCE, "replaces": LEAF_REPLACES,
         "launches": sum(p[0][name] for p in paths.values()),
         "launches_by_path": {path: p[0][name] for path, p in paths.items()},
         "max_abs_err": leaf_err[key], **leaf_timing[key],
+        **({"while_condition": dict(while_timing, source=WHILE_SOURCE,
+                                    replaces=WHILE_REPLACES)} if key == "commit" else {}),
     } for name, key in LEAF_KERNELS.items()], "ms_per_leaf": {
         path: paths[path][2] for path in ("default", "slice", "pt", "mesh", "envelope")},
         "ms_per_chees_leapfrog_step": paths["chees"][2]}))

@@ -15,22 +15,27 @@ run while any chain is not done and, inside a doubling, the leaves while
 any chain is alive (two ``lax.while_loop``s). Here a doubling of depth i is
 one function (``LockstepTree._doubling``) over a tree state held in
 preallocated (C, ...) buffers that it updates in place. Its 2^i leaves run
-in pairs (2k, 2k+1); pair k >= 1 runs only if some chain is still alive
-(``_when``), which is the JAX leaf loop's condition read where its U-turn
-checks run. The checkpoint rows a leaf writes or checks (popcount(j >> 1))
-are constants of the depth. That one function runs two ways:
+in pairs (2k, 2k+1); pair k >= 1 runs only if some chain is still alive,
+which is the JAX leaf loop's condition read where its U-turn checks run.
+That one function runs two ways:
 
 - on the card it is captured lazily into one CUDA graph per depth, with
-  the value-and-grad's own eager function inside it and each pair k >= 1
-  under an IF node that the device evaluates at every replay
-  (``ops/graph_if.py``); the host replays one graph per doubling and reads
-  the done flags and the leaves run (a device counter) once after it, so a
-  transition of d doublings costs d host reads;
+  the value-and-grad's own eager function inside it: leaves 0 and 1, then
+  (from depth 2) one WHILE node whose body is one pair
+  (``ops/graph_if.py``). The leaf index is a device counter: the commit
+  kernel of each odd leaf advances the pair counter and sets the node's
+  condition, k < 2^i / 2 and any chain alive (``ops/leaf.py``, L2), so the
+  device runs exactly the pairs the eager loop runs, and a doubling's graph
+  holds at most four leaves whatever its depth. The host replays one graph
+  per doubling and reads the done flags and the leaves run (a device
+  counter) once after it, so a transition of d doublings costs d host
+  reads;
 - eagerly (on the CPU, and on the card for a value-and-grad that ends in a
   collective, which a graph cannot capture: ``tree_graphed``) the host
   reads ``alive.any()`` before each pair k >= 1 and ``done.all()`` after
   each doubling but the last possible one, about L/2 + d reads for L
-  batched leaves.
+  batched leaves. On the CPU the checkpoint rows a leaf writes or checks
+  (popcount(j >> 1)) are the host's constants of the leaf.
 
 Both make the same draws and the same arithmetic, so they give the same
 bits. ``NutsStats.host_syncs`` counts the reads.
@@ -98,16 +103,9 @@ def tree_graphed(device, vg_b) -> bool:
     return torch.device(device).type == "cuda" and getattr(vg_b, "reduce", None) is None
 
 
-def _when(pred: torch.Tensor, body: Callable[[], None], if_nodes=None) -> bool:
-    """Run ``body()`` if the one-element bool ``pred`` holds. Under CUDA
-    graph capture the body becomes an IF node of the graph (``if_nodes``,
-    ``ops/graph_if.IfNodes``), which the device evaluates at every replay;
-    otherwise the host reads ``pred``. Returns False if the host skipped the
-    body."""
-    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
-        with if_nodes.body(pred):
-            body()
-        return True
+def _when(pred: torch.Tensor, body: Callable[[], None]) -> bool:
+    """Run ``body()`` if the one-element bool ``pred`` holds, read on the
+    host (the eager tree's leaf loop). Returns False if it skipped it."""
     if not bool(pred):
         return False
     body()
@@ -118,10 +116,12 @@ class _TreeState:
     """The transition's buffers, (C, ...) on the chains' device, updated in
     place: the trajectory (``left``, ``right``, ``rho``, ``prop`` ...), the
     sub-tree a doubling builds (``cur``, ``first``, ``s_*``, ``alive``,
-    ``ckpts`` = [p, v, rho] per checkpoint row) and ``readout`` = (all
-    chains done, leaves run by the last doubling)."""
+    ``ckpts`` = [p, v, rho] per checkpoint row), ``readout`` = (all
+    chains done, leaves run by the last doubling) and, with ``counters``,
+    the leaf kernel's (3,) int32 [pair counter, blocks arrived, the leaf
+    loop's condition] (``ops/leaf.py``)."""
 
-    def __init__(self, c, dim, dtype, device, max_depth, track):
+    def __init__(self, c, dim, dtype, device, max_depth, track, counters):
         self.key = (c, dim, dtype, device)
         f = dict(dtype=dtype, device=device)
         b = dict(dtype=torch.bool, device=device)
@@ -137,6 +137,7 @@ class _TreeState:
         self.ckpts = torch.zeros((c, max(max_depth - 1, 1), 3, dim), **f)
         self.n_run = torch.zeros((), dtype=torch.int64, device=device)
         self.readout = torch.zeros(2, dtype=torch.int64, device=device)
+        self.counters = torch.zeros(3, dtype=torch.int32, device=device) if counters else None
         if track:
             self.div_edge, self.div_leaf, self.s_div_edge, self.s_div_leaf = (
                 torch.zeros((c, dim), **f) for _ in range(4))
@@ -151,16 +152,16 @@ class LockstepTree:
 
     ``graphed`` (default ``tree_graphed(generator.device, vg_b)``): run each
     doubling as a CUDA graph captured at its first use (``graphs``, by
-    depth; ``graph_info`` has each one's top-level and IF-body node counts,
-    capture seconds and memory-pool bytes). The graph captures
+    depth; ``graph_info`` has each one's top-level and WHILE-body node
+    counts, WHILE nodes, captured leaves, capture seconds and memory-pool
+    bytes). The graph captures
     ``vg_b.eager`` where ``vg_b`` has one (a ``GraphedValueAndGrad``'s own
     function: a replay cannot be captured), and reads by address the
     tree's copies of the step sizes and the metric, which each call writes
     in place. A value-and-grad's band-kernel launches are counted at its
     first capture, per leaf, and each replay adds them times the leaves it
     ran (``ops/cuda_band``), the leaf kernels' likewise (``ops/leaf``, one
-    of each per leaf), and the IF nodes' set-kernel launches of its graph
-    (``ops/graph_if``). A capture or a replay that fails raises."""
+    of each per leaf). A capture or a replay that fails raises."""
 
     def __init__(self, vg_b, generator: torch.Generator, max_depth: int = 10,
                  max_delta_energy: float = MAX_DELTA_ENERGY, mesh=None,
@@ -171,7 +172,7 @@ class LockstepTree:
         self.graphed = tree_graphed(generator.device, vg_b) if graphed is None else bool(graphed)
         self.leaf_vg = getattr(vg_b, "eager", vg_b) if self.graphed else vg_b
         self.st = self.metric = None
-        self.if_nodes = self.pool = self.stream = None  # of the graphs, made at the first capture
+        self.loops = self.pool = self.stream = None  # of the graphs, made at the first capture
         self.graphs, self.graph_info = {}, {}
         self.per_leaf = None  # band-kernel launches per leaf in a graph
 
@@ -189,7 +190,8 @@ class LockstepTree:
         c, dim = q.shape
         key = (c, dim, q.dtype, q.device)
         if self.st is None or self.st.key != key:
-            self.st = _TreeState(c, dim, q.dtype, q.device, self.max_depth, self.track)
+            self.st = _TreeState(c, dim, q.dtype, q.device, self.max_depth, self.track,
+                                 counters=self.graphed or q.device.type == "cuda")
             self.graphs.clear()
         self.st.eps.copy_(torch.as_tensor(step_size, dtype=q.dtype, device=q.device).expand(c))
         if not self.graphed:
@@ -210,20 +212,26 @@ class LockstepTree:
 
     # -- one leaf, one doubling ------------------------------------------------
 
-    def _leaf(self, metric, half, step, u_leaf, j: int) -> None:
+    def _leaf(self, metric, half, step, u_leaf, j: int, handle=None) -> None:
         """Leapfrog step j of the sub-tree from ``cur``, committed for the
         chains alive (``ops/leaf.py``: on the card the kernels L1 and L2
-        around the value-and-grad, on the CPU their plain versions)."""
+        around the value-and-grad, L2 taking the leaf index from the pair
+        counter and setting ``handle``'s condition; on the CPU their plain
+        versions)."""
         st = self.st
         q_n, drift = leaf_ops.leaf_drift(st.cur, half, step)
         logp_n, g_n = self.leaf_vg(q_n)
         leaf_ops.leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j,
-                             _leaf_idx_to_ckpt_idxs(j), self.max_delta_energy, self.track)
+                             _leaf_idx_to_ckpt_idxs(j), self.max_delta_energy, self.track,
+                             handle)
 
-    def _doubling(self, metric, i: int):
+    def _doubling(self, metric, i: int, loops=None):
         """Doubling i: a sub-tree of 2^i leaves in a random direction from
-        the trajectory's edge, merged into the trajectory. Returns the
-        leaves run and the host reads made (both meaningful when eager)."""
+        the trajectory's edge, merged into the trajectory. ``loops`` (under
+        capture, ``ops/graph_if.WhileNodes``): the pairs after the first run
+        under one WHILE node whose condition the odd leaves' commits set.
+        Returns the leaves run and the host reads made (both meaningful when
+        eager)."""
         st = self.st
         c = st.done.shape[0]
         dtype, device = st.eps.dtype, st.eps.device
@@ -243,29 +251,37 @@ class LockstepTree:
         st.s_lsw.fill_(-torch.inf)
         st.alive.copy_(upd)
         st.ckpts[:, : max(i, 1)].zero_()
+        if st.counters is not None:
+            st.counters.zero_()
         if self.track:
             st.s_div_edge.zero_()
             st.s_div_leaf.zero_()
+        # contiguous: a mesh's block of columns is copied out of the full draw
         u_leaf = local_draw(torch.rand, self.generator, (n_leaves, c), 1, self.mesh, dtype,
-                            device)
+                            device).contiguous()
         half = (0.5 * eps_signed)[:, None]
         step = eps_signed[:, None]
+        handle = loops.handle() if loops is not None and n_leaves >= 4 else None
 
         def pair(k):
-            self._leaf(metric, half, step, u_leaf, 2 * k)
-            self._leaf(metric, half, step, u_leaf, 2 * k + 1)
+            self._leaf(metric, half, step, u_leaf, 2 * k, handle)
+            self._leaf(metric, half, step, u_leaf, 2 * k + 1, handle)
             st.n_run.add_(2)
 
         leaves = min(n_leaves, 2)
         st.n_run.fill_(leaves)
         for j in range(leaves):
-            self._leaf(metric, half, step, u_leaf, j)
+            self._leaf(metric, half, step, u_leaf, j, handle)
         reads = 0
-        for k in range(1, n_leaves // 2):
-            reads += 1
-            if not _when(st.alive.any(), lambda k=k: pair(k), self.if_nodes):
-                break
-            leaves += 2
+        if handle is not None:
+            # the device's loop: each pair's leaf index from the pair counter
+            loops.loop(handle, lambda: pair(1))
+        else:
+            for k in range(1, n_leaves // 2):
+                reads += 1
+                if not _when(st.alive.any(), lambda k=k: pair(k)):
+                    break
+                leaves += 2
 
         # the sub-tree's last leaf is the new outer edge in its direction
         valid = upd & ~(st.s_div | st.s_turn)
@@ -302,53 +318,53 @@ class LockstepTree:
     # -- the CUDA graphs -------------------------------------------------------
 
     def _capture(self, metric, i: int) -> torch.cuda.CUDAGraph:
-        """Capture doubling i into a CUDA graph (no kernel runs), the pairs
-        k >= 1 under IF nodes; its band-kernel launches are taken back out
-        of ``cuda_band``'s counts and must be ``per_leaf`` times 2^i, and its
-        leaf kernels' out of ``ops/leaf``'s, exactly one of each per leaf."""
+        """Capture doubling i into a CUDA graph (no kernel runs): leaves 0
+        and 1, and from depth 2 one WHILE node whose body is one leaf pair,
+        so min(2^i, 4) leaves. Its band-kernel launches are taken back out of
+        ``cuda_band``'s counts and must be ``per_leaf`` times the captured
+        leaves, and its leaf kernels' out of ``ops/leaf``'s, exactly one of
+        each per captured leaf."""
         from ..ops import cuda_band, graph_if
 
         device = self.st.eps.device
-        if self.if_nodes is None:
-            self.if_nodes = graph_if.IfNodes(device)
+        if self.loops is None:
+            self.loops = graph_if.WhileNodes(device)
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before, body_before = cuda_band.counts(), self.if_nodes.body_nodes
-        ifs_before = graph_if.LAUNCHES[graph_if.KERNEL]
+        before, body_before = cuda_band.counts(), self.loops.body_nodes
         leaf_before = dict(leaf_ops.LAUNCHES)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            self._doubling(metric, i)
+            self._doubling(metric, i, self.loops)
             nodes = graph_if.capture_nodes(self.stream)
         seconds = time.perf_counter() - t0
         launches = {name: k - before[name] for name, k in cuda_band.counts().items()}
         cuda_band.add_launches({name: -k for name, k in launches.items()})
-        if_nodes = graph_if.LAUNCHES[graph_if.KERNEL] - ifs_before
-        graph_if.LAUNCHES[graph_if.KERNEL] = ifs_before
         leaf_launches = {name: k - leaf_before[name] for name, k in leaf_ops.LAUNCHES.items()}
         leaf_ops.LAUNCHES.update(leaf_before)
-        n_leaves = 1 << i
-        if any(k != n_leaves for k in leaf_launches.values()):
+        captured = min(1 << i, 4)
+        if any(k != captured for k in leaf_launches.values()):
             raise RuntimeError(f"doubling {i}'s graph captured {leaf_launches} leaf-kernel "
-                               f"launches, not one of each per leaf ({n_leaves})")
+                               f"launches, not one of each per captured leaf ({captured})")
         if self.per_leaf is None:
-            self.per_leaf = {name: k // n_leaves for name, k in launches.items()}
-        if any(k != self.per_leaf[name] * n_leaves for name, k in launches.items()):
+            self.per_leaf = {name: k // captured for name, k in launches.items()}
+        if any(k != self.per_leaf[name] * captured for name, k in launches.items()):
             raise RuntimeError(f"doubling {i}'s graph captured {launches} band-kernel launches, "
-                               f"not {self.per_leaf} per leaf times {n_leaves}")
-        pools = (self.pool, self.if_nodes.pool)
+                               f"not {self.per_leaf} per leaf times {captured}")
+        pools = (self.pool, self.loops.pool)
         pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                          if tuple(seg.get("segment_pool_id", ())) in pools)
-        self.graph_info[i] = dict(nodes=nodes, body_nodes=self.if_nodes.body_nodes - body_before,
-                                  if_nodes=if_nodes, capture_s=seconds, pool_bytes=pool_bytes)
+        self.graph_info[i] = dict(nodes=nodes, body_nodes=self.loops.body_nodes - body_before,
+                                  while_nodes=int(captured == 4), captured_leaves=captured,
+                                  capture_s=seconds, pool_bytes=pool_bytes)
         return graph
 
     def _replay(self, metric, i: int):
         """Doubling i from its graph, then one host read: (all chains done,
         leaves run)."""
-        from ..ops import cuda_band, graph_if
+        from ..ops import cuda_band
 
         graph = self.graphs.get(i)
         if graph is None:
@@ -356,7 +372,6 @@ class LockstepTree:
         graph.replay()
         all_done, leaves = self.st.readout.tolist()
         cuda_band.add_launches({name: k * leaves for name, k in self.per_leaf.items()})
-        graph_if.LAUNCHES[graph_if.KERNEL] += self.graph_info[i]["if_nodes"]
         for name in leaf_ops.LAUNCHES:
             leaf_ops.LAUNCHES[name] += leaves
         return bool(all_done), leaves

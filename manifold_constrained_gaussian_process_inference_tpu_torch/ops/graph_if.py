@@ -1,27 +1,32 @@
-"""IF nodes in the CUDA graphs that PyTorch captures (csrc/graph_if.cu).
+"""WHILE nodes in the CUDA graphs that PyTorch captures (csrc/graph_if.cu).
 
-The JAX package's NUTS keeps its lockstep loops on the device: the leaf
-loop of a doubling runs while ``any(alive)`` (``lax.while_loop``,
+The JAX package's NUTS keeps its leaf loop on the device: the leaves of a
+doubling run while ``(j < num_leaves) & any(alive)`` (a ``lax.while_loop``,
 inference/nuts_batched.py). The port captures a doubling in a CUDA graph
-(``inference/nuts_batched.LockstepTree``), and there a leaf pair that no
-chain needs is skipped by a conditional node: a one-thread kernel sets the
-node's flag from a device bool at each replay, and the device runs or
-skips the node's body, with no read on the host.
+(``inference/nuts_batched.LockstepTree``), and there the leaf pairs after
+the first run under one WHILE conditional node: the device runs the node's
+body again while its condition handle is non-zero, and the NUTS leaf's
+commit kernel sets that handle (``ops/leaf.py``, L2: from its pair counter
+and the chains' alive flags), upstream of the node for the first test and
+inside the body for the next ones; the host reads nothing.
 
-``IfNodes.body(pred)`` opens such a node on the graph being captured on the
-current stream; what runs inside the ``with`` block is captured into the
-node's body from a side stream of its own. The capture's memory pool takes
-only allocations made on its own capture, so the bodies allocate from a
-private pool of their own (``torch.cuda.graph_pool_handle``), released when
-the IfNodes object goes. PyTorch's own binding of these nodes
-(``CUDAGraph.begin_capture_to_if_node``) is newer than some of the versions
-the port runs on; this one needs only CUDA >= 12.4 and the allocator's
-stream routing.
+``WhileNodes.handle()`` creates a condition handle on the graph being
+captured on the current stream (0 at every launch of the graph until a
+kernel sets it); ``WhileNodes.loop(handle, body)`` adds a WHILE node on it
+after the work captured so far, and captures ``body()`` into the node's
+body from a side stream of its own. The capture's memory pool takes only
+allocations made on its own capture, so the bodies allocate from a private
+pool of their own (``torch.cuda.graph_pool_handle``), released when the
+WhileNodes object goes; a body's allocations are reused at every iteration,
+so nothing a body allocates may be read after its loop. PyTorch's own binding of conditional nodes is newer than
+some of the versions the port runs on; this one needs only CUDA >= 12.4 and
+the allocator's stream routing. A refused call raises; nothing falls back to
+another schedule.
 
-``LAUNCHES`` counts the set kernel's launches: ``body`` adds one per IF
-node it captures, and a graph's owner moves them to each replay, as the
-band kernels' are (``LockstepTree._capture``, ``_replay``); the plain
-version of the node is the host branch (``inference/nuts_batched._when``).
+``probe(handle, counter, limit)`` launches a one-thread kernel that advances
+a device counter and sets the handle to ``counter < limit``: the body with
+which ``chip_smoke.py``'s [graph-if] holds a WHILE node against the host
+loop and times its iterations. It is on no path of the port.
 
 The source is compiled at first use with nvcc for sm_90a into
 ``<package>/build/`` (``ops/cuda_band.build``) and bound with ctypes.
@@ -30,7 +35,6 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -38,11 +42,6 @@ import torch
 from . import cuda_band
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "graph_if.cu"
-KERNEL = "graph_if_set_condition"
-
-# Set-kernel launches since the last reset (captured ones, until moved to
-# the replays that run them).
-LAUNCHES = {KERNEL: 0}
 
 _LIB = None
 
@@ -51,9 +50,10 @@ def _library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(cuda_band.build(SOURCE)))
-        p, n = ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)
-        for name, args in (("graph_if_begin", [p, p, p]), ("graph_if_end", [p, n]),
-                           ("graph_capture_nodes", [p, n])):
+        p, u, n = ctypes.c_void_p, ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_ulonglong)
+        for name, args in (("graph_cond_handle", [p, n]), ("graph_while_begin", [p, u, p]),
+                           ("graph_while_end", [p, n]), ("graph_capture_nodes", [p, n]),
+                           ("graph_while_probe", [p, u, p, p])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, ctypes.c_int
         _LIB = lib
@@ -66,12 +66,23 @@ def _check(err: int, what: str) -> None:
 
 
 def capture_nodes(stream: torch.cuda.Stream) -> int:
-    """Top-level nodes of the graph being captured on ``stream`` (an IF
-    node counts one; its body's nodes are ``IfNodes.body_nodes``)."""
+    """Top-level nodes of the graph being captured on ``stream`` (a WHILE
+    node counts one; its body's nodes are ``WhileNodes.body_nodes``)."""
     n = ctypes.c_ulonglong(0)
     _check(_library().graph_capture_nodes(stream.cuda_stream, ctypes.byref(n)),
            "graph_capture_nodes")
     return int(n.value)
+
+
+def probe(handle: int, counter: torch.Tensor, limit: torch.Tensor) -> None:
+    """On the current stream: counter += 1, then the handle set to
+    ``counter < limit`` (one-element int32 CUDA tensors)."""
+    for what, t in (("counter", counter), ("limit", limit)):
+        if t.dtype != torch.int32 or t.numel() != 1 or not t.is_cuda:
+            raise ValueError(f"probe: {what} must be one int32 on the card")
+    stream = torch.cuda.current_stream(counter.device).cuda_stream
+    _check(_library().graph_while_probe(stream, handle, counter.data_ptr(), limit.data_ptr()),
+           "graph_while_probe")
 
 
 def _release(device_index: int, pool, begins: list) -> None:
@@ -79,9 +90,9 @@ def _release(device_index: int, pool, begins: list) -> None:
         torch._C._cuda_releasePool(device_index, pool)
 
 
-class IfNodes:
-    """IF nodes on graphs captured on ``device``: their bodies' side stream
-    and memory pool, and the count of nodes captured into bodies."""
+class WhileNodes:
+    """WHILE nodes on graphs captured on ``device``: their bodies' side
+    stream and memory pool, and the count of nodes captured into bodies."""
 
     def __init__(self, device):
         device = torch.device(device)
@@ -93,27 +104,29 @@ class IfNodes:
         self._begins = [0]  # each routing of the pool holds a reference to it
         weakref.finalize(self, _release, self.index, self.pool, self._begins)
 
-    @contextmanager
-    def body(self, pred: torch.Tensor):
-        """Capture the ``with`` block as the body of an IF node on the
-        one-element CUDA bool ``pred`` (read by the device at each replay)
-        after the work captured so far on the current stream."""
-        if pred.dtype != torch.bool or pred.numel() != 1 or pred.device != self.device:
-            raise ValueError(f"an IF node's condition is one bool on {self.device}; got "
-                             f"{pred.dtype} {tuple(pred.shape)} on {pred.device}")
+    def handle(self) -> int:
+        """A new condition handle on the graph being captured on the current
+        stream, 0 at every launch of the graph until a kernel sets it."""
+        h = ctypes.c_ulonglong(0)
+        _check(_library().graph_cond_handle(torch.cuda.current_stream(self.device).cuda_stream,
+                                            ctypes.byref(h)), "graph_cond_handle")
+        return int(h.value)
+
+    def loop(self, handle: int, body) -> None:
+        """Capture ``body()`` as the body of a WHILE node on ``handle`` after
+        the work captured so far on the current stream."""
         lib = _library()
         capture = torch.cuda.current_stream(self.device)
-        _check(lib.graph_if_begin(capture.cuda_stream, pred.data_ptr(), self.stream.cuda_stream),
-               "graph_if_begin")
-        LAUNCHES[KERNEL] += 1
+        _check(lib.graph_while_begin(capture.cuda_stream, handle, self.stream.cuda_stream),
+               "graph_while_begin")
         n = ctypes.c_ulonglong(0)
         with torch.cuda.stream(self.stream):
             torch._C._cuda_beginAllocateCurrentStreamToPool(self.index, self.pool)
             self._begins[0] += 1
             try:
-                yield
+                body()
             finally:
                 torch._C._cuda_endAllocateToPool(self.index, self.pool)
-                _check(lib.graph_if_end(self.stream.cuda_stream, ctypes.byref(n)),
-                       "graph_if_end")
+                _check(lib.graph_while_end(self.stream.cuda_stream, ctypes.byref(n)),
+                       "graph_while_end")
         self.body_nodes += int(n.value)

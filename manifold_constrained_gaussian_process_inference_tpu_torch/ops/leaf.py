@@ -10,18 +10,31 @@ Counterpart of the JAX package's leaf body in inference/nuts_batched.py
     q_n, drift = leaf_drift(st.cur, half, step)          # L1
     logp_n, g_n = vg(q_n)
     leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j, (lo, hi),
-                max_delta_energy, track)                  # L2
+                max_delta_energy, track, handle)          # L2
 
 over the tree's buffers ``st`` (``cur`` (C, 5, dim) = [q, p, v, grad,
 M^-1 grad], ``s_prop``, ``first``, ``s_rho``, ``ckpts`` (C, R, 3, dim),
 the (C,) sums and flags ``s_lsw``, ``s_logp_prop``, ``s_sum_accept``,
-``s_n_leaves``, ``s_div``, ``s_turn``, ``alive``, ``h0``, and with ``track``
-``s_div_edge``, ``s_div_leaf``), updated in place. ``u_leaf`` (2^i, C) are
-the doubling's uniforms, j the leaf's index and (lo, hi) its checkpoint rows
-(``nuts._leaf_idx_to_ckpt_idxs``; hi is the row an even leaf writes).
+``s_n_leaves``, ``s_div``, ``s_turn``, ``alive``, ``h0``, with ``track``
+``s_div_edge``, ``s_div_leaf``, and on the card ``counters``), updated in
+place. ``u_leaf`` (2^i, C) are the doubling's uniforms, j the leaf's index
+and (lo, hi) its checkpoint rows (``nuts._leaf_idx_to_ckpt_idxs``; hi is the
+row an even leaf writes).
+
+On the card the leaf index is on the device, as the JAX package's leaf
+counter is a scalar of its loop: ``st.counters`` = [k, blocks arrived,
+condition] (int32), k the doubling's pair counter, zeroed by its setup. L2
+takes the leaf's parity and j == 0 (constants of a graph's capture), derives
+j = 2k + parity, its rows and its uniform u_leaf[j] (``device_rows`` is the
+same arithmetic in Python), and on an odd leaf advances k and sets the leaf
+loop's condition ``k < 2^i / 2 and any(alive)``: into ``counters[2]`` and,
+given the handle of a WHILE node (``ops/graph_if.py``), into the handle, so
+that the node runs the doubling's next leaf pair or ends. The plain version
+keeps the host's j; given ``counters`` it takes j from them and advances and
+sets them alike (the CPU tree gives none).
 
 On a CUDA tensor the dispatch launches the kernels on the current stream
-(so that a CUDA graph captures them, inside an IF node's body too): L1
+(so that a CUDA graph captures them, inside a WHILE node's body too): L1
 ``nuts_leaf_drift`` and L2 ``nuts_leaf_commit``, between them the
 value-and-grad and, for a dense or per-rung metric, its product
 ``metric.velocity(g_n)`` (a matmul, as the JAX package leaves it to XLA); a
@@ -50,10 +63,17 @@ from . import cuda_band
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nuts_leaf.cu"
 DRIFT, COMMIT = "nuts_leaf_drift", "nuts_leaf_commit"
 # L2's pointer arguments, in the order of the kernel's CommitArgs
-COMMIT_POINTERS = ("cur", "q_n", "logp_n", "g_n", "mg_n", "inv_mass", "half", "h0", "u",
+COMMIT_POINTERS = ("cur", "q_n", "logp_n", "g_n", "mg_n", "inv_mass", "half", "h0", "u_leaf",
                    "s_prop", "s_logp_prop", "s_rho", "first", "ckpts", "s_lsw", "s_sum_accept",
-                   "s_n_leaves", "s_div", "s_turn", "alive", "s_div_edge", "s_div_leaf")
-N_COMMIT_INTS = 9
+                   "s_n_leaves", "s_div", "s_turn", "alive", "s_div_edge", "s_div_leaf",
+                   "counters")
+# L2's integer arguments, in the order of the kernel's CommitArgs, then the
+# two counts the kernel checks against its own
+COMMIT_INTS = ("n_chains", "dim", "n_rows", "inv_mass_stride", "n_leaves", "parity",
+               "is_first", "has_handle", "handle", "n_pointers", "n_ints")
+N_COMMIT_INTS = len(COMMIT_INTS)
+# st.counters: the pair counter, the blocks arrived, the leaf loop's condition
+K, ARRIVED, CONDITION = range(3)
 
 # Kernel launches since the last reset (captured ones, until moved to the
 # replays that run them).
@@ -101,11 +121,15 @@ def leaf_drift_torch(cur, half, step):
 
 
 def leaf_commit_torch(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j: int, rows,
-                      max_delta_energy: float, track: bool) -> None:
+                      max_delta_energy: float, track: bool, counters=None) -> None:
     """The rest of leaf j after the value-and-grad (logp_n, g_n) at q_n,
     committed for the chains alive; a chain freezes at the leaf where it
     diverges or its sub-tree turns (so a tracked divergent step is written
-    once per sub-tree)."""
+    once per sub-tree). With ``counters`` (L2's (3,) int32 on the card) the
+    leaf is L2's: j = 2k + (j's parity) from the pair counter k, and an odd
+    leaf advances k and sets the leaf loop's condition."""
+    if counters is not None:
+        j, *rows = device_rows(int(counters[K]), j % 2)
     q, p_half, v_half = drift
     alive = st.alive
     mg_n = metric.velocity(g_n)
@@ -148,6 +172,19 @@ def leaf_commit_torch(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j: int,
     st.s_n_leaves += alive
     st.s_div |= alive & bad
     alive &= ~stop
+    if counters is not None and j % 2:
+        counters[K] += 1
+        counters[CONDITION] = (counters[K] < u_leaf.shape[0] // 2) & alive.any()
+
+
+def device_rows(k: int, parity: int):
+    """L2's leaf index and checkpoint rows from the pair counter k and the
+    leaf's parity, in the kernel's arithmetic (``__popc``, ``__ffs``):
+    (j, lo, hi), which equal (j, *nuts._leaf_idx_to_ckpt_idxs(j))."""
+    j = 2 * k + parity
+    hi = bin(k).count("1")
+    trailing_ones = ((~j) & (j + 1)).bit_length() - 1  # __ffs(~j) - 1
+    return j, hi - trailing_ones + 1, hi
 
 
 # -- the kernels -----------------------------------------------------------------
@@ -171,7 +208,8 @@ def _check(name, tensors, dtype, device) -> None:
     """Every tensor on ``device``, of ``dtype`` (bool where named so) and
     contiguous."""
     for what, t in tensors.items():
-        want = torch.bool if what in ("s_div", "s_turn", "alive") else dtype
+        want = (torch.bool if what in ("s_div", "s_turn", "alive")
+                else torch.int32 if what == "counters" else dtype)
         if t.device != device or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be a contiguous {want} tensor on {device}; "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -216,42 +254,50 @@ def _diagonal(inv_mass, c, dim):
     return inv_mass.contiguous(), dim
 
 
-def leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u, j: int, rows,
-                     max_delta_energy: float, track: bool) -> None:
-    """L2 on the current stream: leaf j's commit into the buffers of ``st``
-    (see the module docstring) from q_n, logp_n, g_n and either mg_n (a
-    dense metric's M^-1 g_n) or ``inv_mass`` (a diagonal metric's, whose
-    product L2 computes); ``u`` (C,) the leaf's uniforms."""
+def leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf, parity: int,
+                     is_first: bool, max_delta_energy: float, track: bool,
+                     handle=None) -> None:
+    """L2 on the current stream: the commit of leaf j = 2k + ``parity`` (k
+    the pair counter ``st.counters[0]`` on the card; ``is_first``: j == 0)
+    into the buffers of ``st`` (see the module docstring) from q_n, logp_n,
+    g_n and either mg_n (a dense metric's M^-1 g_n) or ``inv_mass`` (a
+    diagonal metric's, whose product L2 computes); ``u_leaf`` (2^i, C) the
+    doubling's uniforms. On an odd leaf L2 advances k and sets the leaf
+    loop's condition, in ``st.counters[2]`` and in ``handle`` (a WHILE
+    node's, ``ops/graph_if.WhileNodes.handle``) where given."""
     lib = _library()
     c, _, dim = st.cur.shape
-    lo, hi = rows
     n_rows = st.ckpts.shape[1]
     if (mg_n is None) == (inv_mass is None):
         raise ValueError("leaf_commit_cuda: give exactly one of mg_n and inv_mass")
     stride = 0
     if inv_mass is not None:
         inv_mass, stride = _diagonal(inv_mass, c, dim)
-    if not (0 <= hi < n_rows and 0 <= lo and (j % 2 == 0 or lo <= hi)):
-        raise ValueError(f"leaf_commit_cuda: checkpoint rows {rows} of {n_rows} at leaf {j}")
+    if parity not in (0, 1) or (is_first and parity):
+        raise ValueError(f"leaf_commit_cuda: parity {parity}, is_first {is_first}")
     tensors = dict(
         cur=st.cur, q_n=q_n, logp_n=logp_n.contiguous(), g_n=g_n.contiguous(),
         mg_n=None if mg_n is None else mg_n.contiguous(), inv_mass=inv_mass,
-        half=half.reshape(c), h0=st.h0, u=u, s_prop=st.s_prop, s_logp_prop=st.s_logp_prop,
-        s_rho=st.s_rho, first=st.first, ckpts=st.ckpts, s_lsw=st.s_lsw,
-        s_sum_accept=st.s_sum_accept, s_n_leaves=st.s_n_leaves, s_div=st.s_div,
+        half=half.reshape(c), h0=st.h0, u_leaf=u_leaf, s_prop=st.s_prop,
+        s_logp_prop=st.s_logp_prop, s_rho=st.s_rho, first=st.first, ckpts=st.ckpts,
+        s_lsw=st.s_lsw, s_sum_accept=st.s_sum_accept, s_n_leaves=st.s_n_leaves, s_div=st.s_div,
         s_turn=st.s_turn, alive=st.alive,
-        s_div_edge=st.s_div_edge if track else None, s_div_leaf=st.s_div_leaf if track else None)
+        s_div_edge=st.s_div_edge if track else None, s_div_leaf=st.s_div_leaf if track else None,
+        counters=st.counters)
     given = {k: t for k, t in tensors.items() if t is not None}
     _check("leaf_commit_cuda", given, st.cur.dtype, st.cur.device)
-    shapes = {"q_n": (c, dim), "g_n": (c, dim), "mg_n": (c, dim), "logp_n": (c,), "u": (c,),
-              "s_rho": (c, dim), "s_prop": (c, 5, dim), "first": (c, 5, dim)}
+    n_leaves = u_leaf.shape[0] if u_leaf.dim() == 2 else -1
+    shapes = {"q_n": (c, dim), "g_n": (c, dim), "mg_n": (c, dim), "logp_n": (c,),
+              "u_leaf": (n_leaves, c), "s_rho": (c, dim), "s_prop": (c, 5, dim),
+              "first": (c, 5, dim), "counters": (3,)}
     for what, shape in shapes.items():
         if what in given and tuple(given[what].shape) != shape:
             raise ValueError(f"leaf_commit_cuda: {what} {tuple(given[what].shape)}, want {shape}")
     ptrs = (ctypes.c_void_p * len(COMMIT_POINTERS))(
         *(None if tensors[k] is None else tensors[k].data_ptr() for k in COMMIT_POINTERS))
     ints = (ctypes.c_longlong * N_COMMIT_INTS)(
-        c, dim, n_rows, stride, j, lo, hi, len(COMMIT_POINTERS), N_COMMIT_INTS)
+        c, dim, n_rows, stride, n_leaves, parity, int(is_first), handle is not None,
+        ctypes.c_longlong(handle or 0).value, len(COMMIT_POINTERS), N_COMMIT_INTS)
     fn = getattr(lib, f"{COMMIT}_{'f32' if st.cur.dtype == torch.float32 else 'f64'}")
     stream = torch.cuda.current_stream(st.cur.device).cuda_stream
     _raise_on(fn(ptrs, ints, float(max_delta_energy), stream), COMMIT)
@@ -278,17 +324,20 @@ def leaf_drift(cur, half, step):
 
 
 def leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j: int, rows,
-                max_delta_energy: float, track: bool) -> None:
+                max_delta_energy: float, track: bool, handle=None) -> None:
     """Leaf j's commit: L2 on the card (after the metric's product where it
-    is not diagonal), the plain version on the CPU."""
+    is not diagonal; j's parity and j == 0 are what it takes of j, the rest
+    comes from ``st.counters``; ``handle`` the doubling's WHILE node's), the
+    plain version on the CPU (with ``st.counters`` where the state has
+    them)."""
     if _on_card(q_n):
         inv_mass = metric.diagonal()
         mg_n = metric.velocity(g_n) if inv_mass is None else None
-        leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf[j], j, rows,
-                         max_delta_energy, track)
+        leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf, j % 2, j == 0,
+                         max_delta_energy, track, handle)
         return
     leaf_commit_torch(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j, rows,
-                      max_delta_energy, track)
+                      max_delta_energy, track, getattr(st, "counters", None))
 
 
 # -- the bytes bound -----------------------------------------------------------------
@@ -309,7 +358,9 @@ def commit_bytes(c: int, dim: int, itemsize: int, j: int, rows, n_alive: int, n_
     scalars and three flags written; per take the proposal's five rows; at j = 0 the first
     leaf's five rows; on an even leaf one checkpoint row written (three
     rows), on an odd one rows lo..hi read; with ``track`` per divergent
-    alive chain its old q read and the edge and leaf written."""
+    alive chain its old q read and the edge and leaf written; the pair
+    counter read, and on an odd leaf the arrivals, the counter and the
+    condition written (int32)."""
     lo, hi = rows
     per_alive_rows = 4 + 3 + (metric != "shared") + 5 + 1
     per_alive_rows += 5 if j == 0 else 0
@@ -318,4 +369,5 @@ def commit_bytes(c: int, dim: int, itemsize: int, j: int, rows, n_alive: int, n_
     if metric == "shared" and n_alive:
         rows_moved += 1  # the shared diagonal, read once
     scalars = n_alive * 10 + n_take  # seven read and three written, logp_n where taken
-    return itemsize * (rows_moved * dim + scalars) + c + 3 * n_alive  # the bool flags
+    counters = 16 if j % 2 else 4 * bool(n_alive)  # int32: k read; on an odd leaf three written
+    return itemsize * (rows_moved * dim + scalars) + c + 3 * n_alive + counters  # + the flags

@@ -27,12 +27,15 @@ turns go A B ... B A, round after round. A turn reports its ms per batched
 leaf (warmup and sampling wall over batched leaves; and without the
 seconds its NUTS trees spent capturing CUDA graphs), batched leaves and
 host reads per transition (all of them, and the trees' own where the
-checkout counts them apart) and the card's name and power limit. Runs on a
-CUDA card only.
+checkout counts them apart), a digest of its draws (theta, the sampled x,
+sigma, the log-densities: rank 0's gathered result in the mesh cell) and
+the card's name and power limit; each cell's line ends with whether every
+checkout's turns gave the same draws. Runs on a CUDA card only.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -96,6 +99,16 @@ def _problem(cell: str):
     return mt.FN_SYSTEM, y, t, mt.MagiConfig(niter_hmc=n, **RECIPE)
 
 
+def _draws_digest(res) -> str:
+    """sha256 of a result's draws, to tell whether two turns sampled alike."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (res.theta, res.x_sampled, res.sigma, res.lp):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
 def _mesh_rank(rank: int) -> dict:
     """One rank of the mesh cell."""
     import torch.distributed as dist
@@ -109,7 +122,7 @@ def _mesh_rank(rank: int) -> dict:
     mesh = make_chain_mesh(device="cuda")
     dist.barrier()
     res = mt.solve_magi(y, t, system, config, mesh=mesh)
-    return _readings(res.diagnostics)
+    return dict(_readings(res.diagnostics), draws=_draws_digest(res))
 
 
 def _turn(cell: str) -> dict:
@@ -130,7 +143,7 @@ def _turn(cell: str) -> dict:
 
     system, y, t, config = _problem(cell)
     res = mt.solve_magi(y, t, system, config)
-    return dict(_readings(res.diagnostics), card=smi.strip())
+    return dict(_readings(res.diagnostics), draws=_draws_digest(res), card=smi.strip())
 
 
 def main() -> int:
@@ -158,6 +171,10 @@ def main() -> int:
                                      check=True).stdout
                 runs.append(dict(cell=cell, tree=tree, **json.loads(out.strip().splitlines()[-1])))
                 print(json.dumps(runs[-1]), flush=True)
+    for cell in cells:
+        draws = {r["draws"] for r in runs if r["cell"] == cell}
+        print(json.dumps(dict(cell=cell, same_draws=len(draws) == 1, draws=sorted(draws))),
+              flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(runs, f, indent=1)

@@ -17,16 +17,18 @@ transitions from generators seeded alike; their draws, log-densities,
 gradients and statistics must be equal bit for bit.
 
 A third tree captures every depth up front (0 to max depth - 1), to give
-the graphs the transitions did not reach: per depth its top-level and IF
-body nodes, the nodes per captured leaf, capture seconds (instantiation
-included) and pool bytes, and the device memory all of them take
-(``torch.cuda.mem_get_info`` before and after); one transition then runs on
-them.
+the graphs the transitions did not reach (``capture_all_depths``): per depth
+its leaves captured (min(2^i, 4): leaves 0 and 1, then one WHILE node whose
+body is one pair), its top-level and WHILE-body nodes, the nodes per
+captured leaf, capture seconds (instantiation included) and pool bytes, and
+the device memory all of them take (``torch.cuda.mem_get_info`` before and
+after); one transition then runs on them.
 
 Per transition: host wall (after a synchronize), host reads, batched
-leaves, whether it captured a graph. Device time per batched leaf: CUDA
-events around every doubling's replay, over the leaves they ran (the
-skipped pairs' conditions included); the bookkeeping's device time per
+leaves, the WHILE iterations its timed replays ran (a doubling of i >= 2
+runs (leaves - 2) / 2), whether it captured a graph. Device time per batched
+leaf: CUDA events around every doubling's replay, over the leaves they ran
+(the WHILE nodes' condition tests included); the bookkeeping's device time per
 leaf is that less the value-and-grad's replay (CUDA events, mean of
 ``VG_REPS``), and holds the dense metric's product ``velocity_device_ms``
 (timed alike); ``replay_share``: the replays' device time over the host
@@ -134,6 +136,31 @@ def _idle_share(run, names=()) -> dict:
                          for name, ev in named.items()})
 
 
+def capture_all_depths(vg, q0, eps, metric, max_depth: int, generator) -> dict:
+    """Every depth of a graphed tree for ``vg`` captured up front: per depth
+    its ``graph_info`` and nodes per captured leaf, the device bytes all of
+    them hold, the capture seconds; then one transition on them (finite
+    log-densities)."""
+    from ..inference.nuts_batched import LockstepTree
+
+    tree = LockstepTree(vg, generator, max_depth, graphed=True)
+    bound = tree._bind(q0, eps, metric)
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    for i in range(max_depth):
+        tree.graphs[i] = tree._capture(bound, i)
+    torch.cuda.synchronize()
+    graphs = {i: dict(info, nodes_per_graph=info["nodes"] + info["body_nodes"],
+                      nodes_per_leaf=(info["nodes"] + info["body_nodes"])
+                      / info["captured_leaves"])
+              for i, info in sorted(tree.graph_info.items())}
+    out = dict(graphs=graphs, device_bytes=free0 - torch.cuda.mem_get_info()[0],
+               capture_s=tree.capture_seconds)
+    _, lp0, _, _ = tree(q0, *vg(q0), eps, metric)
+    out["transition_ok"] = bool(torch.isfinite(lp0).all())
+    return out
+
+
 def main(argv=None) -> int:
     from ..inference.nuts import DenseMetric
     from ..inference.nuts_batched import LockstepTree
@@ -181,6 +208,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             per.append(dict(wall_s=time.perf_counter() - t0, host_reads=stats.host_syncs,
                             leaves=stats.lockstep_leaves,
+                            while_iterations=(sum((n - 2) // 2 for _, n in log[n_log:] if n > 2)
+                                              if log is not None else None),
                             max_depth=int(stats.tree_depth.max()),
                             captured=len(tree.graphs) > n_graphs,
                             replay_ms=sum(ms for ms, _ in (log or [])[n_log:])))
@@ -195,7 +224,10 @@ def main(argv=None) -> int:
             first = {i: dict(info) for i, info in sorted(tree.graph_info.items())}
             dev_ms = sum(ms for ms, _ in log) / max(sum(n for _, n in log), 1)
             steady = [p for p in per if not p["captured"]]
+            deep = [n for _, n in log if n > 2]  # the replays of doublings with a WHILE node
             run.update(graphs=first, device_ms_per_leaf=dev_ms,
+                       while_iterations_per_replay=(sum((n - 2) // 2 for n in deep)
+                                                    / max(len(deep), 1)),
                        replay_share=sum(p["replay_ms"] for p in steady)
                        / max(1e3 * sum(p["wall_s"] for p in steady), 1e-9),
                        bookkeeping_device_ms_per_leaf=dev_ms - vg_ms, per_leaf_launches=tree.per_leaf)
@@ -213,20 +245,8 @@ def main(argv=None) -> int:
         for p in per:
             print(f"[{kind}] transition {json.dumps(p)}", flush=True)
 
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    tree = LockstepTree(vg, gen, args.max_depth, graphed=True)
-    bound = tree._bind(q0, eps, metric)
-    torch.cuda.synchronize()
-    free0 = torch.cuda.mem_get_info()[0]
-    for i in range(args.max_depth):
-        tree.graphs[i] = tree._capture(bound, i)
-    torch.cuda.synchronize()
-    graphs = {i: dict(info, nodes_per_leaf=(info["nodes"] + info["body_nodes"]) / (1 << i))
-              for i, info in sorted(tree.graph_info.items())}
-    all_depths = dict(graphs=graphs, device_bytes=free0 - torch.cuda.mem_get_info()[0],
-                      capture_s=tree.capture_seconds)
-    _, lp0, _, stats = tree(q0, *vg(q0), eps, metric)
-    all_depths["transition_ok"] = bool(torch.isfinite(lp0).all())
+    all_depths = capture_all_depths(vg, q0, eps, metric, args.max_depth,
+                                    torch.Generator(device="cuda").manual_seed(7))
     print("[all depths] " + json.dumps(all_depths), flush=True)
 
     (g_run, g_outs), (e_run, e_outs) = runs["graphed"], runs["eager"]

@@ -8,8 +8,11 @@ per-chain-diagonal and per-rung metrics, mixed alive masks, a divergent and
 a NaN leaf, ``track_div_leaf`` on and off. The uniform of each leaf is given
 to both (the JAX body draws its own from the chains' keys). On the CPU the
 dispatch runs the plain versions and launches nothing; its card branch
-raises, and does not fall back, when the kernels cannot be built. On a card
-(tests marked ``cuda``) the kernels agree with the plain versions."""
+raises, and does not fall back, when the kernels cannot be built. With the
+pair counter the plain commit is the card's: the leaf index from the
+counter, which odd leaves advance while setting the leaf loop's condition;
+the kernel's row arithmetic gives the checkpoint rows of every leaf. On a
+card (tests marked ``cuda``) the kernels agree with the plain versions."""
 import re
 from types import SimpleNamespace
 
@@ -317,8 +320,9 @@ def test_card_branch_raises_when_the_kernels_cannot_build(monkeypatch):
 
 
 def test_kernel_source_agrees_with_the_wrapper():
-    """The C entry points, L2's pointer arguments in order and its counts
-    are the wrapper's; the source builds for sm_90a through cuda_band."""
+    """The C entry points, L2's pointer and integer arguments in order and
+    its counts are the wrapper's; the source builds for sm_90a through
+    cuda_band."""
     src = leaf.SOURCE.read_text()
     for name in (leaf.DRIFT, leaf.COMMIT):
         for suffix in ("f32", "f64"):
@@ -332,7 +336,58 @@ def test_kernel_source_agrees_with_the_wrapper():
     unpacked = re.findall(r"a\.(\w+) = static_cast<[^>]+>\(p\[(\d+)\]\);", src)
     assert [name for name, _ in sorted(unpacked, key=lambda x: int(x[1]))] == list(
         leaf.COMMIT_POINTERS)
+    # the integers: unpacked in the wrapper's order, then the two counts
+    ints = re.findall(r"a\.(\w+) = [^;]*\bn\[(\d+)\]\)?;", src)
+    assert [name for name, _ in sorted(ints, key=lambda x: int(x[1]))] == list(
+        leaf.COMMIT_INTS[:-2])
+    assert [int(i) for _, i in ints] == list(range(len(leaf.COMMIT_INTS) - 2))
+    assert re.search(r"int\(n\[9\]\) != kNumPointers", src) and re.search(
+        r"int\(n\[10\]\) != kNumInts", src)
+    fields = src[src.index("// ints, in this order"):src.index("T max_delta_energy;")]
+    declared = re.findall(r"(\w+)(?=[,;])", re.sub(r"//[^\n]*", "", fields))
+    assert tuple(declared) == leaf.COMMIT_INTS[:-2]
     assert cuda_band.library_path(leaf.SOURCE).parent == cuda_band.BUILD_DIR
+
+
+def test_device_rows_mirror_the_checkpoint_rows():
+    """L2's row arithmetic (``leaf.device_rows``: (j, lo, hi) from the pair
+    counter k and the leaf's parity, as the kernel's ``__popc`` and
+    ``__ffs`` compute them) gives every leaf's checkpoint rows, the port's
+    and the JAX package's, for j = 0..1023 (a depth-10 doubling's leaves)."""
+    js = np.arange(1024, dtype=np.int32)
+    lo_j, hi_j = (np.asarray(a) for a in jn._leaf_idx_to_ckpt_idxs(js))
+    for j in range(1024):
+        rows = leaf.device_rows(j // 2, j % 2)
+        assert rows == (j, *_leaf_idx_to_ckpt_idxs(j)) == (j, int(lo_j[j]), int(hi_j[j])), j
+
+
+def test_plain_commit_with_the_pair_counter():
+    """With ``counters`` the plain commit is L2's: the leaf index comes from
+    the pair counter (the host gives only its parity), every odd leaf
+    advances the counter and sets the leaf loop's condition, k < 2^i / 2
+    and any chain alive; the leaf state is the host-indexed commit's, bit
+    for bit. The condition falls at the sub-tree's end and when no chain is
+    alive."""
+    metric, start, u_leaf = _small_leaf_inputs()
+    vg = _make_vg(np.ones(DIM))
+    host, dev = _torch_state(start, True), _torch_state(start, True)
+    dev.counters = torch.zeros(3, dtype=torch.int32)
+    conditions = []
+    for j in range(N_LEAVES):
+        _torch_leaf(host, metric, vg, u_leaf, j, True)
+        _torch_leaf(dev, metric, vg, u_leaf, j % 2, True)
+        for k in vars(host):
+            assert torch.equal(getattr(host, k), getattr(dev, k)), (j, k)
+        k, arrived, cond = dev.counters.tolist()
+        assert (k, arrived) == ((j + 1) // 2, 0)
+        if j % 2:
+            assert cond == int(k < N_LEAVES // 2 and bool(dev.alive.any())), j
+            conditions.append(cond)
+    assert conditions[-1] == 0 and conditions[0] == 1
+    dev.counters[leaf.K] = 2  # an odd leaf with no chain alive: the loop ends
+    dev.alive.zero_()
+    _torch_leaf(dev, metric, vg, u_leaf, 1, True)
+    assert dev.counters.tolist() == [3, 0, 0]
 
 
 def test_bytes_bound_counts_the_launch():
@@ -342,16 +397,19 @@ def test_bytes_bound_counts_the_launch():
     c, dim, f32 = 128, 799, 4
     assert leaf.drift_bytes(c, dim, f32) == f32 * (4 * c * dim + 2 * c)
     base = leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 0, "dense", False)
-    assert base == f32 * (c * (14 + 3) * dim + 10 * c) + c + 3 * c
+    counters = 4 * 4  # the pair counter read; an odd leaf's counter, arrivals, condition written
+    assert base == f32 * (c * (14 + 3) * dim + 10 * c) + c + 3 * c + counters
     row = f32 * dim
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 7, 0, "dense", False) == base + 7 * (
         5 * row + f32)
     assert leaf.commit_bytes(c, dim, f32, 3, (0, 1), c, 0, 0, "dense", False) == base + c * 3 * row
-    assert leaf.commit_bytes(c, dim, f32, 0, (1, 0), c, 0, 0, "dense", False) == base + c * 5 * row
+    assert leaf.commit_bytes(c, dim, f32, 0, (1, 0), c, 0, 0, "dense", False) == (
+        base + c * 5 * row - 3 * 4)  # an even leaf only reads the counter
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 2, "dense", True) == base + 6 * row
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 0, "shared", False) == base - (
         c - 1) * row
-    assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), 0, 0, 0, "dense", False) == c
+    assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), 0, 0, 0, "dense", False) == c + counters
+    assert leaf.commit_bytes(c, dim, f32, 2, (2, 1), 0, 0, 0, "dense", False) == c
     assert 6e6 < leaf.commit_bytes(c, dim, f32, 2, (1, 1), c, c // 8, 0, "dense", False) < 10e6
 
 
@@ -399,13 +457,15 @@ def cuda_device():
 @pytest.mark.parametrize("kind", METRICS)
 def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
     """L1 and L2 on the card against the plain versions from the same
-    inputs at every leaf of the sub-tree, float64: the leaf state to 1e-12,
-    the flags equal; one launch each per leaf."""
+    inputs at every leaf of the sub-tree, float64, both with the pair
+    counter: the leaf state to 1e-12, the flags and the counters (pair,
+    arrivals, the loop's condition) equal; one launch each per leaf."""
     rng = np.random.default_rng(7)
     metric, inv_mass_j = _case(kind, rng)
     metric = type(metric)(*(t.to(cuda_device) for t in metric))
     start = _start(rng, inv_mass_j, _make_vg(np.ones(DIM)))
     plain = _torch_state(start, True)
+    plain.counters = torch.zeros(3, dtype=torch.int32)
     for k, t in vars(plain).items():
         setattr(plain, k, t.to(cuda_device))
     u_leaf = torch.as_tensor(rng.random((N_LEAVES, C)), device=cuda_device)
@@ -422,13 +482,13 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
         leaf.leaf_commit(kern, metric, half, None, q_k, lp, g, u_leaf, j, rows,
                          MAX_DELTA_ENERGY, True)
         leaf.leaf_commit_torch(plain, metric, half, drift, q_n, lp, g, u_leaf, j, rows,
-                               MAX_DELTA_ENERGY, True)
+                               MAX_DELTA_ENERGY, True, plain.counters)
         torch.cuda.synchronize()
         assert {k: leaf.LAUNCHES[k] - before[k] for k in before} == {leaf.DRIFT: 1, leaf.COMMIT: 1}
         assert torch.equal(q_k, q_n)
         for k in vars(plain):
             a, b = getattr(kern, k), getattr(plain, k)
-            if a.dtype == torch.bool:
+            if a.dtype in (torch.bool, torch.int32):
                 assert torch.equal(a, b), (j, k)
             else:
                 _close(a.cpu().numpy(), b.cpu().numpy(), f"{kind} leaf {j}: {k}")

@@ -4,7 +4,9 @@ bits of the transition it replaced (kept below, frozen) in float64 under
 the dense, the diagonal and the per-rung metric, with and without
 ``track_div_leaf``, at C = 1, 3 and 8, at max_depth 10 and at a depth the
 trees hit; the schedule the card runs (one graph replay and one host read
-per doubling) gives the same bits; the graph path is chosen for a CUDA
+per doubling; in the graph leaves 0 and 1, then the pair body while the
+condition that the odd leaves' commits set holds, the leaf indices from the
+pair counter) gives the same bits; the graph path is chosen for a CUDA
 device and a value-and-grad without a collective only; the samplers
 (pooled, diag, PT, the envelope's tracked warmup) keep one tree across
 their transitions."""
@@ -25,6 +27,7 @@ from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts im
     NutsStats,
     RungDenseMetric,
 )
+from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
 from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import chains as tc
 from manifold_constrained_gaussian_process_inference_tpu_torch.parallel.mesh import local_draw
 
@@ -422,6 +425,64 @@ def test_graphed_schedule_one_host_read_per_doubling(monkeypatch, metric_kind, t
     _assert_same(got, want)
 
 
+class _HostWhile:
+    """A WHILE node run by the host: its body again while the condition the
+    odd leaves' commits set (``counters[2]``) holds."""
+
+    def __init__(self, st):
+        self.st, self.iterations = st, 0
+
+    def handle(self):
+        return 0
+
+    def loop(self, handle, body):
+        while bool(self.st.counters[leaf.CONDITION]):
+            self.iterations += 1
+            body()
+
+
+def _replay_device_schedule(self, metric, i):
+    """The card's graph of doubling i without a card: leaves 0 and 1, then
+    one pair body while the commit's condition holds, each leaf's index
+    from the pair counter; the host reads the readout once. The leaves run
+    are twice the pair counter, two per WHILE iteration after the first
+    pair."""
+    loops = _HostWhile(self.st)
+    self._doubling(metric, i, loops)
+    all_done, leaves = self.st.readout.tolist()
+    assert leaves == (1 if i == 0 else 2 * int(self.st.counters[leaf.K]))
+    assert loops.iterations == max(leaves - 2, 0) // 2
+    return bool(all_done), leaves
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("metric_kind", ["dense", "diag", "rung"])
+def test_device_loop_schedule_gives_the_reference_bits(monkeypatch, metric_kind, track):
+    """The WHILE node's schedule (the pair body while k < 2^i / 2 and any
+    chain alive, from the plain commit's pair counter and condition) runs
+    the reference's leaves: its bits, batched leaves and one host read per
+    doubling."""
+    monkeypatch.setattr(nb.LockstepTree, "_replay", _replay_device_schedule)
+    vg, q, eps, metric = _case(metric_kind, 8, seed=2)
+    trees = {}
+
+    def graphed(vg_b, q, lp, g, eps, metric, gen):
+        if gen not in trees:
+            trees[gen] = nb.LockstepTree(vg_b, gen, 10, track_div_leaf=track, graphed=True)
+        return nb.nuts_transition_batched(vg_b, q, lp, g, eps, metric, gen, track_div_leaf=track,
+                                          tree=trees[gen])
+
+    got = _run(graphed, vg, q, eps, metric, n_transitions=4)
+    want = _run(lambda *a: reference_transition(*a, track_div_leaf=track), vg, q, eps, metric,
+                n_transitions=4)
+    for o_got, o_want in zip(got[0], want[0]):
+        stats, ref = o_got[3], o_want[3]
+        assert stats.host_syncs == int(ref.tree_depth.max())
+        assert stats.lockstep_leaves == ref.lockstep_leaves
+        o_got[3] = ref  # the host counts differ by design; the rest is compared below
+    _assert_same(got, want)
+
+
 def test_graph_path_selection():
     """The graphed tree is chosen for a CUDA device and a value-and-grad
     without a collective (``reduce``), by that property alone."""
@@ -520,3 +581,43 @@ def test_parallel_tempering_keeps_one_tree(monkeypatch):
                                         torch.Generator().manual_seed(0), n_samples=20,
                                         n_adapts=10, n_temps=3, max_depth=4)
     assert made == [False] and info["transitions"] == 20
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc; run on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_doubling_graphs_hold_at_most_four_leaves(cuda_device):
+    """On the card every doubling's graph captures min(2^i, 4) leaves, from
+    depth 2 the pairs under one WHILE node (no per-pair condition), so the
+    graphs of depths 2-9 have the same nodes; a transition on them gives
+    the eager tree's bits."""
+    def vg(q):
+        return -0.5 * (q * q).sum(-1), -q
+
+    c, dim = 8, 5
+    q = torch.as_tensor(np.random.default_rng(0).normal(size=(c, dim)), device=cuda_device)
+    eps = torch.as_tensor(np.geomspace(0.004, 1.5, c), device=cuda_device)
+    eye = torch.eye(dim, dtype=torch.float64, device=cuda_device)
+    metric = DenseMetric(eye, eye, eye)
+    tree = nb.LockstepTree(vg, torch.Generator(device=cuda_device).manual_seed(1), 10,
+                           graphed=True)
+    bound = tree._bind(q, eps, metric)
+    for i in range(10):
+        tree.graphs[i] = tree._capture(bound, i)
+    info = tree.graph_info
+    assert [info[i]["captured_leaves"] for i in range(10)] == [1, 2] + [4] * 8
+    assert [info[i]["while_nodes"] for i in range(10)] == [0, 0] + [1] * 8
+    assert len({info[i]["nodes"] + info[i]["body_nodes"] for i in range(2, 10)}) == 1
+    outs = {}
+    for graphed in (True, False):
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        t = nb.LockstepTree(vg, gen, 10, graphed=graphed)
+        outs[graphed] = t(q, *vg(q), eps, metric)
+    for a, b in zip(outs[True][:3], outs[False][:3]):
+        assert torch.equal(a, b)
+    assert outs[True][3].lockstep_leaves == outs[False][3].lockstep_leaves
