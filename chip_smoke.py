@@ -3,9 +3,14 @@
     python3 chip_smoke.py
 
 Drives the port's main paths with the likelihood on the band-storage
-layout, so every gradient evaluation runs the hand-written CUDA
-band-matvec kernels: the paired launch (mphi and GC^T on one input) and
-the single launch (GK^T) forward, and their two launches backward. Every
+layout. A whitened FitzHugh-Nagumo value-and-grad ([slice], [chees],
+[envelope], [mesh], [resume], [tree]'s [slice] and [envelope]) runs, between
+its two whitening GEMMs, one launch of the hand-written kernel of
+csrc/centered_vg.cu (its forward and analytic backward; route "kernel");
+every other gradient evaluation ([default], [families], [pt]'s log-Hes1,
+[grid], [profile]) runs the hand-written CUDA band-matvec kernels K1: the
+paired launch (mphi and GC^T on one input) and the single launch (GK^T)
+forward, and their two launches backward (routes "raw" and "autograd"). Every
 NUTS path runs its tree as CUDA graphs, one per doubling depth: leaves 0
 and 1, then one WHILE node (csrc/graph_if.cu) whose body is one leaf pair,
 run again while the condition that the commit kernel L2 sets holds (the
@@ -23,8 +28,9 @@ Phases:
 1. device: the card's name and power limit; TF32 must be off;
 2. build: compile the kernels from csrc/ with nvcc;
 3. likelihood: the whitened centered value-and-grad on the card, band
-   against dense in float32, both against a float64 CPU evaluation, and
-   the kernel launches in its CUDA graph (a diagnostic);
+   (the kernel route: one centered_vg launch in its CUDA graph, no K1)
+   against dense (autograd) in float32, both against a float64 CPU
+   evaluation;
 4. likelihood-3169: the same workload on the filllevel-5 grid (n=3169;
    the band escalates from 80 to 160), 128 chains, band against dense,
    eager and replayed from a CUDA graph; one chain against float64 on the
@@ -41,12 +47,22 @@ Phases:
    chain's outputs at C = 1, 2, 3 and the row tile's threshold's
    neighbours equal its rows of a 128-chain launch (the chain tile) bit
    for bit, in both dtypes, at both grids, the GK^T block and every edge;
-5a. graph-if: a WHILE node (csrc/graph_if.cu) against its plain version,
+5a. vg: the whitened FN value-and-grad's kernel against its plain
+   version (ops/centered_vg.py) at the shapes of the paths it runs on:
+   [slice]'s (128 chains, n = 397, b = 40), one chain, [chees]' 64, a
+   [mesh] rank's 32, [resume]'s (8 chains, n = 41, sigma fixed, theta
+   unbounded) and [likelihood-3169]'s (128 chains, n = 3169, b = 160):
+   float64 within 1e-12 relative, float32 within twice the plain version's
+   own error against float64; a chain's bits the same at C = 1, 3 and 32
+   as in the whole launch; ms per launch (a replayed graph of 200) in both
+   dtypes beside the bound and the plain version, and the whole
+   value-and-grad per replayed call on both routes;
+5b. graph-if: a WHILE node (csrc/graph_if.cu) against its plain version,
    the host loop: its body one kernel that advances a device counter and
    sets the condition counter < limit, the limit read from the device, so
    the replays run GRAPH_WHILE_ITERS iterations, then 0, 1 and 76 after the
    limit changes in place; timed per iteration;
-5b. leaf: L1 and L2 against their plain versions (ops/leaf.py) from the
+5c. leaf: L1 and L2 against their plain versions (ops/leaf.py) from the
    same inputs at every leaf of a depth-4 sub-tree, L2 in device-counter
    mode (the leaf index from the pair counter, as in the tree) and replayed
    from a CUDA graph, at [slice]'s shape (128 chains, dim 799, dense
@@ -63,7 +79,7 @@ Phases:
    C = 1, 3 and 32 equal to its rows of the 128-chain launch; each kernel
    and its plain version timed per launch from a CUDA graph of 200
    launches, beside its bytes bound and the previous L2 design's time;
-5c. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
+5d. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
    iterations, each run twice through ``solve_magi``: on the graphed tree
    and on the eager tree (the CPU path, chosen by patching
    ``nuts_batched.tree_graphed``); draws, log-densities, every statistic,
@@ -85,7 +101,8 @@ Phases:
    end-to-end tests (ptrans, hiv, hes1log_fixg; MAP warm start, theta
    constrained, gp_mean="observed") on the card in float32;
 9. slice: the production ``solve_magi`` end to end; draws finite, recovery
-   within the bars, and the kernel launches of this run;
+   within the bars, and the kernel launches of this run (one centered_vg
+   per value-and-grad, no K1);
 10. pt: config 3 of docs/BENCHMARKS.md (log-Hes1 fixed-f, P and M observed
    in alternation, H never; n=33, D=3, dim=105; 10 rungs x 4 replicas =
    40 batched chains, pooled dense metric per rung, whitened, theta
@@ -106,8 +123,8 @@ Phases:
    on the one card (NCCL refuses two ranks on one card), the kernels built
    here before the spawn: (a) ``solve_magi(mesh=...)`` on [slice]'s recipe
    and data, 128 chains = 4 ranks x 32, cut to MESH_NITER iterations:
-   recovery and divergence bars, exactly 4 kernel launches per
-   value-and-grad on every rank, and every rank's step sizes, metric and
+   recovery and divergence bars, exactly one centered_vg launch (no K1)
+   per value-and-grad on every rank, and every rank's step sizes, metric and
    gathered result bit-identical; (b) the JAX package's dry-run protocol on
    the whitened target of (a): ``run_chains`` (128 chains, pooled),
    ``run_parallel_tempering`` (4 replicas) and ``run_chees`` (64 chains),
@@ -139,7 +156,7 @@ Phases:
    iterations of which ENVELOPE_ADAPTS warmup: the probes (exact float64
    Hessians on the host) collected after the first window end and folded
    at the second; at least one probe, 1 to 16 boosted directions per probe,
-   a finite SPD folded metric, exactly 4 kernel launches per
+   a finite SPD folded metric, exactly one centered_vg launch (no K1) per
    value-and-grad and [slice]'s recovery bars (R-hat printed, not held:
    the envelope is a measured negative on FN);
 17. profile: [default]'s workload and config cut to PROFILE_NITER
@@ -154,11 +171,13 @@ package's readings at the same cuts on the same data
 The launches of each main path ([default], [slice], [pt], [chees],
 [envelope], [profile]) are
 counted from 0 just before its ``solve_magi`` and read just after: each
-kernel's count is its launches per value-and-grad (2 single, 1 pair, 1
-pair_t: 4) times the run's value-and-grad evaluations, and each launch
-ran the tile of its chain count (the row tile at one chain: [default],
-[profile], [grid] at C = 1 and the MAP warm start of [pt]; the chain tile
-at 32 chains and more). The leaf kernels' are exactly one L1 and one L2
+kernel's count is its launches per value-and-grad on the route the run's
+value-and-grad took (the result's ``vg_route``, checked on every path:
+"kernel" one centered_vg launch and no K1; "raw" and "autograd" 2 single,
+1 pair, 1 pair_t and no centered_vg) times the run's value-and-grad
+evaluations, and each K1 launch ran the tile of its chain count (the row
+tile at one chain: [default], [profile], [grid] at C = 1 and the MAP warm
+start of [pt]; the chain tile at 32 chains and more). The leaf kernels' are exactly one L1 and one L2
 per batched leaf on every NUTS path ([families], [mesh] on every rank and
 [grid]'s eager tree included), 0 on [chees].
 
@@ -222,9 +241,25 @@ TIMED_SHAPES = ("main", "long", "main_c1", "long_c1", "pt", "chees", "mesh", "gr
                 "grid_single", "grid_pair_c1", "grid_single_c1")
 OPS_AT = {"grid_pair": ("pair", "pair_t"), "grid_pair_c1": ("pair", "pair_t"),
           "grid_single": ("single",), "grid_single_c1": ("single",)}
-# A banded value-and-grad: the pair (mphi, GC^T) and the single GK^T
-# forward, their two launches backward.
-LAUNCHES_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1}
+# The whitened FN value-and-grad's kernel (csrc/centered_vg.cu): the JAX
+# package's fused body it takes the place of (log_posterior_centered under
+# value_and_grad, as make_centered_whitened_vg builds it)
+VG_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/centered_vg.cu"
+VG_REPLACES = ("manifold_constrained_gaussian_process_inference_tpu/ops/likelihood.py:386 and "
+               "manifold_constrained_gaussian_process_inference_tpu/inference/whiten.py:527")
+VG_KERNEL = "centered_vg"
+LIKELIHOOD_KERNELS = (*KERNELS, VG_KERNEL)
+# A banded value-and-grad's launches by its route (the route attribute of
+# make_centered_whitened_vg's function; "raw" the unwhitened target's):
+# the kernel route one launch of the whitened FN kernel and no K1; the
+# others K1's pair (mphi, GC^T) and single GK^T forward, their two
+# launches backward
+K1_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1, VG_KERNEL: 0}
+LAUNCHES_PER_VG = {"kernel": {**dict.fromkeys(KERNELS, 0), VG_KERNEL: 1},
+                   "autograd": K1_PER_VG, "raw": K1_PER_VG}
+# [vg]: the kernel against its plain version at the shapes of the paths
+# it runs on (perf/vg_timing.CASES), [likelihood-3169]'s grid last
+VG_CASES = ("slice", "c1", "chees", "mesh", "resume", "long")
 # Tolerances: float64 agrees to rounding; float32 sums run in another order.
 TOL_F64, TOL_F32 = 1e-12, 1e-5
 TOL_VALUE, TOL_GRAD = 1e-4, 1e-3
@@ -315,6 +350,8 @@ TREE_ENVELOPE_ADAPTS, TREE_PT_MAP_ITERS = 40, 300
 TREE_DEPTHS = 10  # of the tree whose every depth [tree] captures up front
 # counts that differ between the graphed and the eager tree by design
 TREE_HOST_COUNTS = ("host_syncs", "tree_reads", "graph_capture_s")
+# the value-and-grad route of each [tree] path (and of its own phase)
+TREE_ROUTES = {"slice": "kernel", "default": "raw", "pt": "autograd", "envelope": "kernel"}
 
 
 def pt_config(seed: int = PT_SEED) -> dict:
@@ -436,11 +473,14 @@ def phase_build(cb):
     """nvcc of every CUDA source of the port, one process each, together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import graph_if, leaf
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import (
+        centered_vg, graph_if, leaf,
+    )
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        sos = list(pool.map(cb.build, (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE)))
+    sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, centered_vg.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        sos = list(pool.map(cb.build, sources))
     check(set(LEAF_KERNELS) == set(leaf.LAUNCHES), f"leaf kernels {sorted(leaf.LAUNCHES)}")
     print(f"[build] {[so.name for so in sos]} in {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -468,9 +508,10 @@ def phase_likelihood(y, t):
     zeta = np.random.default_rng(1).normal(size=(N_CHAINS, lik.dimension)) * 0.5
     v64, g64 = (a.numpy() for a in lik.vg("dense", torch.float64, "cpu")(torch.as_tensor(zeta)))
     zeta32 = torch.as_tensor(zeta, dtype=torch.float32, device="cuda")
-    out, rates, vals, launches = {}, {}, {}, {}
+    out, rates, vals, launches, routes = {}, {}, {}, {}, {}
     for impl in ("band", "dense"):
         vg = lik.vg(impl)
+        routes[impl] = vg.route
         vals[impl] = vg(zeta32)
         torch.cuda.synchronize()
         v, g = (a.double().cpu().numpy() for a in vals[impl])
@@ -486,15 +527,17 @@ def phase_likelihood(y, t):
         check(eg <= TOL_GRAD, f"{impl} grad err {eg:.3e} > {TOL_GRAD} of max |grad|")
     check(band_vs_dense[0] <= TOL_VALUE and band_vs_dense[1] <= TOL_GRAD, "band vs dense")
     per_vg = launches["band"]
-    check(per_vg == LAUNCHES_PER_VG,
-          f"kernel launches in the value-and-grad's graph {per_vg}, want {LAUNCHES_PER_VG}")
+    want = {name: LAUNCHES_PER_VG["kernel"][name] for name in LIKELIHOOD_KERNELS}
+    check(routes == {"band": "kernel", "dense": "autograd"}, f"likelihood: routes {routes}")
+    check(per_vg == want, f"kernel launches in the value-and-grad's graph {per_vg}, want {want}")
     print(f"[likelihood] C={N_CHAINS} dim={lik.dimension} bandsize={lik.cov64.bandsize} float32 "
           f"vs float64 CPU: band value rel {out['band'][0]:.3e} grad {out['band'][1]:.3e}; dense "
           f"value rel {out['dense'][0]:.3e} grad {out['dense'][1]:.3e}; band vs dense value "
           f"{band_vs_dense[0]:.3e} grad {band_vs_dense[1]:.3e}; value-and-grad evals/s "
           f"(chains x calls) eager / CUDA-graph replay: band {rates['band'][0]:.0f} / "
           f"{rates['band'][1]:.0f}, dense {rates['dense'][0]:.0f} / {rates['dense'][1]:.0f}; "
-          f"kernel launches in the band value-and-grad's graph {per_vg}", flush=True)
+          f"routes {routes}; kernel launches in the band value-and-grad's graph {per_vg}",
+          flush=True)
 
 
 def phase_likelihood_3169():
@@ -593,7 +636,7 @@ def _grid_inputs(y, t, cov64, x_ref):
     x = x_ref[None] + 0.001 * np.random.default_rng(3).normal(size=(c, n, 2))
     psi = np.concatenate([x.transpose(0, 2, 1).reshape(c, -1), np.tile(THETA_TRUE, (c, 1)),
                           np.tile(np.log(sigma), (c, 1))], axis=1)
-    out = dict(psi=psi, sigma=sigma, ref={}, ms={},
+    out = dict(psi=psi, sigma=sigma, ref={}, ms={}, cov64=cov64,
                data=make_grid_sharded_data(y, cov64, TEMPS, MESH_RANKS, dtype=torch.float32))
     vg = lambda dtype, device: MagiTarget.build(  # noqa: E731
         y, cov64, FN_SYSTEM, sigma, TEMPS, False, dtype=dtype, device=device,
@@ -752,6 +795,47 @@ def phase_kernel(cb):
           f"{[bt.SHAPES[k] for k in TIMED_SHAPES]}: {cells}; at one chain no slower than the "
           f"GEMV and the plain version: {one_chain}", flush=True)
     return main_err, timing
+
+
+def phase_vg(long_cov64):
+    """The whitened FN value-and-grad's kernel (csrc/centered_vg.cu)
+    against its plain version at VG_CASES' shapes (``perf/vg_timing``:
+    float64 within 1e-12 relative, float32 within twice the plain
+    version's own error against float64, a chain's bits the same at C = 1,
+    3 and 32 as in the whole launch), timed per launch (a replayed graph of
+    200) in both dtypes, beside its bound and its plain version, and the whole
+    value-and-grad per replayed call on both routes (float32).
+    ``long_cov64``: [likelihood-3169]'s covariances."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing as vt
+
+    rows, parts = {}, []
+    for name in VG_CASES:
+        case = vt.make_case(name, long_cov64 if name == "long" else None)
+        try:
+            err = vt.check_case(case)
+        except AssertionError as e:
+            raise SmokeFailure(f"vg: {e}") from e
+        t32 = vt.time_case(case, torch.float32)
+        t64 = vt.time_case(case, torch.float64, whole=False)
+        rows[name] = dict(check=err, float32=t32, float64=t64)
+        parts.append(
+            f"{name} (C={case['chains']}, n={case['n']}, b={case['bandwidth']}): float64 rel lp "
+            f"{err['lp_float64']:.2e} g {err['g_float64']:.2e}; float32 vs float64 lp "
+            f"{err['lp_float32']:.2e} (plain {err['lp_float32_plain']:.2e}) g "
+            f"{err['g_float32']:.2e} (plain {err['g_float32_plain']:.2e}); bits equal at "
+            f"C = 1, 3, 32; ms per launch float32 {t32['ms']:.5f} / bound {t32['bound_ms']:.5f} "
+            f"{t32['bound_by']} / plain {t32['plain_ms']:.4f}, float64 {t64['ms']:.5f} / bound "
+            f"{t64['bound_ms']:.5f} / plain {t64['plain_ms']:.4f}; GEMMs "
+            f"{_rounded(t32['gemm_ms'])}; "
+            f"value-and-grad per replayed call kernel route {t32['vg_ms']['kernel']:.4f}, autograd "
+            f"route {t32['vg_ms']['autograd']:.4f}")
+    print("[vg] the whitened FN value-and-grad's kernel against its plain version on the card: "
+          + "; ".join(parts), flush=True)
+    return rows
+
+
+def _rounded(values, digits=5):
+    return [round(v, digits) for v in values]
 
 
 class _Launches:
@@ -1308,8 +1392,11 @@ def phase_tree(mt, y, t):
         ms = [1e3 * (r.diagnostics["phase_times_s"]["warmup_s"]
                      + r.diagnostics["phase_times_s"]["sampling_s"]) / r.diagnostics[
                          "lockstep_leaves"] for r in (g, e)]
+        for d in (gd, ed):
+            _route(d, f"tree {name}", TREE_ROUTES[name])
         parts.append(
-            f"{name} ({config.niter_hmc} iterations): bit-equal {not diff}"
+            f"{name} ({config.niter_hmc} iterations, route {gd['vg_route']}): bit-equal "
+            f"{not diff}"
             + (f" (differ: {diff}; first differing sampling draw {int(bad[0]) if len(bad) else None})"
                if diff else "")
             + f", {gd['transitions']} transitions, {gd['lockstep_leaves']} batched leaves "
@@ -1369,17 +1456,18 @@ def _tree_capture_depths() -> str:
             f"device MiB {out['device_bytes'] / 2**20:.1f}")
 
 
-def _per_vg(launches, vg_evals, what, chains, one_chain_evals=0):
+def _per_vg(launches, vg_evals, what, chains, route, one_chain_evals=0):
     """Launches per value-and-grad of one main path's run (entry points and
     tiles, as ``cuda_band.counts`` gives them), which must be exactly
-    LAUNCHES_PER_VG, each on the tile that its value-and-grad's chains run
-    (``_tile_kind``): ``chains`` chains, but one chain in the first
-    ``one_chain_evals`` (a MAP warm start's)."""
-    for name, k in LAUNCHES_PER_VG.items():
+    LAUNCHES_PER_VG of its value-and-grad's ``route``, each K1 launch on the
+    tile that its value-and-grad's chains run (``_tile_kind``): ``chains``
+    chains, but one chain in the first ``one_chain_evals`` (a MAP warm
+    start's, whose raw target launches K1 as the autograd route does)."""
+    for name, k in LAUNCHES_PER_VG[route].items():
         check(launches[name] == k * vg_evals,
-              f"{what}: {name} {launches[name]} launches in {vg_evals} value-and-grads, "
-              f"want {k} each")
-    per_eval = sum(LAUNCHES_PER_VG.values())
+              f"{what}: {name} {launches[name]} launches in {vg_evals} value-and-grads on the "
+              f"{route} route, want {k} each")
+    per_eval = sum(LAUNCHES_PER_VG[route][name] for name in KERNELS)
     want = {"row": 0, "chain": 0}
     want[_tile_kind(1)] += per_eval * one_chain_evals
     want[_tile_kind(chains)] += per_eval * (vg_evals - one_chain_evals)
@@ -1387,6 +1475,13 @@ def _per_vg(launches, vg_evals, what, chains, one_chain_evals=0):
            for kind in want}
     check(got == want, f"{what}: launches by tile kind {got}, want {want} ({chains} chains)")
     return {name: k / vg_evals for name, k in launches.items()}
+
+
+def _route(d, what, want) -> str:
+    """A solve_magi result's value-and-grad route (``vg_route``), which
+    must be ``want``."""
+    check(d["vg_route"] == want, f"{what}: value-and-grad route {d['vg_route']}, want {want}")
+    return want
 
 
 def _tile_kind(chains: int) -> str:
@@ -1547,7 +1642,8 @@ def phase_default(mt, cb):
           f"{depth_hist.tolist()}; step size {float(d['step_size'][0]):.5g}; accept {accept:.4f}; "
           f"divergent {div_share:.3f}; theta ESS {np.round(ess_theta, 1).tolist()}; theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} (true {THETA_TRUE.tolist()}); sigma mean "
-          f"{np.round(res.sigma.mean(0), 4).tolist()}; kernel launches {launches} in {vg_evals} "
+          f"{np.round(res.sigma.mean(0), 4).tolist()}; route {d['vg_route']}, kernel "
+          f"launches {launches} in {vg_evals} "
           f"value-and-grads", flush=True)
     for name in ("theta", "x_sampled", "sigma", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"default: non-finite {name}")
@@ -1556,7 +1652,8 @@ def phase_default(mt, cb):
     check(DEFAULT_ACCEPT[0] <= accept <= DEFAULT_ACCEPT[1], f"default: accept {accept:.4f}")
     check(div_share <= DEFAULT_MAX_DIVERGENT_SHARE, f"default: divergent share {div_share:.3f}")
     _leaf_launches(launches, d["lockstep_leaves"], "default")
-    return launches, _per_vg(launches, vg_evals, "default", config.n_chains), leaf_ms
+    return launches, _per_vg(launches, vg_evals, "default", config.n_chains,
+                             _route(d, "default", "raw")), leaf_ms
 
 
 def phase_families(mt, cb):
@@ -1592,20 +1689,21 @@ def phase_families(mt, cb):
         # the MAP warm start's value-and-grads (start, one per Adam step,
         # end) and the sampler's (graph warm-up, start, one per leaf)
         vg_evals = config.map_init_iterations + 2 + GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
-        runs.append((name, d["band_impl"], launches, vg_evals, d["lockstep_leaves"]))
+        runs.append((name, d, launches, vg_evals, d["lockstep_leaves"]))
         parts.append(f"{name} (n={len(t)}, D={y.shape[1]}, k={system.theta_size}, "
                      f"band_impl={d['band_impl']}, bandsize={d['bandsize']}) {wall:.1f} s, "
                      f"map {d['phase_times_s']['map_s']:.2f} s, accept "
                      f"{d['accept_prob'].mean():.3f}, tree depth mean {d['tree_depth'].mean():.2f}, "
                      f"{_host_reads(d, name)}, "
                      f"theta mean {np.round(res.theta.mean(0), 4).tolist()} "
-                     f"(true {case['theta']}); kernel launches {launches} in {vg_evals} "
-                     f"value-and-grads")
+                     f"(true {case['theta']}); route {d['vg_route']}, kernel launches "
+                     f"{launches} in {vg_evals} value-and-grads")
     print("[families] float32 on the card: " + "; ".join(parts), flush=True)
     total, total_evals = Counter(), 0
-    for name, band_impl, launches, vg_evals, leaves in runs:
-        check(band_impl == "band", f"families {name}: band_impl {band_impl}")
-        _per_vg(launches, vg_evals, f"families {name}", 1)
+    for name, d, launches, vg_evals, leaves in runs:
+        check(d["band_impl"] == "band", f"families {name}: band_impl {d['band_impl']}")
+        _per_vg(launches, vg_evals, f"families {name}", 1,
+                _route(d, f"families {name}", "raw"))
         _leaf_launches(launches, leaves, f"families {name}")
         total.update(launches)
         total_evals += vg_evals
@@ -1657,14 +1755,15 @@ def phase_slice(mt, cb, y, t):
           f"{ess_min:.1f}, ESS/s "
           f"{ess_min / wall:.3f} (total wall); max R-hat {rhat_max:.4f}; theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
-          f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; kernel launches {launches} in "
+          f"{sigma_rmse:.4f}; divergences {d['n_divergent']}; route {d['vg_route']}, kernel "
+          f"launches {launches} in "
           f"{vg_evals} value-and-grads", flush=True)
     for name in ("theta", "x_sampled", "sigma", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"non-finite {name}")
     check(res.x_sampled.shape == (N_CHAINS * (NITER_HMC // 2), 397, 2), "x_sampled shape")
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    per_vg = _per_vg(launches, vg_evals, "slice", N_CHAINS)
+    per_vg = _per_vg(launches, vg_evals, "slice", N_CHAINS, _route(d, "slice", "kernel"))
     _leaf_launches(launches, d["lockstep_leaves"], "slice")
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
@@ -1757,14 +1856,16 @@ def phase_pt(mt, cb):
           f"{np.round(np.asarray(d['step_size'])[:, 0], 5).tolist()}; theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; unobserved-H RMSE "
           f"{h_rmse:.4f}; replayed tempered value vs raw x final ladder {graph_gap:.3e}; "
-          f"kernel launches {launches} in {vg_evals} value-and-grads", flush=True)
+          f"route {d['vg_route']}, kernel "
+          f"launches {launches} in {vg_evals} value-and-grads", flush=True)
     for name in ("theta", "x_sampled", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"pt: non-finite {name}")
     check(d["band_impl"] == "band", f"pt: band_impl {d['band_impl']}")
     check(d["bandsize"] == PT_BANDSIZE, f"pt: bandsize {d['bandsize']} != {PT_BANDSIZE}")
     check(graph_gap <= PT_GRAPH_TOL,
           f"pt: replayed tempered value vs raw value x final ladder {graph_gap:.3e}")
-    per_vg = _per_vg(launches, vg_evals, "pt", n_chains, config.map_init_iterations + 2)
+    per_vg = _per_vg(launches, vg_evals, "pt", n_chains, _route(d, "pt", "autograd"),
+                     config.map_init_iterations + 2)
     _leaf_launches(launches, d["lockstep_leaves"], "pt")
     check(theta_rmse < THETA_RMSE_MAX, f"pt: theta RMSE {theta_rmse:.4f}")
     check(h_rmse < PT_H_RMSE_MAX, f"pt: unobserved-H RMSE {h_rmse:.4f}")
@@ -1814,13 +1915,15 @@ def phase_chees(mt, cb, y, t):
           f"{np.round(quarters, 3).tolist()}), step size {eps:.5f}; accept {accept:.4f}, divergent "
           f"{div_share:.4f}; min-theta ESS {ess_min:.1f}, ESS/s {ess_min / wall:.3f} (total "
           f"wall); max R-hat {rhat_max:.4f}; theta mean {np.round(res.theta.mean(0), 4).tolist()} "
-          f"RMSE {theta_rmse:.4f}; kernel launches {launches} in {d['vg_evals']} "
+          f"RMSE {theta_rmse:.4f}; route {d['vg_route']}, kernel "
+          f"launches {launches} in {d['vg_evals']} "
           f"value-and-grads", flush=True)
     for name in ("theta", "x_sampled", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"chees: non-finite {name}")
     check(d["band_impl"] == "band", f"chees: band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"chees: bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
-    per_vg = _per_vg(launches, d["vg_evals"], "chees", CHEES_CHAINS)
+    per_vg = _per_vg(launches, d["vg_evals"], "chees", CHEES_CHAINS,
+                     _route(d, "chees", "kernel"))
     _leaf_launches(launches, 0, "chees")  # ChEES runs no NUTS tree
     check(theta_rmse <= THETA_RMSE_MAX, f"chees: theta RMSE {theta_rmse:.4f}")
     check(rhat_max <= CHEES_RHAT_MAX, f"chees: max R-hat {rhat_max:.4f} > {CHEES_RHAT_MAX}")
@@ -1863,6 +1966,7 @@ def phase_resume(mt):
         finally:
             setattr(module, writer, real)
         check("path" in kept, f"resume: {config.sampler} wrote no checkpoint to keep")
+        _route(res.diagnostics, f"resume {config.sampler}", "kernel")
         return res, kept["path"]
 
     def draws(res):
@@ -1910,7 +2014,8 @@ def phase_resume(mt):
             parts.append(f"{what} resumed after {RESUME_CHUNK} draws: {shape[0]} chains x "
                          f"{shape[1]} draws equal")
     print(f"[resume] solve_magi(resume=checkpoint file) on the card, float32, whitened FN "
-          f"n={len(t)}, band kernels; theta, x and lp against the uninterrupted run: "
+          f"n={len(t)}, route kernel (one centered_vg launch per value-and-grad); theta, x "
+          f"and lp against the uninterrupted run: "
           + "; ".join(parts), flush=True)
 
 
@@ -1959,7 +2064,7 @@ def _mesh_solve(rank, mesh, y, t):
         leaves=d["lockstep_leaves"], transitions=d["transitions"],
         chain_leaves=d["chain_leaves"] / (N_CHAINS // mesh.size),
         leaf_ms=1e3 * (pt["warmup_s"] + pt["sampling_s"]) / d["lockstep_leaves"],
-        bandsize=d["bandsize"], dim=int(d["final_psi"].shape[-1]),
+        bandsize=d["bandsize"], dim=int(d["final_psi"].shape[-1]), vg_route=d["vg_route"],
         reads={k: d[k] for k in ("tree_reads", "doublings", "transitions", "graph_capture_s")},
     )
 
@@ -2349,7 +2454,8 @@ def _report_mesh(ranks, wall):
           f"{[round(r['chain_leaves'] / r['transitions'], 1) for r in sol]}; max R-hat "
           f"{a['rhat']:.4f}; theta RMSE {a['theta_rmse']:.4f}, sigma RMSE {a['sigma_rmse']:.4f}, "
           f"divergent {a['divergent']:.4f}; launches per value-and-grad per rank "
-          f"{[_ratios(r['launches'], r['vg_evals']) for r in sol]} "
+          f"{[_ratios(r['launches'], r['vg_evals']) for r in sol]} on routes "
+          f"{[r['vg_route'] for r in sol]} "
           f"({[r['vg_evals'] for r in sol]} value-and-grads); target, whitener and their "
           f"value-and-grad identical on every rank: {len({r['sampled_on'] for r in sol}) == 1}; "
           f"step sizes, metric and gathered result identical on every rank: "
@@ -2367,8 +2473,8 @@ def _report_mesh(ranks, wall):
     for name in ("sampled_on", "result", "adapted"):
         check(len({r[name] for r in sol}) == 1, f"mesh: the ranks' {name} differ")
     check(a["finite"], "mesh: non-finite draws")
-    per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}", N_CHAINS // MESH_RANKS)
-              for i, r in enumerate(sol)]
+    per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}", N_CHAINS // MESH_RANKS,
+                      _route(r, f"mesh rank {i}", "kernel")) for i, r in enumerate(sol)]
     for i, r in enumerate(sol):
         _leaf_launches(r["launches"], r["leaves"], f"mesh rank {i}")
     check(a["theta_rmse"] <= THETA_RMSE_MAX, f"mesh: theta RMSE {a['theta_rmse']:.4f}")
@@ -2438,12 +2544,12 @@ def _report_grid(ranks, grid):
         check(g0[chains]["replay_equal"], f"grid C={chains}: replayed differs from eager")
         for r in ranks:
             for how in ("eager", "replayed"):
-                _per_vg(r["grid"][chains][how], 1, f"grid C={chains} {how}", chains)
+                _per_vg(r["grid"][chains][how], 1, f"grid C={chains} {how}", chains, "raw")
     check(e_val <= TOL_VALUE and e_grad <= TOL_GRAD,
           f"grid vs float64 CPU: value rel {e_val:.3e}, grad {e_grad:.3e}")
     check(all(n["finite"] for n in nuts), "grid NUTS: non-finite draws")
     check(len({n["digest"] for n in nuts}) == 1, "grid NUTS: the ranks' draws differ")
-    nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS", 1) for n in nuts]
+    nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS", 1, "raw") for n in nuts]
     for i, n in enumerate(nuts):
         _leaf_launches(n["launches"], n["leaves"], f"grid NUTS rank {i}")
     launches = {name: sum(n["launches"][name] for n in nuts) for name in nuts[0]["launches"]}
@@ -2494,7 +2600,8 @@ def phase_envelope(mt, cb, y, t):
           f"{d['n_divergent']} of {d['diverging'].size}; max R-hat "
           f"{max_rhat(d['theta_per_chain']):.4f} (not held); theta mean "
           f"{np.round(res.theta.mean(0), 4).tolist()} RMSE {theta_rmse:.4f}; sigma RMSE "
-          f"{sigma_rmse:.4f}; kernel launches {launches} in {vg_evals} value-and-grads",
+          f"{sigma_rmse:.4f}; route {d['vg_route']}, kernel "
+          f"launches {launches} in {vg_evals} value-and-grads",
           flush=True)
     for name in ("theta", "x_sampled", "sigma", "lp"):
         check(np.isfinite(getattr(res, name)).all(), f"envelope: non-finite {name}")
@@ -2504,7 +2611,7 @@ def phase_envelope(mt, cb, y, t):
           f"envelope: {dirs} boosted directions from {points} probes")
     check(np.isfinite(minv).all() and np.array_equal(minv, minv.T) and min(eig) > 0,
           "envelope: the folded metric is not finite and SPD")
-    per_vg = _per_vg(launches, vg_evals, "envelope", N_CHAINS)
+    per_vg = _per_vg(launches, vg_evals, "envelope", N_CHAINS, _route(d, "envelope", "kernel"))
     _leaf_launches(launches, d["lockstep_leaves"], "envelope")
     check(theta_rmse <= THETA_RMSE_MAX, f"envelope: theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"envelope: sigma RMSE {sigma_rmse:.4f}")
@@ -2565,13 +2672,15 @@ def phase_profile(mt, cb):
           f"{sorted(k1.values())}, {graph_launches} CUDA graph launches; device idle share "
           f"{idle:.3f} over the trace's {1e-6 * span:.2f} s; "
           f"wall {wall:.1f} s profiled vs {plain_wall:.1f} s plain; draws bit-equal to the "
-          f"unprofiled run: {same}; {_host_reads(d, 'profile')}; kernel launches {launches} in "
+          f"unprofiled run: {same}; {_host_reads(d, 'profile')}; route {d['vg_route']}, kernel "
+          f"launches {launches} in "
           f"{vg_evals} value-and-grads",
           flush=True)
     check(k1_any > 0, "profile: no band kernel in the trace")
     check(same, "profile: the profiled run's draws differ from the unprofiled run's")
     _leaf_launches(launches, d["lockstep_leaves"], "profile")
-    return launches, _per_vg(launches, vg_evals, "profile", config.n_chains), None
+    return launches, _per_vg(launches, vg_evals, "profile", config.n_chains,
+                             _route(d, "profile", "raw")), None
 
 
 def main() -> int:
@@ -2594,6 +2703,7 @@ def main() -> int:
         "likelihood": lambda: phase_likelihood(y, t),
         "likelihood-3169": phase_likelihood_3169,
         "kernel": lambda: phase_kernel(cb),
+        "vg": lambda: phase_vg(out["likelihood-3169"]["cov64"]),
         "graph-if": phase_graph_if,
         "leaf": phase_leaf,
         "tree": lambda: phase_tree(mt, y, t),
@@ -2623,7 +2733,12 @@ def main() -> int:
     for path in ("default", "families", "slice", "pt", "envelope", "profile", "mesh", "grid"):
         check(all(paths[path][0][name] > 0 for name in LEAF_KERNELS),
               f"{path}: a leaf kernel was not launched")
-    print(json.dumps({"launches_per_vg": sum(paths["slice"][1][name] for name in KERNELS),
+    vg_rows = out["vg"]
+    for path in ("slice", "chees", "envelope", "mesh"):
+        check(paths[path][0][VG_KERNEL] > 0 and all(paths[path][0][name] == 0 for name in KERNELS),
+              f"{path}: the whitened FN kernel was not launched, or K1 was")
+    print(json.dumps({"launches_per_vg": sum(paths["slice"][1][name]
+                                             for name in LIKELIHOOD_KERNELS),
                       "tile_launches_by_path": tiles_by_path, "kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": sum(p[0][name] for p in paths.values()),
@@ -2643,7 +2758,23 @@ def main() -> int:
         "max_abs_err": leaf_err[key], **leaf_timing[key],
         **({"while_condition": dict(while_timing, source=WHILE_SOURCE,
                                     replaces=WHILE_REPLACES)} if key == "commit" else {}),
-    } for name, key in LEAF_KERNELS.items()], "ms_per_leaf": {
+    } for name, key in LEAF_KERNELS.items()] + [{
+        "name": VG_KERNEL, "route": "cuda", "source": VG_SOURCE, "replaces": VG_REPLACES,
+        "launches": sum(p[0][VG_KERNEL] for p in paths.values()),
+        "launches_by_path": {path: p[0][VG_KERNEL] for path, p in paths.items()},
+        "launches_per_vg": {path: p[1][VG_KERNEL] for path, p in paths.items()},
+        # float32 against the float32 plain version, beside the largest
+        # |value| of the plain version, and the relative errors of both
+        # dtypes against float64
+        "max_abs_err": vg_rows["slice"]["check"]["max_abs_err_float32"],
+        "max_abs_plain": vg_rows["slice"]["check"]["max_abs_plain_float32"],
+        "rel_err": {k: v for k, v in vg_rows["slice"]["check"].items()
+                    if k.startswith(("lp_", "g_"))},
+        **vg_rows["slice"]["float32"],
+        "float64": vg_rows["slice"]["float64"],
+        "shapes": {name: {"check": r["check"], "float32": r["float32"], "float64": r["float64"]}
+                   for name, r in vg_rows.items() if name != "slice"},
+    }], "ms_per_leaf": {
         path: paths[path][2] for path in ("default", "slice", "pt", "mesh", "envelope")},
         "ms_per_chees_leapfrog_step": paths["chees"][2]}))
     print(smi)

@@ -339,6 +339,13 @@ class LockstepTree:
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             self._doubling(metric, i, self.loops)
             nodes = graph_if.capture_nodes(self.stream)
+        # Before the capture begins, PyTorch writes the registered generator's
+        # graph offset (0) on the capture stream, outside the graph; each
+        # replay writes the generator's current offset on the replaying
+        # stream. Unordered, the capture's write could land after the first
+        # replay's and that replay draw from offset 0: other draws whenever
+        # the card is busy, as with several ranks on it (PERF.md, PR 11).
+        torch.cuda.current_stream(device).wait_stream(self.stream)
         seconds = time.perf_counter() - t0
         launches = {name: k - before[name] for name, k in cuda_band.counts().items()}
         cuda_band.add_launches({name: -k for name, k in launches.items()})

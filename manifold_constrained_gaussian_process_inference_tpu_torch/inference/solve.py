@@ -771,9 +771,11 @@ def solve_magi(
         "bandsize": int(gp_cov.bandsize),
         # what the sampler ran on: its value-and-grad is
         # make_centered_whitened_vg(target, whitener), or the target's own
-        # without a whitener
+        # without a whitener; its route: "kernel" or "autograd" (whitened),
+        # "raw"
         "target": target,
         "whitener": whitener,
+        "vg_route": getattr(vg, "route", None) if whitener is not None else "raw",
         "device": str(device),
         "dtype": str(dtype),
     }

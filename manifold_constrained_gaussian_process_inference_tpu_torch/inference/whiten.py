@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from scipy.linalg import cho_solve, cho_solve_banded, cholesky_banded
 
+from ..ops import centered_vg
 from ..ops.likelihood import log_posterior_centered, make_centered_terms
 from .target import value_and_grad
 from .transforms import constrain_np
@@ -381,7 +382,39 @@ def make_centered_whitened_vg(target, whitener: PsiWhitener):
     evaluated mode-centered: dx = (W zeta)_x is used directly (never
     psi - center) and the center's operator products are float64 host
     constants (ops/likelihood.CenteredTerms). One (C, dim) x (dim, dim) GEMM
-    per evaluation maps the chains' zeta to psi offsets."""
+    per evaluation maps the chains' zeta to psi offsets, and one maps the
+    gradient back.
+
+    A target that ``ops/centered_vg.takes`` (banded FN) runs
+    ``make_centered_whitened_vg_kernel``, every other one
+    ``make_centered_whitened_vg_autograd``. The returned function's
+    ``route`` says which: "kernel" or "autograd"."""
+    if centered_vg.takes(target):
+        return make_centered_whitened_vg_kernel(target, whitener)
+    return make_centered_whitened_vg_autograd(target, whitener)
+
+
+def make_centered_whitened_vg_kernel(target, whitener: PsiWhitener):
+    """``make_centered_whitened_vg`` for a banded FN target: between the two
+    GEMMs the analytic forward and backward of ``ops/centered_vg``, one
+    kernel launch on the card, its plain version on the CPU."""
+    params = centered_vg.make_params(target, whitener.center)
+    w_t, w = whitener.W.T, whitener.W
+
+    def vg(zeta):
+        dpsi = zeta @ w_t
+        lp, g_psi = centered_vg.centered_fn_vg(dpsi.reshape(-1, dpsi.shape[-1]), params)
+        return lp.reshape(dpsi.shape[:-1]), (g_psi @ w).reshape(dpsi.shape)
+
+    vg.route = "kernel"
+    return vg
+
+
+def make_centered_whitened_vg_autograd(target, whitener: PsiWhitener):
+    """``make_centered_whitened_vg`` through torch.autograd of
+    ``ops/likelihood.log_posterior_centered``: any target (the dense
+    layout, every model family, banded or not). It is the kernel route's
+    oracle in the tests."""
     n, d, k = target.n_times, target.n_dims, target.n_params_ode
     nd = n * d
     center = whitener.center
@@ -402,7 +435,9 @@ def make_centered_whitened_vg(target, whitener: PsiWhitener):
         )
         return ll + jac
 
-    return value_and_grad(logdensity_z)
+    vg = value_and_grad(logdensity_z)
+    vg.route = "autograd"
+    return vg
 
 
 def wrap_value_and_grad(vg, whitener: PsiWhitener):

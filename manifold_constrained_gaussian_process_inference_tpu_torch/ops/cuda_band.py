@@ -59,7 +59,10 @@ LARGE_FROM_WIDTH = 128
 # Kernel launches since the last reset, by C entry point and by tile: each
 # wrapper adds one to each per launch, and a CUDA-graph replay the launches
 # it replays (parallel/chains.GraphedValueAndGrad).
-KERNEL_LAUNCHES = dict.fromkeys(N_POINTERS, 0)
+# The whitened FN value-and-grad's kernel (ops/centered_vg.py) is counted
+# here too: a banded value-and-grad launches either it or K1.
+CENTERED_VG = "centered_vg"
+KERNEL_LAUNCHES = dict.fromkeys((*N_POINTERS, CENTERED_VG), 0)
 TILE_LAUNCHES = dict.fromkeys(TILES, 0)
 
 _PKG_DIR = Path(__file__).resolve().parent.parent

@@ -28,8 +28,9 @@ outputs held bit-equal to the other's (the sweep that set
 ``ops/cuda_band.ROW_TILE_BELOW``; the variants' row tiles are timed beside
 them). ``--profile`` traces ``PROFILE_CALLS`` replays of the slice's
 value-and-grad (C=128, n=397, band and dense) with ``torch.profiler`` and
-reports each kernel's share of the device time and the device's idle
-share over the window. Runs on a CUDA card only.
+reports its route (band: the whitened FN kernel), each kernel's share of
+the device time and the device's idle share over the window. Runs on a
+CUDA card only.
 """
 from __future__ import annotations
 
@@ -381,6 +382,7 @@ def _kernel_intervals(trace_path: Path):
 def profile_vg(out_dir: Path, n_calls=PROFILE_CALLS):
     """torch.profiler over replayed value-and-grads of the slice's target:
     each kernel's share of the device time and the idle share."""
+    from ..ops import cuda_band as cb
     from ..parallel.chains import GraphedValueAndGrad
     from .workload import fn_bench_workload, slice_likelihood
 
@@ -408,8 +410,11 @@ def profile_vg(out_dir: Path, n_calls=PROFILE_CALLS):
         trace = out_dir / f"vg_{impl}_trace.json"
         prof.export_chrome_trace(str(trace))
         ivals = sorted(_kernel_intervals(trace))
-        row = dict(impl=impl, vg_ms=vg_ms, n_kernels=len(ivals),
-                   band_launches_per_vg=sum(graphed.kernel_launches.values()))
+        launches = graphed.kernel_launches
+        row = dict(impl=impl, route=graphed.eager.route, vg_ms=vg_ms, n_kernels=len(ivals),
+                   band_launches_per_vg=sum(k for name, k in launches.items()
+                                            if name != cb.CENTERED_VG),
+                   centered_vg_launches_per_vg=launches[cb.CENTERED_VG])
         if ivals:
             busy, cur_s, cur_e = 0.0, None, None
             for ts, dur, _ in ivals:
@@ -425,10 +430,12 @@ def profile_vg(out_dir: Path, n_calls=PROFILE_CALLS):
             for _, dur, name in ivals:
                 by_name[name] = by_name.get(name, 0.0) + dur
             band = sum(v for k, v in by_name.items() if "band_matvec" in k)
+            fused = sum(v for k, v in by_name.items() if "centered_vg" in k)
             row.update(
                 kernel_us_per_vg=total / n_calls, window_us_per_vg=window / n_calls,
                 idle_share=1.0 - busy / window, band_share=band / total,
-                band_us_per_vg=band / n_calls,
+                band_us_per_vg=band / n_calls, centered_vg_share=fused / total,
+                centered_vg_us_per_vg=fused / n_calls,
                 top=sorted(((v / n_calls, k[:80]) for k, v in by_name.items()), reverse=True)[:10],
             )
         rows.append(row)

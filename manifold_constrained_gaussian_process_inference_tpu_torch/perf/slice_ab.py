@@ -28,9 +28,12 @@ leaf (warmup and sampling wall over batched leaves; and without the
 seconds its NUTS trees spent capturing CUDA graphs), batched leaves and
 host reads per transition (all of them, and the trees' own where the
 checkout counts them apart), a digest of its draws (theta, the sampled x,
-sigma, the log-densities: rank 0's gathered result in the mesh cell) and
-the card's name and power limit; each cell's line ends with whether every
-checkout's turns gave the same draws. Runs on a CUDA card only.
+sigma, the log-densities: rank 0's gathered result in the mesh cell), its
+recovery (max split R-hat over theta, theta's RMSE and sampled sigma's
+against the truth), a digest of its whitener and one of its adapted step
+sizes and metric, and the card's name and power limit; each cell's line
+ends with whether every checkout's turns gave the same draws, and whether
+each checkout's own turns did. Runs on a CUDA card only.
 """
 from __future__ import annotations
 
@@ -99,14 +102,51 @@ def _problem(cell: str):
     return mt.FN_SYSTEM, y, t, mt.MagiConfig(niter_hmc=n, **RECIPE)
 
 
-def _draws_digest(res) -> str:
-    """sha256 of a result's draws, to tell whether two turns sampled alike."""
+def _digest(*arrays) -> str:
     import numpy as np
 
     h = hashlib.sha256()
-    for a in (res.theta, res.x_sampled, res.sigma, res.lp):
+    for a in arrays:
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()[:16]
+
+
+def _draws_digest(res) -> str:
+    """sha256 of a result's draws, to tell whether two turns sampled alike."""
+    return _digest(res.theta, res.x_sampled, res.sigma, res.lp)
+
+
+def _setup_digest(res) -> str:
+    """sha256 of what a run sampled on (the whitener, where it has one) and
+    of its adapted step sizes and metric: which of the two made two turns'
+    draws differ."""
+    import numpy as np
+
+    d = res.diagnostics
+    wh = d.get("whitener")
+    arrays = [] if wh is None else [a.detach().cpu().numpy() for a in wh]
+    return (_digest(*arrays) if arrays else None,
+            _digest(d["step_size"], d.get("inv_mass", np.zeros(0))))
+
+
+def _recovery(res, cell: str) -> dict:
+    """A turn's recovery: max split R-hat over theta, theta's RMSE against
+    the truth and, where sigma is sampled, sigma's."""
+    import numpy as np
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf import workload as w
+    from manifold_constrained_gaussian_process_inference_tpu_torch.postprocess.diagnostics import (
+        split_rhat,
+    )
+
+    rmse = lambda a, b: float(np.sqrt(np.mean((np.asarray(a) - b) ** 2)))  # noqa: E731
+    tpc = res.diagnostics["theta_per_chain"]
+    truth = w.HES1_THETA_TRUE_FIXF if cell == "pt" else w.THETA_TRUE
+    out = dict(rhat=float(max(split_rhat(tpc[:, :, j]) for j in range(tpc.shape[-1]))),
+               theta_rmse=rmse(res.theta.mean(0), truth))
+    if not res.diagnostics["sigma_is_fixed"]:
+        out["sigma_rmse"] = rmse(res.sigma.mean(0), w.SIGMA_TRUE)
+    return out
 
 
 def _mesh_rank(rank: int) -> dict:
@@ -122,7 +162,8 @@ def _mesh_rank(rank: int) -> dict:
     mesh = make_chain_mesh(device="cuda")
     dist.barrier()
     res = mt.solve_magi(y, t, system, config, mesh=mesh)
-    return dict(_readings(res.diagnostics), draws=_draws_digest(res))
+    return dict(_readings(res.diagnostics), draws=_draws_digest(res), setup=_setup_digest(res),
+                **_recovery(res, "mesh"))
 
 
 def _turn(cell: str) -> dict:
@@ -143,7 +184,8 @@ def _turn(cell: str) -> dict:
 
     system, y, t, config = _problem(cell)
     res = mt.solve_magi(y, t, system, config)
-    return dict(_readings(res.diagnostics), draws=_draws_digest(res), card=smi.strip())
+    return dict(_readings(res.diagnostics), draws=_draws_digest(res), setup=_setup_digest(res),
+                card=smi.strip(), **_recovery(res, cell))
 
 
 def main() -> int:
@@ -173,8 +215,10 @@ def main() -> int:
                 print(json.dumps(runs[-1]), flush=True)
     for cell in cells:
         draws = {r["draws"] for r in runs if r["cell"] == cell}
-        print(json.dumps(dict(cell=cell, same_draws=len(draws) == 1, draws=sorted(draws))),
-              flush=True)
+        by_tree = {tree: len({r["draws"] for r in runs if r["cell"] == cell and r["tree"] == tree})
+                   == 1 for tree in trees}
+        print(json.dumps(dict(cell=cell, same_draws=len(draws) == 1, draws=sorted(draws),
+                              same_draws_within_tree=by_tree)), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(runs, f, indent=1)

@@ -295,18 +295,20 @@ def test_tile_for_at_the_threshold(dtype, bandwidth):
 
 
 def test_launch_counts_by_entry_point_and_tile():
-    """``counts`` gives every count, ``add_launches`` (a CUDA-graph
-    replay's) adds entry points and tiles, ``reset_launches`` zeroes both."""
+    """``counts`` gives every count (the whitened FN value-and-grad's kernel
+    beside K1's entry points), ``add_launches`` (a CUDA-graph replay's)
+    adds entry points and tiles, ``reset_launches`` zeroes both."""
     before = cb.counts()
-    assert set(before) == set(cb.N_POINTERS) | set(cb.TILES)
+    assert set(before) == set(cb.N_POINTERS) | {cb.CENTERED_VG} | set(cb.TILES)
     try:
         cb.add_launches({"band_matvec": 2, "band_matvec_pair": 1, "row_small": 2,
-                         "chain_large": 1})
+                         "chain_large": 1, cb.CENTERED_VG: 1})
         after = cb.counts()
         assert {k: after[k] - before[k] for k in after} == {
             "band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 0,
-            "chain_small": 0, "chain_large": 1, "row_small": 2, "row_large": 0}
-        assert cb.launches() == sum(before[k] for k in cb.N_POINTERS) + 3
+            cb.CENTERED_VG: 1, "chain_small": 0, "chain_large": 1, "row_small": 2,
+            "row_large": 0}
+        assert cb.launches() == sum(before[k] for k in cb.KERNEL_LAUNCHES) + 4
         cb.reset_launches()
         assert set(cb.counts().values()) == {0}
     finally:
