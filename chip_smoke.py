@@ -51,12 +51,16 @@ Phases:
    version (ops/centered_vg.py) at the shapes of the paths it runs on:
    [slice]'s (128 chains, n = 397, b = 40), one chain, [chees]' 64, a
    [mesh] rank's 32, [resume]'s (8 chains, n = 41, sigma fixed, theta
-   unbounded) and [likelihood-3169]'s (128 chains, n = 3169, b = 160):
+   unbounded), config 4's (128 chains, n = 793, b = 80) and
+   [likelihood-3169]'s (128 chains, n = 3169, b = 160):
    float64 within 1e-12 relative, float32 within twice the plain version's
    own error against float64; a chain's bits the same at C = 1, 3 and 32
-   as in the whole launch; ms per launch (a replayed graph of 200) in both
-   dtypes beside the bound and the plain version, and the whole
-   value-and-grad per replayed call on both routes;
+   as in the whole launch; the x block of g_psi bit-equal to the one-block kernel's
+   kernel (perf/baselines/centered_vg_pr11.cu, built beside it); ms per
+   launch (a replayed graph of 200) in both dtypes beside the one-block kernel,
+   the bound and the plain version, with the tiling (cluster size S,
+   chains a cluster Cg), and the whole value-and-grad per replayed call on
+   both routes;
 5b. graph-if: a WHILE node (csrc/graph_if.cu) against its plain version,
    the host loop: its body one kernel that advances a device counter and
    sets the condition counter < limit, the limit read from the device, so
@@ -257,9 +261,10 @@ LIKELIHOOD_KERNELS = (*KERNELS, VG_KERNEL)
 K1_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1, VG_KERNEL: 0}
 LAUNCHES_PER_VG = {"kernel": {**dict.fromkeys(KERNELS, 0), VG_KERNEL: 1},
                    "autograd": K1_PER_VG, "raw": K1_PER_VG}
-# [vg]: the kernel against its plain version at the shapes of the paths
-# it runs on (perf/vg_timing.CASES), [likelihood-3169]'s grid last
-VG_CASES = ("slice", "c1", "chees", "mesh", "resume", "long")
+# [vg]: the kernel against its plain version and the one-block kernel at the
+# shapes of the paths it runs on (perf/vg_timing.CASES), config 4's grid
+# and [likelihood-3169]'s last
+VG_CASES = ("slice", "c1", "chees", "mesh", "resume", "n793", "long")
 # Tolerances: float64 agrees to rounding; float32 sums run in another order.
 TOL_F64, TOL_F32 = 1e-12, 1e-5
 TOL_VALUE, TOL_GRAD = 1e-4, 1e-3
@@ -476,9 +481,11 @@ def phase_build(cb):
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import (
         centered_vg, graph_if, leaf,
     )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing
 
     t0 = time.perf_counter()
-    sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, centered_vg.SOURCE)
+    # the kernels, and the one-block centered_vg kernel that [vg] holds the new one to
+    sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, centered_vg.SOURCE, vg_timing.BASELINE)
     with ThreadPoolExecutor(len(sources)) as pool:
         sos = list(pool.map(cb.build, sources))
     check(set(LEAF_KERNELS) == set(leaf.LAUNCHES), f"leaf kernels {sorted(leaf.LAUNCHES)}")
@@ -802,15 +809,16 @@ def phase_vg(long_cov64):
     against its plain version at VG_CASES' shapes (``perf/vg_timing``:
     float64 within 1e-12 relative, float32 within twice the plain
     version's own error against float64, a chain's bits the same at C = 1,
-    3 and 32 as in the whole launch), timed per launch (a replayed graph of
-    200) in both dtypes, beside its bound and its plain version, and the whole
-    value-and-grad per replayed call on both routes (float32).
-    ``long_cov64``: [likelihood-3169]'s covariances."""
+    3 and 32 as in the whole launch, the x block of g_psi bit-equal to PR
+    11's kernel), timed per launch (a replayed graph of 200) in both dtypes
+    beside the one-block kernel, its bound and its plain version, with the tiling
+    it ran, and the whole value-and-grad per replayed call on both routes
+    (float32). ``long_cov64``: [likelihood-3169]'s covariances."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing as vt
 
     rows, parts = {}, []
     for name in VG_CASES:
-        case = vt.make_case(name, long_cov64 if name == "long" else None)
+        case = vt.make_case(name, long_cov64 if name.startswith("long") else None)
         try:
             err = vt.check_case(case)
         except AssertionError as e:
@@ -818,19 +826,23 @@ def phase_vg(long_cov64):
         t32 = vt.time_case(case, torch.float32)
         t64 = vt.time_case(case, torch.float64, whole=False)
         rows[name] = dict(check=err, float32=t32, float64=t64)
+        tile = t32["tiling"]
         parts.append(
-            f"{name} (C={case['chains']}, n={case['n']}, b={case['bandwidth']}): float64 rel lp "
+            f"{name} (C={case['chains']}, n={case['n']}, b={case['bandwidth']}; S={tile['cluster']} "
+            f"Cg={tile['chains']} G={tile['per_thread']} threads={tile['threads']}): float64 rel lp "
             f"{err['lp_float64']:.2e} g {err['g_float64']:.2e}; float32 vs float64 lp "
             f"{err['lp_float32']:.2e} (plain {err['lp_float32_plain']:.2e}) g "
             f"{err['g_float32']:.2e} (plain {err['g_float32_plain']:.2e}); bits equal at "
-            f"C = 1, 3, 32; ms per launch float32 {t32['ms']:.5f} / bound {t32['bound_ms']:.5f} "
-            f"{t32['bound_by']} / plain {t32['plain_ms']:.4f}, float64 {t64['ms']:.5f} / bound "
-            f"{t64['bound_ms']:.5f} / plain {t64['plain_ms']:.4f}; GEMMs "
-            f"{_rounded(t32['gemm_ms'])}; "
-            f"value-and-grad per replayed call kernel route {t32['vg_ms']['kernel']:.4f}, autograd "
-            f"route {t32['vg_ms']['autograd']:.4f}")
-    print("[vg] the whitened FN value-and-grad's kernel against its plain version on the card: "
-          + "; ".join(parts), flush=True)
+            f"C = 1, 3, 32; x block bit-equal to the one-block kernel's in both dtypes (lp and tail rel "
+            f"{err['tail_rel_pr11_float32']:.1e} / {err['tail_rel_pr11_float64']:.1e}); ms per "
+            f"launch float32 {t32['ms']:.5f} (one-block {t32['pr11_ms']:.5f}) / bound "
+            f"{t32['bound_ms']:.5f} {t32['bound_by']} / plain {t32['plain_ms']:.4f}, float64 "
+            f"{t64['ms']:.5f} (one-block {t64['pr11_ms']:.5f}) / bound {t64['bound_ms']:.5f} / plain "
+            f"{t64['plain_ms']:.4f}; GEMMs {_rounded(t32['gemm_ms'])}; value-and-grad per "
+            f"replayed call kernel route {t32['vg_ms']['kernel']:.4f}, autograd route "
+            f"{t32['vg_ms']['autograd']:.4f}")
+    print("[vg] the whitened FN value-and-grad's kernel against its plain version and the one-block "
+          "kernel on the card: " + "; ".join(parts), flush=True)
     return rows
 
 

@@ -1,6 +1,7 @@
 """The whitened, mode-centered FitzHugh-Nagumo value-and-grad between its
-two whitening GEMMs: one hand-written CUDA kernel (csrc/centered_vg.cu),
-its plain version and the dispatch between them.
+two whitening GEMMs: one hand-written CUDA kernel (csrc/centered_vg.cu: a
+thread-block cluster per group of chains, its blocks splitting the grid's
+rows), its tiling, its plain version and the dispatch between them.
 
 Counterpart of the JAX package's ``log_posterior_centered``
 (ops/likelihood.py:386) under ``jax.value_and_grad`` as its
@@ -45,8 +46,13 @@ products of ``ops/band.py`` and no autograd. The plain version computes in
 its tensors' dtype; the kernel computes in float64 whatever it stores
 (float32 or float64), so in float32 it is the more accurate of the two.
 
-The kernel is built at first use through ``ops/cuda_band.build`` into
-``<package>/build/`` and bound with ctypes. Its launches are counted in
+The kernel reads the storages through its own row-indexed copy
+(``band_diags``) and is launched on the tiling of ``tiling``: S blocks a
+cluster, each a slab of rows, Cg chains a cluster, G a thread. On the card
+the wrapper asks ``cudaOccupancyMaxActiveClusters`` once per tiling
+whether the clusters can run at all and raises if not. The kernel is built
+at first use through ``ops/cuda_band.build`` into ``<package>/build/`` and
+bound with ctypes. Its launches are counted in
 ``cuda_band.KERNEL_LAUNCHES[NAME]``, beside the band kernels', so that the
 CUDA graphs that capture a value-and-grad move them to their replays as
 they move K1's.
@@ -78,30 +84,44 @@ FIELDS = ("x_ref", "r_ref", "c_e", "c_gc", "mask")
 # x block (theta's z, then log sigma when it is sampled)
 BETA, NOBS, SIGMA, LB, TAIL = 0, 3, 5, 7, 10
 N_SCALARS = TAIL + N_THETA + N_DIMS
-# the kernel's threads per block and its chain's sums (the sums of r^2 per
-# state, |g|^2, |h|^2 and the three theta gradients; one slot spare),
-# reduced in three steps (3, 1 and 3 of them), each with its warps'
-# partials; and the shared memory a block may use on an H100 (the opt-in
-# maximum). A block takes one chain: blocks of 2, 4 and 8 chains were the
-# slower at every shape measured on the H100 (PERF.md, PR 11)
-THREADS, N_SUMS, N_PARTIALS = 512, 8, 7
+# The kernel's tiling (``tiling``; csrc/centered_vg.cu mirrors it): a
+# thread-block cluster of S blocks serves Cg chains, block ``rank`` owning
+# the grid rows [rank L, min(n, (rank + 1) L)) of both states; a thread's
+# unit is ROWS consecutive rows of one state for G chains. A chain's
+# sums (N_SUMS; sum_i r^2 per state, |g|^2, |h|^2, the three theta
+# gradients, one spare) go through PART_LANES partial lanes per unit; its
+# parameters take N_PARAMS slots; its VECTORS staged vectors (X then H, E,
+# GS) are float64 in both dtypes. S is the largest power of two up to
+# MAX_CLUSTER leaving slabs of at least max(b, MIN_SLAB) rows; Cg the chains
+# that fill TARGET_BLOCKS blocks (the H100's 132 SMs, one block each), as
+# shared memory allows. MAX_SHARED_BYTES is a block's opt-in maximum.
+ROWS, MAX_THREADS, MAX_CLUSTER, MIN_SLAB, TARGET_BLOCKS = 2, 256, 16, 32, 128
+# G at most (the kernel's instances take G = 1, 2, 4, 8), and the units a
+# block should keep: on the H100 blocks of ~100 units ran fastest, fewer
+# leaving too few warps, more loading and converting each coefficient again
+# for each further chain subgroup (perf/vg_timing.py --variants, PERF.md)
+MAX_PER_THREAD, MIN_UNITS = 8, 96
+N_SUMS, N_PARAMS, PART_LANES, VECTORS = 8, 8, 4, 3
 MAX_SHARED_BYTES = 232448
 
-# The longest grid the route takes, as n (2b+1), one operator's terms: on
-# the H100 the kernel route was the faster up to config 4's grid (n = 793,
-# b = 80: 0.260 against 0.395 ms per value-and-grad at 128 chains, 0.210
-# against 0.226 at one) and twice the slower at n = 3169, b = 160 (2.07
-# against 1.01), where one block streams 48.8 MB of storages a chain
-# through one SM (perf/vg_timing.py, PERF.md)
+# The longest grid the route takes, as n (2b+1), one operator's terms. On
+# the H100, ms per replayed value-and-grad, kernel route against autograd
+# route (perf/vg_timing.py, PERF.md): config 4's grid (n = 793, b = 80)
+# 0.170 against 0.393 at 128 chains, 0.062 against 0.223 at one; n = 3169,
+# b = 160, 1.193 against 1.008 at 128 chains (the kernel 0.72 ms of it),
+# 0.258 against 0.386 at one. At 128 chains the routes cross between the
+# two grids, so the route stops at config 4's.
 MAX_TERMS = 793 * 161
 
 _LIB = None
 
 
 class CenteredFN(NamedTuple):
-    """A whitened FN target's constants as the kernel reads them."""
+    """A whitened FN target's constants as the plain version and the
+    kernel read them."""
 
     bands: torch.Tensor    # (6, D, 2b+1, n): the storages of BANDS
+    band_diags: torch.Tensor  # (6, D, *diag_shape(n, b)): the same, indexed by row
     fields: torch.Tensor   # (5, D, n): FIELDS, transposed to (D, n)
     scalars: torch.Tensor  # (N_SCALARS,)
     n: int
@@ -110,19 +130,116 @@ class CenteredFN(NamedTuple):
     theta_kind: int        # 0: theta = z; 1: theta = lb + exp(z)
 
 
-def shared_bytes(n: int, itemsize: int) -> int:
-    """Shared memory of one block: in float64 (the kernel computes in it)
-    the chain's parameters and sums and the block reductions' warp
-    partials; in the storage type four (D, n) vectors (dx; e, then ebar;
-    -g / beta_level; -h / beta_deriv)."""
-    return 8 * (N_SUMS + 8 + (THREADS // 32) * N_PARTIALS) + itemsize * 4 * N_DIMS * n
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def diag_shape(n: int, bandwidth: int) -> tuple:
+    """(terms, columns) of one operator in the kernel's diagonal copy: the
+    2b+1 terms padded with zero terms to whole chunks of 8, and the n rows
+    padded with zero rows to an even count of at least n + ROWS."""
+    return 8 * _cdiv(2 * bandwidth + 1, 8), 2 * _cdiv(n + ROWS, 2)
+
+
+def band_diags(bands: torch.Tensor, bandwidth: int) -> torch.Tensor:
+    """The kernel's copy of diagonal band storages (..., 2b+1, n) (ops/band.py
+    layout, indexed by column): out[..., b + k, i] = A[i, i + k], indexed by
+    row, zero where i + k lies outside [0, n) and in the padding of
+    ``diag_shape``. A unit's rows of one term are then one aligned vector,
+    neighbouring units' neighbouring ones, and no edge of the grid needs a
+    test in the kernel."""
+    b = bandwidth
+    *lead, w, n = bands.shape
+    flat = bands.reshape(-1, w, n)
+    width = n + 2 * b
+    padded = torch.nn.functional.pad(flat, (b, b)).contiguous()
+    by_row = padded.as_strided((flat.shape[0], w, n), (w * width, width + 1, 1))  # A[i, i+k]
+    terms, cols = diag_shape(n, b)
+    out = torch.zeros((flat.shape[0], terms, cols), dtype=bands.dtype, device=bands.device)
+    out[:, :w, :n] = by_row
+    return out.reshape(*lead, terms, cols)
+
+
+class Tiling(NamedTuple):
+    """One launch's tiling (``tiling``)."""
+
+    cluster: int       # S: blocks a cluster, each a slab of rows
+    slab: int          # L: rows a slab (the last may be shorter)
+    chains: int        # Cg: chains a cluster
+    per_thread: int    # G: chains a thread's unit
+    split: bool        # G = 1: stages 1 and 4 put a unit's operators on two threads
+    clusters: int      # clusters of the launch, ceil(C / Cg)
+    threads: int       # threads a block
+    shared_bytes: int  # dynamic shared memory a block
+    slabs: tuple       # (lo, hi) of each rank's slab
+
+
+def cluster_size(n: int, bandwidth: int) -> int:
+    """S: the largest power of two up to MAX_CLUSTER whose slabs keep at
+    least max(b, MIN_SLAB) rows (so a halo comes from the adjacent blocks)
+    and, rounded to even counts, leave the last slab rows; 1 for a grid
+    shorter than two such slabs."""
+    s = 1
+    while (2 * s <= MAX_CLUSTER and n // (2 * s) >= max(bandwidth, MIN_SLAB)
+           and (2 * s - 1) * 2 * _cdiv(n, 4 * s) < n):
+        s *= 2
+    return s
+
+
+def chain_bytes(slab: int, bandwidth: int) -> int:
+    """Shared memory one chain takes in a block with a slab of ``slab``
+    rows: its parameters and sums, PART_LANES partials per unit, and
+    VECTORS vectors of both states over the units' rows and a halo of b
+    each side, all float64."""
+    groups = _cdiv(slab, ROWS)
+    return 8 * (N_PARAMS + N_SUMS + PART_LANES * groups
+                + VECTORS * 2 * (groups * ROWS + 2 * bandwidth))
+
+
+def tiling(n: int, bandwidth: int, n_chains: int) -> Tiling:
+    """The launch for C = ``n_chains`` chains on a grid of n rows, band b.
+    S and the slabs depend on (n, b) alone; Cg = ceil(C S / TARGET_BLOCKS)
+    as shared memory allows, rounded down to a multiple of MAX_PER_THREAD
+    above it; G the largest of 8, 4, 2 up to MAX_PER_THREAD dividing Cg that
+    leaves the block MIN_UNITS units (ROWS rows of one state for G chains),
+    else 1; ``split`` for one chain a cluster when twice its units fit
+    one pass; threads enough for the units (two a unit when split), each
+    state's padded to whole warps, in as few passes of at most MAX_THREADS
+    as can be. Raises ValueError when
+    one chain's state is beyond a block's shared memory."""
+    s = cluster_size(n, bandwidth)
+    slab = _cdiv(n, s) if s == 1 else 2 * _cdiv(n, 2 * s)  # even: aligned vectors
+    per_chain = chain_bytes(slab, bandwidth)
+    fits = MAX_SHARED_BYTES // per_chain
+    if fits < 1:
+        raise ValueError(f"centered_vg: a chain at n = {n}, b = {bandwidth} needs {per_chain} "
+                         f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    c = max(1, min(_cdiv(n_chains * s, TARGET_BLOCKS), fits, n_chains))
+    if c > MAX_PER_THREAD:
+        c -= c % MAX_PER_THREAD
+    groups = _cdiv(slab, ROWS)
+    g = next((g for g in (8, 4, 2) if g <= MAX_PER_THREAD and c % g == 0
+              and 2 * groups * (c // g) >= MIN_UNITS), 1)
+    # each state's row groups padded to whole warps, as the kernel runs them;
+    # one chain a cluster splits stages 1 and 4 over twice the threads when
+    # they fit one pass (on the H100 faster there, slower at 2 chains or in
+    # two passes: perf/vg_timing.py, PERF.md)
+    units = 2 * 32 * _cdiv(groups, 32) * (c // g)
+    split = c == 1 and 2 * units <= MAX_THREADS
+    units *= 2 if split else 1
+    threads = 32 * _cdiv(_cdiv(units, _cdiv(units, MAX_THREADS)), 32)
+    slabs = tuple((r * slab, min(n, (r + 1) * slab)) for r in range(s))
+    return Tiling(cluster=s, slab=slab, chains=c, per_thread=g, split=split,
+                  clusters=_cdiv(n_chains, c), threads=threads, shared_bytes=c * per_chain,
+                  slabs=slabs)
 
 
 def takes(target) -> bool:
     """Whether ``target``'s whitened value-and-grad takes this route: a
     banded target of the FN system, theta unbounded or bounded below in
     every parameter, float32 or float64, a grid of at most MAX_TERMS terms
-    an operator, and one chain's state within a block's shared memory."""
+    an operator, and one chain's state within a block's shared memory
+    (``chain_bytes`` of its tiling's slab)."""
     if not isinstance(target.data, BandedLikelihoodData) or target.system.f is not fn_f:
         return False
     if target.n_times * (2 * target.bandwidth + 1) > MAX_TERMS:
@@ -133,8 +250,12 @@ def takes(target) -> bool:
     dtype = target.data.mask.dtype
     if dtype not in (torch.float32, torch.float64):
         return False
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return shared_bytes(target.n_times, itemsize) <= MAX_SHARED_BYTES
+    n, b = target.n_times, int(target.bandwidth)
+    try:
+        tiling(n, b, 1)
+    except ValueError:
+        return False
+    return True
 
 
 def make_params(target, center) -> CenteredFN:
@@ -161,8 +282,9 @@ def make_params(target, center) -> CenteredFN:
     ])
     storages = (data.mphi_bs, data.GCt_bs, data.GKt_bs, data.GK_bs, data.mphi_t_bs, data.GC_bs)
     fields = (cent.x_ref, cent.r_ref, cent.c_e, cent.c_gc, data.mask)
+    bands = torch.stack(storages).contiguous()
     return CenteredFN(
-        bands=torch.stack(storages).contiguous(),
+        bands=bands, band_diags=band_diags(bands, int(target.bandwidth)),
         fields=torch.stack([f.transpose(0, 1) for f in fields]).contiguous(),
         scalars=torch.as_tensor(scalars, dtype=like.dtype, device=like.device),
         n=n, bandwidth=int(target.bandwidth), sigma_sampled=not target.sigma_is_fixed,
@@ -244,15 +366,18 @@ def centered_fn_vg_torch(dpsi: torch.Tensor, p: CenteredFN):
 
 
 def load(source: Path = SOURCE):
-    """Build ``source`` (the kernel's, or a copy of it that
-    ``perf/unroll_repro.py`` builds), bind its C entry points and set its
-    instances' shared-memory limit."""
+    """Build ``source`` (the kernel's, a measurement copy of it, or a
+    baseline under ``perf/baselines``), bind its C entry points and set its
+    instances' shared-memory and cluster limits."""
     lib = ctypes.CDLL(str(cuda_band.build(source)))
     p = ctypes.c_void_p
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"{NAME}_{suffix}")
         fn.argtypes, fn.restype = [p, p, p], ctypes.c_int
     lib.centered_vg_init.argtypes, lib.centered_vg_init.restype = [], ctypes.c_int
+    if hasattr(lib, "centered_vg_max_clusters"):  # not in the one-block baseline
+        lib.centered_vg_max_clusters.argtypes = [p, ctypes.c_int, p]
+        lib.centered_vg_max_clusters.restype = ctypes.c_int
     err = lib.centered_vg_init()
     if err != 0:
         raise RuntimeError(f"{NAME}: setting the kernels' shared memory failed: CUDA error {err}")
@@ -267,9 +392,12 @@ def _library():
 
 
 # the kernel's pointer and integer arguments, in the order of its VgArgs
-POINTERS = ("dpsi", "bands", "fields", "scalars", "g_psi", "lp")
-INTS = ("n_chains", "n", "bandwidth", "dim", "sigma_sampled", "theta_kind", "n_pointers",
-        "n_ints")
+# and its Launch
+POINTERS = ("dpsi", "band_diags", "fields", "scalars", "g_psi", "lp")
+INTS = ("n_chains", "n", "bandwidth", "dim", "sigma_sampled", "theta_kind", "cluster", "slab",
+        "chains", "per_thread", "split", "threads", "shared_bytes", "n_pointers", "n_ints")
+# (library, tiling, float64) -> clusters the card runs at once
+_MAX_CLUSTERS = {}
 
 
 def centered_fn_vg_cuda(dpsi: torch.Tensor, p: CenteredFN):
@@ -278,14 +406,32 @@ def centered_fn_vg_cuda(dpsi: torch.Tensor, p: CenteredFN):
     return launch(None, dpsi, p)
 
 
+def _ints(c: int, dim: int, p: CenteredFN, tile: Tiling):
+    return (ctypes.c_longlong * len(INTS))(
+        c, p.n, p.bandwidth, dim, int(p.sigma_sampled), p.theta_kind, tile.cluster, tile.slab,
+        tile.chains, tile.per_thread, int(tile.split), tile.threads, tile.shared_bytes,
+        len(POINTERS), len(INTS))
+
+
+def max_clusters(lib, ints, f64: bool) -> int:
+    """Clusters of the launch ``ints`` describes that the card runs at once
+    (cudaOccupancyMaxActiveClusters); raises on a CUDA error."""
+    out = ctypes.c_int(0)
+    err = lib.centered_vg_max_clusters(ints, int(f64), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{NAME}: cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
+    return out.value
+
+
 def launch(lib, dpsi: torch.Tensor, p: CenteredFN):
     """``centered_fn_vg_cuda`` through the library ``lib`` (``load``;
     None: the kernel's own, built at first use). Raises on an input it
-    does not take, before any build."""
+    does not take, before any build, and when the card cannot run the
+    tiling's clusters."""
     c, dim = dpsi.shape
     n, d = p.n, N_DIMS
     want_dim = n * d + N_THETA + (d if p.sigma_sampled else 0)
-    tensors = dict(dpsi=dpsi, bands=p.bands, fields=p.fields, scalars=p.scalars)
+    tensors = dict(dpsi=dpsi, band_diags=p.band_diags, fields=p.fields, scalars=p.scalars)
     for what, t in tensors.items():
         if t.device != dpsi.device or t.dtype != dpsi.dtype or not t.is_contiguous():
             raise ValueError(f"centered_fn_vg_cuda: {what} must be a contiguous {dpsi.dtype} "
@@ -293,29 +439,35 @@ def launch(lib, dpsi: torch.Tensor, p: CenteredFN):
     if dpsi.device.type != "cuda" or dpsi.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"centered_fn_vg_cuda: float32 or float64 on a CUDA device; got "
                          f"{dpsi.dtype} on {dpsi.device}")
-    width = 2 * p.bandwidth + 1
-    if (dim != want_dim or tuple(p.bands.shape) != (len(BANDS), d, width, n)
+    diags = (len(BANDS), d, *diag_shape(n, p.bandwidth))
+    if (dim != want_dim or tuple(p.band_diags.shape) != diags
             or tuple(p.fields.shape) != (len(FIELDS), d, n)
             or tuple(p.scalars.shape) != (N_SCALARS,) or p.theta_kind not in (0, 1)):
         raise ValueError(f"centered_fn_vg_cuda: dpsi {tuple(dpsi.shape)} (dim {want_dim}), "
-                         f"bands {tuple(p.bands.shape)}, fields {tuple(p.fields.shape)}, "
+                         f"band copy {tuple(p.band_diags.shape)} (want {diags}), fields "
+                         f"{tuple(p.fields.shape)}, "
                          f"theta kind {p.theta_kind}")
-    if shared_bytes(n, dpsi.element_size()) > MAX_SHARED_BYTES:
-        raise ValueError(f"centered_fn_vg_cuda: a chain at n = {n} needs "
-                         f"{shared_bytes(n, dpsi.element_size())} bytes of shared memory")
+    tile = tiling(n, p.bandwidth, max(c, 1))
     lib = _library() if lib is None else lib
     g_psi = torch.empty_like(dpsi)
     lp = torch.empty(c, dtype=dpsi.dtype, device=dpsi.device)
     if c == 0:
         return lp, g_psi
+    f64 = dpsi.dtype == torch.float64
+    ints = _ints(c, dim, p, tile)
+    key = (id(lib), tile, f64)
+    if key not in _MAX_CLUSTERS:
+        _MAX_CLUSTERS[key] = max_clusters(lib, ints, f64)
+    if _MAX_CLUSTERS[key] < 1:
+        raise RuntimeError(f"{NAME}: the card cannot run a cluster of {tile.cluster} blocks of "
+                           f"{tile.threads} threads and {tile.shared_bytes} bytes of shared "
+                           f"memory ({tile})")
     out = dict(tensors, g_psi=g_psi, lp=lp)
     ptrs = (ctypes.c_void_p * len(POINTERS))(*(out[k].data_ptr() for k in POINTERS))
-    ints = (ctypes.c_longlong * len(INTS))(
-        c, n, p.bandwidth, dim, int(p.sigma_sampled), p.theta_kind, len(POINTERS), len(INTS))
-    fn = getattr(lib, f"{NAME}_{'f32' if dpsi.dtype == torch.float32 else 'f64'}")
+    fn = getattr(lib, f"{NAME}_{'f64' if f64 else 'f32'}")
     err = fn(ptrs, ints, torch.cuda.current_stream(dpsi.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} ({tile})")
     cuda_band.KERNEL_LAUNCHES[NAME] += 1
     return lp, g_psi
 

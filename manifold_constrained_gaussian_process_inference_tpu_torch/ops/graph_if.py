@@ -117,6 +117,11 @@ class WhileNodes:
         the work captured so far on the current stream."""
         lib = _library()
         capture = torch.cuda.current_stream(self.device)
+        if self.stream.cuda_stream == capture.cuda_stream:
+            # PyTorch's pool hands out its streams in turn, and a graph's
+            # capture stream is one of them: the body may not be captured on
+            # the stream that is capturing (CUDA error 401), so take the next
+            self.stream = torch.cuda.Stream(self.device)
         _check(lib.graph_while_begin(capture.cuda_stream, handle, self.stream.cuda_stream),
                "graph_while_begin")
         n = ctypes.c_ulonglong(0)

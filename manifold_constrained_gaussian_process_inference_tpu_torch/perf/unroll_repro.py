@@ -14,18 +14,19 @@ with the pragma removed. The run holds
 - ``band_rows`` alone (the minimal reproducer): one block computes the
   stage-1 pair u = mphi dx, v = GC^T dx of [resume]'s operators for one
   chain's dx from shared memory, as the kernel does, in both builds at G = 1
-  and 2 and in the shipped kernel's (csrc/centered_vg.cu), held to the
+  and 2 and in the one-block kernel's (``vg_timing.BASELINE``), held to the
   plain float64 product (``ops/band.band_storage_matvec_torch``) row by
   row;
-- the whole kernel of both builds at every G, and the shipped one, at
-  [resume]'s case (the shipped one at [slice]'s too) against the plain
+- the whole kernel of both builds at every G, and the one-block kernel's, at
+  [resume]'s case (the one-block kernel's at [slice]'s too) against the plain
   version (``centered_vg.centered_fn_vg_torch``);
 - the two builds' SASS (``cuobjdump -sass``, written under ``--out`` with
   instruction counts by opcode per function), compared instance by
   instance with addresses stripped;
 
-and times the earlier version by G at [slice]'s case beside the shipped
-kernel, in both dtypes (the measurement that chose one chain a block).
+and times the earlier version by G at [slice]'s case beside the one-block kernel
+and the cluster kernel of csrc/centered_vg.cu, in both dtypes (the
+measurement that chose one chain a block).
 Rows that differ are printed with the term the difference matches (a term
 of the row dropped or counted twice), if any. Runs on a CUDA card only.
 """
@@ -193,9 +194,9 @@ def launch_old(lib, dpsi, p, group: int):
 
 def time_groups(lib, case: dict) -> dict:
     """The earlier source's ms per launch by G at ``case``, both dtypes, and
-    the shipped kernel's beside them (``vg_timing.graph_ms``)."""
+    the one-block kernel's and the cluster kernel's beside them (``vg_timing.graph_ms``)."""
     from ..ops import centered_vg as cv
-    from .vg_timing import COUNT, graph_ms
+    from .vg_timing import COUNT, graph_ms, launch_pr11
 
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -203,20 +204,22 @@ def time_groups(lib, case: dict) -> dict:
         dpsi = torch.as_tensor(case["dpsi"], dtype=dtype, device="cuda")
         row = {f"G{g}": graph_ms(lambda g=g: launch_old(lib, dpsi, params, g), COUNT)
                for g in GROUPS}
-        row["shipped"] = graph_ms(lambda: cv.centered_fn_vg_cuda(dpsi, params), COUNT)
+        row["pr11"] = graph_ms(lambda: launch_pr11(dpsi, params), COUNT)
+        row["clusters"] = graph_ms(lambda: cv.centered_fn_vg_cuda(dpsi, params), COUNT)
         out[str(dtype)[6:]] = row
     return out
 
 
 def run_kernel(lib, case: dict, group: int = 0) -> tuple:
-    """The whole kernel in float64 (the earlier source's at ``group``),
-    and its error against the plain version, max |difference| over max
-    |plain| of lp and of g_psi."""
+    """The whole kernel in float64 (the earlier source's at ``group``, else
+    the one-block kernel's), and its error against the plain version, max |difference|
+    over max |plain| of lp and of g_psi."""
     from ..ops import centered_vg as cv
+    from .vg_timing import launch_pr11
 
     params = cv.make_params(case["targets"][torch.float64], case["center"])
     dpsi = torch.as_tensor(case["dpsi"], dtype=torch.float64, device="cuda")
-    got = launch_old(lib, dpsi, params, group) if group else cv.launch(lib, dpsi, params)
+    got = launch_old(lib, dpsi, params, group) if group else launch_pr11(dpsi, params)
     want = cv.centered_fn_vg_torch(dpsi, params)
     torch.cuda.synchronize()
     rel = [float((a - w).abs().max() / w.abs().max()) for a, w in zip(got, want)]
@@ -244,26 +247,27 @@ def main(argv=None) -> int:
         raise SystemExit("unroll_repro needs a CUDA card")
     import manifold_constrained_gaussian_process_inference_tpu_torch  # noqa: F401
     from ..ops import centered_vg as cv, cuda_band
-    from .vg_timing import make_case
+    from .vg_timing import BASELINE, make_case
 
     args.out.mkdir(parents=True, exist_ok=True)
     build_dir = cuda_band.BUILD_DIR / "repro"
     build_dir.mkdir(parents=True, exist_ok=True)
     cases = dict(resume=make_case("resume"), slice=make_case("slice"))
     old = dict(rolled=args.old, unrolled=unrolled_copy(args.old, build_dir))
-    harnesses = {f"{cv.SOURCE.stem}:G1": harness(cv.SOURCE, build_dir, False, 1)}
+    harnesses = {f"{BASELINE.stem}:G1": harness(BASELINE, build_dir, False, 1)}
     for how, src in old.items():
         for g in (1, 2):
             harnesses[f"{args.old.stem}:{how}:G{g}"] = harness(src, build_dir, True, g)
     # every build at once (nvcc, one process each)
     with ThreadPoolExecutor(max_workers=8) as pool:
-        list(pool.map(cuda_band.build, [*harnesses.values(), *old.values(), cv.SOURCE]))
+        list(pool.map(cuda_band.build, [*harnesses.values(), *old.values(), BASELINE,
+                                         cv.SOURCE]))
     report = {}
     for key, path in harnesses.items():
         so = cuda_band.build(path)
         report[key] = dict(minimal=run_minimal(so, cases["resume"]), sass=sass(so, args.out))
         print(f"[minimal] {key} {json.dumps(report[key]['minimal'])}", flush=True)
-    lib = cv.load(cv.SOURCE)
+    lib = cv.load(BASELINE)
     for name, case in cases.items():
         _, rel = run_kernel(lib, case)
         report[f"kernel:{name}"] = dict(rel=rel)

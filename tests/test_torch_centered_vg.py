@@ -7,7 +7,9 @@ small FN problems (n = 21, b = 20; n = 41, b = 10) over sigma sampled and
 fixed, theta bounded and not, two prior temperatures, a mask with
 unobserved points and C = 1 and 4; the clamp's gradient beyond
 |log sigma| = 15; non-finite values where f overflows; the dispatch rule;
-and solve_magi on the route. On a card (tests marked ``cuda``) the kernel
+solve_magi on the route; and the kernel's launch arithmetic in Python:
+its tiling (slabs, halos, chain groups, threads, shared memory) and its
+row-indexed band copy. On a card (tests marked ``cuda``) the kernel
 equals its plain version."""
 import dataclasses
 
@@ -178,10 +180,11 @@ def test_dispatch_rule(change, want):
     elif change == "hes1":
         target = dataclasses.replace(target, system=HES1_SYSTEM)
     elif change == "oversize":
-        n_max = max(n for n in range(1, 8000)
-                    if cv.shared_bytes(n, 8) <= cv.MAX_SHARED_BYTES)
-        assert cv.takes(dataclasses.replace(target, n_times=n_max, bandwidth=0))
-        target = dataclasses.replace(target, n_times=n_max + 1, bandwidth=0)
+        n = target.n_times
+        b_max = max(b for b in range(0, 5000)
+                    if cv.chain_bytes(-(-n // cv.cluster_size(n, b)), b) <= cv.MAX_SHARED_BYTES)
+        assert cv.takes(dataclasses.replace(target, bandwidth=b_max))
+        target = dataclasses.replace(target, bandwidth=b_max + 1)
     elif change == "long-grid":
         n_max = cv.MAX_TERMS // 81
         assert cv.takes(dataclasses.replace(target, n_times=n_max, bandwidth=40))
@@ -195,19 +198,153 @@ def test_dispatch_rule(change, want):
 
 
 def test_kernel_source_agrees_with_the_wrapper():
-    """The kernel's constants (threads, sums, tail offset, argument
+    """The kernel's constants (rows a unit, threads, cluster, sums,
+    parameters, partial lanes, staged vectors, tail offset, argument
     counts) and its shared-memory formula are the wrapper's."""
     import re
 
     src = cv.SOURCE.read_text()
     const = lambda name: int(re.search(rf"{name} = (\d+)", src).group(1))  # noqa: E731
-    assert const("kThreads") == cv.THREADS
+    assert const("kRows") == cv.ROWS
+    assert const("kMaxThreads") == cv.MAX_THREADS
+    assert const("kMaxCluster") == cv.MAX_CLUSTER
     assert const("kSums") == cv.N_SUMS
+    assert const("kParams") == cv.N_PARAMS
+    assert const("kLanes") == cv.PART_LANES
+    assert const("kVectors") == cv.VECTORS
     assert const("kTail") == cv.TAIL
     assert const("kNPointers") == len(cv.POINTERS)
     assert const("kNInts") == len(cv.INTS)
-    assert "kSums + kParams + kWarps * 7" in src and cv.N_PARTIALS == 7
-    assert cv.shared_bytes(397, 4) == 8 * (8 + 8 + 16 * 7) + 4 * 8 * 397
+    assert "return kParams + kSums + static_cast<size_t>(kLanes) * groups_of(slab) +" in src
+    # the diagonal copy's padding (diag_shape)
+    assert "int terms_of(int b) { return (2 * b + 1 + 7) / 8 * 8; }" in src
+    assert "int cols_of(int n) { return (n + kRows + 1) / 2 * 2; }" in src
+    assert cv.diag_shape(397, 40) == (88, 400) and cv.diag_shape(41, 20) == (48, 44)
+    assert "static_cast<size_t>(kVectors) * 2 * width_of(slab, b);" in src
+    assert "return groups_of(slab) * kRows + 2 * b;" in src
+    # [slice]'s tiling at 128 chains: slabs of 50 rows, 25 units a state
+    assert cv.chain_bytes(50, 40) == 8 * (8 + 8 + 4 * 25 + 3 * 2 * (25 * 2 + 80))
+    assert cv.tiling(397, 40, 128).shared_bytes == 8 * cv.chain_bytes(50, 40)
+
+
+@pytest.mark.parametrize("n,b", [(41, 20), (21, 20), (30, 3), (9, 0)])
+def test_kernel_band_copy_holds_the_operator(n, b):
+    """The kernel's diagonal copy (``band_diags``) of band storages: term k
+    of row i at [b + k, i] is A[i, i + k], the product summed from it over
+    k = -b..b equals ``ops/band.band_storage_matvec_torch`` (float64, 1e-13
+    of the largest term), and every padded entry (terms past b, rows past
+    n, i + k outside the grid) is zero."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops.band import (
+        band_storage_matvec_torch,
+    )
+
+    rng = np.random.default_rng(n + b)
+    bands = torch.as_tensor(rng.normal(size=(2, 3, 2 * b + 1, n)))
+    x = torch.as_tensor(rng.normal(size=(2, 3, n)))
+    diags = cv.band_diags(bands, b)
+    assert tuple(diags.shape) == (2, 3, *cv.diag_shape(n, b))
+    k = torch.arange(-b, b + 1)[:, None]
+    i = torch.arange(n)[None, :]
+    inside = (i + k >= 0) & (i + k < n)
+    x_at = torch.where(inside, x[..., (i + k).clamp(0, n - 1)], 0.0)  # x[i + k]
+    got = torch.sum(diags[..., : 2 * b + 1, :n] * x_at, dim=-2)
+    want = band_storage_matvec_torch(bands.reshape(6, 2 * b + 1, n), x.reshape(6, n), b)
+    torch.testing.assert_close(got.reshape(6, n), want, rtol=0, atol=1e-13 * float(
+        (bands.abs().max() * x.abs().max())))
+    assert not diags[..., 2 * b + 1:, :].any() and not diags[..., n:].any()
+    assert not torch.where(inside, 0.0, diags[..., : 2 * b + 1, :n]).any()
+
+
+# the grids of the kernel's paths: [resume]'s, [slice]'s, config 4's, the
+# filllevel-5 grid's
+GRIDS = [(41, 20), (397, 40), (793, 80), (3169, 160)]
+
+
+@pytest.mark.parametrize("n,b", GRIDS)
+def test_tiling_covers_every_output_once_and_its_halos(n, b):
+    """The slabs of a cluster's blocks cover the grid's rows once, none
+    empty; a block's staged vectors hold its slab and b rows each side,
+    each halo row read from the block that owns it (an adjacent one,
+    since a slab keeps at least b rows), at a position inside the owner's
+    slab; and a unit's windows stay inside the staged vector. A banded
+    product computed slab by slab from those staged vectors (positions
+    outside the grid zero) is the whole product's, bit for bit."""
+    tile = cv.tiling(n, b, 128)
+    slab, s = tile.slab, tile.cluster
+    rows = np.concatenate([np.arange(lo, hi) for lo, hi in tile.slabs])
+    assert np.array_equal(rows, np.arange(n)) and all(hi > lo for lo, hi in tile.slabs)
+    assert 1 <= s <= cv.MAX_CLUSTER and (s == 1 or (slab >= b and slab % 2 == 0))
+    groups = -(-slab // cv.ROWS)
+    width = groups * cv.ROWS + 2 * b
+    rng = np.random.default_rng(n)
+    band = rng.normal(size=(2 * b + 1, n))
+    x = rng.normal(size=n)
+    whole = np.zeros(n)
+    for i in range(n):
+        for k in range(max(-b, -i), min(b, n - 1 - i) + 1):
+            whole[i] += band[b + k, i + k] * x[i + k]
+    by_slab = np.zeros(n)
+    for rank, (lo, hi) in enumerate(tile.slabs):
+        base = lo - b
+        staged = np.zeros(width)
+        for j in range(max(0, base), min(n, base + width)):
+            owner = j // slab
+            if lo <= j < hi:
+                assert owner == rank
+            elif j < lo - b or j >= hi + b:
+                continue  # never read by a row of the slab
+            else:
+                assert abs(owner - rank) == 1
+                lo_q, hi_q = tile.slabs[owner]
+                assert lo_q <= j < hi_q and b <= j - (owner * slab - b) < b + slab
+            staged[j - base] = x[j]
+        for g in range(groups):
+            i0 = lo + g * cv.ROWS
+            kmin, kmax = max(-b, -(i0 + cv.ROWS - 1)), min(b, n - 1 - i0)
+            for r in range(cv.ROWS):
+                i = i0 + r
+                assert 0 <= i0 - base + kmin + r and i0 - base + kmax + r < width
+                if i >= hi:
+                    continue
+                acc = 0.0
+                for k in range(kmin, kmax + 1):
+                    inside = 0 <= i + k < n
+                    coef = band[b + k, i + k] if inside else 0.0
+                    acc += coef * staged[i0 - base + k + r]
+                by_slab[i] = acc
+    assert np.array_equal(by_slab, whole)
+
+
+@pytest.mark.parametrize("n,b", GRIDS)
+def test_tiling_depends_on_the_chains_only_through_the_groups(n, b):
+    """S and the slabs are the same at C = 1, 3, 32 and 128 (a chain's
+    bits depend on them alone); the chain groups fill the card's blocks as
+    shared memory allows, each a whole number of thread units, and G
+    leaves a block MIN_UNITS units unless it is 1; a block's threads cover
+    its units in passes of at most MAX_THREADS; its
+    shared memory is within the H100's 232,448 bytes."""
+    tiles = {c: cv.tiling(n, b, c) for c in (1, 3, 32, 128)}
+    assert len({(t.cluster, t.slab, t.slabs) for t in tiles.values()}) == 1
+    assert tiles[1].chains == 1
+    for c, t in tiles.items():
+        assert t.shared_bytes <= 232448 == cv.MAX_SHARED_BYTES
+        assert 1 <= t.chains <= c and t.chains % t.per_thread == 0 and t.per_thread in (1, 2, 4, 8)
+        assert t.clusters == -(-c // t.chains)
+        groups = -(-t.slab // cv.ROWS)
+        units = 2 * groups * (t.chains // t.per_thread)
+        padded = 2 * 32 * (-(-groups // 32)) * (t.chains // t.per_thread)  # whole warps a state
+        assert t.split == (t.chains == 1 and 2 * padded <= cv.MAX_THREADS)
+        padded *= 2 if t.split else 1  # a unit's operators on two threads
+        passes = -(-padded // t.threads)
+        assert t.threads % 32 == 0 and t.threads <= cv.MAX_THREADS
+        assert passes == -(-padded // cv.MAX_THREADS)
+        assert t.per_thread == 1 or units >= cv.MIN_UNITS
+    # at 128 chains one wave of at most TARGET_BLOCKS blocks, unless a
+    # cluster's shared memory holds no more chains
+    t = tiles[128]
+    assert (t.cluster * t.clusters <= cv.TARGET_BLOCKS
+            or (t.chains + cv.MAX_PER_THREAD) * cv.chain_bytes(t.slab, b)
+            > cv.MAX_SHARED_BYTES)
 
 
 def test_card_entry_refuses_a_cpu_tensor():
