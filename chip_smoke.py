@@ -16,9 +16,11 @@ and 1, then one WHILE node (csrc/graph_if.cu) whose body is one leaf pair,
 run again while the condition that the commit kernel L2 sets holds (the
 JAX package's leaf loop on the device); each path line prints its host
 reads per transition, at most the transition's doublings + 1. Every leaf
-of every NUTS tree runs the two hand-written kernels of csrc/nuts_leaf.cu
-around its value-and-grad (L1 the drift, L2 the commit: the JAX package's
-fused leaf body, with the leaf counter on the device). The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
+of every NUTS tree runs the hand-written kernels of csrc/nuts_leaf.cu
+around its value-and-grad (the JAX package's fused leaf body, with the leaf
+counter on the device): L2 the commit, which also drifts the next leaf, and
+at a doubling's leaf 0 L1 the drift; under a dense metric the leaf's
+product M^-1 g is the hand-written kernel of csrc/minv_mv.cu. The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
 metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
 default ``solve_magi`` (one chain, the diagonal Welford metric, raw Psi) on
 the FitzHugh-Nagumo workload (n=397, D=2); parallel-tempering NUTS on
@@ -80,15 +82,26 @@ Phases:
    of the chains that agree, the pair counter, and on every odd leaf the
    condition L2 set, read through a WHILE node on its handle, equal to the
    plain version's (k < 2^4 / 2 and any chain alive); each chain's bits at
-   C = 1, 3 and 32 equal to its rows of the 128-chain launch; each kernel
+   C = 1, 3 and 32 equal to its rows of the 128-chain launch; the next
+   leaf's q that L2 writes bit-equal to L1's output on the state L2
+   committed, for every chain (alive or not), at every shape; each kernel
    and its plain version timed per launch from a CUDA graph of 200
-   launches, beside its bytes bound and the previous L2 design's time;
+   launches, beside its bytes bound and L2's time before it drifted; the
+   dense metric's product (csrc/minv_mv.cu) against the float64 plain
+   version at [slice]'s, a [mesh] rank's, [resume]'s, one chain's and
+   config 4's shapes: float64 within 1e-14 of the largest output, float32 no
+   further than torch.matmul's float32 product, a chain's bits at C = 1, 3,
+   32 as in the 128-chain launch, no matmul in a dense metric's velocity on
+   the card; timed beside torch.matmul and its operations bound;
 5d. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
    iterations, each run twice through ``solve_magi``: on the graphed tree
    and on the eager tree (the CPU path, chosen by patching
    ``nuts_batched.tree_graphed``); draws, log-densities, every statistic,
    the step sizes, metric and the generator's final state bit for bit, the
-   graphed run's host reads at most its doublings + 1 per transition; then
+   graphed run's host reads at most its doublings + 1 per transition, each
+   run's L1 launches its doublings, L2's its batched leaves and the
+   product's one per leaf and two per transition on [slice] and
+   [envelope] (none on the other two); then
    every depth of a 128-chain [slice] tree captured up front: per depth the
    leaves captured (min(2^i, 4)), its WHILE node, capture seconds and MiB;
 6. diag-gauss: the diag chain driver on the card at C = 4 on a
@@ -181,9 +194,12 @@ value-and-grad took (the result's ``vg_route``, checked on every path:
 1 pair, 1 pair_t and no centered_vg) times the run's value-and-grad
 evaluations, and each K1 launch ran the tile of its chain count (the row
 tile at one chain: [default], [profile], [grid] at C = 1 and the MAP warm
-start of [pt]; the chain tile at 32 chains and more). The leaf kernels' are exactly one L1 and one L2
-per batched leaf on every NUTS path ([families], [mesh] on every rank and
-[grid]'s eager tree included), 0 on [chees].
+start of [pt]; the chain tile at 32 chains and more). The leaf kernels' are exactly one L1 per
+doubling and one L2 per batched leaf on every NUTS path ([families], [mesh]
+on every rank and [grid]'s eager tree included), 0 on [chees]; the dense
+metric's product's one per batched leaf and two per transition on the
+paths under a dense metric ([slice], [envelope], [mesh] on every rank),
+none elsewhere.
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -204,6 +220,7 @@ from collections import Counter
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 N_CHAINS = 128
 # 250 warmup + 250 draws per chain: at ~0.7 ms per batched leapfrog step
@@ -340,13 +357,28 @@ LEAF_STASH_SHAPES = {"grid": (1, 6345, "diag"), "wide": (2, 20000, "shared")}
 LEAF_SEEDS = {name: k for k, name in enumerate(sorted(LEAF_SHAPES) + list(LEAF_STASH_SHAPES))}
 LEAF_RUNGS, LEAF_DEPTH, LEAF_ROWS, LEAF_REPS = 10, 4, 9, 200
 LEAF_SUBSETS = {1: (5,), 3: (7, 8, 9), 32: tuple(range(32, 64))}
-# L2's previous design (one block per chain passing over its rows three to
-# five times), ms per launch at LEAF_SHAPES on the H100 (PERF.md), printed
-# beside this run's; the target at [slice] is its bytes bound of 0.0029 ms
-# over one half, 0.0058 ms
-LEAF_PREVIOUS_COMMIT_MS = {"slice": 0.00781, "default": 0.00650, "shared": 0.00723,
-                           "pt": 0.00364}
-LEAF_COMMIT_TARGET_MS = 0.0058
+# L2 before it wrote the next leaf's q (one pass, no drift), ms per launch at
+# LEAF_SHAPES on the H100 (the upper ends of PERF.md's readings), printed
+# beside this run's; the target at [slice] is the upper end predicted for L2
+# with the drift (PERF.md)
+LEAF_PREVIOUS_COMMIT_MS = {"slice": 0.00567, "default": 0.00449, "shared": 0.00498,
+                           "pt": 0.00378}
+LEAF_COMMIT_TARGET_MS = 0.0063
+# The dense metric's product M^-1 g (csrc/minv_mv.cu), which replaces the
+# matmul of the JAX package's _minv_mv_b: checked at (chains, dim) of
+# [slice], a [mesh] rank, [resume]'s dense NUTS (3 chains, dim 87), one
+# chain and config 4 (n = 793, dim 1591), float64 and float32 against the
+# float64 plain version; a chain's bits at LEAF_SUBSETS' chain counts of
+# [slice]'s launch; timed at PRODUCT_TIMED over LEAF_REPS launches beside
+# the plain version (torch.matmul: the library call too), at 67 TFLOP/s
+PRODUCT_KERNEL = "minv_mv"
+PRODUCT_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/minv_mv.cu"
+PRODUCT_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:63"
+PRODUCT_SHAPES = {"slice": (128, 799), "mesh": (32, 799), "resume": (3, 87), "c1": (1, 799),
+                  "n793": (128, 1591)}
+PRODUCT_TIMED = ("slice", "mesh", "c1", "n793")
+PRODUCT_TOL_F64 = 1e-14  # of the largest |output|
+FP32_FLOP_PER_MS = 67e9
 # tree: the cut of each path run graphed and eager ([envelope] with
 # TREE_ENVELOPE_ADAPTS warmup: one window end, then tracked chunks; [pt]'s
 # MAP warm start cut to TREE_PT_MAP_ITERS Adam steps)
@@ -479,13 +511,14 @@ def phase_build(cb):
     from concurrent.futures import ThreadPoolExecutor
 
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops import (
-        centered_vg, graph_if, leaf,
+        centered_vg, graph_if, leaf, minv_mv,
     )
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing
 
     t0 = time.perf_counter()
     # the kernels, and the one-block centered_vg kernel that [vg] holds the new one to
-    sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, centered_vg.SOURCE, vg_timing.BASELINE)
+    sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, minv_mv.SOURCE, centered_vg.SOURCE,
+               vg_timing.BASELINE)
     with ThreadPoolExecutor(len(sources)) as pool:
         sos = list(pool.map(cb.build, sources))
     check(set(LEAF_KERNELS) == set(leaf.LAUNCHES), f"leaf kernels {sorted(leaf.LAUNCHES)}")
@@ -851,31 +884,40 @@ def _rounded(values, digits=5):
 
 
 class _Launches:
-    """ops/cuda_band's launch counts with the leaf kernels' (ops/leaf)
-    beside them; everything else is cuda_band's."""
+    """ops/cuda_band's launch counts with the leaf kernels' (ops/leaf) and
+    the dense metric's product's (ops/minv_mv) beside them; everything else
+    is cuda_band's."""
 
     def __init__(self, cb):
-        from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+        from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf, minv_mv
 
-        self._cb, self._leaf = cb, leaf
+        self._cb, self._others = cb, (leaf, minv_mv)
 
     def __getattr__(self, name):
         return getattr(self._cb, name)
 
     def reset_launches(self) -> None:
         self._cb.reset_launches()
-        self._leaf.reset_launches()
+        for module in self._others:
+            module.reset_launches()
 
     def counts(self) -> dict:
-        return {**self._cb.counts(), **self._leaf.LAUNCHES}
+        return {**self._cb.counts(), **{k: v for m in self._others for k, v in m.LAUNCHES.items()}}
 
 
-def _leaf_launches(launches, leaves, what) -> None:
-    """A path's leaf-kernel launches: exactly one L1 and one L2 per batched
-    leaf it ran (``leaves``; 0 where no NUTS tree runs)."""
-    got = {name: launches[name] for name in LEAF_KERNELS}
-    check(got == dict.fromkeys(LEAF_KERNELS, leaves),
-          f"{what}: leaf-kernel launches {got}, want {leaves} each (its batched leaves)")
+def _leaf_launches(launches, leaves, doublings, what, dense_transitions=None) -> None:
+    """A path's leaf-kernel launches: exactly one L1 per doubling its trees
+    ran (the doubling's leaf 0; ``doublings``) and one L2 per batched leaf
+    (``leaves``); 0 where no NUTS tree runs. The dense metric's product
+    (a path given ``dense_transitions``, its NUTS transitions under a
+    ``DenseMetric``): one launch per batched leaf and two per transition
+    (its start's M^-1 p0 and M^-1 grad); none on any other path."""
+    got = {name: launches[name] for name in (*LEAF_KERNELS, PRODUCT_KERNEL)}
+    want = {"nuts_leaf_drift": doublings, "nuts_leaf_commit": leaves,
+            PRODUCT_KERNEL: 0 if dense_transitions is None else leaves + 2 * dense_transitions}
+    check(got == want, f"{what}: leaf-kernel and product launches {got}, want {want} (one L1 "
+          f"per doubling, one L2 per batched leaf; a dense metric's product one per leaf and "
+          f"two per transition)")
 
 
 def _host_reads(d, what) -> str:
@@ -974,9 +1016,11 @@ class _GivenVelocity:
 def _leaf_case(name, dtype):
     """[leaf]'s inputs at one of LEAF_SHAPES: a sub-tree's start (every
     chain's q, p, grad consistent with its metric, every 7th chain not
-    alive), its metric, signed steps spread over [0.01, 0.5], the uniforms
-    of a depth-LEAF_DEPTH sub-tree and a Gaussian value-and-grad in which
-    one chain's leaves diverge and another's turn NaN after a few leaves."""
+    alive, at two chains the second; the tree's two q buffers, by the
+    leaf's parity), its metric, signed steps spread over [0.01, 0.5], the
+    uniforms of a depth-LEAF_DEPTH sub-tree and a Gaussian value-and-grad in
+    which one chain's leaves diverge and another's turn NaN after a few
+    leaves."""
     from types import SimpleNamespace
 
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
@@ -1017,10 +1061,11 @@ def _leaf_case(name, dtype):
         s_n_leaves=torch.zeros(c, **f), s_lsw=torch.full((c,), -torch.inf, **f),
         s_div=torch.zeros(c, dtype=torch.bool, device=DEVICE),
         s_turn=torch.zeros(c, dtype=torch.bool, device=DEVICE),
-        alive=torch.as_tensor(np.arange(c) % 7 != 6, device=DEVICE),
+        # every 7th chain not alive (at two chains the second)
+        alive=torch.as_tensor(np.arange(c) % 7 != (6 if c > 2 else 1), device=DEVICE),
         h0=0.5 * (scale * q * q).sum(-1) + 0.5 * (p * metric.velocity(p)).sum(-1),
         ckpts=torch.zeros(c, LEAF_ROWS, 3, dim, **f), s_div_edge=torch.zeros(c, dim, **f),
-        s_div_leaf=torch.zeros(c, dim, **f),
+        s_div_leaf=torch.zeros(c, dim, **f), q=torch.zeros(2, c, dim, **f),
         counters=torch.zeros(3, dtype=torch.int32, device=DEVICE))
     signs = np.where(rng.random(c) < 0.5, -1.0, 1.0)
     eps = put(np.geomspace(0.01, 0.5, c) * signs if c > 1 else [0.05])
@@ -1030,14 +1075,19 @@ def _leaf_case(name, dtype):
 
 def _clone_state(st, idx=None):
     """A copy of a leaf state, of chains ``idx`` only where given (the pair
-    counter is the launch's, not a chain's: copied whole)."""
+    counter is the launch's, not a chain's: copied whole; the q buffers
+    hold the chains on their second axis)."""
     from types import SimpleNamespace
 
-    return SimpleNamespace(**{k: (t if idx is None or k == "counters" else t[idx]).clone()
-                              for k, t in vars(st).items()})
+    def part(k, t):
+        if idx is None or k == "counters":
+            return t
+        return t[:, idx] if k == "q" else t[idx]
+
+    return SimpleNamespace(**{k: part(k, t).clone() for k, t in vars(st).items()})
 
 
-def _leaf_margins(plain_before, drift, q_n, lp, mg, g, half, u, j, rows, tol):
+def _leaf_margins(plain_before, q_n, lp, mg, g, half, u, j, rows, tol):
     """The plain version's decision quantities in float64 and, per chain,
     whether each decision (bad, take, turned) is within ``tol`` of its
     threshold: there a flip is rounding, not a fault. Returns (flags of
@@ -1047,9 +1097,9 @@ def _leaf_margins(plain_before, drift, q_n, lp, mg, g, half, u, j, rows, tol):
     )
 
     d = lambda t: t.double()  # noqa: E731
-    _, p_half, v_half = drift
-    p_n = d(p_half) + d(half) * d(g)
-    v_n = d(v_half) + d(half) * d(mg)
+    _, p, v, g0, mg0 = plain_before.cur.unbind(1)
+    p_n = d(p + half * g0) + d(half) * d(g)
+    v_n = d(v + half * mg0) + d(half) * d(mg)
     kin = 0.5 * (p_n * v_n).sum(-1)
     h0 = d(plain_before.h0)
     scale = torch.maximum(torch.maximum(kin.abs(), h0.abs()), d(lp).abs().nan_to_num())
@@ -1077,9 +1127,12 @@ def _leaf_check(name, dtype, tol):
     leaf index from it). L2 runs from a CUDA graph; on an odd leaf with a
     WHILE node on the handle it sets, whose body (ops/graph_if.probe, limit
     0) runs once if the condition holds, so the body's count reads the
-    condition L2 set. Returns (max abs errors of L1 and L2's leaf state,
-    flags that differ, of them outside the margin, the decisions seen, the
-    odd leaves whose condition was read)."""
+    condition L2 set. The next leaf's q that L2 writes must be L1's output
+    on the state L2 committed, bit for bit, for every chain. Returns (max
+    abs errors of L1 and L2's leaf state, flags that differ, of them outside
+    the margin, the decisions seen, the odd leaves whose condition was read,
+    the chains whose q_next differs from L1's, the not-alive chain-leaves
+    whose q_next was checked)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
     )
@@ -1094,32 +1147,38 @@ def _leaf_check(name, dtype, tol):
     loops = gi.WhileNodes(DEVICE)
     ran = torch.zeros(1, dtype=torch.int32, device=DEVICE)
     never = torch.zeros(1, dtype=torch.int32, device=DEVICE)
-    conditions = 0
+    conditions = next_differ = frozen = 0
     for j in range(1 << LEAF_DEPTH):
         rows = _leaf_idx_to_ckpt_idxs(j)
         plain.s_div.zero_()  # the kernel's state starts from the plain one, flags lowered
         plain.s_turn.zero_()
         before = _clone_state(plain)
         kern = _clone_state(plain)
-        q_n, drift = leaf.leaf_drift_torch(plain.cur, half, step)
+        q_n = leaf.leaf_drift_torch(plain.cur, half, step)
         q_k = leaf.leaf_drift_cuda(kern.cur, half, step)
         errs[0] = max(errs[0], float((q_k - q_n).abs().max()))
         lp, g = vg(q_n)
         mg = metric.velocity(g)
-        leaf.leaf_commit_torch(plain, metric, half, drift, q_n, lp, g, u_leaf, j, rows,
+        leaf.leaf_commit_torch(plain, metric, half, step, q_n, plain.q[1], lp, g, u_leaf, j, rows,
                                MAX_DELTA_ENERGY, True, plain.counters)
         inv_mass = metric.diagonal()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             ran.zero_()
             handle = loops.handle() if j % 2 else None
-            leaf.leaf_commit_cuda(kern, half, q_n, lp, g, None if inv_mass is not None else mg,
-                                  inv_mass, u_leaf, j % 2, j == 0, MAX_DELTA_ENERGY, True, handle)
+            leaf.leaf_commit_cuda(kern, half, step, q_n, kern.q[1], lp, g,
+                                  None if inv_mass is not None else mg, inv_mass, u_leaf, j % 2,
+                                  j == 0, MAX_DELTA_ENERGY, True, handle)
             if handle is not None:
                 loops.loop(handle, lambda: gi.probe(handle, ran, never))
         graph.replay()
+        # L2's next q against L1 on the state L2 committed, every chain
+        l1 = leaf.leaf_drift_cuda(kern.cur, half, step)
         torch.cuda.synchronize()
-        near, scale = _leaf_margins(before, drift, q_n, lp, mg, g, half, u_leaf[j], j, rows, tol)
+        same = (kern.q[1] == l1) | (kern.q[1].isnan() & l1.isnan())
+        next_differ += int((~same.all(-1)).sum())
+        frozen += int((~before.alive).sum())
+        near, scale = _leaf_margins(before, q_n, lp, mg, g, half, u_leaf[j], j, rows, tol)
         alive0 = before.alive
         took = {s: (st.s_prop != before.s_prop).flatten(1).any(1) for s, st in
                 (("plain", plain), ("kern", kern))}
@@ -1148,8 +1207,9 @@ def _leaf_check(name, dtype, tol):
         # the state of the chains whose decisions agree: rows relative to
         # their largest magnitude, the energy sums to the energy scale
         for key in ("cur", "s_prop", "first", "s_rho", "ckpts", "s_div_edge", "s_div_leaf",
-                    "s_lsw", "s_sum_accept", "s_logp_prop", "s_n_leaves"):
-            a, b = getattr(kern, key)[agree], getattr(plain, key)[agree]
+                    "s_lsw", "s_sum_accept", "s_logp_prop", "s_n_leaves", "q"):
+            a, b = getattr(kern, key), getattr(plain, key)
+            a, b = (a[1][agree], b[1][agree]) if key == "q" else (a[agree], b[agree])
             fin = torch.isfinite(b)
             check(torch.equal(fin, torch.isfinite(a)) and torch.equal(
                 a[~fin].nan_to_num(), b[~fin].nan_to_num()),
@@ -1165,14 +1225,15 @@ def _leaf_check(name, dtype, tol):
                   else err <= tol * ref,
                   f"leaf {name} {dtype} leaf {j}: {key} max abs err {err:.3e} (scale {ref:.3e})")
     made = {k: leaf.LAUNCHES[k] - launches[k] for k in launches}
-    check(made == dict.fromkeys(launches, 1 << LEAF_DEPTH),
-          f"leaf {name}: {made} launches for {1 << LEAF_DEPTH} leaves")
-    return errs, dict(differ), dict(outside), dict(seen), conditions
+    check(made == {leaf.DRIFT: 2 << LEAF_DEPTH, leaf.COMMIT: 1 << LEAF_DEPTH},
+          f"leaf {name}: {made} launches for {1 << LEAF_DEPTH} leaves (two L1 a leaf)")
+    return errs, dict(differ), dict(outside), dict(seen), conditions, next_differ, frozen
 
 
 def _leaf_sub_batches(dtype):
     """Each chain's bits at LEAF_SUBSETS' chain counts against its rows of a
-    LEAF_SHAPES["slice"] launch, L1 and L2, at every leaf of the sub-tree
+    LEAF_SHAPES["slice"] launch, L1 (leaf 0) and L2 (every leaf, writing the
+    next leaf's q, which the next leaf reads), at every leaf of the sub-tree
     (each launch with its own pair counter, which must advance alike)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         MAX_DELTA_ENERGY,
@@ -1182,27 +1243,31 @@ def _leaf_sub_batches(dtype):
     full, metric, eps, u_leaf, vg = _leaf_case("slice", dtype)
     half, step = (0.5 * eps)[:, None], eps[:, None]
     same = True
+    subs = {n: (torch.as_tensor(idx, device=DEVICE), _clone_state(full, list(idx)))
+            for n, idx in LEAF_SUBSETS.items()}
     for j in range(1 << LEAF_DEPTH):
-        subs = {n: (torch.as_tensor(idx, device=DEVICE), _clone_state(full, list(idx)))
-                for n, idx in LEAF_SUBSETS.items()}
-        q_n = leaf.leaf_drift_cuda(full.cur, half, step)
+        q_n, q_next = full.q[j % 2], full.q[1 - j % 2]
+        if j == 0:
+            leaf.leaf_drift_cuda(full.cur, half, step, out=q_n)
+            for idx, sub in subs.values():
+                leaf.leaf_drift_cuda(sub.cur, half[idx], step[idx], out=sub.q[0])
         lp, g = vg(q_n)
         mg = metric.velocity(g)
-        for n, (idx, sub) in subs.items():
-            q_s = leaf.leaf_drift_cuda(sub.cur, half[idx], step[idx])
-            same &= torch.equal(q_s, q_n[idx])
-            leaf.leaf_commit_cuda(sub, half[idx], q_n[idx].contiguous(), lp[idx].contiguous(),
-                                  g[idx].contiguous(), mg[idx].contiguous(), None,
-                                  u_leaf[:, idx].contiguous(), j % 2, j == 0, MAX_DELTA_ENERGY,
-                                  True)
-        leaf.leaf_commit_cuda(full, half, q_n, lp, g, mg, None, u_leaf, j % 2, j == 0,
-                              MAX_DELTA_ENERGY, True)
-        for n, (idx, sub) in subs.items():
+        for idx, sub in subs.values():
+            same &= torch.equal(sub.q[j % 2], q_n[idx])
+            leaf.leaf_commit_cuda(sub, half[idx], step[idx], sub.q[j % 2], sub.q[1 - j % 2],
+                                  lp[idx].contiguous(), g[idx].contiguous(), mg[idx].contiguous(),
+                                  None, u_leaf[:, idx].contiguous(), j % 2, j == 0,
+                                  MAX_DELTA_ENERGY, True)
+        leaf.leaf_commit_cuda(full, half, step, q_n, q_next, lp, g, mg, None, u_leaf, j % 2,
+                              j == 0, MAX_DELTA_ENERGY, True)
+        for idx, sub in subs.values():
             same &= bool(sub.counters[0] == full.counters[0])  # the pair counter
             for k in vars(full):
                 if k == "counters":
                     continue
-                a, b = getattr(sub, k), getattr(full, k)[idx]
+                a, b = getattr(sub, k), getattr(full, k)
+                b = b[:, idx] if k == "q" else b[idx]
                 same &= torch.equal(a, b) if a.dtype == torch.bool else (
                     torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(),
                                                                       b.nan_to_num()))
@@ -1227,7 +1292,8 @@ def _leaf_kernel_times(name):
     st, metric, eps, _, vg = _leaf_case(name, torch.float32)
     c, dim, kind = LEAF_SHAPES[name]
     half, step = (0.5 * eps)[:, None], eps[:, None]
-    q_n, drift = leaf.leaf_drift_torch(st.cur, half, step)
+    q_n, q_next = st.q[0], st.q[1]
+    leaf.leaf_drift_torch(st.cur, half, step, out=q_n)
     lp, g = vg(q_n)
     mg = metric.velocity(g)
     inv_mass = metric.diagonal()
@@ -1257,12 +1323,13 @@ def _leaf_kernel_times(name):
 
     def commit_kernel(j=0):
         prepare(j)
-        leaf.leaf_commit_cuda(st, half, q_n, lp, g, None if inv_mass is not None else mg,
-                              inv_mass, u_zero, j % 2, j == 0, MAX_DELTA_ENERGY, False)
+        leaf.leaf_commit_cuda(st, half, step, q_n, q_next, lp, g,
+                              None if inv_mass is not None else mg, inv_mass, u_zero, j % 2,
+                              j == 0, MAX_DELTA_ENERGY, False)
 
     def commit_plain(j=0):
         prepare(j)
-        leaf.leaf_commit_torch(st, given, half, drift, q_n, lp, g, u_zero, j,
+        leaf.leaf_commit_torch(st, given, half, step, q_n, q_next, lp, g, u_zero, j,
                                _leaf_idx_to_ckpt_idxs(j), MAX_DELTA_ENERGY, False)
 
     fill = timed(prepare)
@@ -1283,6 +1350,106 @@ def _leaf_kernel_times(name):
     return out
 
 
+def _graph_ms(fn, reps=LEAF_REPS) -> float:
+    """Device ms of one fn() from a replayed CUDA graph of ``reps`` calls."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class _OpLog(TorchDispatchMode):
+    """The aten operations run inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _product_check():
+    """The dense metric's product (csrc/minv_mv.cu, ops/minv_mv.py) against
+    its plain version in float64 at PRODUCT_SHAPES: float64 within
+    PRODUCT_TOL_F64 of the largest output, float32 no further from it than
+    torch.matmul's float32 product; each chain's bits at LEAF_SUBSETS' chain
+    counts equal its rows of the 128-chain launch, both dtypes; a dense
+    metric's velocity on the card issues no matmul; ms per launch at
+    PRODUCT_TIMED beside the plain version (torch.matmul) and the bound.
+    Returns (the lines, [slice]'s float32 error, the timings)."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
+        DenseMetric,
+    )
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import minv_mv
+
+    launches = dict(minv_mv.LAUNCHES)
+    parts, errs, times, same = [], {}, {}, True
+    for k, (name, (c, dim)) in enumerate(PRODUCT_SHAPES.items()):
+        rng = np.random.default_rng(100 + k)
+        a = rng.normal(size=(dim, dim)) / np.sqrt(dim)
+        minv = 0.3 * a @ a.T + np.eye(dim) + 1e-3 * rng.normal(size=(dim, dim))  # not symmetric
+        g = rng.normal(size=(c, dim))
+        want = torch.as_tensor(g) @ torch.as_tensor(minv).T  # float64, on the host
+        scale = float(want.abs().max())
+        row = {}
+        for dtype in (torch.float64, torch.float32):
+            m, x = (torch.as_tensor(v, dtype=dtype, device=DEVICE) for v in (minv, g))
+            got = minv_mv.minv_mv_cuda(m, x)
+            err = float((got.cpu().double() - want).abs().max())
+            if dtype == torch.float64:
+                row["f64_rel"] = err / scale
+                check(err <= PRODUCT_TOL_F64 * scale,
+                      f"product {name}: float64 error {err:.3e} of {scale:.3e}")
+            else:
+                lib = float(((x @ m.T).cpu().double() - want).abs().max())
+                row.update(f32=err, f32_matmul=lib)
+                errs[name] = err
+                check(err <= lib, f"product {name}: float32 error {err:.3e} over torch.matmul's "
+                      f"{lib:.3e}")
+            if c == N_CHAINS:
+                for idx in LEAF_SUBSETS.values():
+                    same &= torch.equal(minv_mv.minv_mv_cuda(m, x[list(idx)]), got[list(idx)])
+            if name in PRODUCT_TIMED and dtype == torch.float32:
+                flop, nbytes = minv_mv.product_work(c, dim, 4)
+                plain = _graph_ms(lambda: minv_mv.minv_mv_torch(m, x))
+                times[name] = dict(
+                    ms=_graph_ms(lambda: minv_mv.minv_mv_cuda(m, x)), plain_ms=plain,
+                    library_ms=plain, bound_ms=max(flop / FP32_FLOP_PER_MS,
+                                                   nbytes / HBM_BYTES_PER_MS),
+                    bound_by="operations" if flop / FP32_FLOP_PER_MS > nbytes / HBM_BYTES_PER_MS
+                    else "bytes", shape=[c, dim])
+        ranges, per = minv_mv.split(dim)
+        parts.append(f"{name} ({c}, {dim}; {ranges} k ranges of {per} steps): float64 rel "
+                     f"{row['f64_rel']:.2e}, float32 {row['f32']:.2e} (torch.matmul "
+                     f"{row['f32_matmul']:.2e})")
+    m = torch.eye(8, device=DEVICE) + 0.1
+    with _OpLog() as log:
+        DenseMetric(m, m, m).velocity(torch.ones(4, 8, device=DEVICE))
+    mm = [op for op in log.ops if any(w in op for w in ("mm", "matmul", "linear", "dot"))]
+    check(not mm, f"product: a dense metric's velocity on the card ran {mm}")
+    check(same, "product: a chain's bits depend on the launch's chain count")
+    for name_k in launches:  # checking and timing launches are not a path's
+        minv_mv.LAUNCHES[name_k] = launches[name_k]
+    line = ("the dense metric's product minv_mv (csrc/minv_mv.cu) vs the float64 plain version: "
+            + "; ".join(parts) + f"; a chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of "
+            f"the {N_CHAINS}-chain launch: {same}; velocity on the card runs no matmul "
+            f"({len(log.ops)} aten ops); ms per launch (float32, graph of {LEAF_REPS}) kernel / "
+            "torch.matmul / bound: " + ", ".join(
+                f"{n} {v['ms']:.5f} / {v['plain_ms']:.5f} / {v['bound_ms']:.5f} ({v['bound_by']})"
+                for n, v in times.items()))
+    return line, errs["slice"], times
+
+
 def phase_leaf():
     """[leaf]: the NUTS leaf's kernels (csrc/nuts_leaf.cu) against their
     plain versions on the card at LEAF_SHAPES and LEAF_STASH_SHAPES, float64
@@ -1291,20 +1458,25 @@ def phase_leaf():
     errs, parts, conditions = {}, [], 0
     for name, (c, _, _) in {**LEAF_SHAPES, **LEAF_STASH_SHAPES}.items():
         for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
-            e, differ, outside, seen, n_cond = _leaf_check(name, dtype, tol)
+            e, differ, outside, seen, n_cond, next_differ, frozen = _leaf_check(name, dtype, tol)
             errs[name, dtype] = e
             conditions += n_cond
             parts.append(f"{name} {({**LEAF_SHAPES, **LEAF_STASH_SHAPES})[name]} "
                          f"{str(dtype)[6:]}: max abs err L1 {e[0]:.2e}, L2 state {e[1]:.2e}; "
                          f"flags differing {differ} (outside the margin {outside}); decisions "
-                         f"seen {seen}")
+                         f"seen {seen}; L2's next q bit-equal to L1's on its committed state "
+                         f"{not next_differ} ({frozen} chain-leaves not alive)")
             check(not any(outside.values()),
                   f"leaf {name} {dtype}: decisions differ outside their margin {outside}")
+            check(next_differ == 0 and (c == 1 or frozen > 0),
+                  f"leaf {name} {dtype}: L2's next q differs from L1's on {next_differ} "
+                  f"chain-leaves ({frozen} not alive)")
             if c > 2:
                 check(seen.get("take", 0) and seen.get("bad", 0) and seen.get("turned", 0),
                       f"leaf {name} {dtype}: decisions not all seen {seen}")
     same = {str(dtype)[6:]: _leaf_sub_batches(dtype) for dtype in (torch.float64, torch.float32)}
     times = {name: _leaf_kernel_times(name) for name in LEAF_SHAPES}
+    product_line, product_err, product_times = _product_check()
     t = times["slice"]
     print("[leaf] L1 nuts_leaf_drift and L2 nuts_leaf_commit (csrc/nuts_leaf.cu) vs their plain "
           f"versions over a depth-{LEAF_DEPTH} sub-tree, track_div_leaf on, L2 with the pair "
@@ -1313,19 +1485,22 @@ def phase_leaf():
           f"node on its handle) equal to the plain version's at {conditions} odd leaves; a "
           f"chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of a "
           f"{LEAF_SHAPES['slice'][0]}-chain launch: {same}; ms per launch (float32, graph of "
-          f"{LEAF_REPS}) kernel / plain / bytes bound, L2 beside its previous design's: "
+          f"{LEAF_REPS}) kernel / plain / bytes bound, L2 beside its time without the drift: "
           + ", ".join(f"{n} L1 {v['drift']['ms']:.5f} / {v['drift']['plain_ms']:.5f} / "
                       f"{v['drift']['bound_ms']:.5f}, L2 {v['commit']['ms']:.5f} / "
-                      f"{v['commit']['plain_ms']:.5f} / {v['commit']['bound_ms']:.5f} (previous "
+                      f"{v['commit']['plain_ms']:.5f} / {v['commit']['bound_ms']:.5f} (without "
                       f"{LEAF_PREVIOUS_COMMIT_MS[n]:.5f})"
                       for n, v in times.items())
           + f"; L2 at slice within the target {LEAF_COMMIT_TARGET_MS} ms: "
-          f"{t['commit']['ms'] <= LEAF_COMMIT_TARGET_MS}", flush=True)
+          f"{t['commit']['ms'] <= LEAF_COMMIT_TARGET_MS}; " + product_line, flush=True)
     check(all(same.values()), f"leaf: a chain's bits depend on the launch's chain count {same}")
     max_err = {"drift": max(e[0] for e in errs.values()),
-               "commit": errs["slice", torch.float32][1]}
-    return max_err, {k: {**t[k], **{n: v[k] for n, v in times.items() if n != "slice"}}
-                     for k in ("drift", "commit")}
+               "commit": errs["slice", torch.float32][1], "product": product_err}
+    timing = {k: {**t[k], **{n: v[k] for n, v in times.items() if n != "slice"}}
+              for k in ("drift", "commit")}
+    timing["product"] = {**product_times["slice"],
+                         **{n: v for n, v in product_times.items() if n != "slice"}}
+    return max_err, timing
 
 
 @contextlib.contextmanager
@@ -1364,13 +1539,17 @@ def _differing(a: dict, b: dict) -> list:
 
 def phase_tree(mt, y, t):
     """[slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER, each
-    through solve_magi on the graphed tree and on the eager one."""
+    through solve_magi on the graphed tree and on the eager one, each run's
+    leaf-kernel launches held to one L1 per doubling and one L2 per batched
+    leaf."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.models import (
         HES1LOG_FIXF_SYSTEM,
     )
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf.workload import (
         fn_bench_workload, hes1_workload,
     )
+
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band
 
     t_h, y_h, _ = hes1_workload(seed=PT_SEED)
     y_d, t_d = fn_bench_workload(seed=DEFAULT_SEED)
@@ -1386,13 +1565,20 @@ def phase_tree(mt, y, t):
             **slice_config(n_env), "burnin_ratio": (TREE_ENVELOPE_ADAPTS + 0.5) / n_env,
             "step_jitter": 0.0, "chunk_size": ENVELOPE_CHUNK}, divergence_envelope=True)),
     }
+    counted = _Launches(cuda_band)
     parts, failed = [], []
     for name, (system, yy, tt_, config) in cases.items():
         runs = {}
         for kind in ("graphed", "eager"):
             with _eager_tree() if kind == "eager" else contextlib.nullcontext():
+                counted.reset_launches()
                 t0 = time.perf_counter()
-                runs[kind] = (mt.solve_magi(yy, tt_, system, config), time.perf_counter() - t0)
+                res = mt.solve_magi(yy, tt_, system, config)
+                runs[kind] = (res, time.perf_counter() - t0)
+                d = res.diagnostics
+                _leaf_launches(counted.counts(), d["lockstep_leaves"], d["doublings"],
+                               f"tree {name} {kind}",
+                               d["transitions"] if name in ("slice", "envelope") else None)
         (g, g_wall), (e, e_wall) = runs["graphed"], runs["eager"]
         gd, ed = g.diagnostics, e.diagnostics
         diff = [f for f in ("theta", "x_sampled", "sigma", "lp")
@@ -1663,7 +1849,7 @@ def phase_default(mt, cb):
     check(d["band_impl"] == "band", f"default: band_impl {d['band_impl']}")
     check(DEFAULT_ACCEPT[0] <= accept <= DEFAULT_ACCEPT[1], f"default: accept {accept:.4f}")
     check(div_share <= DEFAULT_MAX_DIVERGENT_SHARE, f"default: divergent share {div_share:.3f}")
-    _leaf_launches(launches, d["lockstep_leaves"], "default")
+    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "default")
     return launches, _per_vg(launches, vg_evals, "default", config.n_chains,
                              _route(d, "default", "raw")), leaf_ms
 
@@ -1701,7 +1887,7 @@ def phase_families(mt, cb):
         # the MAP warm start's value-and-grads (start, one per Adam step,
         # end) and the sampler's (graph warm-up, start, one per leaf)
         vg_evals = config.map_init_iterations + 2 + GRAPH_WARMUP_CALLS + 1 + d["lockstep_leaves"]
-        runs.append((name, d, launches, vg_evals, d["lockstep_leaves"]))
+        runs.append((name, d, launches, vg_evals, config.mass_matrix == "dense-pooled"))
         parts.append(f"{name} (n={len(t)}, D={y.shape[1]}, k={system.theta_size}, "
                      f"band_impl={d['band_impl']}, bandsize={d['bandsize']}) {wall:.1f} s, "
                      f"map {d['phase_times_s']['map_s']:.2f} s, accept "
@@ -1712,11 +1898,12 @@ def phase_families(mt, cb):
                      f"{launches} in {vg_evals} value-and-grads")
     print("[families] float32 on the card: " + "; ".join(parts), flush=True)
     total, total_evals = Counter(), 0
-    for name, d, launches, vg_evals, leaves in runs:
+    for name, d, launches, vg_evals, dense in runs:
         check(d["band_impl"] == "band", f"families {name}: band_impl {d['band_impl']}")
         _per_vg(launches, vg_evals, f"families {name}", 1,
                 _route(d, f"families {name}", "raw"))
-        _leaf_launches(launches, leaves, f"families {name}")
+        _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], f"families {name}",
+                       d["transitions"] if dense else None)
         total.update(launches)
         total_evals += vg_evals
     return dict(total), {name: k / total_evals for name, k in total.items()}, None
@@ -1776,7 +1963,7 @@ def phase_slice(mt, cb, y, t):
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
     per_vg = _per_vg(launches, vg_evals, "slice", N_CHAINS, _route(d, "slice", "kernel"))
-    _leaf_launches(launches, d["lockstep_leaves"], "slice")
+    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "slice", d["transitions"])
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
@@ -1878,7 +2065,7 @@ def phase_pt(mt, cb):
           f"pt: replayed tempered value vs raw value x final ladder {graph_gap:.3e}")
     per_vg = _per_vg(launches, vg_evals, "pt", n_chains, _route(d, "pt", "autograd"),
                      config.map_init_iterations + 2)
-    _leaf_launches(launches, d["lockstep_leaves"], "pt")
+    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "pt")
     check(theta_rmse < THETA_RMSE_MAX, f"pt: theta RMSE {theta_rmse:.4f}")
     check(h_rmse < PT_H_RMSE_MAX, f"pt: unobserved-H RMSE {h_rmse:.4f}")
     check(PT_SWAP_RANGE[0] <= swap <= PT_SWAP_RANGE[1], f"pt: swap acceptance {swap:.3f}")
@@ -1936,7 +2123,7 @@ def phase_chees(mt, cb, y, t):
     check(d["bandsize"] == MAIN_BANDSIZE, f"chees: bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
     per_vg = _per_vg(launches, d["vg_evals"], "chees", CHEES_CHAINS,
                      _route(d, "chees", "kernel"))
-    _leaf_launches(launches, 0, "chees")  # ChEES runs no NUTS tree
+    _leaf_launches(launches, 0, 0, "chees")  # ChEES runs no NUTS tree
     check(theta_rmse <= THETA_RMSE_MAX, f"chees: theta RMSE {theta_rmse:.4f}")
     check(rhat_max <= CHEES_RHAT_MAX, f"chees: max R-hat {rhat_max:.4f} > {CHEES_RHAT_MAX}")
     check(np.isfinite(traj) and traj > eps, f"chees: trajectory length {traj} vs step {eps}")
@@ -2214,7 +2401,8 @@ def _grid_rank(rank, grid_file):
     out["nuts"] = dict(digest=digest(samples), finite=bool(np.isfinite(samples).all()),
                        launches=counted.counts(), wall=time.perf_counter() - t0,
                        vg_evals=GRAPH_WARMUP_CALLS + 1 + info["lockstep_leaves"],
-                       leaves=info["lockstep_leaves"], accept=float(info["accept_prob"].mean()))
+                       leaves=info["lockstep_leaves"], doublings=info["doublings"],
+                       accept=float(info["accept_prob"].mean()))
     out["blocks"] = (mesh.rank, data.nloc, tuple(vg.mphi.shape), tuple(vg.gkt.shape))
     return out
 
@@ -2488,7 +2676,8 @@ def _report_mesh(ranks, wall):
     per_vg = [_per_vg(r["launches"], r["vg_evals"], f"mesh rank {i}", N_CHAINS // MESH_RANKS,
                       _route(r, f"mesh rank {i}", "kernel")) for i, r in enumerate(sol)]
     for i, r in enumerate(sol):
-        _leaf_launches(r["launches"], r["leaves"], f"mesh rank {i}")
+        _leaf_launches(r["launches"], r["leaves"], r["reads"]["doublings"], f"mesh rank {i}",
+                       r["transitions"])
     check(a["theta_rmse"] <= THETA_RMSE_MAX, f"mesh: theta RMSE {a['theta_rmse']:.4f}")
     check(a["sigma_rmse"] <= SIGMA_RMSE_MAX, f"mesh: sigma RMSE {a['sigma_rmse']:.4f}")
     check(a["divergent"] <= MESH_MAX_DIVERGENT_SHARE, f"mesh: divergent {a['divergent']:.4f}")
@@ -2563,7 +2752,7 @@ def _report_grid(ranks, grid):
     check(len({n["digest"] for n in nuts}) == 1, "grid NUTS: the ranks' draws differ")
     nuts_per_vg = [_per_vg(n["launches"], n["vg_evals"], "grid NUTS", 1, "raw") for n in nuts]
     for i, n in enumerate(nuts):
-        _leaf_launches(n["launches"], n["leaves"], f"grid NUTS rank {i}")
+        _leaf_launches(n["launches"], n["leaves"], n["doublings"], f"grid NUTS rank {i}")
     launches = {name: sum(n["launches"][name] for n in nuts) for name in nuts[0]["launches"]}
     return launches, nuts_per_vg[0], None
 
@@ -2624,7 +2813,8 @@ def phase_envelope(mt, cb, y, t):
     check(np.isfinite(minv).all() and np.array_equal(minv, minv.T) and min(eig) > 0,
           "envelope: the folded metric is not finite and SPD")
     per_vg = _per_vg(launches, vg_evals, "envelope", N_CHAINS, _route(d, "envelope", "kernel"))
-    _leaf_launches(launches, d["lockstep_leaves"], "envelope")
+    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "envelope",
+                   d["transitions"])
     check(theta_rmse <= THETA_RMSE_MAX, f"envelope: theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"envelope: sigma RMSE {sigma_rmse:.4f}")
     return launches, per_vg, leaf_ms
@@ -2690,7 +2880,7 @@ def phase_profile(mt, cb):
           flush=True)
     check(k1_any > 0, "profile: no band kernel in the trace")
     check(same, "profile: the profiled run's draws differ from the unprofiled run's")
-    _leaf_launches(launches, d["lockstep_leaves"], "profile")
+    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "profile")
     return launches, _per_vg(launches, vg_evals, "profile", config.n_chains,
                              _route(d, "profile", "raw")), None
 
@@ -2745,6 +2935,9 @@ def main() -> int:
     for path in ("default", "families", "slice", "pt", "envelope", "profile", "mesh", "grid"):
         check(all(paths[path][0][name] > 0 for name in LEAF_KERNELS),
               f"{path}: a leaf kernel was not launched")
+    for path in ("slice", "envelope", "mesh"):
+        check(paths[path][0][PRODUCT_KERNEL] > 0, f"{path}: the dense metric's product kernel "
+              "was not launched")
     vg_rows = out["vg"]
     for path in ("slice", "chees", "envelope", "mesh"):
         check(paths[path][0][VG_KERNEL] > 0 and all(paths[path][0][name] == 0 for name in KERNELS),
@@ -2771,6 +2964,12 @@ def main() -> int:
         **({"while_condition": dict(while_timing, source=WHILE_SOURCE,
                                     replaces=WHILE_REPLACES)} if key == "commit" else {}),
     } for name, key in LEAF_KERNELS.items()] + [{
+        "name": PRODUCT_KERNEL, "route": "cuda", "source": PRODUCT_SOURCE,
+        "replaces": PRODUCT_REPLACES,
+        "launches": sum(p[0][PRODUCT_KERNEL] for p in paths.values()),
+        "launches_by_path": {path: p[0][PRODUCT_KERNEL] for path, p in paths.items()},
+        "max_abs_err": leaf_err["product"], **leaf_timing["product"],
+    }] + [{
         "name": VG_KERNEL, "route": "cuda", "source": VG_SOURCE, "replaces": VG_REPLACES,
         "launches": sum(p[0][VG_KERNEL] for p in paths.values()),
         "launches_by_path": {path: p[0][VG_KERNEL] for path, p in paths.items()},

@@ -22,7 +22,19 @@
 //                        metric it also computes mg_n = inv_mass * g_n, with
 //                        inv_mass shared (chain stride 0) or per chain. On an
 //                        odd leaf it also advances the doubling's pair counter
-//                        and sets the leaf loop's condition (below).
+//                        and sets the leaf loop's condition (below). Last, it
+//                        writes the next leaf's q_next = L1 of the committed
+//                        leaf state, for every chain (below).
+//
+// L1's fold into L2. The step is a constant of the doubling, so the drift of
+// leaf j + 1 needs nothing that leaf j's commit does not hold: L2 writes
+// q_next from the leaf state it commits (q_n, v_n, mg_n of a chain alive;
+// cur's q, v, mg of a chain that is not, whose state stays) with L1's rounded
+// operations in L1's order (drift_of), so q_next is L1's output bit for bit
+// and the value-and-grad of the next leaf reads what it read after L1. Only
+// leaf 0 of a doubling runs L1 (the direction is drawn before it). The tree
+// alternates two q buffers by the leaf's parity, so L2 never writes the q_n
+// it reads (the wrapper and the kernel refuse q_next == q_n).
 //
 // The leaf index lives on the device, as the JAX package's leaf counter is a
 // scalar of its while_loop (inference/nuts_batched.py:222-223): counters =
@@ -47,8 +59,8 @@
 // as the mesh's sharded-equals-unsharded check and the graphed-equals-eager
 // check need. Every thread of the block computes the chain's scalar decisions
 // (take, bad, turned) from the same sums, so they need no broadcast, and every
-// masked write follows them. A chain that is not alive writes nothing (every
-// commit of the leaf is masked by alive). The elementwise arithmetic is the
+// masked write follows them. A chain that is not alive writes only its
+// q_next (every commit of the leaf is masked by alive). The elementwise arithmetic is the
 // plain version's, operation for operation, with no FMA contraction
 // (__fmul_rn, __fadd_rn, ...), so the leaf state is the plain version's bits
 // and only the sums differ from it, by order.
@@ -67,9 +79,10 @@
 // register path, and the proposal and the divergent step after it.
 //
 // Bound: bytes. Per alive chain L2 reads about seven (C, dim) rows (four of
-// cur, q_n, g_n, mg_n, rho) and writes six (cur, rho), plus the proposal's
-// five rows where it takes, the first leaf's five at j = 0, one checkpoint
-// row's three on even leaves or 3 (hi - lo + 1) rows read on odd ones: at
+// cur, q_n, g_n, mg_n, rho) and writes seven (cur, rho, q_next), plus the
+// proposal's five rows where it takes, the first leaf's five at j = 0, one
+// checkpoint row's three on even leaves or 3 (hi - lo + 1) rows read on odd
+// ones; per chain not alive three rows of cur read and q_next written: at
 // (C, dim) = (128, 799) float32 about 6-10 MB, 2-3 us at 3.35 TB/s
 // (ops/leaf.py commit_bytes counts it per launch). Rows of 799 floats start
 // at no common alignment, so the loads stay 4 or 8 bytes, all in flight.
@@ -93,7 +106,7 @@ constexpr int kMaxSums = 1 + 2 * kSweepRows;
 constexpr int kRegisterElements = 4;   // L2: elements a thread keeps in registers
 constexpr int kStashBytes = 232448 - 1024;  // a block's shared memory, less the static
 constexpr int kAliveShift = 15;        // L2: chains a launch, at most 2^15 - 1
-constexpr int kNumPointers = 23;
+constexpr int kNumPointers = 25;
 constexpr int kNumInts = 11;
 
 // Rounded arithmetic with no contraction, and the math the plain version
@@ -165,20 +178,26 @@ __device__ __forceinline__ void block_sum(T (&x)[kMaxSums], int first, int last,
   }
 }
 
+// The leapfrog step's drift of one element, q + step * (v + half * mg), in
+// L1's rounded operations; L2 writes the next leaf's q with it.
+template <typename T>
+__device__ __forceinline__ T drift_of(T h, T step, T q, T v, T mg) {
+  using O = Op<T>;
+  return O::add(q, O::mul(step, O::add(v, O::mul(h, mg))));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kDriftThreads)
     nuts_leaf_drift_kernel(const T* __restrict__ cur, const T* __restrict__ half,
                            const T* __restrict__ step, T* __restrict__ q_n, int n_chains,
                            int dim) {
-  using O = Op<T>;
   const int64_t total = int64_t(n_chains) * dim;
   for (int64_t k = int64_t(blockIdx.x) * kDriftThreads + threadIdx.x; k < total;
        k += int64_t(gridDim.x) * kDriftThreads) {
     const int64_t c = k / dim;
     const int64_t i = k - c * dim;
     const T* s = cur + c * 5 * dim;
-    const T v_half = O::add(s[2 * dim + i], O::mul(half[c], s[4 * dim + i]));
-    q_n[k] = O::add(s[i], O::mul(step[c], v_half));
+    q_n[k] = drift_of(half[c], step[c], s[i], s[2 * dim + i], s[4 * dim + i]);
   }
 }
 
@@ -187,11 +206,13 @@ struct CommitArgs {
   // ptrs, in this order
   T* cur;               // (C, 5, dim) the leaf state, in and out
   const T* q_n;         // (C, dim)
+  T* q_next;            // (C, dim) out: the next leaf's q, drifted from the committed state
   const T* logp_n;      // (C,)
   const T* g_n;         // (C, dim)
   const T* mg_n;        // (C, dim) M^-1 g_n of a dense metric, or null
   const T* inv_mass;    // a diagonal metric's (dim,) or (C, dim), or null
   const T* half;        // (C,) half the signed step
+  const T* step;        // (C,) the signed step
   const T* h0;          // (C,) the transition's start energy
   const T* u_leaf;      // (n_leaves, C) the doubling's uniforms
   T* s_prop;            // (C, 5, dim)
@@ -224,8 +245,8 @@ template <typename T>
 struct Chain {
   int64_t c, dim;
   int j, lo, hi;  // the leaf, and its checkpoint rows (hi the row an even leaf writes)
-  T h;
-  T *cq, *cp, *cv, *cg, *cmg, *rho, *prop, *first, *ck, *edge, *leaf;
+  T h, step;
+  T *cq, *cp, *cv, *cg, *cmg, *rho, *prop, *first, *ck, *edge, *leaf, *qnext;
   const T *qn, *gn, *mgn, *im;
 };
 
@@ -242,6 +263,7 @@ __device__ __forceinline__ Chain<T> chain_of(const CommitArgs<T>& a, int k) {
   if (ch.j >= a.n_leaves || ch.hi >= a.n_rows || (ch.j == 0) != (a.is_first != 0)) __trap();
   const int64_t dim = ch.dim, row = ch.c * dim;
   ch.h = a.half[ch.c];
+  ch.step = a.step[ch.c];
   ch.cq = a.cur + ch.c * 5 * dim;
   ch.cp = ch.cq + dim;
   ch.cv = ch.cp + dim;
@@ -254,6 +276,7 @@ __device__ __forceinline__ Chain<T> chain_of(const CommitArgs<T>& a, int k) {
   ch.edge = a.s_div_edge ? a.s_div_edge + row : nullptr;
   ch.leaf = a.s_div_leaf ? a.s_div_leaf + row : nullptr;
   ch.qn = a.q_n + row;
+  ch.qnext = a.q_next + row;
   ch.gn = a.g_n + row;
   ch.mgn = a.mg_n ? a.mg_n + row : nullptr;
   ch.im = a.inv_mass ? a.inv_mass + ch.c * a.inv_mass_stride : nullptr;
@@ -317,11 +340,13 @@ __device__ __forceinline__ void turn_terms(T rk, T vk, T rhok, T p, T v, T r, T&
 
 // The commits of one element that do not wait for the chain's decisions
 // (every one of an alive chain's, but the proposal's and the divergent
-// step's): rho, the leaf state, the first leaf, an even leaf's checkpoint row.
+// step's): rho, the leaf state, the first leaf, an even leaf's checkpoint
+// row; and the next leaf's q, drifted from the leaf state committed.
 template <typename T>
 __device__ __forceinline__ void commit_state(const CommitArgs<T>& a, const Chain<T>& ch,
                                              int64_t i, T q, T p, T v, T g, T mg, T r) {
   const int64_t dim = ch.dim;
+  ch.qnext[i] = drift_of(ch.h, ch.step, q, v, mg);
   ch.rho[i] = r;
   if (a.is_first) {
     ch.first[i] = q;
@@ -417,6 +442,19 @@ __device__ __forceinline__ void load_rows(const CommitArgs<T>& a, const Chain<T>
   }
 }
 
+// A chain that is not alive keeps its leaf state: the next leaf's q is
+// drifted from it, as L1 would drift it.
+template <typename T>
+__device__ __forceinline__ void drift_frozen(const CommitArgs<T>& a) {
+  const int64_t c = blockIdx.x, dim = a.dim;
+  const T* s = a.cur + c * 5 * dim;
+  T* q_next = a.q_next + c * dim;
+  const T h = a.half[c], step = a.step[c];
+  for (int64_t i = threadIdx.x; i < dim; i += kThreads) {
+    q_next[i] = drift_of(h, step, s[i], s[2 * dim + i], s[4 * dim + i]);
+  }
+}
+
 // L2 for dim <= E * kThreads: a thread's E elements in registers.
 template <typename T, int E>
 __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_kernel(CommitArgs<T> a) {
@@ -493,6 +531,8 @@ __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_kernel(CommitArgs<T
       if (i < dim) commit_decided(ch, d, i, q[e], p[e], v[e], g[e], mg[e], q_old[e]);
     }
     alive_after = finish(a, ch, d, turned);
+  } else {
+    drift_frozen(a);
   }
   if (a.parity && tid == 0) arrive(a, k, alive_after);
 }
@@ -559,6 +599,8 @@ __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_stash_kernel(Commit
       commit_state(a, ch, i, q, sp[i], sv[i], g, mg, sr[i]);
     }
     alive_after = finish(a, ch, d, turned);
+  } else {
+    drift_frozen(a);
   }
   if (a.parity && tid == 0) arrive(a, k, alive_after);
 }
@@ -581,27 +623,29 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
   CommitArgs<T> a;
   a.cur = static_cast<T*>(p[0]);
   a.q_n = static_cast<const T*>(p[1]);
-  a.logp_n = static_cast<const T*>(p[2]);
-  a.g_n = static_cast<const T*>(p[3]);
-  a.mg_n = static_cast<const T*>(p[4]);
-  a.inv_mass = static_cast<const T*>(p[5]);
-  a.half = static_cast<const T*>(p[6]);
-  a.h0 = static_cast<const T*>(p[7]);
-  a.u_leaf = static_cast<const T*>(p[8]);
-  a.s_prop = static_cast<T*>(p[9]);
-  a.s_logp_prop = static_cast<T*>(p[10]);
-  a.s_rho = static_cast<T*>(p[11]);
-  a.first = static_cast<T*>(p[12]);
-  a.ckpts = static_cast<T*>(p[13]);
-  a.s_lsw = static_cast<T*>(p[14]);
-  a.s_sum_accept = static_cast<T*>(p[15]);
-  a.s_n_leaves = static_cast<T*>(p[16]);
-  a.s_div = static_cast<bool*>(p[17]);
-  a.s_turn = static_cast<bool*>(p[18]);
-  a.alive = static_cast<bool*>(p[19]);
-  a.s_div_edge = static_cast<T*>(p[20]);
-  a.s_div_leaf = static_cast<T*>(p[21]);
-  a.counters = static_cast<int*>(p[22]);
+  a.q_next = static_cast<T*>(p[2]);
+  a.logp_n = static_cast<const T*>(p[3]);
+  a.g_n = static_cast<const T*>(p[4]);
+  a.mg_n = static_cast<const T*>(p[5]);
+  a.inv_mass = static_cast<const T*>(p[6]);
+  a.half = static_cast<const T*>(p[7]);
+  a.step = static_cast<const T*>(p[8]);
+  a.h0 = static_cast<const T*>(p[9]);
+  a.u_leaf = static_cast<const T*>(p[10]);
+  a.s_prop = static_cast<T*>(p[11]);
+  a.s_logp_prop = static_cast<T*>(p[12]);
+  a.s_rho = static_cast<T*>(p[13]);
+  a.first = static_cast<T*>(p[14]);
+  a.ckpts = static_cast<T*>(p[15]);
+  a.s_lsw = static_cast<T*>(p[16]);
+  a.s_sum_accept = static_cast<T*>(p[17]);
+  a.s_n_leaves = static_cast<T*>(p[18]);
+  a.s_div = static_cast<bool*>(p[19]);
+  a.s_turn = static_cast<bool*>(p[20]);
+  a.alive = static_cast<bool*>(p[21]);
+  a.s_div_edge = static_cast<T*>(p[22]);
+  a.s_div_leaf = static_cast<T*>(p[23]);
+  a.counters = static_cast<int*>(p[24]);
   a.n_chains = int(n[0]);
   a.dim = int(n[1]);
   a.n_rows = int(n[2]);
@@ -612,9 +656,11 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
   a.has_handle = int(n[7]);
   a.handle = static_cast<cudaGraphConditionalHandle>(n[8]);
   a.max_delta_energy = T(max_delta_energy);
-  // exactly one of mg_n and inv_mass; the leaf's constants; the interface's counts
+  // exactly one of mg_n and inv_mass; the next leaf's q apart from q_n; the
+  // leaf's constants; the interface's counts
   const bool diag = a.inv_mass != nullptr;
-  if (diag == (a.mg_n != nullptr) || a.counters == nullptr || a.n_rows < 1 ||
+  if (diag == (a.mg_n != nullptr) || a.counters == nullptr || a.step == nullptr ||
+      a.q_next == nullptr || a.q_next == a.q_n || a.n_rows < 1 ||
       a.n_leaves < 1 || (a.parity != 0 && a.parity != 1) || (a.is_first && a.parity) ||
       (a.has_handle != 0 && a.has_handle != 1) || a.n_chains >= (1 << kAliveShift) ||
       int(n[9]) != kNumPointers ||

@@ -15,8 +15,9 @@ chains), ``RungDenseMetric`` (one full M^-1 per tempering rung) and
 ``DiagEuclideanMetric``). The transition only calls ``momentum(z)`` (a
 draw p ~ N(0, M) from z ~ N(0, I)) and ``velocity(p)`` (M^-1 p), and the
 leaf's kernel ``diagonal()`` (the diagonal metric's inverse mass, whose
-product it computes itself; None for the other two, whose product stays a
-matmul: ops/leaf.py).
+product it computes itself; None for the other two: ops/leaf.py). A dense
+metric's ``velocity`` is ops/minv_mv.py's product, a hand-written kernel on
+the card; a per-rung one's stays an einsum.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.minv_mv import minv_mv
 from .adapt import (
     DualAveragingState,
     WelfordState,
@@ -52,7 +54,9 @@ class DenseMetric(NamedTuple):
         return z @ self.p_chol.T
 
     def velocity(self, p: torch.Tensor) -> torch.Tensor:
-        return p @ self.minv.T
+        """M^-1 p, p @ minv.T: the kernel on the card, the plain product on
+        the CPU (ops/minv_mv.py)."""
+        return minv_mv(self.minv, p)
 
     def diagonal(self) -> None:
         return None

@@ -44,8 +44,9 @@ Leaf state is packed as one (C, 5, dim) tensor [q, p, v, grad, M^-1 grad]
 so that each masked commit is one ``torch.where``. A leaf is
 ``ops/leaf.py``'s: on the card two hand-written kernels around the
 value-and-grad (the drift L1, and the commit L2, which does in one launch
-what the JAX package's fused leaf body does after the value-and-grad), on
-the CPU their plain versions. Random numbers come from
+what the JAX package's fused leaf body does after the value-and-grad, and
+then the next leaf's drift, so that L1 runs at a doubling's leaf 0 only),
+on the CPU their plain versions. Random numbers come from
 one ``torch.Generator`` on the chains' device: per transition the momenta
 (drawn eagerly), per doubling a direction and a subtree-merge uniform
 (2, C) and one uniform per leaf (2^i, C), drawn inside the doubling's
@@ -72,6 +73,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops import cuda_band, minv_mv
 from ..ops import leaf as leaf_ops
 from ..parallel.mesh import local_draw
 from .adapt import da_init, da_restart, da_update
@@ -103,6 +105,19 @@ def tree_graphed(device, vg_b) -> bool:
     return torch.device(device).type == "cuda" and getattr(vg_b, "reduce", None) is None
 
 
+def _per_leaf_counts() -> dict:
+    """The launch counts that a doubling's graph adds once per leaf: the
+    value-and-grad's kernels (``ops/cuda_band``: by entry point and tile)
+    and the dense metric's product (``ops/minv_mv``)."""
+    return {**cuda_band.counts(), **minv_mv.LAUNCHES}
+
+
+def _add_per_leaf(added: dict) -> None:
+    """Add launches, named as ``_per_leaf_counts`` names them."""
+    minv_mv.add_launches({k: n for k, n in added.items() if k in minv_mv.LAUNCHES})
+    cuda_band.add_launches({k: n for k, n in added.items() if k not in minv_mv.LAUNCHES})
+
+
 def _when(pred: torch.Tensor, body: Callable[[], None]) -> bool:
     """Run ``body()`` if the one-element bool ``pred`` holds, read on the
     host (the eager tree's leaf loop). Returns False if it skipped it."""
@@ -116,10 +131,12 @@ class _TreeState:
     """The transition's buffers, (C, ...) on the chains' device, updated in
     place: the trajectory (``left``, ``right``, ``rho``, ``prop`` ...), the
     sub-tree a doubling builds (``cur``, ``first``, ``s_*``, ``alive``,
-    ``ckpts`` = [p, v, rho] per checkpoint row), ``readout`` = (all
-    chains done, leaves run by the last doubling) and, with ``counters``,
-    the leaf kernel's (3,) int32 [pair counter, blocks arrived, the leaf
-    loop's condition] (``ops/leaf.py``)."""
+    ``ckpts`` = [p, v, rho] per checkpoint row, ``q`` the two positions a
+    leaf's value-and-grad reads, by the leaf's parity: the commit of leaf j
+    writes leaf j + 1's into the other), ``readout`` = (all chains done,
+    leaves run by the last doubling) and, with ``counters``, the leaf
+    kernel's (3,) int32 [pair counter, blocks arrived, the leaf loop's
+    condition] (``ops/leaf.py``)."""
 
     def __init__(self, c, dim, dtype, device, max_depth, track, counters):
         self.key = (c, dim, dtype, device)
@@ -129,6 +146,7 @@ class _TreeState:
         self.left, self.right, self.prop, self.cur, self.first, self.s_prop = (
             torch.zeros((c, 5, dim), **f) for _ in range(6))
         self.rho, self.s_rho = torch.zeros((c, dim), **f), torch.zeros((c, dim), **f)
+        self.q = torch.zeros((2, c, dim), **f)
         (self.logp_prop, self.log_sum_w, self.sum_accept, self.num_leaves, self.s_logp_prop,
          self.s_lsw, self.s_sum_accept, self.s_n_leaves) = (torch.zeros(c, **f) for _ in range(8))
         self.diverging, self.done, self.s_div, self.s_turn, self.alive = (
@@ -158,10 +176,12 @@ class LockstepTree:
     ``vg_b.eager`` where ``vg_b`` has one (a ``GraphedValueAndGrad``'s own
     function: a replay cannot be captured), and reads by address the
     tree's copies of the step sizes and the metric, which each call writes
-    in place. A value-and-grad's band-kernel launches are counted at its
-    first capture, per leaf, and each replay adds them times the leaves it
-    ran (``ops/cuda_band``), the leaf kernels' likewise (``ops/leaf``, one
-    of each per leaf). A capture or a replay that fails raises."""
+    in place. The launches that come once per leaf (the value-and-grad's
+    kernels, ``ops/cuda_band``; the dense metric's product,
+    ``ops/minv_mv``) are counted at the first capture, per leaf, and each
+    replay adds them times the leaves it ran; the leaf kernels' likewise
+    (``ops/leaf``: one L1 per replay, one L2 per leaf). A capture or a
+    replay that fails raises."""
 
     def __init__(self, vg_b, generator: torch.Generator, max_depth: int = 10,
                  max_delta_energy: float = MAX_DELTA_ENERGY, mesh=None,
@@ -174,7 +194,7 @@ class LockstepTree:
         self.st = self.metric = None
         self.loops = self.pool = self.stream = None  # of the graphs, made at the first capture
         self.graphs, self.graph_info = {}, {}
-        self.per_leaf = None  # band-kernel launches per leaf in a graph
+        self.per_leaf = None  # the kernel launches per leaf in a graph (_per_leaf_counts)
 
     @property
     def capture_seconds(self) -> float:
@@ -205,6 +225,7 @@ class LockstepTree:
                        for a, b in zip(self.metric, metric))):
             self.metric = type(metric)(*(t.clone() for t in metric))
             self.graphs.clear()
+            self.per_leaf = None
         else:
             for buf, t in zip(self.metric, metric):
                 buf.copy_(t)
@@ -214,14 +235,17 @@ class LockstepTree:
 
     def _leaf(self, metric, half, step, u_leaf, j: int, handle=None) -> None:
         """Leapfrog step j of the sub-tree from ``cur``, committed for the
-        chains alive (``ops/leaf.py``: on the card the kernels L1 and L2
-        around the value-and-grad, L2 taking the leaf index from the pair
-        counter and setting ``handle``'s condition; on the CPU their plain
-        versions)."""
+        chains alive (``ops/leaf.py``: on the card the kernel L1 at leaf 0,
+        the value-and-grad at ``st.q[j % 2]``, and L2, which takes the leaf
+        index from the pair counter, sets ``handle``'s condition and writes
+        the next leaf's position into ``st.q[1 - j % 2]``; on the CPU their
+        plain versions)."""
         st = self.st
-        q_n, drift = leaf_ops.leaf_drift(st.cur, half, step)
+        q_n, q_next = st.q[j % 2], st.q[1 - j % 2]
+        if j == 0:
+            leaf_ops.leaf_drift(st.cur, half, step, out=q_n)
         logp_n, g_n = self.leaf_vg(q_n)
-        leaf_ops.leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j,
+        leaf_ops.leaf_commit(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j,
                              _leaf_idx_to_ckpt_idxs(j), self.max_delta_energy, self.track,
                              handle)
 
@@ -320,11 +344,12 @@ class LockstepTree:
     def _capture(self, metric, i: int) -> torch.cuda.CUDAGraph:
         """Capture doubling i into a CUDA graph (no kernel runs): leaves 0
         and 1, and from depth 2 one WHILE node whose body is one leaf pair,
-        so min(2^i, 4) leaves. Its band-kernel launches are taken back out of
-        ``cuda_band``'s counts and must be ``per_leaf`` times the captured
-        leaves, and its leaf kernels' out of ``ops/leaf``'s, exactly one of
-        each per captured leaf."""
-        from ..ops import cuda_band, graph_if
+        so min(2^i, 4) leaves. Its per-leaf launches (``_per_leaf_counts``:
+        the value-and-grad's kernels and the dense metric's product) are
+        taken back out of their counts and must be ``per_leaf`` times the
+        captured leaves, and its leaf kernels' out of ``ops/leaf``'s:
+        exactly one L1 (leaf 0) and one L2 per captured leaf."""
+        from ..ops import graph_if
 
         device = self.st.eps.device
         if self.loops is None:
@@ -333,7 +358,7 @@ class LockstepTree:
             self.stream = torch.cuda.Stream(device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before, body_before = cuda_band.counts(), self.loops.body_nodes
+        before, body_before = _per_leaf_counts(), self.loops.body_nodes
         leaf_before = dict(leaf_ops.LAUNCHES)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
@@ -347,18 +372,19 @@ class LockstepTree:
         # the card is busy, as with several ranks on it (PERF.md, PR 11).
         torch.cuda.current_stream(device).wait_stream(self.stream)
         seconds = time.perf_counter() - t0
-        launches = {name: k - before[name] for name, k in cuda_band.counts().items()}
-        cuda_band.add_launches({name: -k for name, k in launches.items()})
+        launches = {name: k - before[name] for name, k in _per_leaf_counts().items()}
+        _add_per_leaf({name: -k for name, k in launches.items()})
         leaf_launches = {name: k - leaf_before[name] for name, k in leaf_ops.LAUNCHES.items()}
         leaf_ops.LAUNCHES.update(leaf_before)
         captured = min(1 << i, 4)
-        if any(k != captured for k in leaf_launches.values()):
+        if leaf_launches != {leaf_ops.DRIFT: 1, leaf_ops.COMMIT: captured}:
             raise RuntimeError(f"doubling {i}'s graph captured {leaf_launches} leaf-kernel "
-                               f"launches, not one of each per captured leaf ({captured})")
+                               f"launches, not one L1 and one L2 per captured leaf "
+                               f"({captured})")
         if self.per_leaf is None:
             self.per_leaf = {name: k // captured for name, k in launches.items()}
         if any(k != self.per_leaf[name] * captured for name, k in launches.items()):
-            raise RuntimeError(f"doubling {i}'s graph captured {launches} band-kernel launches, "
+            raise RuntimeError(f"doubling {i}'s graph captured {launches} kernel launches, "
                                f"not {self.per_leaf} per leaf times {captured}")
         pools = (self.pool, self.loops.pool)
         pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -371,16 +397,14 @@ class LockstepTree:
     def _replay(self, metric, i: int):
         """Doubling i from its graph, then one host read: (all chains done,
         leaves run)."""
-        from ..ops import cuda_band
-
         graph = self.graphs.get(i)
         if graph is None:
             graph = self.graphs[i] = self._capture(metric, i)
         graph.replay()
         all_done, leaves = self.st.readout.tolist()
-        cuda_band.add_launches({name: k * leaves for name, k in self.per_leaf.items()})
-        for name in leaf_ops.LAUNCHES:
-            leaf_ops.LAUNCHES[name] += leaves
+        _add_per_leaf({name: k * leaves for name, k in self.per_leaf.items()})
+        leaf_ops.LAUNCHES[leaf_ops.DRIFT] += 1
+        leaf_ops.LAUNCHES[leaf_ops.COMMIT] += leaves
         return bool(all_done), leaves
 
     # -- the transition ----------------------------------------------------------

@@ -7,9 +7,10 @@ Counterpart of the JAX package's leaf body in inference/nuts_batched.py
 ``_row_update``), which XLA compiles into a few fused loops. A leaf of
 ``inference/nuts_batched.LockstepTree`` is
 
-    q_n, drift = leaf_drift(st.cur, half, step)          # L1
+    if j == 0:
+        leaf_drift(st.cur, half, step, out=q_n)           # L1
     logp_n, g_n = vg(q_n)
-    leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j, (lo, hi),
+    leaf_commit(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j, (lo, hi),
                 max_delta_energy, track, handle)          # L2
 
 over the tree's buffers ``st`` (``cur`` (C, 5, dim) = [q, p, v, grad,
@@ -20,6 +21,14 @@ the (C,) sums and flags ``s_lsw``, ``s_logp_prop``, ``s_sum_accept``,
 place. ``u_leaf`` (2^i, C) are the doubling's uniforms, j the leaf's index
 and (lo, hi) its checkpoint rows (``nuts._leaf_idx_to_ckpt_idxs``; hi is the
 row an even leaf writes).
+
+L1 runs at leaf 0 of a doubling only. The step is a constant of the
+doubling, so the commit of leaf j also writes the next leaf's position,
+``q_next`` = L1 of the leaf state it has committed, for every chain (a chain
+that is not alive keeps its state, and its q_next is what L1 would write):
+the next leaf's value-and-grad reads the bits it read after L1. The tree
+alternates two q buffers by the leaf's parity (``st.q[j % 2]`` is q_n,
+``st.q[1 - j % 2]`` q_next), so a commit never writes the q_n it reads.
 
 On the card the leaf index is on the device, as the JAX package's leaf
 counter is a scalar of its loop: ``st.counters`` = [k, blocks arrived,
@@ -37,16 +46,17 @@ On a CUDA tensor the dispatch launches the kernels on the current stream
 (so that a CUDA graph captures them, inside a WHILE node's body too): L1
 ``nuts_leaf_drift`` and L2 ``nuts_leaf_commit``, between them the
 value-and-grad and, for a dense or per-rung metric, its product
-``metric.velocity(g_n)`` (a matmul, as the JAX package leaves it to XLA); a
-diagonal metric's product is L2's. A failed build or launch raises: there is
-no fallback. On a CPU tensor it runs the plain versions,
+``metric.velocity(g_n)`` (a dense metric's: the kernel of ``ops/minv_mv.py``;
+a per-rung one's an einsum); a diagonal metric's product is L2's. A failed
+build or launch raises: there is no fallback. On a CPU tensor it runs the plain versions,
 ``leaf_drift_torch`` and ``leaf_commit_torch``, which issue the tree's
 operations of the leaf in their order, and which the card's kernels are held
 against (``chip_smoke.py``'s [leaf]).
 
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one per launch,
 and the tree moves the launches its CUDA graphs captured to each replay
-(``LockstepTree._capture``, ``_replay``), one of each per leaf run.
+(``LockstepTree._capture``, ``_replay``): one L1 per doubling, one L2 per
+leaf run.
 
 The source is compiled at first use with nvcc for sm_90a into
 ``<package>/build/`` (``ops/cuda_band.build``) and bound with ctypes.
@@ -63,10 +73,10 @@ from . import cuda_band
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nuts_leaf.cu"
 DRIFT, COMMIT = "nuts_leaf_drift", "nuts_leaf_commit"
 # L2's pointer arguments, in the order of the kernel's CommitArgs
-COMMIT_POINTERS = ("cur", "q_n", "logp_n", "g_n", "mg_n", "inv_mass", "half", "h0", "u_leaf",
-                   "s_prop", "s_logp_prop", "s_rho", "first", "ckpts", "s_lsw", "s_sum_accept",
-                   "s_n_leaves", "s_div", "s_turn", "alive", "s_div_edge", "s_div_leaf",
-                   "counters")
+COMMIT_POINTERS = ("cur", "q_n", "q_next", "logp_n", "g_n", "mg_n", "inv_mass", "half", "step",
+                   "h0", "u_leaf", "s_prop", "s_logp_prop", "s_rho", "first", "ckpts", "s_lsw",
+                   "s_sum_accept", "s_n_leaves", "s_div", "s_turn", "alive", "s_div_edge",
+                   "s_div_leaf", "counters")
 # L2's integer arguments, in the order of the kernel's CommitArgs, then the
 # two counts the kernel checks against its own
 COMMIT_INTS = ("n_chains", "dim", "n_rows", "inv_mass_stride", "n_leaves", "parity",
@@ -109,28 +119,29 @@ def _is_iterative_turning_b(p_leaf, v_leaf, rho_cum, ckpts):
 # -- the plain versions ------------------------------------------------------
 
 
-def leaf_drift_torch(cur, half, step):
+def leaf_drift_torch(cur, half, step, out=None):
     """The leapfrog step's drift from ``cur`` with the (C, 1) half and whole
-    signed steps: q_n (C, dim), and (q, p_half, v_half), which the commit
-    continues from."""
-    q, p, v, g, mg = cur.unbind(1)
-    p_half = p + half * g
-    v_half = v + half * mg
-    q_n = q + step * v_half
-    return q_n, (q, p_half, v_half)
+    signed steps: q_n = q + step (v + half M^-1 g), (C, dim), into ``out``
+    where given."""
+    q, _, v, _, mg = cur.unbind(1)
+    return torch.add(q, step * (v + half * mg), out=out)
 
 
-def leaf_commit_torch(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j: int, rows,
+def leaf_commit_torch(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j: int, rows,
                       max_delta_energy: float, track: bool, counters=None) -> None:
     """The rest of leaf j after the value-and-grad (logp_n, g_n) at q_n,
     committed for the chains alive; a chain freezes at the leaf where it
     diverges or its sub-tree turns (so a tracked divergent step is written
-    once per sub-tree). With ``counters`` (L2's (3,) int32 on the card) the
-    leaf is L2's: j = 2k + (j's parity) from the pair counter k, and an odd
-    leaf advances k and sets the leaf loop's condition."""
+    once per sub-tree). Then the next leaf's drift from the committed leaf
+    state into ``q_next``, for every chain. With ``counters`` (L2's (3,)
+    int32 on the card) the leaf is L2's: j = 2k + (j's parity) from the pair
+    counter k, and an odd leaf advances k and sets the leaf loop's
+    condition."""
     if counters is not None:
         j, *rows = device_rows(int(counters[K]), j % 2)
-    q, p_half, v_half = drift
+    q, p, v, g, mg = st.cur.unbind(1)  # the state q_n was drifted from
+    p_half = p + half * g
+    v_half = v + half * mg
     alive = st.alive
     mg_n = metric.velocity(g_n)
     p_n = p_half + half * g_n
@@ -172,6 +183,7 @@ def leaf_commit_torch(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j: int,
     st.s_n_leaves += alive
     st.s_div |= alive & bad
     alive &= ~stop
+    leaf_drift_torch(st.cur, half, step, out=q_next)
     if counters is not None and j % 2:
         counters[K] += 1
         counters[CONDITION] = (counters[K] < u_leaf.shape[0] // 2) & alive.any()
@@ -220,18 +232,19 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def leaf_drift_cuda(cur, half, step):
-    """L1: q_n = q + step * (v + half * mg) on the current stream; cur
-    (C, 5, dim), half and step (C,) or (C, 1), float32 or float64, on one
-    CUDA device."""
+def leaf_drift_cuda(cur, half, step, out=None):
+    """L1: q_n = q + step * (v + half * mg) on the current stream, into
+    ``out`` (C, dim) where given; cur (C, 5, dim), half and step (C,) or
+    (C, 1), float32 or float64, on one CUDA device."""
     lib = _library()
     c, rows, dim = cur.shape
     half, step = half.reshape(c), step.reshape(c)
-    _check("leaf_drift_cuda", dict(cur=cur, half=half, step=step), cur.dtype, cur.device)
-    if rows != 5 or cur.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"leaf_drift_cuda: cur (C, 5, dim) float32 or float64; got "
-                         f"{cur.dtype} {tuple(cur.shape)}")
-    q_n = torch.empty((c, dim), dtype=cur.dtype, device=cur.device)
+    q_n = torch.empty((c, dim), dtype=cur.dtype, device=cur.device) if out is None else out
+    _check("leaf_drift_cuda", dict(cur=cur, half=half, step=step, q_n=q_n), cur.dtype,
+           cur.device)
+    if rows != 5 or cur.dtype not in (torch.float32, torch.float64) or q_n.shape != (c, dim):
+        raise ValueError(f"leaf_drift_cuda: cur (C, 5, dim) float32 or float64 and q_n (C, dim); "
+                         f"got {cur.dtype} {tuple(cur.shape)}, {tuple(q_n.shape)}")
     fn = getattr(lib, f"{DRIFT}_{'f32' if cur.dtype == torch.float32 else 'f64'}")
     stream = torch.cuda.current_stream(cur.device).cuda_stream
     _raise_on(fn(cur.data_ptr(), half.data_ptr(), step.data_ptr(), q_n.data_ptr(), c, dim,
@@ -254,17 +267,19 @@ def _diagonal(inv_mass, c, dim):
     return inv_mass.contiguous(), dim
 
 
-def leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf, parity: int,
-                     is_first: bool, max_delta_energy: float, track: bool,
+def leaf_commit_cuda(st, half, step, q_n, q_next, logp_n, g_n, mg_n, inv_mass, u_leaf,
+                     parity: int, is_first: bool, max_delta_energy: float, track: bool,
                      handle=None) -> None:
     """L2 on the current stream: the commit of leaf j = 2k + ``parity`` (k
     the pair counter ``st.counters[0]`` on the card; ``is_first``: j == 0)
     into the buffers of ``st`` (see the module docstring) from q_n, logp_n,
     g_n and either mg_n (a dense metric's M^-1 g_n) or ``inv_mass`` (a
     diagonal metric's, whose product L2 computes); ``u_leaf`` (2^i, C) the
-    doubling's uniforms. On an odd leaf L2 advances k and sets the leaf
-    loop's condition, in ``st.counters[2]`` and in ``handle`` (a WHILE
-    node's, ``ops/graph_if.WhileNodes.handle``) where given."""
+    doubling's uniforms; then the next leaf's drift at the (C,) or (C, 1)
+    signed ``step`` into ``q_next`` (C, dim), another buffer than q_n. On an
+    odd leaf L2 advances k and sets the leaf loop's condition, in
+    ``st.counters[2]`` and in ``handle`` (a WHILE node's,
+    ``ops/graph_if.WhileNodes.handle``) where given."""
     lib = _library()
     c, _, dim = st.cur.shape
     n_rows = st.ckpts.shape[1]
@@ -275,10 +290,12 @@ def leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf, parity:
         inv_mass, stride = _diagonal(inv_mass, c, dim)
     if parity not in (0, 1) or (is_first and parity):
         raise ValueError(f"leaf_commit_cuda: parity {parity}, is_first {is_first}")
+    if q_next.data_ptr() == q_n.data_ptr():
+        raise ValueError("leaf_commit_cuda: q_next must be another buffer than q_n")
     tensors = dict(
-        cur=st.cur, q_n=q_n, logp_n=logp_n.contiguous(), g_n=g_n.contiguous(),
+        cur=st.cur, q_n=q_n, q_next=q_next, logp_n=logp_n.contiguous(), g_n=g_n.contiguous(),
         mg_n=None if mg_n is None else mg_n.contiguous(), inv_mass=inv_mass,
-        half=half.reshape(c), h0=st.h0, u_leaf=u_leaf, s_prop=st.s_prop,
+        half=half.reshape(c), step=step.reshape(c), h0=st.h0, u_leaf=u_leaf, s_prop=st.s_prop,
         s_logp_prop=st.s_logp_prop, s_rho=st.s_rho, first=st.first, ckpts=st.ckpts,
         s_lsw=st.s_lsw, s_sum_accept=st.s_sum_accept, s_n_leaves=st.s_n_leaves, s_div=st.s_div,
         s_turn=st.s_turn, alive=st.alive,
@@ -287,7 +304,8 @@ def leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf, parity:
     given = {k: t for k, t in tensors.items() if t is not None}
     _check("leaf_commit_cuda", given, st.cur.dtype, st.cur.device)
     n_leaves = u_leaf.shape[0] if u_leaf.dim() == 2 else -1
-    shapes = {"q_n": (c, dim), "g_n": (c, dim), "mg_n": (c, dim), "logp_n": (c,),
+    shapes = {"q_n": (c, dim), "q_next": (c, dim), "g_n": (c, dim), "mg_n": (c, dim),
+              "logp_n": (c,),
               "u_leaf": (n_leaves, c), "s_rho": (c, dim), "s_prop": (c, 5, dim),
               "first": (c, 5, dim), "counters": (3,)}
     for what, shape in shapes.items():
@@ -315,28 +333,28 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def leaf_drift(cur, half, step):
-    """(q_n, what the commit continues from): L1 on the card, the plain
-    version on the CPU."""
+def leaf_drift(cur, half, step, out=None):
+    """q_n (into ``out`` where given): L1 on the card, the plain version on
+    the CPU."""
     if _on_card(cur):
-        return leaf_drift_cuda(cur, half, step), None
-    return leaf_drift_torch(cur, half, step)
+        return leaf_drift_cuda(cur, half, step, out)
+    return leaf_drift_torch(cur, half, step, out)
 
 
-def leaf_commit(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j: int, rows,
+def leaf_commit(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j: int, rows,
                 max_delta_energy: float, track: bool, handle=None) -> None:
-    """Leaf j's commit: L2 on the card (after the metric's product where it
-    is not diagonal; j's parity and j == 0 are what it takes of j, the rest
-    comes from ``st.counters``; ``handle`` the doubling's WHILE node's), the
-    plain version on the CPU (with ``st.counters`` where the state has
-    them)."""
+    """Leaf j's commit and the next leaf's drift into ``q_next``: L2 on the
+    card (after the metric's product where it is not diagonal; j's parity
+    and j == 0 are what it takes of j, the rest comes from ``st.counters``;
+    ``handle`` the doubling's WHILE node's), the plain version on the CPU
+    (with ``st.counters`` where the state has them)."""
     if _on_card(q_n):
         inv_mass = metric.diagonal()
         mg_n = metric.velocity(g_n) if inv_mass is None else None
-        leaf_commit_cuda(st, half, q_n, logp_n, g_n, mg_n, inv_mass, u_leaf, j % 2, j == 0,
-                         max_delta_energy, track, handle)
+        leaf_commit_cuda(st, half, step, q_n, q_next, logp_n, g_n, mg_n, inv_mass, u_leaf,
+                         j % 2, j == 0, max_delta_energy, track, handle)
         return
-    leaf_commit_torch(st, metric, half, drift, q_n, logp_n, g_n, u_leaf, j, rows,
+    leaf_commit_torch(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j, rows,
                       max_delta_energy, track, getattr(st, "counters", None))
 
 
@@ -352,22 +370,26 @@ def drift_bytes(c: int, dim: int, itemsize: int) -> int:
 def commit_bytes(c: int, dim: int, itemsize: int, j: int, rows, n_alive: int, n_take: int,
                  n_bad: int, metric: str, track: bool) -> int:
     """Bytes L2 must move for one launch, counted from its data: every
-    chain's alive flag; per alive chain p, v, g and mg of cur, q_n, g_n,
-    mg_n (``metric`` "dense") or its inverse mass ("diag"; once for
-    "shared"), rho and seven scalars read, and cur (five rows), rho, three
-    scalars and three flags written; per take the proposal's five rows; at j = 0 the first
-    leaf's five rows; on an even leaf one checkpoint row written (three
-    rows), on an odd one rows lo..hi read; with ``track`` per divergent
-    alive chain its old q read and the edge and leaf written; the pair
-    counter read, and on an odd leaf the arrivals, the counter and the
-    condition written (int32)."""
+    chain's alive flag, its half and whole step read and its next leaf's q
+    written; per alive chain p, v, g and mg of cur, q_n, g_n, mg_n
+    (``metric`` "dense") or its inverse mass ("diag"; once for "shared"),
+    rho and six more scalars read, and cur (five rows), rho, three scalars
+    and three flags written; per chain not alive q, v and mg of cur read;
+    per take the proposal's five rows; at j = 0 the first leaf's five rows;
+    on an even leaf one checkpoint row written (three rows), on an odd one
+    rows lo..hi read; with ``track`` per divergent alive chain its old q
+    read and the edge and leaf written; the pair counter read, and on an odd
+    leaf the arrivals, the counter and the condition written (int32)."""
     lo, hi = rows
     per_alive_rows = 4 + 3 + (metric != "shared") + 5 + 1
     per_alive_rows += 5 if j == 0 else 0
     per_alive_rows += 3 if j % 2 == 0 else 3 * (hi - lo + 1)
-    rows_moved = n_alive * per_alive_rows + 5 * n_take + (3 * n_bad if track else 0)
+    rows_moved = (n_alive * per_alive_rows + 3 * (c - n_alive) + c + 5 * n_take
+                  + (3 * n_bad if track else 0))
     if metric == "shared" and n_alive:
         rows_moved += 1  # the shared diagonal, read once
-    scalars = n_alive * 10 + n_take  # seven read and three written, logp_n where taken
-    counters = 16 if j % 2 else 4 * bool(n_alive)  # int32: k read; on an odd leaf three written
+    # per chain its two steps; per alive chain six more read and three
+    # written; logp_n where taken
+    scalars = 2 * c + n_alive * 9 + n_take
+    counters = 16 if j % 2 else 4  # int32: k read; on an odd leaf three written
     return itemsize * (rows_moved * dim + scalars) + c + 3 * n_alive + counters  # + the flags

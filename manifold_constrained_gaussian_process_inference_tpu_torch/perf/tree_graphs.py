@@ -31,14 +31,16 @@ leaf: CUDA events around every doubling's replay, over the leaves they ran
 (the WHILE nodes' condition tests included); the bookkeeping's device time per
 leaf is that less the value-and-grad's replay (CUDA events, mean of
 ``VG_REPS``), and holds the dense metric's product ``velocity_device_ms``
-(timed alike); ``replay_share``: the replays' device time over the host
+(ops/minv_mv.py's kernel, timed alike, beside ``matmul_device_ms``: the same
+product by torch.matmul); ``replay_share``: the replays' device time over the host
 wall of the transitions that captured nothing. Idle share: one minus the
 summed kernel durations of a ``torch.profiler`` trace over the host wall
 of ``PROFILE_TRANSITIONS`` transitions, for each tree; from the same trace
-the leaf kernels' (ops/leaf.py, L1 and L2) device ms per leaf run and
-their kernel events per leaf (one each, where the trace sees every kernel
-the graphs replay). Launch counts: the band kernels' and the leaf
-kernels'. Runs on a CUDA card only.
+the leaf kernels' (ops/leaf.py, L1 and L2) and the product's device ms
+per leaf run and their kernel events per leaf (where the trace sees every
+kernel the graphs replay: one L2 and one product a leaf, one L1 a
+doubling). Launch counts: the band kernels', the leaf kernels' and the
+product's. Runs on a CUDA card only.
 """
 from __future__ import annotations
 
@@ -74,13 +76,13 @@ def _vg_ms(vg, q) -> float:
     return start.elapsed_time(end) / VG_REPS
 
 
-def _graph_ms(fn) -> float:
-    """Device ms of one ``fn()`` from a replayed CUDA graph of ``VG_REPS``
+def graph_ms(fn, reps: int = VG_REPS) -> float:
+    """Device ms of one ``fn()`` from a replayed CUDA graph of ``reps``
     calls."""
     fn()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(VG_REPS):
+        for _ in range(reps):
             fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -88,7 +90,7 @@ def _graph_ms(fn) -> float:
     graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / VG_REPS
+    return start.elapsed_time(end) / reps
 
 
 def _timed_replays(tree):
@@ -164,7 +166,7 @@ def capture_all_depths(vg, q0, eps, metric, max_depth: int, generator) -> dict:
 def main(argv=None) -> int:
     from ..inference.nuts import DenseMetric
     from ..inference.nuts_batched import LockstepTree
-    from ..ops import cuda_band, leaf
+    from ..ops import cuda_band, leaf, minv_mv
     from ..parallel.chains import GraphedValueAndGrad
     from .workload import fn_bench_workload, slice_likelihood
 
@@ -189,7 +191,8 @@ def main(argv=None) -> int:
     eye = torch.eye(dim, dtype=torch.float32, device="cuda")
     metric = DenseMetric(eye, eye, eye)
     vg_ms = _vg_ms(vg, q0)
-    velocity_ms = _graph_ms(lambda: metric.velocity(q0))  # the dense metric's product
+    velocity_ms = graph_ms(lambda: metric.velocity(q0))  # the dense metric's product
+    matmul_ms = graph_ms(lambda: q0 @ eye.T)  # the same by torch.matmul
 
     runs = {}
     for kind in ("graphed", "eager"):
@@ -200,6 +203,7 @@ def main(argv=None) -> int:
         per, outs = [], []
         cuda_band.reset_launches()
         leaf.reset_launches()
+        minv_mv.reset_launches()
         for _ in range(args.transitions):
             n_graphs, n_log = len(tree.graphs), len(log or ())
             torch.cuda.synchronize()
@@ -214,7 +218,7 @@ def main(argv=None) -> int:
                             captured=len(tree.graphs) > n_graphs,
                             replay_ms=sum(ms for ms, _ in (log or [])[n_log:])))
             outs.append([q, lp, g, *stats[:6]])
-        launches = {**cuda_band.counts(), **leaf.LAUNCHES}
+        launches = {**cuda_band.counts(), **leaf.LAUNCHES, **minv_mv.LAUNCHES}
         leaves = sum(p["leaves"] for p in per)
         run = dict(transitions=per, launches=launches, leaves=leaves,
                    ms_per_transition=[1e3 * p["wall_s"] for p in per],
@@ -234,7 +238,7 @@ def main(argv=None) -> int:
         traced = []
         run["profile"] = _idle_share(
             lambda: traced.extend(tree(q, lp, g, eps, metric) for _ in range(PROFILE_TRANSITIONS)),
-            names=tuple(leaf.LAUNCHES))
+            names=(*leaf.LAUNCHES, "minv_mv_kernel"))
         traced_leaves = sum(out[3].lockstep_leaves for out in traced)
         run["leaf_kernels_per_leaf"] = {
             name: dict(device_ms=k["ms"] / traced_leaves, events=k["events"] / traced_leaves)
@@ -253,11 +257,12 @@ def main(argv=None) -> int:
     first_diff = next((t for t, (a, b) in enumerate(zip(g_outs, e_outs))
                        if not all(torch.equal(x, y) for x, y in zip(a, b))), None)
     result = dict(device=card, chains=c, dim=dim, vg_device_ms=vg_ms,
-                  velocity_device_ms=velocity_ms, graphed=g_run, eager=e_run,
+                  velocity_device_ms=velocity_ms, matmul_device_ms=matmul_ms, graphed=g_run,
+                  eager=e_run,
                   all_depths=all_depths,
                   bit_equal=first_diff is None, first_differing_transition=first_diff)
     print(json.dumps(dict(vg_device_ms=vg_ms, velocity_device_ms=velocity_ms,
-                          bit_equal=first_diff is None,
+                          matmul_device_ms=matmul_ms, bit_equal=first_diff is None,
                           first_differing_transition=first_diff)), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

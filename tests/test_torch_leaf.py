@@ -8,11 +8,14 @@ per-chain-diagonal and per-rung metrics, mixed alive masks, a divergent and
 a NaN leaf, ``track_div_leaf`` on and off. The uniform of each leaf is given
 to both (the JAX body draws its own from the chains' keys). On the CPU the
 dispatch runs the plain versions and launches nothing; its card branch
-raises, and does not fall back, when the kernels cannot be built. With the
+raises, and does not fall back, when the kernels cannot be built. The drift
+runs at leaf 0 only: each commit writes the next leaf's position, which is
+the drift of the committed state bit for bit, for every chain. With the
 pair counter the plain commit is the card's: the leaf index from the
 counter, which odd leaves advance while setting the leaf loop's condition;
-the kernel's row arithmetic gives the checkpoint rows of every leaf. On a
-card (tests marked ``cuda``) the kernels agree with the plain versions."""
+the kernel's row arithmetic gives the checkpoint rows of every leaf. The
+dense metric's product is the JAX package's ``_minv_mv_b``. On a card
+(tests marked ``cuda``) the kernels agree with the plain versions."""
 import re
 from types import SimpleNamespace
 
@@ -188,20 +191,31 @@ def _torch_state(start, track):
         s_logp_prop=torch.zeros(C, **f), s_sum_accept=torch.zeros(C, **f),
         s_n_leaves=torch.zeros(C, **f), s_lsw=torch.full((C,), -torch.inf, **f),
         s_div=torch.zeros(C, dtype=torch.bool), s_turn=torch.zeros(C, dtype=torch.bool),
-        alive=alive.clone(), h0=h0, ckpts=torch.zeros(C, CKPT_ROWS, 3, DIM, **f))
+        alive=alive.clone(), h0=h0, ckpts=torch.zeros(C, CKPT_ROWS, 3, DIM, **f),
+        q=torch.zeros(2, C, DIM, **f))
     if track:
         st.s_div_edge, st.s_div_leaf = torch.zeros(C, DIM, **f), torch.zeros(C, DIM, **f)
     return st
 
 
-def _torch_leaf(st, metric, vg, u_leaf, j, track):
-    """One leaf through the port's dispatch, as ``LockstepTree._leaf``."""
+def _steps():
     eps = torch.as_tensor(EPS)
-    half, step = (0.5 * eps)[:, None], eps[:, None]
-    q_n, drift = leaf.leaf_drift(st.cur, half, step)
+    return (0.5 * eps)[:, None], eps[:, None]
+
+
+def _torch_leaf(st, metric, vg, u_leaf, j, track, host_j=None):
+    """One leaf through the port's dispatch, as ``LockstepTree._leaf``: the
+    drift at leaf 0, the value-and-grad at ``st.q[j % 2]``, the commit
+    (given ``host_j``, j by default) writing the next leaf's position into
+    the other buffer."""
+    half, step = _steps()
+    q_n, q_next = st.q[j % 2], st.q[1 - j % 2]
+    if j == 0:
+        leaf.leaf_drift(st.cur, half, step, out=q_n)
     lp, g = (torch.as_tensor(x) for x in vg(q_n.numpy()))
-    leaf.leaf_commit(st, metric, half, drift, q_n, lp, g, u_leaf, j, _leaf_idx_to_ckpt_idxs(j),
-                     MAX_DELTA_ENERGY, track)
+    j = j if host_j is None else host_j
+    leaf.leaf_commit(st, metric, half, step, q_n, q_next, lp, g, u_leaf, j,
+                     _leaf_idx_to_ckpt_idxs(j), MAX_DELTA_ENERGY, track)
 
 
 def _close(got, want, what):
@@ -272,19 +286,20 @@ def test_dispatch_runs_the_plain_versions_on_the_cpu(monkeypatch):
     monkeypatch.setattr(leaf, "leaf_commit_cuda", never)
     metric, start, u_leaf = _small_leaf_inputs()
     a, b = _torch_state(start, True), _torch_state(start, True)
-    eps = torch.as_tensor(EPS)
-    half, step = (0.5 * eps)[:, None], eps[:, None]
+    half, step = _steps()
     vg = _make_vg(np.ones(DIM))
     for j in range(4):
-        q_n, drift = leaf.leaf_drift(a.cur, half, step)
-        q_p, drift_p = leaf.leaf_drift_torch(b.cur, half, step)
-        assert torch.equal(q_n, q_p) and all(torch.equal(x, y) for x, y in zip(drift, drift_p))
+        if j == 0:
+            assert leaf.leaf_drift(a.cur, half, step, out=a.q[0]).data_ptr() == a.q.data_ptr()
+            assert torch.equal(leaf.leaf_drift_torch(b.cur, half, step, out=b.q[0]), a.q[0])
+            assert torch.equal(leaf.leaf_drift(a.cur, half, step), a.q[0])
+        q_n, q_next = a.q[j % 2], a.q[1 - j % 2]
         lp, g = (torch.as_tensor(x) for x in vg(q_n.numpy()))
         rows = _leaf_idx_to_ckpt_idxs(j)
-        leaf.leaf_commit(a, metric, half, drift, q_n, lp, g, u_leaf, j, rows, MAX_DELTA_ENERGY,
-                         True)
-        leaf.leaf_commit_torch(b, metric, half, drift_p, q_p, lp, g, u_leaf, j, rows,
-                               MAX_DELTA_ENERGY, True)
+        leaf.leaf_commit(a, metric, half, step, q_n, q_next, lp, g, u_leaf, j, rows,
+                         MAX_DELTA_ENERGY, True)
+        leaf.leaf_commit_torch(b, metric, half, step, b.q[j % 2], b.q[1 - j % 2], lp, g, u_leaf,
+                               j, rows, MAX_DELTA_ENERGY, True)
         for k in vars(a):
             assert torch.equal(getattr(a, k), getattr(b, k)), (j, k)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -305,16 +320,15 @@ def test_card_branch_raises_when_the_kernels_cannot_build(monkeypatch):
     st = _torch_state(start, False)
     before = {k: t.clone() for k, t in vars(st).items()}
     launches = dict(leaf.LAUNCHES)
-    eps = torch.as_tensor(EPS)
-    half, step = (0.5 * eps)[:, None], eps[:, None]
+    half, step = _steps()
     with pytest.raises(RuntimeError, match="nvcc failed to build nuts_leaf.cu"):
-        leaf.leaf_drift(st.cur, half, step)
-    q_n = leaf.leaf_drift_torch(st.cur, half, step)[0]
+        leaf.leaf_drift(st.cur, half, step, out=st.q[0])
+    q_n = leaf.leaf_drift_torch(st.cur, half, step)
     lp, g = (torch.as_tensor(x) for x in _make_vg(np.ones(DIM))(q_n.numpy()))
     for m in (metric, DiagMetric(torch.ones(DIM, dtype=torch.float64))):
         with pytest.raises(RuntimeError, match="nvcc failed to build nuts_leaf.cu"):
-            leaf.leaf_commit(st, m, half, None, q_n, lp, g, u_leaf, 0, (1, 0), MAX_DELTA_ENERGY,
-                             False)
+            leaf.leaf_commit(st, m, half, step, q_n, st.q[1], lp, g, u_leaf, 0, (1, 0),
+                             MAX_DELTA_ENERGY, False)
     assert all(torch.equal(getattr(st, k), t) for k, t in before.items())
     assert leaf.LAUNCHES == launches
 
@@ -375,7 +389,7 @@ def test_plain_commit_with_the_pair_counter():
     conditions = []
     for j in range(N_LEAVES):
         _torch_leaf(host, metric, vg, u_leaf, j, True)
-        _torch_leaf(dev, metric, vg, u_leaf, j % 2, True)
+        _torch_leaf(dev, metric, vg, u_leaf, j, True, host_j=j % 2)
         for k in vars(host):
             assert torch.equal(getattr(host, k), getattr(dev, k)), (j, k)
         k, arrived, cond = dev.counters.tolist()
@@ -391,14 +405,16 @@ def test_plain_commit_with_the_pair_counter():
 
 
 def test_bytes_bound_counts_the_launch():
-    """L1's and L2's bytes from their data: per alive chain the rows it
-    reads and writes, and what a take, the first leaf, a checkpoint row or
-    the U-turn sweep, and a tracked divergence add."""
+    """L1's and L2's bytes from their data: per chain its steps read and
+    its next leaf's q written; per alive chain the rows it reads and writes,
+    and what a take, the first leaf, a checkpoint row or the U-turn sweep,
+    and a tracked divergence add; per chain not alive the three rows of its
+    state that its drift reads."""
     c, dim, f32 = 128, 799, 4
     assert leaf.drift_bytes(c, dim, f32) == f32 * (4 * c * dim + 2 * c)
     base = leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 0, "dense", False)
     counters = 4 * 4  # the pair counter read; an odd leaf's counter, arrivals, condition written
-    assert base == f32 * (c * (14 + 3) * dim + 10 * c) + c + 3 * c + counters
+    assert base == f32 * (c * (14 + 3 + 1) * dim + 11 * c) + c + 3 * c + counters
     row = f32 * dim
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 7, 0, "dense", False) == base + 7 * (
         5 * row + f32)
@@ -408,8 +424,11 @@ def test_bytes_bound_counts_the_launch():
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 2, "dense", True) == base + 6 * row
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 0, "shared", False) == base - (
         c - 1) * row
-    assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), 0, 0, 0, "dense", False) == c + counters
-    assert leaf.commit_bytes(c, dim, f32, 2, (2, 1), 0, 0, 0, "dense", False) == c
+    frozen = f32 * (c * 4 * dim + 2 * c) + c  # no chain alive: the drift of every chain's state
+    assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), 0, 0, 0, "dense", False) == frozen + counters
+    assert leaf.commit_bytes(c, dim, f32, 2, (2, 1), 0, 0, 0, "dense", False) == frozen + 4
+    assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c - 3, 0, 0, "dense", False) == base - 3 * (
+        f32 * ((14 + 3 + 1 - 4) * dim + 9) + 3)
     assert 6e6 < leaf.commit_bytes(c, dim, f32, 2, (1, 1), c, c // 8, 0, "dense", False) < 10e6
 
 
@@ -420,8 +439,9 @@ def _gauss_vg(q):
 @pytest.mark.parametrize("case", ["dense-pooled", "diag", "envelope", "pt"])
 def test_every_batched_leaf_runs_one_drift_and_one_commit(monkeypatch, case):
     """The samplers' batched leaves (their ``lockstep_leaves``) are the
-    leaf's calls, one drift and one commit each: what the card's launch
-    counts are held to on every NUTS path."""
+    commit's calls, one each, and their doublings (``doublings``) the
+    drift's, one each (its leaf 0; the commits drift the leaves after it):
+    what the card's launch counts are held to on every NUTS path."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference import tempering
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import chains
 
@@ -442,8 +462,48 @@ def test_every_batched_leaf_runs_one_drift_and_one_commit(monkeypatch, case):
             if case == "envelope" else dict(mass_matrix=case)
         _, info = chains.run_chains(_gauss_vg, torch.zeros((4, 3), dtype=torch.float64), gen,
                                     n_samples=12, n_adapts=6, max_depth=4, **kw)
-    assert info["lockstep_leaves"] > 0
-    assert calls == {"drift": info["lockstep_leaves"], "commit": info["lockstep_leaves"]}
+    assert info["lockstep_leaves"] > info["doublings"] > 0
+    assert calls == {"drift": info["doublings"], "commit": info["lockstep_leaves"]}
+
+
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("kind", METRICS)
+def test_plain_commit_writes_the_next_drift(kind, track):
+    """After every leaf of the sub-tree the commit's ``q_next`` is the plain
+    drift of the committed leaf state, bit for bit, for every chain: alive,
+    never alive (chain 1) and frozen on the way (the divergent and the NaN
+    chain, and those that turned), at even and odd leaves; the q_n it read,
+    the drift of the state before the leaf, is left as it was."""
+    rng = np.random.default_rng(20 + METRICS.index(kind) + 10 * track)
+    scale = rng.uniform(0.5, 2.0, size=DIM)
+    metric, inv_mass_j = _case(kind, rng)
+    st = _torch_state(_start(rng, inv_mass_j, _make_vg(scale)), track)
+    vg, u_leaf = _make_vg(scale), torch.as_tensor(rng.random((N_LEAVES, C)))
+    half, step = _steps()
+    frozen = set()
+    for j in range(N_LEAVES):
+        alive = st.alive.clone()
+        q_n = leaf.leaf_drift_torch(st.cur, half, step)  # what this leaf's L1 would write
+        _torch_leaf(st, metric, vg, u_leaf, j, track)
+        assert torch.equal(st.q[1 - j % 2], leaf.leaf_drift_torch(st.cur, half, step)), j
+        assert torch.equal(st.q[j % 2], q_n), j
+        frozen |= set(np.flatnonzero(~alive.numpy()))
+    assert {1, BAD_CHAIN, NAN_CHAIN} <= frozen and len(frozen) < C
+
+
+@pytest.mark.parametrize("c, dim", [(1, 9), (6, 9), (5, 31), (3, 130)])
+def test_dense_velocity_matches_the_jax_product(c, dim):
+    """``DenseMetric.velocity`` on the CPU, the plain version of the product
+    kernel, against the JAX package's ``_minv_mv_b`` on the same
+    non-symmetric M^-1 (rows, not columns: ``p @ minv.T``), to 1e-12."""
+    rng = np.random.default_rng(c * dim)
+    minv = rng.normal(size=(dim, dim)) + 3 * np.eye(dim)
+    g = rng.normal(size=(c, dim))
+    got = DenseMetric(*(torch.as_tensor(minv) for _ in range(3))).velocity(torch.as_tensor(g))
+    want = np.asarray(jnb._minv_mv_b(jn.DenseMetric(jnp.asarray(minv), jnp.asarray(minv)),
+                                     jnp.asarray(g)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=RTOL * np.abs(want).max())
+    assert not np.allclose(got.numpy(), g @ minv, rtol=1e-6)  # the transpose matters
 
 
 @pytest.fixture
@@ -475,17 +535,20 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
     for j in range(N_LEAVES):
         kern = SimpleNamespace(**{k: t.clone() for k, t in vars(plain).items()})
         before = dict(leaf.LAUNCHES)
-        q_k, _ = leaf.leaf_drift(kern.cur, half, step)
-        q_n, drift = leaf.leaf_drift_torch(plain.cur, half, step)
+        if j == 0:
+            leaf.leaf_drift(kern.cur, half, step, out=kern.q[0])
+            leaf.leaf_drift_torch(plain.cur, half, step, out=plain.q[0])
+        q_n = plain.q[j % 2]
         lp, g = (torch.as_tensor(x, device=cuda_device) for x in vg(q_n.cpu().numpy()))
         rows = _leaf_idx_to_ckpt_idxs(j)
-        leaf.leaf_commit(kern, metric, half, None, q_k, lp, g, u_leaf, j, rows,
-                         MAX_DELTA_ENERGY, True)
-        leaf.leaf_commit_torch(plain, metric, half, drift, q_n, lp, g, u_leaf, j, rows,
-                               MAX_DELTA_ENERGY, True, plain.counters)
+        leaf.leaf_commit(kern, metric, half, step, kern.q[j % 2], kern.q[1 - j % 2], lp, g,
+                         u_leaf, j, rows, MAX_DELTA_ENERGY, True)
+        leaf.leaf_commit_torch(plain, metric, half, step, q_n, plain.q[1 - j % 2], lp, g, u_leaf,
+                               j, rows, MAX_DELTA_ENERGY, True, plain.counters)
         torch.cuda.synchronize()
-        assert {k: leaf.LAUNCHES[k] - before[k] for k in before} == {leaf.DRIFT: 1, leaf.COMMIT: 1}
-        assert torch.equal(q_k, q_n)
+        assert {k: leaf.LAUNCHES[k] - before[k] for k in before} == {
+            leaf.DRIFT: int(j == 0), leaf.COMMIT: 1}
+        assert torch.equal(kern.q, plain.q)  # L1's and the commit's next positions, bit for bit
         for k in vars(plain):
             a, b = getattr(kern, k), getattr(plain, k)
             if a.dtype in (torch.bool, torch.int32):
