@@ -6,7 +6,10 @@ Drives the port's main paths with the likelihood on the band-storage
 layout. A whitened FitzHugh-Nagumo value-and-grad ([slice], [chees],
 [envelope], [mesh], [resume], [tree]'s [slice] and [envelope]) runs, between
 its two whitening GEMMs, one launch of the hand-written kernel of
-csrc/centered_vg.cu (its forward and analytic backward; route "kernel");
+csrc/centered_vg.cu (its forward and analytic backward; route "kernel"),
+the GEMMs themselves the hand-written product kernel of csrc/minv_mv.cu
+on W and W^T, prepared once, where ``centered_vg.gemm_takes_kernel`` says
+so ([slice], [chees], [envelope], [mesh]: 128, 64 and 32 chains);
 every other gradient evaluation ([default], [families], [pt]'s log-Hes1,
 [grid], [profile]) runs the hand-written CUDA band-matvec kernels K1: the
 paired launch (mphi and GC^T on one input) and the single launch (GK^T)
@@ -20,7 +23,8 @@ of every NUTS tree runs the hand-written kernels of csrc/nuts_leaf.cu
 around its value-and-grad (the JAX package's fused leaf body, with the leaf
 counter on the device): L2 the commit, which also drifts the next leaf, and
 at a doubling's leaf 0 L1 the drift; under a dense metric the leaf's
-product M^-1 g is the hand-written kernel of csrc/minv_mv.cu. The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
+product M^-1 g is the hand-written kernel of csrc/minv_mv.cu, on an operand
+its preparation kernel writes when the tree's metric changes. The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
 metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
 default ``solve_magi`` (one chain, the diagonal Welford metric, raw Psi) on
 the FitzHugh-Nagumo workload (n=397, D=2); parallel-tempering NUTS on
@@ -62,7 +66,11 @@ Phases:
    launch (a replayed graph of 200) in both dtypes beside the one-block kernel,
    the bound and the plain version, with the tiling (cluster size S,
    chains a cluster Cg), and the whole value-and-grad per replayed call on
-   both routes;
+   both routes, the kernel route also with its GEMMs on torch.matmul, and
+   the float32 value-and-grad with its GEMMs on the product kernel no
+   further from float64 (the autograd route's, which runs neither the
+   product kernel nor centered_vg) than F32_VG_GEMM_FACTOR times with them
+   on torch.matmul;
 5b. graph-if: a WHILE node (csrc/graph_if.cu) against its plain version,
    the host loop: its body one kernel that advances a device counter and
    sets the condition counter < limit, the limit read from the device, so
@@ -91,8 +99,11 @@ Phases:
    version at [slice]'s, a [mesh] rank's, [resume]'s, one chain's and
    config 4's shapes: float64 within 1e-14 of the largest output, float32 no
    further than torch.matmul's float32 product, a chain's bits at C = 1, 3,
-   32 as in the 128-chain launch, no matmul in a dense metric's velocity on
-   the card; timed beside torch.matmul and its operations bound;
+   32 as in the 128-chain launch, its prepared operand bit-equal to the
+   preparation's plain version, no matmul in a dense metric's velocity on
+   the card; timed beside torch.matmul, the first design's kernel
+   (perf/baselines/minv_mv_pr13.cu, built beside it) and its operations
+   bound, the preparation beside its plain version and bytes bound;
 5d. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
    iterations, each run twice through ``solve_magi``: on the graphed tree
    and on the eager tree (the CPU path, chosen by patching
@@ -101,7 +112,10 @@ Phases:
    graphed run's host reads at most its doublings + 1 per transition, each
    run's L1 launches its doublings, L2's its batched leaves and the
    product's one per leaf and two per transition on [slice] and
-   [envelope] (none on the other two); then
+   [envelope], plus two per value-and-grad for the whitening GEMMs, and
+   the preparation's two for W and W^T and one per transition (the eager
+   tree's at least one, at most one per transition; none of either on the
+   other two); then
    every depth of a 128-chain [slice] tree captured up front: per depth the
    leaves captured (min(2^i, 4)), its WHILE node, capture seconds and MiB;
 6. diag-gauss: the diag chain driver on the card at C = 4 on a
@@ -196,10 +210,13 @@ evaluations, and each K1 launch ran the tile of its chain count (the row
 tile at one chain: [default], [profile], [grid] at C = 1 and the MAP warm
 start of [pt]; the chain tile at 32 chains and more). The leaf kernels' are exactly one L1 per
 doubling and one L2 per batched leaf on every NUTS path ([families], [mesh]
-on every rank and [grid]'s eager tree included), 0 on [chees]; the dense
-metric's product's one per batched leaf and two per transition on the
-paths under a dense metric ([slice], [envelope], [mesh] on every rank),
-none elsewhere.
+on every rank and [grid]'s eager tree included), 0 on [chees]; the
+product kernel's one per batched leaf and two per transition on the paths
+under a dense metric ([slice], [envelope], [mesh] on every rank), and two
+per value-and-grad where the whitening GEMMs take it ([slice], [chees],
+[envelope], [mesh]), none elsewhere; its preparation's two where the
+whitened value-and-grad is built, and at least one and at most one per
+transition under a dense metric.
 
 Each phase prints one line; a failed check exits non-zero. The line before
 the card's name is the kernels' JSON; the last line is
@@ -209,6 +226,7 @@ device the script exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -217,6 +235,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -371,13 +390,23 @@ LEAF_COMMIT_TARGET_MS = 0.0063
 # float64 plain version; a chain's bits at LEAF_SUBSETS' chain counts of
 # [slice]'s launch; timed at PRODUCT_TIMED over LEAF_REPS launches beside
 # the plain version (torch.matmul: the library call too), at 67 TFLOP/s
-PRODUCT_KERNEL = "minv_mv"
+PRODUCT_KERNEL, PREPARE_KERNEL = "minv_mv", "minv_mv_prepare"
 PRODUCT_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/minv_mv.cu"
+# The product's first design (its C interface takes minv itself), built
+# and timed beside the kernel at PRODUCT_TIMED
+PRODUCT_BASELINE = ("manifold_constrained_gaussian_process_inference_tpu_torch/perf/baselines/"
+                    "minv_mv_pr13.cu")
+# [slice]'s whitened dim: the x block (397 x 2), theta (3) and log sigma (2)
+SLICE_DIM = 799
 PRODUCT_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:63"
 PRODUCT_SHAPES = {"slice": (128, 799), "mesh": (32, 799), "resume": (3, 87), "c1": (1, 799),
                   "n793": (128, 1591)}
 PRODUCT_TIMED = ("slice", "mesh", "c1", "n793")
 PRODUCT_TOL_F64 = 1e-14  # of the largest |output|
+# [vg]: the float32 value-and-grad with its whitening GEMMs on the product
+# kernel no further from the float64 one than this times with them on
+# torch.matmul (the kernel's GEMMs sum in float64: nearer, or as near)
+F32_VG_GEMM_FACTOR = 2.0
 FP32_FLOP_PER_MS = 67e9
 # tree: the cut of each path run graphed and eager ([envelope] with
 # TREE_ENVELOPE_ADAPTS warmup: one window end, then tracked chunks; [pt]'s
@@ -516,9 +545,10 @@ def phase_build(cb):
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing
 
     t0 = time.perf_counter()
-    # the kernels, and the one-block centered_vg kernel that [vg] holds the new one to
+    # the kernels, the one-block centered_vg kernel that [vg] holds the new one
+    # to and the product's first design that [leaf] times beside the kernel
     sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, minv_mv.SOURCE, centered_vg.SOURCE,
-               vg_timing.BASELINE)
+               vg_timing.BASELINE, Path(__file__).resolve().parent / PRODUCT_BASELINE)
     with ThreadPoolExecutor(len(sources)) as pool:
         sos = list(pool.map(cb.build, sources))
     check(set(LEAF_KERNELS) == set(leaf.LAUNCHES), f"leaf kernels {sorted(leaf.LAUNCHES)}")
@@ -871,9 +901,19 @@ def phase_vg(long_cov64):
             f"launch float32 {t32['ms']:.5f} (one-block {t32['pr11_ms']:.5f}) / bound "
             f"{t32['bound_ms']:.5f} {t32['bound_by']} / plain {t32['plain_ms']:.4f}, float64 "
             f"{t64['ms']:.5f} (one-block {t64['pr11_ms']:.5f}) / bound {t64['bound_ms']:.5f} / plain "
-            f"{t64['plain_ms']:.4f}; GEMMs {_rounded(t32['gemm_ms'])}; value-and-grad per "
-            f"replayed call kernel route {t32['vg_ms']['kernel']:.4f}, autograd route "
-            f"{t32['vg_ms']['autograd']:.4f}")
+            f"{t64['plain_ms']:.4f}; GEMMs torch.matmul {_rounded(t32['gemm_ms'])}, product "
+            f"kernel {_rounded(t32['gemm_kernel_ms'])} (taken: {t32['gemm_route']}); "
+            f"value-and-grad per replayed call kernel route {t32['vg_ms']['kernel']:.4f} (its "
+            f"GEMMs on torch.matmul {t32['vg_ms']['kernel_matmul_gemms']:.4f}), autograd route "
+            f"{t32['vg_ms']['autograd']:.4f}; float32 rel to the float64 autograd route, GEMMs on "
+            f"the kernel lp "
+            f"{t32['vg_rel']['kernel_gemms']['lp']:.2e} g {t32['vg_rel']['kernel_gemms']['g']:.2e}"
+            f", on torch.matmul lp {t32['vg_rel']['matmul_gemms']['lp']:.2e} g "
+            f"{t32['vg_rel']['matmul_gemms']['g']:.2e}")
+        for what in ("lp", "g"):
+            got, ref = (t32["vg_rel"][k][what] for k in ("kernel_gemms", "matmul_gemms"))
+            check(got <= F32_VG_GEMM_FACTOR * ref, f"vg {name}: float32 {what} rel {got:.3e} with "
+                  f"the GEMMs on the kernel, over {F32_VG_GEMM_FACTOR} x torch.matmul's {ref:.3e}")
     print("[vg] the whitened FN value-and-grad's kernel against its plain version and the one-block "
           "kernel on the card: " + "; ".join(parts), flush=True)
     return rows
@@ -905,19 +945,39 @@ class _Launches:
         return {**self._cb.counts(), **{k: v for m in self._others for k, v in m.LAUNCHES.items()}}
 
 
-def _leaf_launches(launches, leaves, doublings, what, dense_transitions=None) -> None:
+def _leaf_launches(launches, leaves, doublings, what, dense_transitions=None,
+                   whitened=None, eager=False) -> None:
     """A path's leaf-kernel launches: exactly one L1 per doubling its trees
     ran (the doubling's leaf 0; ``doublings``) and one L2 per batched leaf
-    (``leaves``); 0 where no NUTS tree runs. The dense metric's product
-    (a path given ``dense_transitions``, its NUTS transitions under a
-    ``DenseMetric``): one launch per batched leaf and two per transition
-    (its start's M^-1 p0 and M^-1 grad); none on any other path."""
+    (``leaves``); 0 where no NUTS tree runs. The product kernel: under a
+    dense metric (a path given ``dense_transitions``, its NUTS transitions
+    under a ``DenseMetric``) one launch per batched leaf and two per
+    transition (its start's M^-1 p0 and M^-1 grad); on the kernel route's
+    whitened value-and-grad (``whitened``: its (chains, dim)) two per
+    value-and-grad (one per ``centered_vg`` launch) where the GEMM rule
+    (``centered_vg.gemm_takes_kernel``) takes the kernel; none elsewhere.
+    Its preparation: two for the whitened value-and-grad (W and W^T), and
+    under a dense metric one per transition (the graphed tree's copy,
+    rewritten at every transition); an ``eager`` tree reads the caller's
+    metric and prepares each new one once: at least one, at most one per
+    transition."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import centered_vg
+
+    gemm = whitened is not None and centered_vg.gemm_takes_kernel(*whitened)
     got = {name: launches[name] for name in (*LEAF_KERNELS, PRODUCT_KERNEL)}
     want = {"nuts_leaf_drift": doublings, "nuts_leaf_commit": leaves,
-            PRODUCT_KERNEL: 0 if dense_transitions is None else leaves + 2 * dense_transitions}
+            PRODUCT_KERNEL: (0 if dense_transitions is None else leaves + 2 * dense_transitions)
+            + (2 * launches[VG_KERNEL] if gemm else 0)}
     check(got == want, f"{what}: leaf-kernel and product launches {got}, want {want} (one L1 "
           f"per doubling, one L2 per batched leaf; a dense metric's product one per leaf and "
-          f"two per transition)")
+          f"two per transition; the whitening GEMMs' two per value-and-grad: {gemm})")
+    preps = 2 if whitened is not None else 0
+    high = preps + (dense_transitions or 0)
+    low = preps + min(1, high - preps) if eager else high
+    check(low <= launches[PREPARE_KERNEL] <= high,
+          f"{what}: {launches[PREPARE_KERNEL]} preparations of the product's operand, want "
+          f"{low}..{high} (W and W^T once; a dense metric once per transition, an eager tree's "
+          f"at most)")
 
 
 def _host_reads(d, what) -> str:
@@ -1383,17 +1443,33 @@ def _product_check():
     its plain version in float64 at PRODUCT_SHAPES: float64 within
     PRODUCT_TOL_F64 of the largest output, float32 no further from it than
     torch.matmul's float32 product; each chain's bits at LEAF_SUBSETS' chain
-    counts equal its rows of the 128-chain launch, both dtypes; a dense
-    metric's velocity on the card issues no matmul; ms per launch at
-    PRODUCT_TIMED beside the plain version (torch.matmul) and the bound.
-    Returns (the lines, [slice]'s float32 error, the timings)."""
+    counts equal its rows of the 128-chain launch, both dtypes; the
+    preparation of minv and of its transpose (the strided view the
+    whitening GEMM g_psi W hands it) bit-equal to its plain version, both
+    dtypes; a
+    dense metric's velocity on the card issues no matmul; ms per launch at
+    PRODUCT_TIMED beside the plain version (torch.matmul), the first design
+    and the bound, and the preparation's at [slice]'s dim beside its plain
+    version and bytes bound. Returns (the lines, [slice]'s float32 error,
+    the timings, the preparation's error and timing)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         DenseMetric,
     )
-    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import minv_mv
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band, minv_mv
+
+    pr13 = ctypes.CDLL(str(cuda_band.build(
+        Path(__file__).resolve().parent / PRODUCT_BASELINE))).minv_mv_f32
+    pr13.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    pr13.restype = ctypes.c_int
+
+    def run_pr13(m, x, out):
+        if pr13(m.data_ptr(), x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+                torch.cuda.current_stream().cuda_stream):
+            raise SmokeFailure("product: the first design's kernel failed to launch")
+        return out
 
     launches = dict(minv_mv.LAUNCHES)
-    parts, errs, times, same = [], {}, {}, True
+    parts, errs, times, same, prep_err, prep_time = [], {}, {}, True, 0.0, None
     for k, (name, (c, dim)) in enumerate(PRODUCT_SHAPES.items()):
         rng = np.random.default_rng(100 + k)
         a = rng.normal(size=(dim, dim)) / np.sqrt(dim)
@@ -1404,6 +1480,19 @@ def _product_check():
         row = {}
         for dtype in (torch.float64, torch.float32):
             m, x = (torch.as_tensor(v, dtype=dtype, device=DEVICE) for v in (minv, g))
+            prep = minv_mv.prepare(m)
+            for op, got_op in ((m, prep), (m.T, minv_mv.prepare(m.T))):  # W^T: a strided view
+                plain_op = minv_mv.prepare_torch(op)
+                prep_err = max(prep_err, float((got_op - plain_op).abs().max()))
+                check(torch.equal(got_op, plain_op),
+                      f"product {name}: the prepared operand of a {tuple(op.stride())}-strided "
+                      f"minv differs from its plain version ({dtype})")
+            if name == "slice" and dtype == torch.float32:
+                moved = 4 * dim * dim + 8 * minv_mv.prepared_size(dim)
+                prep_time = dict(ms=_graph_ms(lambda: minv_mv.prepare(m, prep)),
+                                 plain_ms=_graph_ms(lambda: minv_mv.prepare_torch(m)),
+                                 library_ms=None, bound_ms=moved / HBM_BYTES_PER_MS,
+                                 bound_by="bytes", shape=[dim, dim])
             got = minv_mv.minv_mv_cuda(m, x)
             err = float((got.cpu().double() - want).abs().max())
             if dtype == torch.float64:
@@ -1422,8 +1511,10 @@ def _product_check():
             if name in PRODUCT_TIMED and dtype == torch.float32:
                 flop, nbytes = minv_mv.product_work(c, dim, 4)
                 plain = _graph_ms(lambda: minv_mv.minv_mv_torch(m, x))
+                out = torch.empty_like(x)
                 times[name] = dict(
                     ms=_graph_ms(lambda: minv_mv.minv_mv_cuda(m, x)), plain_ms=plain,
+                    pr13_ms=_graph_ms(lambda: run_pr13(m, x, out)),
                     library_ms=plain, bound_ms=max(flop / FP32_FLOP_PER_MS,
                                                    nbytes / HBM_BYTES_PER_MS),
                     bound_by="operations" if flop / FP32_FLOP_PER_MS > nbytes / HBM_BYTES_PER_MS
@@ -1443,11 +1534,14 @@ def _product_check():
     line = ("the dense metric's product minv_mv (csrc/minv_mv.cu) vs the float64 plain version: "
             + "; ".join(parts) + f"; a chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of "
             f"the {N_CHAINS}-chain launch: {same}; velocity on the card runs no matmul "
-            f"({len(log.ops)} aten ops); ms per launch (float32, graph of {LEAF_REPS}) kernel / "
-            "torch.matmul / bound: " + ", ".join(
-                f"{n} {v['ms']:.5f} / {v['plain_ms']:.5f} / {v['bound_ms']:.5f} ({v['bound_by']})"
-                for n, v in times.items()))
-    return line, errs["slice"], times
+            f"({len(log.ops)} aten ops); the prepared operand of minv and of minv^T bit-equal to "
+            f"its plain version at every shape; ms per launch (float32, graph of {LEAF_REPS}) kernel / torch.matmul / "
+            "the first design / bound: " + ", ".join(
+                f"{n} {v['ms']:.5f} / {v['plain_ms']:.5f} / {v['pr13_ms']:.5f} / "
+                f"{v['bound_ms']:.5f} ({v['bound_by']})" for n, v in times.items())
+            + f"; the preparation at dim {PRODUCT_SHAPES['slice'][1]} {prep_time['ms']:.5f} / plain "
+            f"{prep_time['plain_ms']:.5f} / bound {prep_time['bound_ms']:.5f} (bytes)")
+    return line, errs["slice"], times, prep_err, prep_time
 
 
 def phase_leaf():
@@ -1476,7 +1570,7 @@ def phase_leaf():
                       f"leaf {name} {dtype}: decisions not all seen {seen}")
     same = {str(dtype)[6:]: _leaf_sub_batches(dtype) for dtype in (torch.float64, torch.float32)}
     times = {name: _leaf_kernel_times(name) for name in LEAF_SHAPES}
-    product_line, product_err, product_times = _product_check()
+    product_line, product_err, product_times, prep_err, prep_time = _product_check()
     t = times["slice"]
     print("[leaf] L1 nuts_leaf_drift and L2 nuts_leaf_commit (csrc/nuts_leaf.cu) vs their plain "
           f"versions over a depth-{LEAF_DEPTH} sub-tree, track_div_leaf on, L2 with the pair "
@@ -1495,11 +1589,13 @@ def phase_leaf():
           f"{t['commit']['ms'] <= LEAF_COMMIT_TARGET_MS}; " + product_line, flush=True)
     check(all(same.values()), f"leaf: a chain's bits depend on the launch's chain count {same}")
     max_err = {"drift": max(e[0] for e in errs.values()),
-               "commit": errs["slice", torch.float32][1], "product": product_err}
+               "commit": errs["slice", torch.float32][1], "product": product_err,
+               "prepare": prep_err}
     timing = {k: {**t[k], **{n: v[k] for n, v in times.items() if n != "slice"}}
               for k in ("drift", "commit")}
     timing["product"] = {**product_times["slice"],
                          **{n: v for n, v in product_times.items() if n != "slice"}}
+    timing["prepare"] = prep_time
     return max_err, timing
 
 
@@ -1576,9 +1672,10 @@ def phase_tree(mt, y, t):
                 res = mt.solve_magi(yy, tt_, system, config)
                 runs[kind] = (res, time.perf_counter() - t0)
                 d = res.diagnostics
+                fn = name in ("slice", "envelope")  # [slice]'s recipe: dense, whitened FN
                 _leaf_launches(counted.counts(), d["lockstep_leaves"], d["doublings"],
-                               f"tree {name} {kind}",
-                               d["transitions"] if name in ("slice", "envelope") else None)
+                               f"tree {name} {kind}", d["transitions"] if fn else None,
+                               (N_CHAINS, SLICE_DIM) if fn else None, kind == "eager")
         (g, g_wall), (e, e_wall) = runs["graphed"], runs["eager"]
         gd, ed = g.diagnostics, e.diagnostics
         diff = [f for f in ("theta", "x_sampled", "sigma", "lp")
@@ -1963,7 +2060,8 @@ def phase_slice(mt, cb, y, t):
     check(d["band_impl"] == "band", f"band_impl {d['band_impl']}")
     check(d["bandsize"] == MAIN_BANDSIZE, f"bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
     per_vg = _per_vg(launches, vg_evals, "slice", N_CHAINS, _route(d, "slice", "kernel"))
-    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "slice", d["transitions"])
+    _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "slice", d["transitions"],
+                   (N_CHAINS, SLICE_DIM))
     check(theta_rmse <= THETA_RMSE_MAX, f"theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"sigma RMSE {sigma_rmse:.4f}")
     check(rhat_max <= RHAT_MAX, f"max R-hat {rhat_max:.4f}")
@@ -2123,7 +2221,8 @@ def phase_chees(mt, cb, y, t):
     check(d["bandsize"] == MAIN_BANDSIZE, f"chees: bandsize {d['bandsize']} != {MAIN_BANDSIZE}")
     per_vg = _per_vg(launches, d["vg_evals"], "chees", CHEES_CHAINS,
                      _route(d, "chees", "kernel"))
-    _leaf_launches(launches, 0, 0, "chees")  # ChEES runs no NUTS tree
+    # ChEES runs no NUTS tree; its value-and-grad the whitening GEMMs
+    _leaf_launches(launches, 0, 0, "chees", whitened=(CHEES_CHAINS, SLICE_DIM))
     check(theta_rmse <= THETA_RMSE_MAX, f"chees: theta RMSE {theta_rmse:.4f}")
     check(rhat_max <= CHEES_RHAT_MAX, f"chees: max R-hat {rhat_max:.4f} > {CHEES_RHAT_MAX}")
     check(np.isfinite(traj) and traj > eps, f"chees: trajectory length {traj} vs step {eps}")
@@ -2677,7 +2776,7 @@ def _report_mesh(ranks, wall):
                       _route(r, f"mesh rank {i}", "kernel")) for i, r in enumerate(sol)]
     for i, r in enumerate(sol):
         _leaf_launches(r["launches"], r["leaves"], r["reads"]["doublings"], f"mesh rank {i}",
-                       r["transitions"])
+                       r["transitions"], (N_CHAINS // MESH_RANKS, SLICE_DIM))
     check(a["theta_rmse"] <= THETA_RMSE_MAX, f"mesh: theta RMSE {a['theta_rmse']:.4f}")
     check(a["sigma_rmse"] <= SIGMA_RMSE_MAX, f"mesh: sigma RMSE {a['sigma_rmse']:.4f}")
     check(a["divergent"] <= MESH_MAX_DIVERGENT_SHARE, f"mesh: divergent {a['divergent']:.4f}")
@@ -2814,7 +2913,7 @@ def phase_envelope(mt, cb, y, t):
           "envelope: the folded metric is not finite and SPD")
     per_vg = _per_vg(launches, vg_evals, "envelope", N_CHAINS, _route(d, "envelope", "kernel"))
     _leaf_launches(launches, d["lockstep_leaves"], d["doublings"], "envelope",
-                   d["transitions"])
+                   d["transitions"], (N_CHAINS, SLICE_DIM))
     check(theta_rmse <= THETA_RMSE_MAX, f"envelope: theta RMSE {theta_rmse:.4f}")
     check(sigma_rmse <= SIGMA_RMSE_MAX, f"envelope: sigma RMSE {sigma_rmse:.4f}")
     return launches, per_vg, leaf_ms
@@ -2935,9 +3034,9 @@ def main() -> int:
     for path in ("default", "families", "slice", "pt", "envelope", "profile", "mesh", "grid"):
         check(all(paths[path][0][name] > 0 for name in LEAF_KERNELS),
               f"{path}: a leaf kernel was not launched")
-    for path in ("slice", "envelope", "mesh"):
-        check(paths[path][0][PRODUCT_KERNEL] > 0, f"{path}: the dense metric's product kernel "
-              "was not launched")
+    for path in ("slice", "chees", "envelope", "mesh"):
+        check(paths[path][0][PRODUCT_KERNEL] > 0 and paths[path][0][PREPARE_KERNEL] > 0,
+              f"{path}: the product kernel or its preparation was not launched")
     vg_rows = out["vg"]
     for path in ("slice", "chees", "envelope", "mesh"):
         check(paths[path][0][VG_KERNEL] > 0 and all(paths[path][0][name] == 0 for name in KERNELS),
@@ -2969,6 +3068,12 @@ def main() -> int:
         "launches": sum(p[0][PRODUCT_KERNEL] for p in paths.values()),
         "launches_by_path": {path: p[0][PRODUCT_KERNEL] for path, p in paths.items()},
         "max_abs_err": leaf_err["product"], **leaf_timing["product"],
+    }] + [{
+        "name": PREPARE_KERNEL, "route": "cuda", "source": PRODUCT_SOURCE,
+        "replaces": PRODUCT_REPLACES,
+        "launches": sum(p[0][PREPARE_KERNEL] for p in paths.values()),
+        "launches_by_path": {path: p[0][PREPARE_KERNEL] for path, p in paths.items()},
+        "max_abs_err": leaf_err["prepare"], **leaf_timing["prepare"],
     }] + [{
         "name": VG_KERNEL, "route": "cuda", "source": VG_SOURCE, "replaces": VG_REPLACES,
         "launches": sum(p[0][VG_KERNEL] for p in paths.values()),

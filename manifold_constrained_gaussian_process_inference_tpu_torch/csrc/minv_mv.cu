@@ -7,65 +7,83 @@
 // rounding. Replaces no Pallas kernel: it is the product of the JAX
 // package's _minv_mv_b (inference/nuts_batched.py:63, jnp.matmul left to
 // XLA) inside _leapfrog_b, which the port ran as torch.matmul (cuBLAS). Its
-// plain version is ops/minv_mv.py's minv_mv_torch, p @ minv.T.
+// plain version is ops/minv_mv.py's minv_mv_torch, p @ minv.T. The whitened
+// value-and-grad's two GEMMs (zeta W^T and g W) are the same product on W
+// and on W^T.
 //
 // Bound: operations. 2 C dim^2 flop against (dim^2 + 2 C dim) elements: at
 // [slice] (C, dim) = (128, 799) float32, 163 Mflop, 2.4 us at the FP32 peak
-// of 67 TFLOP/s, against 3.4 MB, 1.0 us at 3.35 TB/s. A cuBLAS GEMM of this
-// shape puts a 128-wide output tile on only a handful of the 132 SMs.
+// of 67 TFLOP/s, against 3.4 MB, 1.0 us at 3.35 TB/s.
 //
 // Arithmetic: float64 on the FP64 tensor cores (DMMA, sm_90's mma.sync
-// m16n8k8; a peak of 67 TFLOP/s on the H100, the FP32 CUDA cores'), whatever
-// the storage type:
+// m16n8k8; a peak of 67 TFLOP/s on the H100), whatever the storage type:
 // the products of float32 inputs are exact in float64 and the sums carry
 // ~1e-16 relative error, so a float32 output is the float64 sum rounded
-// once, within half an ulp, which no float32 GEMM's output beats (a first
-// design summing in float32 on CUDA cores was further from the float64
-// product than cuBLAS at three chains, and 1.6x cuBLAS's time at [slice]).
-// No TF32 anywhere.
+// once, within half an ulp, which no float32 GEMM's output beats. No TF32.
 //
-// Design. The (C x dim) output is cut into tiles of kRows rows i by TC
-// chains (TC = 64, 32 or 16 by C; float64 storage at most 32), and the sum
-// over k into S contiguous ranges of whole kStep-wide steps, S and the steps
-// a range from dim alone (split below: S = 5 at dim 799, so [slice] runs
-// 5 x 13 x 2 = 130 blocks). The S blocks of one tile form a thread-block
-// cluster: each sums its k range into float64 partials in its shared
-// memory, and after a cluster barrier every block adds the S partials of its
-// slice of the tile in rank order, reading the others' through distributed
-// shared memory, and writes it. A block stages its rows of minv and of g
-// for up to kMaxSteps steps at once (a window), every step's 16-byte
-// cp.async copies in flight together, one commit group a step, so a step
-// waits for its own copies only: a row of 799 floats starts at no common
-// alignment, so a staged row starts at the 16-byte boundary at or before its
-// first k and the fragment loads skip its shift. A warp owns 16 chains x 32
-// rows: per 8 k, one A fragment (g, 16 chains x 8 k) and four B fragments
-// (minv's rows, 8 x 8), converted to float64 as they are loaded, feed 4
-// DMMAs into 16 float64 accumulators a lane; below 64 chains a tile two
-// warps share a warp tile, each on every other group of eight k.
+// The prepared operand. minv changes once a transition at most (the NUTS
+// tree rewrites its copy of the metric then) and is read by hundreds of
+// products, so minv_mv_prepare_<t> writes it once into the layout the
+// product reads: float64, rows and k padded with zeros to whole 32 x 32
+// blocks, each block (row tile rt, k step ks) 8 KB contiguous and in DMMA
+// fragment order,
+//
+//   prep[rt][ks][kk][j][lane][e] = minv[32 rt + 8 j + lane / 4][32 ks + 8 kk + lane % 4 + 4 e]
+//
+// (kk, j < 4, lane < 32, e < 2: the B fragment of rows 8 j.. and k 8 kk..,
+// one 16-byte load a lane). So a block copies a step of minv with one bulk
+// copy of the Tensor Memory Accelerator and converts nothing of it (the
+// plain version, ops/minv_mv.py prepare_torch, is that permutation).
+//
+// Design. The (C x dim) output is cut into tiles of kRows = 32 rows i by TC
+// chains (TC = 128, 64, 32 or 16, the least that holds C; float64 storage at
+// most 64), and the sum over k into S contiguous ranges of whole kStep-wide
+// steps, S and the steps a range from dim alone (split below: S = 4 ranges
+// of 7 steps at dim 799, so [slice] runs one chain tile, 25 x 4 = 100
+// blocks, and minv crosses from L2 to the SMs once a launch). The S blocks
+// of a row tile form a thread-block cluster. A block walks its range through
+// a ring of kStages stages of minv, each under an mbarrier that thread 0
+// arms with the step's bytes as it issues the bulk copy; all of a range's
+// steps up to kStages are in flight at once, and a stage is refilled (after
+// a block barrier) only when a range has more steps than stages. A warp owns
+// 16 chains x 8 NJ rows (NJ = 4 from 32 chains a tile): its lanes load their
+// A fragments' g values (float32 or float64, converted to float64 as they
+// are used) straight from global memory a step ahead, so g, whose rows of
+// 799 floats start at no common 16-byte boundary, is never staged; per eight
+// k one A fragment and NJ prepared B fragments feed NJ DMMAs.
+//
+// Reduction: each block pushes its float64 partials over distributed shared
+// memory into the block that owns their chains (rank o owns the tile's
+// chains c with o = c S / TC), in a slot of its own rank; after one cluster
+// barrier each block adds its slots in rank order, rounds once to T and
+// writes. (An arrive at the kernel's start, waited on after the k loop,
+// makes sure every block of the cluster has started before it is written.)
 //
 // Fixed summation order: an output's range sums its k through the DMMAs in
-// ascending groups of eight (with two warps a tile: the odd groups' sum
-// added to the even groups'), and the S ranges' sums are added in rank
+// ascending groups of eight, and the S ranges' sums are added in rank
 // order, all of it fixed by dim alone, so a chain's bits do not depend on
 // C, the chain tile, or which chains share its launch.
 //
-// Measured on the H100 (PERF.md, perf/product_timing.py): 1.26x cuBLAS's
-// float32 GEMM at [slice], as fast at 32 and 64 chains; m16n8k8 takes
-// 0.77x the time of the same kernel on m8n8k4 DMMAs at [slice], m16n8k16
-// 1.07x; float32 error a quarter of cuBLAS's against float64.
+// Measured on the H100 (PERF.md, perf/product_timing.py): at [slice]
+// 0.81x cuBLAS's float32 GEMM (the first design, perf/baselines/
+// minv_mv_pr13.cu, 1.24x); staging g in shared memory with cp.async, as
+// that design did, took 1.1-1.3x as long at 128 chains.
 //
-// The launch (cudaLaunchKernelEx with the cluster dimension) goes on the
-// caller's stream, allocates nothing and does not synchronise, so CUDA
-// graphs capture it, a WHILE node's body among them.
+// The launches (cudaLaunchKernelEx with the cluster dimension) go on the
+// caller's stream, allocate nothing and do not synchronise, so CUDA graphs
+// capture them, a WHILE node's body among them.
 //
 // C interface (ctypes), each in _f32 and _f64, returning a cudaError_t:
-//   minv_mv_<t>(minv, g, mg, n_chains, dim, stream)
+//   minv_mv_<t>(prepared, g, mg, n_chains, dim, stream)
+//   minv_mv_prepare_<t>(minv, prepared, dim, row_stride, col_stride, stream)
+// with prepared of minv_mv_prepared_doubles(dim) doubles.
 //
 // MINV_MV_PROBE (a measurement build, perf/product_timing.py --probes; its
-// outputs are wrong): 1 skips the DMMAs, 2 the copies, 3 the cluster's
-// reduction (each block writes its own slice of its partials), 4 the body.
+// outputs are wrong): 1 skips the DMMAs, 2 the bulk copies, 3 the cluster's
+// reduction (each block sums its own slots only), 4 the body, 5 the g loads
+// (constant A fragments), 6 the conversions to float64 (bits moved as they
+// are).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,17 +91,15 @@
 #define MINV_MV_PROBE 0
 #endif
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-constexpr int kRows = 64;          // output rows i a block
-constexpr int kStep = 32;          // k a copy group (a commit group of cp.async)
-constexpr int kStepsPerRange = 5;  // the k range's steps S is chosen for
-constexpr int kMaxSplit = 8;       // S, a portable cluster
-constexpr int kMaxSteps = 5;       // steps staged at once (a window; a range may have more)
-constexpr int kWarpChains = 16, kWarpRows = 32;  // a warp's outputs
-constexpr int kPartialLd = kRows + 1;            // the float64 partials' row stride
+constexpr int kRows = 32;          // output rows i a block: the prepared operand's row tile
+constexpr int kStep = 32;          // k a stage: the prepared operand's k step
+constexpr int kStepsPerRange = 7;  // the k range's steps S is chosen for
+constexpr int kMaxSplit = 4;       // S at most: longer ranges, not more of them
+constexpr int kStages = 7;         // the ring's stages
+constexpr int kBlockDoubles = kRows * kStep;  // a prepared (row tile, step) block: 8 KB
+constexpr int kBarBytes = 128;     // the mbarriers' room at the start of shared memory
 
 // S and the steps of each k range, from dim alone (ops/minv_mv.py split).
 struct Split {
@@ -97,32 +113,81 @@ __host__ __device__ inline Split split_for(int dim) {
   return {ranges, (steps + ranges - 1) / ranges};
 }
 
-// One 16-byte asynchronous copy into shared memory of its first `bytes`,
-// zero-filling the rest (no global read past them).
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, int bytes) {
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool bar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of `parity` to complete; a phase that never does (a
+// copy that never lands) fails the launch instead of hanging the card.
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  for (unsigned spins = 0; !bar_try_wait(bar, parity); ++spins)
+    if (spins == (1u << 22)) __trap();
+}
+
+// Stage one prepared block: arm `bar` with its bytes and issue the Tensor
+// Memory Accelerator's bulk copy, whose completion the barrier counts.
+__device__ __forceinline__ void stage_block(unsigned dst, const double* src, unsigned bar) {
+  constexpr unsigned kBytes = 8 * kBlockDoubles;
 #if MINV_MV_PROBE == 2
-  return;
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+  (void)dst, (void)src;
+#else
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(kBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(kBytes), "r"(bar)
+      : "memory");
 #endif
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Two doubles to another block's shared memory (a shared::cta address of
+// this block's layout, mapped to rank's).
+__device__ __forceinline__ void store_remote(unsigned local, int rank, double x, double y) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};\n" ::"r"(remote), "d"(x), "d"(y)
                : "memory");
 }
 
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most n (< kMaxSteps) of this thread's newest copy groups
-// are in flight (any other n: until none is).
-__device__ __forceinline__ void wait_copies(int n) {
-  static_assert(kMaxSteps <= 5, "wait_copies covers windows of up to 5 steps");
-  switch (n) {
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-  }
+// A g value in float64, exactly.
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ double widen(float x) {
+#if MINV_MV_PROBE == 6
+  return __hiloint2double(__float_as_int(x), 0);  // no conversion: wrong values
+#else
+  return double(x);
+#endif
 }
 
 // d += a b over one 16 x 8 x 8 tile in float64 (sm_90's DMMA shape). With
@@ -138,176 +203,207 @@ __device__ __forceinline__ void dmma(double (&d)[2][2], const double (&a)[4], do
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
 }
 
-template <typename T, int TC>
+template <int TC>
 struct Tile {
-  // Below 64 chains a tile, kSplitK warps a warp tile, each on every
-  // kSplitK-th group of eight k of every step: more warps in flight for the
-  // DMMAs' latency (at 64 they would leave too few clusters resident).
-  static constexpr int kSplitK = TC == 64 ? 1 : 2;
-  static constexpr int kWarps = kSplitK * (TC / kWarpChains) * (kRows / kWarpRows);
+  static constexpr int kChainWarps = TC / 16;  // a warp's 16 chains (one DMMA's m)
+  // a warp's rows: all 32 of the tile, but for 16 chains (one warp) 8
+  static constexpr int kRowWarps = TC == 16 ? 4 : 1;
+  static constexpr int kWarps = kChainWarps * kRowWarps;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kStaged = kRows + TC;        // rows staged: minv's, then g's
-  static constexpr int kVec = 16 / int(sizeof(T));  // elements a 16-byte copy
-  // A staged row holds a block's whole k range from the 16-byte boundary at
-  // or before its first k (its shift), in kVec-element chunks.
-  static __host__ __device__ int chunks(int steps) { return (steps * kStep + 2 * kVec - 2) / kVec; }
-  static __host__ __device__ int row_ld(int steps) {
-    return chunks(steps) * kVec + (kVec == 4 ? 4 : 2);  // padded: rows start on other banks
+  static constexpr int kNJ = kRows / 8 / kRowWarps;  // a warp's row groups of eight
+  static constexpr int kStageBytes = 8 * kBlockDoubles;
+  // S slots of ceil(TC / S) chains x kRows float64 partials
+  static __host__ __device__ constexpr int recv_bytes(int s) {
+    return s > 1 ? 8 * s * ((TC + s - 1) / s) * kRows : 0;
   }
-  static __host__ __device__ size_t shared_bytes(int steps) {  // steps a window
-    const size_t staged = sizeof(T) * size_t(kStaged) * row_ld(steps);
-    const size_t partial = sizeof(double) * TC * kPartialLd;
-    return staged > partial ? staged : partial;
+  static __host__ __device__ constexpr int shared_bytes(int s) {
+    return kBarBytes + kStages * kStageBytes + recv_bytes(s);
   }
+  static __host__ __device__ constexpr int max_shared_bytes() {
+    int m = 0;
+    for (int s = 1; s <= kMaxSplit; ++s) m = shared_bytes(s) > m ? shared_bytes(s) : m;
+    return m;
+  }
+  static_assert(kStages * 8 <= kBarBytes, "the mbarriers' room");
 };
 
 // grid (S, row tiles, chain tiles), clusters of (S, 1, 1).
 template <typename T, int TC>
-__global__ void __launch_bounds__(Tile<T, TC>::kThreads)
-    minv_mv_kernel(const T* __restrict__ minv, const T* __restrict__ g, T* __restrict__ mg,
+__global__ void __launch_bounds__(Tile<TC>::kThreads)
+    minv_mv_kernel(const double* __restrict__ prep, const T* __restrict__ g, T* __restrict__ mg,
                    int n_chains, int dim) {
-  using L = Tile<T, TC>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* staged = reinterpret_cast<T*>(smem_raw);
-  const Split sp = split_for(dim);
-  const int rank = blockIdx.x;  // the cluster's rank: clusters span gridDim.x
-  const int i0 = blockIdx.y * kRows, c0 = blockIdx.z * TC;
-  const int steps = (dim + kStep - 1) / kStep;
-  const int s_begin = rank * sp.steps_per_range;
-  const int s_end = min(steps, s_begin + sp.steps_per_range);
-  const int n_steps = max(s_end - s_begin, 0);
-  const int k_begin = s_begin * kStep, k_end = min(dim, s_end * kStep);
-  // the steps staged at once (a window), and the staged rows' stride
-  const int ld = L::row_ld(min(sp.steps_per_range, kMaxSteps));
+  using L = Tile<TC>;
+  extern __shared__ __align__(128) unsigned char smem[];
 #if MINV_MV_PROBE == 4
   return;
 #endif
+  const Split sp = split_for(dim);
+  const int S = sp.ranges;
+  const int rank = blockIdx.x;  // the cluster's rank: clusters span gridDim.x
+  const int rt = blockIdx.y, c0 = blockIdx.z * TC;
+  const int steps = (dim + kStep - 1) / kStep;  // also the prepared operand's k steps
+  const int s_begin = rank * sp.steps_per_range;
+  const int n_steps = max(min(steps, s_begin + sp.steps_per_range) - s_begin, 0);
+  const int k_begin = s_begin * kStep, k_end = min(dim, (s_begin + n_steps) * kStep);
+  const unsigned bars = smem_u32(smem);
+  const unsigned stages = bars + kBarBytes;
+  const double* blocks = prep + (int64_t(rt) * steps + s_begin) * kBlockDoubles;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const int lane = threadIdx.x & 31;
-  const int part = (threadIdx.x >> 5) / (L::kWarps / L::kSplitK);  // the warp's part of the k
-  const int warp = (threadIdx.x >> 5) % (L::kWarps / L::kSplitK);  // its tile
-  const int wc = (warp % (TC / kWarpChains)) * kWarpChains;  // the warp's first chain
-  const int wr = (warp / (TC / kWarpChains)) * kWarpRows;    // and first row
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) bar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int s = 0; s < min(n_steps, kStages); ++s)
+      stage_block(stages + s * L::kStageBytes, blocks + s * kBlockDoubles, bars + 8 * s);
+  }
+  __syncthreads();
+  if (S > 1) cluster_arrive_relaxed();  // started; waited on before the pushes
+
+  // The warp's outputs: chains wc + group (+ 8), rows 8 j + 2 quad (+ 1)
+  // for its NJ row groups j from wj; the lane's A values of a step, k = k0
+  // + 4 i + quad for i < 8, from its two chains' rows, loaded a step ahead.
   const int group = lane >> 2, quad = lane & 3;
-  // The lane's fragment rows: g's chains wc + 8 h + group and minv's rows
-  // wr + 8 j + group, each at its first k after the row's shift (the offset
-  // of k_begin from the 16-byte boundary at or before it: the same for
-  // every window, whose starts are kStep apart).
-  const T* fa[2];
-  const T* fb[4];
+  const int wc = (warp % L::kChainWarps) * 16, wj = (warp / L::kChainWarps) * L::kNJ;
+  const T* grow[2];
+  bool live[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = kRows + wc + 8 * h + group;
-    fa[h] = staged + r * ld + int((int64_t(c0 + r - kRows) * dim + k_begin) % L::kVec) + quad +
-            8 * part;
+    const int row = c0 + wc + 8 * h + group;
+    live[h] = row < n_chains;
+    grow[h] = g + int64_t(live[h] ? row : 0) * dim + quad;
   }
+  T next[2][8];
+  auto fetch = [&](int s) {
+    const int k0 = k_begin + s * kStep;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = wr + 8 * j + group;
-    fb[j] = staged + r * ld + int((int64_t(i0 + r) * dim + k_begin) % L::kVec) + quad + 8 * part;
-  }
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        next[h][i] = live[h] && k0 + 4 * i + quad < k_end ? __ldg(grow[h] + k0 + 4 * i) : T(0);
+  };
+  if (n_steps > 0) fetch(0);
 
-  double acc[4][2][2];  // [row group of 8][chain group of 8][the lane's two columns]
+  double acc[L::kNJ][2][2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) acc[j][h][0] = acc[j][h][1] = 0.0;
+  for (int j = 0; j < L::kNJ; ++j) acc[j][0][0] = acc[j][0][1] = acc[j][1][0] = acc[j][1][1] = 0.0;
 
-  const int chunks_per_step = kStep / L::kVec;
-  for (int w0 = 0; w0 < n_steps; w0 += kMaxSteps) {
-    const int w_steps = min(kMaxSteps, n_steps - w0), k_w = k_begin + w0 * kStep;
-    if (w0 > 0) __syncthreads();  // the previous window's reads are done
-    // Every step of the window in flight at once, one commit group a step:
-    // row r's chunk c (kVec elements from the row's 16-byte boundary at or
-    // before k_w) to staged[r][c kVec]; zero past k_end, dim or the chains.
-    // Step s reads chunks s cps .. s cps + cps (cps chunks a step, one more
-    // for the shift), all in groups 0..s.
-    for (int s = 0; s < w_steps; ++s) {
-      const int c_lo = s == 0 ? 0 : s * chunks_per_step + 1;
-      const int n_chunks = (s + 1) * chunks_per_step + 1 - c_lo;
-      for (int e = threadIdx.x; e < L::kStaged * n_chunks; e += L::kThreads) {
-        const int r = e / n_chunks, c = c_lo + e % n_chunks;
-        const bool of_minv = r < kRows;
-        const int row = of_minv ? i0 + r : c0 + r - kRows;
-        const bool valid = row < (of_minv ? dim : n_chains);
-        const T* base = of_minv ? minv : g;
-        const int first = k_w - int((int64_t(row) * dim + k_w) % L::kVec) + c * L::kVec;
-        const int n = valid ? max(0, min(L::kVec, k_end - first)) : 0;
-        copy16_async(staged + r * ld + c * L::kVec,
-                     n > 0 ? base + int64_t(row) * dim + first : base, n * int(sizeof(T)));
-      }
-      commit_copies();
-    }
-    for (int s = 0; s < w_steps; ++s) {
-      wait_copies(w_steps - 1 - s);
-      __syncthreads();  // step s has landed for every thread
-      const int k = s * kStep;
+  for (int s = 0; s < n_steps; ++s) {
+    T cur[2][8];
 #pragma unroll
-      for (int kk = 0; kk < kStep; kk += 8 * L::kSplitK) {  // this part's groups of eight k
-        const double a[4] = {double(fa[0][k + kk]), double(fa[1][k + kk]),
-                             double(fa[0][k + kk + 4]), double(fa[1][k + kk + 4])};
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const double b0 = double(fb[j][k + kk]), b1 = double(fb[j][k + kk + 4]);
-#if MINV_MV_PROBE == 1
-          acc[j][0][0] += a[0] * b0 + a[3] * b1;  // two FMAs for the DMMA's 512
+      for (int i = 0; i < 8; ++i) cur[h][i] = next[h][i];
+    if (s + 1 < n_steps) fetch(s + 1);
+    const int slot = s % kStages;
+    bar_wait(bars + 8 * slot, unsigned(s / kStages) & 1u);
+    const double2* bq = reinterpret_cast<const double2*>(smem + kBarBytes + slot * L::kStageBytes);
+#pragma unroll
+    for (int kk = 0; kk < kStep / 8; ++kk) {
+#if MINV_MV_PROBE == 5
+      const double a[4] = {double(lane), double(kk), double(lane + 4), double(s)};  // no loads
 #else
-          dmma(acc[j], a, b0, b1);
+      const double a[4] = {widen(cur[0][2 * kk]), widen(cur[1][2 * kk]),
+                           widen(cur[0][2 * kk + 1]), widen(cur[1][2 * kk + 1])};
 #endif
+#pragma unroll
+      for (int j = 0; j < L::kNJ; ++j) {
+        const double2 b = bq[(kk * 4 + wj + j) * 32 + lane];
+#if MINV_MV_PROBE == 1
+        acc[j][0][0] += a[0] * b.x + a[3] * b.y;  // two FMAs for the DMMA's 1024
+#else
+        dmma(acc[j], a, b.x, b.y);
+#endif
+      }
+    }
+    if (s + kStages < n_steps) {
+      __syncthreads();  // every warp is done with the slot
+      if (tid == 0)
+        stage_block(stages + slot * L::kStageBytes, blocks + (s + kStages) * kBlockDoubles,
+                    bars + 8 * slot);
+    }
+  }
+
+  const int i0 = rt * kRows;
+  if (S == 1) {
+#pragma unroll
+    for (int j = 0; j < L::kNJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + wc + 8 * h + group;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = i0 + 8 * (wj + j) + 2 * quad + q;
+          if (c < n_chains && i < dim) mg[int64_t(c) * dim + i] = T(acc[j][h][q]);
         }
       }
-    }
+    return;
   }
-  __syncthreads();  // the staged rows' last reads are done: their memory takes the partials
 
-  // this block's partial sums in float64, [chain][row]: the last part's,
-  // then each earlier part's plus them
-  double* partial = reinterpret_cast<double*>(smem_raw);
-  for (int pass = L::kSplitK - 1; pass >= 0; --pass) {
-    if (part == pass) {
+  // Push the partials to their owners' slot `rank`: owner o holds the
+  // tile's chains lo(o) .. lo(o + 1) - 1, lo(o) = ceil(o TC / S).
+  const int slice = (TC + S - 1) / S;
+  const unsigned recv = stages + kStages * L::kStageBytes;
+  cluster_wait();  // every block of the cluster has started
+#if MINV_MV_PROBE != 3
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < 2; ++h) {
+    const int c = wc + 8 * h + group;
+    const int o = c * S / TC, lo = (o * TC + S - 1) / S;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            double& at = partial[(wc + 8 * h + group) * kPartialLd + wr + 8 * j + 2 * quad + q];
-            at = pass == L::kSplitK - 1 ? acc[j][h][q] : __dadd_rn(acc[j][h][q], at);
-          }
+    for (int j = 0; j < L::kNJ; ++j) {
+      const int i = 8 * (wj + j) + 2 * quad;
+      store_remote(recv + 8 * ((rank * slice + c - lo) * kRows + i), o, acc[j][h][0],
+                   acc[j][h][1]);
     }
-    if (pass) __syncthreads();
   }
-  const int S = MINV_MV_PROBE == 3 ? 1 : sp.ranges;
-  cg::cluster_group cluster = cg::this_cluster();
-  if (S > 1) {
-    cluster.sync();  // every block's partials are written
-  } else {
-    __syncthreads();
+  cluster_arrive();
+  cluster_wait();  // every partial has landed in its owner
+#endif
+  const double* mine =
+      reinterpret_cast<const double*>(smem + kBarBytes + kStages * L::kStageBytes);
+  const int lo = (rank * TC + S - 1) / S, hi = ((rank + 1) * TC + S - 1) / S;
+  for (int e = tid; e < (hi - lo) * kRows; e += L::kThreads) {
+    double v = mine[e];
+#if MINV_MV_PROBE != 3
+    for (int r = 1; r < S; ++r) v = __dadd_rn(v, mine[r * slice * kRows + e]);
+#endif
+    const int c = c0 + lo + e / kRows, i = i0 + e % kRows;
+    if (c < n_chains && i < dim) mg[int64_t(c) * dim + i] = T(v);
   }
-  // this block's slice of the tile: the S ranges' partials added in rank
-  // order, rounded once to T
-  const int total = TC * kRows, per = (total + S - 1) / S;
-  const int e_end = min(total, (rank + 1) * per);
-  for (int e = rank * per + threadIdx.x; e < e_end; e += L::kThreads) {
-    const int c = e / kRows, i = e - c * kRows;
-    const int at = c * kPartialLd + i;
-    double v = S > 1 ? cluster.map_shared_rank(partial, 0)[at] : partial[at];
-    for (int r = 1; r < S; ++r) v = __dadd_rn(v, cluster.map_shared_rank(partial, r)[at]);
-    if (c0 + c < n_chains && i0 + i < dim) mg[int64_t(c0 + c) * dim + i0 + i] = T(v);
+}
+
+// The prepared operand (see the top), one lane's pair of doubles a thread.
+template <typename T>
+__global__ void minv_mv_prepare_kernel(const T* __restrict__ minv, double2* __restrict__ prep,
+                                       int dim, int64_t row_stride, int64_t col_stride,
+                                       int64_t pairs) {
+  const int steps = (dim + kStep - 1) / kStep;
+  for (int64_t p = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; p < pairs;
+       p += int64_t(gridDim.x) * blockDim.x) {
+    const int lane = int(p & 31), j = int((p >> 5) & 3), kk = int((p >> 7) & 3);
+    const int64_t block = p >> 9;
+    const int ks = int(block % steps), rt = int(block / steps);
+    const int row = rt * kRows + 8 * j + (lane >> 2);
+    const int col = ks * kStep + 8 * kk + (lane & 3);
+    double2 v;
+    v.x = row < dim && col < dim ? double(minv[row * row_stride + col * col_stride]) : 0.0;
+    v.y = row < dim && col + 4 < dim ? double(minv[row * row_stride + (col + 4) * col_stride])
+                                     : 0.0;
+    prep[p] = v;
   }
-  if (S > 1) cluster.sync();  // no block leaves while another reads its partials
 }
 
 template <typename T, int TC>
 cudaLaunchConfig_t config_for(int n_chains, int dim, cudaStream_t stream,
                               cudaLaunchAttribute* attr) {
-  using L = Tile<T, TC>;
+  using L = Tile<TC>;
   const Split sp = split_for(dim);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(unsigned(sp.ranges), unsigned((dim + kRows - 1) / kRows),
                         unsigned((n_chains + TC - 1) / TC));
   config.blockDim = dim3(unsigned(L::kThreads), 1, 1);
-  config.dynamicSmemBytes = L::shared_bytes(min(sp.steps_per_range, kMaxSteps));
+  config.dynamicSmemBytes = L::shared_bytes(sp.ranges);
   config.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = unsigned(sp.ranges);
@@ -319,15 +415,22 @@ cudaLaunchConfig_t config_for(int n_chains, int dim, cudaStream_t stream,
 }
 
 template <typename T, int TC>
-int launch_tile(const T* minv, const T* g, T* mg, int n_chains, int dim, cudaStream_t stream) {
-  using L = Tile<T, TC>;
-  auto kernel = minv_mv_kernel<T, TC>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::shared_bytes(kMaxSteps)));
+cudaError_t shared_attr() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(minv_mv_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Tile<TC>::max_shared_bytes());
+  return err;
+}
+
+template <typename T, int TC>
+int launch_tile(const double* prep, const T* g, T* mg, int n_chains, int dim,
+                cudaStream_t stream) {
+  const cudaError_t attr = shared_attr<T, TC>();
   if (attr != cudaSuccess) return attr;
   cudaLaunchAttribute cluster[1];
   const cudaLaunchConfig_t config = config_for<T, TC>(n_chains, dim, stream, cluster);
-  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, minv, g, mg, n_chains, dim);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&config, minv_mv_kernel<T, TC>, prep, g, mg, n_chains, dim);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -335,49 +438,98 @@ int launch_tile(const T* minv, const T* g, T* mg, int n_chains, int dim, cudaStr
 // (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
 template <typename T, int TC>
 int clusters_of(int n_chains, int dim) {
-  using L = Tile<T, TC>;
-  auto kernel = minv_mv_kernel<T, TC>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::shared_bytes(kMaxSteps)));
+  const cudaError_t attr = shared_attr<T, TC>();
   if (attr != cudaSuccess) return -int(attr);
   cudaLaunchAttribute cluster[1];
   const cudaLaunchConfig_t config = config_for<T, TC>(n_chains, dim, 0, cluster);
   int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &config);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, minv_mv_kernel<T, TC>, &config);
   return err != cudaSuccess ? -int(err) : n;
 }
 
+// The chain tile of a launch: one tile up to 128 chains (64 for float64),
+// the least that holds C.
 template <typename T>
-int launch(const void* minv, const void* g, void* mg, int n_chains, int dim, void* stream) {
+int chain_tile(int n_chains) {
+  if (n_chains > 64 && sizeof(T) == 4) return 128;
+  if (n_chains > 32) return 64;
+  if (n_chains > 16) return 32;
+  return 16;
+}
+
+template <typename T>
+int launch(const void* prep, const void* g, void* mg, int n_chains, int dim, void* stream) {
   if (n_chains < 0 || dim < 0 || n_chains >= (1 << 16) * 16) return cudaErrorInvalidValue;
   if (n_chains == 0 || dim == 0) return 0;
-  const T* m = static_cast<const T*>(minv);
+  const double* p = static_cast<const double*>(prep);
   const T* x = static_cast<const T*>(g);
   T* y = static_cast<T*>(mg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // float64's staged rows take twice the bytes: its chain tile stays at 32
-  if (n_chains > 32 && sizeof(T) == 4) return launch_tile<T, 64>(m, x, y, n_chains, dim, s);
-  if (n_chains > 16) return launch_tile<T, 32>(m, x, y, n_chains, dim, s);
-  return launch_tile<T, 16>(m, x, y, n_chains, dim, s);
+  switch (chain_tile<T>(n_chains)) {
+    case 128: return launch_tile<T, 128>(p, x, y, n_chains, dim, s);
+    case 64: return launch_tile<T, 64>(p, x, y, n_chains, dim, s);
+    case 32: return launch_tile<T, 32>(p, x, y, n_chains, dim, s);
+    default: return launch_tile<T, 16>(p, x, y, n_chains, dim, s);
+  }
+}
+
+int64_t prepared_doubles(int dim) {
+  const int64_t steps = (dim + kStep - 1) / kStep;
+  return steps * steps * kBlockDoubles;
+}
+
+template <typename T>
+int prepare(const void* minv, void* prep, int dim, int64_t row_stride, int64_t col_stride,
+            void* stream) {
+  if (dim < 0) return cudaErrorInvalidValue;
+  if (dim == 0) return 0;
+  const int64_t pairs = prepared_doubles(dim) / 2;
+  const int threads = 256;
+  const int64_t blocks = (pairs + threads - 1) / threads;
+  minv_mv_prepare_kernel<T><<<unsigned(blocks < 65535 ? blocks : 65535), threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(minv), static_cast<double2*>(prep), dim, row_stride, col_stride,
+      pairs);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int minv_mv_f32(const void* minv, const void* g, void* mg, int n_chains, int dim, void* stream) {
-  return launch<float>(minv, g, mg, n_chains, dim, stream);
+int minv_mv_f32(const void* prepared, const void* g, void* mg, int n_chains, int dim,
+                void* stream) {
+  return launch<float>(prepared, g, mg, n_chains, dim, stream);
 }
 
-int minv_mv_f64(const void* minv, const void* g, void* mg, int n_chains, int dim, void* stream) {
-  return launch<double>(minv, g, mg, n_chains, dim, stream);
+int minv_mv_f64(const void* prepared, const void* g, void* mg, int n_chains, int dim,
+                void* stream) {
+  return launch<double>(prepared, g, mg, n_chains, dim, stream);
 }
 
-// The clusters of a float32 launch at (n_chains, dim) the card runs at once.
+int minv_mv_prepare_f32(const void* minv, void* prepared, int dim, int64_t row_stride,
+                        int64_t col_stride, void* stream) {
+  return prepare<float>(minv, prepared, dim, row_stride, col_stride, stream);
+}
+
+int minv_mv_prepare_f64(const void* minv, void* prepared, int dim, int64_t row_stride,
+                        int64_t col_stride, void* stream) {
+  return prepare<double>(minv, prepared, dim, row_stride, col_stride, stream);
+}
+
+int64_t minv_mv_prepared_doubles(int dim) { return prepared_doubles(dim); }
+
+// The chain tile of a float32 launch at n_chains, and the clusters of such
+// a launch at (n_chains, dim) the card runs at once.
+int minv_mv_chain_tile_f32(int n_chains) { return chain_tile<float>(n_chains); }
+
 int minv_mv_max_clusters_f32(int n_chains, int dim) {
-  if (n_chains > 32) return clusters_of<float, 64>(n_chains, dim);
-  if (n_chains > 16) return clusters_of<float, 32>(n_chains, dim);
-  return clusters_of<float, 16>(n_chains, dim);
+  switch (chain_tile<float>(n_chains)) {
+    case 128: return clusters_of<float, 128>(n_chains, dim);
+    case 64: return clusters_of<float, 64>(n_chains, dim);
+    case 32: return clusters_of<float, 32>(n_chains, dim);
+    default: return clusters_of<float, 16>(n_chains, dim);
+  }
 }
 
 }  // extern "C"

@@ -37,10 +37,10 @@ import torch
 from ..config import default_device, default_dtype
 from ..parallel.chains import GRAPH_WARMUP_CALLS, Counts, capture_graph, write_checkpoint
 from ..parallel.mesh import Mesh, gather_rows, local_draw
-from ..ops import cuda_band
 from . import checkpoint as ckpt_io
 from .adapt import DualAveragingState, build_window_schedule, da_init, da_update
 from .nuts import NutsStats
+from .nuts_batched import add_kernel_launches
 
 logger = logging.getLogger(__name__)
 
@@ -169,7 +169,7 @@ class Leapfrog:
             buf.copy_(value)
         for _ in range(n_steps):
             self.graph.replay()
-        cuda_band.add_launches({k: n * n_steps for k, n in self.launches.items()})
+        add_kernel_launches({k: n * n_steps for k, n in self.launches.items()})
         return self.q.clone(), self.p.clone(), self.g.clone(), self.lp.clone()
 
 

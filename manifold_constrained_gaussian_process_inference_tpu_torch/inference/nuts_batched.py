@@ -80,6 +80,7 @@ from .adapt import da_init, da_restart, da_update
 from .nuts import (
     MAX_DELTA_ENERGY,
     ChainState,
+    DenseMetric,
     NutsStats,
     SampleCarry,
     WarmupCarry,
@@ -105,15 +106,17 @@ def tree_graphed(device, vg_b) -> bool:
     return torch.device(device).type == "cuda" and getattr(vg_b, "reduce", None) is None
 
 
-def _per_leaf_counts() -> dict:
-    """The launch counts that a doubling's graph adds once per leaf: the
-    value-and-grad's kernels (``ops/cuda_band``: by entry point and tile)
-    and the dense metric's product (``ops/minv_mv``)."""
+def kernel_launch_counts() -> dict:
+    """The launch counts that a captured graph moves to its replays (a
+    doubling's once per leaf): the value-and-grad's kernels
+    (``ops/cuda_band``: by entry point and tile) and the product kernel's
+    and its preparation's (``ops/minv_mv``: the dense metric's M^-1 g, the
+    whitening GEMMs)."""
     return {**cuda_band.counts(), **minv_mv.LAUNCHES}
 
 
-def _add_per_leaf(added: dict) -> None:
-    """Add launches, named as ``_per_leaf_counts`` names them."""
+def add_kernel_launches(added: dict) -> None:
+    """Add launches, named as ``kernel_launch_counts`` names them."""
     minv_mv.add_launches({k: n for k, n in added.items() if k in minv_mv.LAUNCHES})
     cuda_band.add_launches({k: n for k, n in added.items() if k not in minv_mv.LAUNCHES})
 
@@ -194,7 +197,7 @@ class LockstepTree:
         self.st = self.metric = None
         self.loops = self.pool = self.stream = None  # of the graphs, made at the first capture
         self.graphs, self.graph_info = {}, {}
-        self.per_leaf = None  # the kernel launches per leaf in a graph (_per_leaf_counts)
+        self.per_leaf = None  # the kernel launches per leaf in a graph (kernel_launch_counts)
 
     @property
     def capture_seconds(self) -> float:
@@ -206,7 +209,9 @@ class LockstepTree:
     def _bind(self, q, step_size, metric):
         """The state buffers for q's shape (new ones drop the graphs), the
         step sizes written in; the metric the doublings read: the caller's
-        when eager, else the tree's copy, rewritten in place."""
+        when eager, else the tree's copy, rewritten in place, and with it
+        a dense metric's prepared product operand (``ops/minv_mv.prepared``:
+        one launch a transition)."""
         c, dim = q.shape
         key = (c, dim, q.dtype, q.device)
         if self.st is None or self.st.key != key:
@@ -229,6 +234,8 @@ class LockstepTree:
         else:
             for buf, t in zip(self.metric, metric):
                 buf.copy_(t)
+        if isinstance(self.metric, DenseMetric):
+            minv_mv.prepared(self.metric.minv)
         return self.metric
 
     # -- one leaf, one doubling ------------------------------------------------
@@ -344,7 +351,7 @@ class LockstepTree:
     def _capture(self, metric, i: int) -> torch.cuda.CUDAGraph:
         """Capture doubling i into a CUDA graph (no kernel runs): leaves 0
         and 1, and from depth 2 one WHILE node whose body is one leaf pair,
-        so min(2^i, 4) leaves. Its per-leaf launches (``_per_leaf_counts``:
+        so min(2^i, 4) leaves. Its per-leaf launches (``kernel_launch_counts``:
         the value-and-grad's kernels and the dense metric's product) are
         taken back out of their counts and must be ``per_leaf`` times the
         captured leaves, and its leaf kernels' out of ``ops/leaf``'s:
@@ -358,7 +365,7 @@ class LockstepTree:
             self.stream = torch.cuda.Stream(device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before, body_before = _per_leaf_counts(), self.loops.body_nodes
+        before, body_before = kernel_launch_counts(), self.loops.body_nodes
         leaf_before = dict(leaf_ops.LAUNCHES)
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
@@ -372,8 +379,8 @@ class LockstepTree:
         # the card is busy, as with several ranks on it (PERF.md, PR 11).
         torch.cuda.current_stream(device).wait_stream(self.stream)
         seconds = time.perf_counter() - t0
-        launches = {name: k - before[name] for name, k in _per_leaf_counts().items()}
-        _add_per_leaf({name: -k for name, k in launches.items()})
+        launches = {name: k - before[name] for name, k in kernel_launch_counts().items()}
+        add_kernel_launches({name: -k for name, k in launches.items()})
         leaf_launches = {name: k - leaf_before[name] for name, k in leaf_ops.LAUNCHES.items()}
         leaf_ops.LAUNCHES.update(leaf_before)
         captured = min(1 << i, 4)
@@ -402,7 +409,7 @@ class LockstepTree:
             graph = self.graphs[i] = self._capture(metric, i)
         graph.replay()
         all_done, leaves = self.st.readout.tolist()
-        _add_per_leaf({name: k * leaves for name, k in self.per_leaf.items()})
+        add_kernel_launches({name: k * leaves for name, k in self.per_leaf.items()})
         leaf_ops.LAUNCHES[leaf_ops.DRIFT] += 1
         leaf_ops.LAUNCHES[leaf_ops.COMMIT] += leaves
         return bool(all_done), leaves

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 from scipy.linalg import cho_solve, cho_solve_banded, cholesky_banded
 
-from ..ops import centered_vg
+from ..ops import centered_vg, minv_mv
 from ..ops.likelihood import log_posterior_centered, make_centered_terms
 from .target import value_and_grad
 from .transforms import constrain_np
@@ -397,14 +397,26 @@ def make_centered_whitened_vg(target, whitener: PsiWhitener):
 def make_centered_whitened_vg_kernel(target, whitener: PsiWhitener):
     """``make_centered_whitened_vg`` for a banded FN target: between the two
     GEMMs the analytic forward and backward of ``ops/centered_vg``, one
-    kernel launch on the card, its plain version on the CPU."""
+    kernel launch on the card, its plain version on the CPU. On the card
+    the GEMMs are the dense metric's product kernel (``ops/minv_mv``: dpsi
+    = minv_mv(W, zeta), g_zeta = minv_mv(W^T, g_psi), W and W^T prepared
+    here, once) where ``centered_vg.gemm_takes_kernel`` says so for the
+    call's (C, dim), else torch.matmul; on the CPU torch.matmul."""
     params = centered_vg.make_params(target, whitener.center)
     w_t, w = whitener.W.T, whitener.W
+    preps = (minv_mv.prepare(w), minv_mv.prepare(w_t)) if w.device.type == "cuda" else None
+
+    def gemm(x, mat, prep):  # x @ mat.T
+        if preps is not None and centered_vg.gemm_takes_kernel(x.numel() // x.shape[-1],
+                                                               x.shape[-1]):
+            return minv_mv.product(prep, x)
+        return x @ mat.T
 
     def vg(zeta):
-        dpsi = zeta @ w_t
+        dpsi = gemm(zeta, w, preps and preps[0])
         lp, g_psi = centered_vg.centered_fn_vg(dpsi.reshape(-1, dpsi.shape[-1]), params)
-        return lp.reshape(dpsi.shape[:-1]), (g_psi @ w).reshape(dpsi.shape)
+        g_zeta = gemm(g_psi, w_t, preps and preps[1])
+        return lp.reshape(dpsi.shape[:-1]), g_zeta.reshape(dpsi.shape)
 
     vg.route = "kernel"
     return vg

@@ -113,6 +113,17 @@ MAX_SHARED_BYTES = 232448
 # two grids, so the route stops at config 4's.
 MAX_TERMS = 793 * 161
 
+# The two whitening GEMMs around the kernel (dpsi = zeta W^T, g_zeta =
+# g_psi W) take the dense metric's product kernel (ops/minv_mv.py, on W and
+# W^T prepared once) from GEMM_MIN_SIZE = C dim and up to GEMM_MAX_WORK = C
+# dim^2, torch.matmul elsewhere. On the H100, ms per launch, kernel against
+# torch.matmul (perf/product_timing.py, PERF.md): (128, 799) 0.0098-0.0100
+# against 0.0123, (64, 799) 0.0078 / 0.0111, (32, 799) 0.0077 / 0.0090,
+# (3, 799) 0.0053 / 0.0060, (64, 1591) 0.0157 / 0.0163, (128, 87) 0.0056 /
+# 0.0070, (32, 87) 0.0035 / 0.0067; slower at one chain (0.0053 / 0.0030 at
+# dim 799), (3, 87) 0.00252 / 0.00239 and (128, 1591) 0.0250 / 0.0232.
+GEMM_MIN_SIZE, GEMM_MAX_WORK = 2048, 2 ** 28
+
 _LIB = None
 
 
@@ -232,6 +243,12 @@ def tiling(n: int, bandwidth: int, n_chains: int) -> Tiling:
     return Tiling(cluster=s, slab=slab, chains=c, per_thread=g, split=split,
                   clusters=_cdiv(n_chains, c), threads=threads, shared_bytes=c * per_chain,
                   slabs=slabs)
+
+
+def gemm_takes_kernel(n_chains: int, dim: int) -> bool:
+    """Whether the route's whitening GEMMs of ``n_chains`` x ``dim`` run
+    on the product kernel (on the card; see GEMM_MIN_SIZE)."""
+    return GEMM_MIN_SIZE <= n_chains * dim and n_chains * dim * dim <= GEMM_MAX_WORK
 
 
 def takes(target) -> bool:

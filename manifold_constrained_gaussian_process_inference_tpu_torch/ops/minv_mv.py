@@ -10,6 +10,16 @@ it) or raises, with no fallback; on a CPU tensor it runs the plain version,
 ``minv_mv_torch``, which the kernel is held against (``chip_smoke.py``'s
 [leaf]).
 
+The kernel reads minv in a prepared layout (``prepare``: float64, padded
+to whole ROWS x STEP blocks, each block in the DMMA's fragment order; its
+plain version ``prepare_torch`` is that permutation), written by a small
+kernel of its own once per metric: ``prepared(minv)`` keeps it on the
+tensor and writes it again, in place, when minv's version moved (an
+in-place write such as the NUTS tree's rewrite of its metric copy), so
+CUDA graphs that captured a product read the new one by address.
+``product(prep, g)`` runs the kernel on an operand prepared by the caller
+(the whitening GEMMs of inference/whiten.py, on W and on W^T).
+
 The kernel computes in float64 on the FP64 tensor cores whatever the
 storage type (a float32 output is the float64 sum rounded once), and sums
 each output in an order fixed by dim alone (``split``: S contiguous ranges
@@ -17,8 +27,9 @@ of whole ``STEP``-wide steps, each range in ascending k, the ranges in
 order), so a chain's bits do not depend on how many chains share its
 launch.
 
-``LAUNCHES`` counts the kernel's launches: the wrapper adds one per launch,
-and the NUTS tree moves the launches its CUDA graphs captured to each
+``LAUNCHES`` counts the kernels' launches: the product's (``MINV_MV``) and
+the preparation's (``PREPARE``); the wrapper adds one per launch, and the
+NUTS tree moves the product launches its CUDA graphs captured to each
 replay (``LockstepTree._capture``, ``_replay``), one per leaf run.
 
 The source is compiled at first use with nvcc for sm_90a into
@@ -28,26 +39,30 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from . import cuda_band
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "minv_mv.cu"
-MINV_MV = "minv_mv"
+MINV_MV, PREPARE = "minv_mv", "minv_mv_prepare"
 # the kernel's k step, and the steps a range that its split aims at, at most
-# MAX_SPLIT ranges (csrc/minv_mv.cu kStep, kStepsPerRange, kMaxSplit)
-STEP, STEPS_PER_RANGE, MAX_SPLIT = 32, 5, 8
+# MAX_SPLIT ranges; the rows of an output tile, which with STEP make a block
+# of the prepared operand (csrc/minv_mv.cu kStep, kStepsPerRange, kMaxSplit,
+# kRows)
+STEP, STEPS_PER_RANGE, MAX_SPLIT, ROWS = 32, 7, 4, 32
 
 # Kernel launches since the last reset (captured ones, until moved to the
 # replays that run them).
-LAUNCHES = {MINV_MV: 0}
+LAUNCHES = {MINV_MV: 0, PREPARE: 0}
 
 _LIB = None
 
 
 def reset_launches() -> None:
-    LAUNCHES[MINV_MV] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def add_launches(added: dict) -> None:
@@ -70,6 +85,28 @@ def minv_mv_torch(minv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return g @ minv.T
 
 
+def prepared_size(dim: int) -> int:
+    """Doubles of the prepared operand at ``dim``: (ceil(dim / STEP))^2
+    blocks of ROWS x STEP."""
+    steps = -(-dim // STEP)
+    return steps * steps * ROWS * STEP
+
+
+def prepare_torch(minv: torch.Tensor) -> torch.Tensor:
+    """The plain version of the preparation: minv (dim, dim) as the kernel
+    reads it, float64, flat, ``prep[rt][ks][kk][j][lane][e] = minv[32 rt +
+    8 j + lane // 4][32 ks + 8 kk + lane % 4 + 4 e]``, zero past dim (the
+    B fragments of the m16n8k8 DMMA, rows 8 j.. and k 8 kk.. of block
+    (rt, ks))."""
+    dim = minv.shape[0]
+    steps = -(-dim // STEP)
+    pad = torch.zeros((steps * ROWS, steps * STEP), dtype=torch.float64, device=minv.device)
+    pad[:dim, :dim] = minv
+    # rows (rt, j, group), k (ks, kk, e, quad) -> (rt, ks, kk, j, group, quad, e)
+    blocks = pad.reshape(steps, 4, 8, steps, 4, 2, 4).permute(0, 3, 4, 1, 2, 6, 5)
+    return blocks.reshape(-1)
+
+
 def _library():
     global _LIB
     if _LIB is None:
@@ -78,31 +115,103 @@ def _library():
             fn = getattr(lib, f"{MINV_MV}_{suffix}")
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            fn = getattr(lib, f"{PREPARE}_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_int64] * 2 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.minv_mv_prepared_doubles.argtypes = [ctypes.c_int]
+        lib.minv_mv_prepared_doubles.restype = ctypes.c_int64
+        for name in ("minv_mv_max_clusters_f32", "minv_mv_chain_tile_f32"):
+            getattr(lib, name).restype = ctypes.c_int
         lib.minv_mv_max_clusters_f32.argtypes = [ctypes.c_int] * 2
-        lib.minv_mv_max_clusters_f32.restype = ctypes.c_int
+        lib.minv_mv_chain_tile_f32.argtypes = [ctypes.c_int]
         _LIB = lib
     return _LIB
 
 
+def _suffix(dtype: torch.dtype) -> str:
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"minv_mv: float32 or float64 only, got {dtype}")
+    return "f32" if dtype == torch.float32 else "f64"
+
+
+def prepare(minv: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """minv (dim, dim), any strides, as the kernel reads it (see
+    ``prepare_torch``), into ``out`` when given: on the card one launch of
+    the preparation kernel on the current stream (counted), on the CPU the
+    plain version."""
+    dim = minv.shape[-1]
+    if minv.shape != (dim, dim):
+        raise ValueError(f"minv_mv.prepare: minv (dim, dim), got {tuple(minv.shape)}")
+    if not _on_card(minv):
+        plain = prepare_torch(minv)
+        return plain if out is None else out.copy_(plain)
+    lib = _library()
+    suffix = _suffix(minv.dtype)
+    if lib.minv_mv_prepared_doubles(dim) != prepared_size(dim):
+        raise RuntimeError("minv_mv: the kernel's prepared size differs from prepared_size")
+    if out is None:
+        out = torch.empty(prepared_size(dim), dtype=torch.float64, device=minv.device)
+    elif (out.shape != (prepared_size(dim),) or out.dtype != torch.float64
+          or out.device != minv.device or not out.is_contiguous()):
+        raise ValueError(f"minv_mv.prepare: out must be float64 ({prepared_size(dim)},) on "
+                         f"{minv.device}")
+    stream = torch.cuda.current_stream(minv.device).cuda_stream
+    err = getattr(lib, f"{PREPARE}_{suffix}")(minv.data_ptr(), out.data_ptr(), dim,
+                                               minv.stride(0), minv.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"{PREPARE} kernel launch failed: CUDA error {err}")
+    LAUNCHES[PREPARE] += 1
+    return out
+
+
+def prepared(minv: torch.Tensor) -> torch.Tensor:
+    """The prepared operand of ``minv``, kept on the tensor: made at the
+    first call, written again in place (same address) when the tensor's
+    version has moved since, else returned as it is."""
+    held = getattr(minv, "_minv_mv_prepared", None)
+    if held is not None and held[0] == minv._version:
+        return held[1]
+    prep = prepare(minv, None if held is None else held[1])
+    minv._minv_mv_prepared = (minv._version, prep)
+    return prep
+
+
+def product(prep: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The kernel on the current stream: a prepared operand (``prepare``)
+    of a (dim, dim) minv and g (..., dim), float32 or float64, on one CUDA
+    device; returns M^-1 g, g's shape and dtype."""
+    lib = _library()
+    dim = g.shape[-1]
+    suffix = _suffix(g.dtype)
+    if (prep.shape != (prepared_size(dim),) or prep.dtype != torch.float64
+            or prep.device != g.device or not prep.is_contiguous()):
+        raise ValueError(f"minv_mv.product: a prepared operand of dim {dim} (float64, "
+                         f"{prepared_size(dim)}) on {g.device}; got {prep.dtype} "
+                         f"{tuple(prep.shape)} on {prep.device}")
+    rows = g.reshape(-1, dim).contiguous()
+    out = torch.empty_like(rows)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = getattr(lib, f"{MINV_MV}_{suffix}")(prep.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                                               rows.shape[0], dim, stream)
+    if err != 0:
+        raise RuntimeError(f"{MINV_MV} kernel launch failed: CUDA error {err}")
+    LAUNCHES[MINV_MV] += 1
+    return out.reshape(g.shape)
+
+
 def minv_mv_cuda(minv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The kernel on the current stream: minv (dim, dim) and g (..., dim),
-    float32 or float64, on one CUDA device; returns M^-1 g, g's shape."""
-    lib = _library()
+    float32 or float64, on one CUDA device; returns M^-1 g, g's shape. minv
+    is prepared first where its prepared operand is missing or stale
+    (``prepared``)."""
     dim = g.shape[-1]
     if (minv.shape != (dim, dim) or minv.dtype != g.dtype or minv.device != g.device
             or g.dtype not in (torch.float32, torch.float64)):
         raise ValueError(f"minv_mv_cuda: minv (dim, dim) and g (..., dim) of one float dtype on "
                          f"one device; got {minv.dtype} {tuple(minv.shape)} on {minv.device}, "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
-    minv, rows = minv.contiguous(), g.reshape(-1, dim).contiguous()
-    out = torch.empty_like(rows)
-    fn = getattr(lib, f"{MINV_MV}_{'f32' if g.dtype == torch.float32 else 'f64'}")
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = fn(minv.data_ptr(), rows.data_ptr(), out.data_ptr(), rows.shape[0], dim, stream)
-    if err != 0:
-        raise RuntimeError(f"{MINV_MV} kernel launch failed: CUDA error {err}")
-    LAUNCHES[MINV_MV] += 1
-    return out.reshape(g.shape)
+    return product(prepared(minv), g)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -119,6 +228,12 @@ def minv_mv(minv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if _on_card(g):
         return minv_mv_cuda(minv, g)
     return minv_mv_torch(minv, g)
+
+
+def chain_tile(n_chains: int) -> int:
+    """The chain tile of a float32 launch at ``n_chains`` (the kernel's
+    rule: one tile up to 128 chains)."""
+    return _library().minv_mv_chain_tile_f32(n_chains)
 
 
 def max_clusters(n_chains: int, dim: int) -> int:

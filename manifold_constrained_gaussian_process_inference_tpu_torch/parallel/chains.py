@@ -52,7 +52,9 @@ from ..inference.nuts import (
 )
 from ..inference.nuts_batched import (
     LockstepTree,
+    add_kernel_launches,
     init_warmup_carry_batched,
+    kernel_launch_counts,
     make_sample_step_batched,
     make_warmup_step_pooled_batched,
 )
@@ -398,10 +400,12 @@ class GraphedValueAndGrad:
     ~200 kernels whose launch costs milliseconds of host time, against
     ~0.4 ms of device time (PERF.md); a replay issues them as one graph.
     The warm-up calls (on a side stream) run ``vg`` eagerly and count
-    their band-matvec launches; the capture records the kernels without
-    running them, so its launches are read (``launches``: by entry point,
-    ``kernel_launches``, and by tile, ``tile_launches``) and taken back out
-    of ``cuda_band``'s counts; each replay adds them again.
+    their kernel launches; the capture records the kernels without
+    running them, so its launches are read (``launches``: the band
+    kernels' by entry point, ``kernel_launches``, and by tile,
+    ``tile_launches``, and the whitening GEMMs' product kernel's,
+    ``ops/minv_mv``) and taken back out of the counts; each replay adds
+    them again.
     Outputs are cloned out of the graph's static buffers. Tensors that
     ``vg`` reads besides its input (parallel tempering's inverse
     temperatures) are captured by address: update them in place.
@@ -436,7 +440,7 @@ class GraphedValueAndGrad:
     def __call__(self, zeta: torch.Tensor):
         self.static_in.copy_(zeta)
         self.graph.replay()
-        cuda_band.add_launches(self.launches)
+        add_kernel_launches(self.launches)
         if self.reduce is not None:
             return self.reduce(self.static_lp, self.static_grad)
         return self.static_lp.clone(), self.static_grad.clone()
@@ -444,10 +448,9 @@ class GraphedValueAndGrad:
 
 def capture_graph(fn, device, n_warmup: int = GRAPH_WARMUP_CALLS):
     """Run ``fn`` ``n_warmup`` times eagerly on a side stream, then capture
-    one call in a CUDA graph. Returns (graph, band-matvec launches per
-    replay as ``cuda_band.counts`` gives them, the captured call's
-    outputs); the capture's launches are taken back out of ``cuda_band``'s
-    counts."""
+    one call in a CUDA graph. Returns (graph, kernel launches per replay
+    as ``kernel_launch_counts`` gives them, the captured call's outputs);
+    the capture's launches are taken back out of the counts."""
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -455,11 +458,11 @@ def capture_graph(fn, device, n_warmup: int = GRAPH_WARMUP_CALLS):
             fn()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = cuda_band.counts()
+    before = kernel_launch_counts()
     with torch.cuda.graph(graph):
         out = fn()
-    launches = {name: k - before[name] for name, k in cuda_band.counts().items()}
-    cuda_band.add_launches({name: -k for name, k in launches.items()})
+    launches = {name: k - before[name] for name, k in kernel_launch_counts().items()}
+    add_kernel_launches({name: -k for name, k in launches.items()})
     return graph, launches, out
 
 

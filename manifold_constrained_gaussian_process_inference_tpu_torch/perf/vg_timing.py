@@ -34,9 +34,15 @@ beside the tiling it ran (``centered_vg.tiling``); the one-block baseline
 likewise; the plain version likewise (a graph of
 ``PLAIN_COUNT`` calls); the bound, the larger of the bytes at 3.35 TB/s and
 the multiply-adds at the H100's 67 TFLOP/s float32 peak (34 in float64),
-each from ``centered_vg.bound_work``; the two whitening GEMMs alone; and
-the whole value-and-grad per replayed call (``GraphedValueAndGrad``) on the
-kernel route and on the autograd one (``make_centered_whitened_vg_autograd``).
+each from ``centered_vg.bound_work``; the two whitening GEMMs alone, by
+torch.matmul and by the product kernel (``ops/minv_mv``, on W and W^T
+prepared), and the route that ``centered_vg.gemm_takes_kernel`` gives
+them; the whole value-and-grad per replayed call (``GraphedValueAndGrad``)
+on the kernel route, on the kernel route with its GEMMs on torch.matmul
+(``matmul_gemms``) and on the autograd one
+(``make_centered_whitened_vg_autograd``); and, in float32, both GEMM
+routes' value-and-grads against the float64 autograd route's, which runs
+neither kernel (``vg_rel``).
 ``--phases CASES`` builds a copy of the kernel that stamps the device
 clock at each of its phases (``phase_source``) and prints, per phase, the
 median and largest microseconds over the launch's blocks. ``--variants``
@@ -53,6 +59,7 @@ the loads of the six storages cost a launch. Runs on a CUDA card only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -275,6 +282,7 @@ def time_case(case: dict, dtype=torch.float32, whole: bool = True) -> dict:
         PsiWhitener, make_centered_whitened_vg_autograd, make_centered_whitened_vg_kernel,
     )
     from ..ops import centered_vg as cv
+    from ..ops import minv_mv
 
     target = case["targets"][dtype]
     params = cv.make_params(target, case["center"])
@@ -302,10 +310,43 @@ def time_case(case: dict, dtype=torch.float32, whole: bool = True) -> dict:
         w_t = w.T
         out["gemm_ms"] = [graph_ms(lambda: zeta @ w_t, PLAIN_COUNT),
                           graph_ms(lambda: dpsi @ w, PLAIN_COUNT)]
+        preps = (minv_mv.prepare(w), minv_mv.prepare(w_t))
+        out["gemm_kernel_ms"] = [graph_ms(lambda: minv_mv.product(preps[0], zeta), PLAIN_COUNT),
+                                 graph_ms(lambda: minv_mv.product(preps[1], dpsi), PLAIN_COUNT)]
+        out["gemm_route"] = "kernel" if cv.gemm_takes_kernel(*zeta.shape) else "matmul"
         out["vg_ms"] = {"kernel": replay_ms(make_centered_whitened_vg_kernel(target, wh), zeta),
                         "autograd": replay_ms(make_centered_whitened_vg_autograd(target, wh),
                                               zeta)}
+        with matmul_gemms():
+            out["vg_ms"]["kernel_matmul_gemms"] = replay_ms(
+                make_centered_whitened_vg_kernel(target, wh), zeta)
+        if dtype == torch.float32:  # both GEMM routes against the float64 value-and-grad
+            f64 = torch.float64  # of the autograd route: no kernel of the routes under test
+            wh64 = PsiWhitener(W=w.to(f64), L_T=w.to(f64), center=wh.center.to(f64))
+            want = make_centered_whitened_vg_autograd(case["targets"][f64], wh64)(zeta.to(f64))
+            with matmul_gemms():
+                on_matmul = make_centered_whitened_vg_kernel(target, wh)(zeta)
+            on_kernel = make_centered_whitened_vg_kernel(target, wh)(zeta)
+            out["vg_rel"] = {
+                gemms: {what: _rel(got.double(), ref) for what, got, ref in
+                        zip(("lp", "g"), run, want)}
+                for gemms, run in (("kernel_gemms", on_kernel), ("matmul_gemms", on_matmul))}
     return out
+
+
+@contextlib.contextmanager
+def matmul_gemms():
+    """The kernel route's whitening GEMMs on torch.matmul whatever their
+    shape (``centered_vg.gemm_takes_kernel`` patched to False), for the
+    value-and-grads made and called inside the block."""
+    from ..ops import centered_vg as cv
+
+    real = cv.gemm_takes_kernel
+    cv.gemm_takes_kernel = lambda n_chains, dim: False
+    try:
+        yield
+    finally:
+        cv.gemm_takes_kernel = real
 
 
 def probe_source() -> Path:

@@ -365,6 +365,26 @@ def test_cpu_route_launches_no_kernel():
     assert cuda_band.KERNEL_LAUNCHES == before
 
 
+def test_cpu_route_keeps_the_matmul_gemms(monkeypatch):
+    """On CPU tensors the whitening GEMMs stay torch.matmul: nothing is
+    prepared for the product kernel and no product launches, at a shape
+    whose GEMMs take the kernel on the card."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import minv_mv
+
+    def never(*args, **kwargs):
+        raise AssertionError("the product kernel's wrapper ran on CPU tensors")
+
+    monkeypatch.setattr(minv_mv, "prepare", never)
+    monkeypatch.setattr(minv_mv, "product", never)
+    p = _problem("fixed-free-n41")
+    zetas = torch.as_tensor(p["zetas"]).repeat(8, 1)  # 32 chains
+    assert cv.gemm_takes_kernel(*zetas.shape)
+    before = dict(minv_mv.LAUNCHES)
+    lp, g = tw.make_centered_whitened_vg(p["tt"], p["wh_t"])(zetas)
+    assert lp.shape == (32,) and g.shape == zetas.shape
+    assert minv_mv.LAUNCHES == before
+
+
 def test_solve_magi_runs_the_kernel_route():
     """solve_magi on whitened banded FN (the CPU) takes the route and meets
     tests/test_torch_solve.py's loose recovery bars."""
