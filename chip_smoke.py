@@ -21,8 +21,10 @@ JAX package's leaf loop on the device); each path line prints its host
 reads per transition, at most the transition's doublings + 1. Every leaf
 of every NUTS tree runs the hand-written kernels of csrc/nuts_leaf.cu
 around its value-and-grad (the JAX package's fused leaf body, with the leaf
-counter on the device): L2 the commit, which also drifts the next leaf, and
-at a doubling's leaf 0 L1 the drift; under a dense metric the leaf's
+counter on the device): L2 the commit, which also drifts the next leaf;
+each doubling opens with D1 (the direction, the edge, the sub-tree's reset
+and leaf 0's position) and ends with D2 (the merge into the trajectory and
+the readout the host reads); under a dense metric the leaf's
 product M^-1 g is the hand-written kernel of csrc/minv_mv.cu, on an operand
 its preparation kernel writes when the tree's metric changes. The paths: the production ``solve_magi`` (128 NUTS chains under a pooled dense
 metric, exact-Hessian whitening, mode-centered float32 evaluation) and the
@@ -76,7 +78,7 @@ Phases:
    sets the condition counter < limit, the limit read from the device, so
    the replays run GRAPH_WHILE_ITERS iterations, then 0, 1 and 76 after the
    limit changes in place; timed per iteration;
-5c. leaf: L1 and L2 against their plain versions (ops/leaf.py) from the
+5c. leaf: L2 against its plain version (ops/leaf.py) from the
    same inputs at every leaf of a depth-4 sub-tree, L2 in device-counter
    mode (the leaf index from the pair counter, as in the tree) and replayed
    from a CUDA graph, at [slice]'s shape (128 chains, dim 799, dense
@@ -91,10 +93,10 @@ Phases:
    condition L2 set, read through a WHILE node on its handle, equal to the
    plain version's (k < 2^4 / 2 and any chain alive); each chain's bits at
    C = 1, 3 and 32 equal to its rows of the 128-chain launch; the next
-   leaf's q that L2 writes bit-equal to L1's output on the state L2
-   committed, for every chain (alive or not), at every shape; each kernel
-   and its plain version timed per launch from a CUDA graph of 200
-   launches, beside its bytes bound and L2's time before it drifted; the
+   leaf's q that L2 writes bit-equal to the plain drift of the state L2
+   committed, for every chain (alive or not), at every shape; L2 and its
+   plain version timed per launch from a CUDA graph of 200 launches,
+   beside its bytes bound and its time before it drifted; the
    dense metric's product (csrc/minv_mv.cu) against the float64 plain
    version at [slice]'s, a [mesh] rank's, [resume]'s, one chain's and
    config 4's shapes: float64 within 1e-14 of the largest output, float32 no
@@ -104,13 +106,23 @@ Phases:
    the card; timed beside torch.matmul, the first design's kernel
    (perf/baselines/minv_mv_pr13.cu, built beside it) and its operations
    bound, the preparation beside its plain version and bytes bound;
-5d. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
+5d. doubling: D1 (the opening) and D2 (the merge) against their plain
+   versions (ops/leaf.py) at [leaf]'s shapes, float64 and float32, track
+   on and off, depths 0 and 3, every 5th chain done: D1's every buffer
+   bit-equal, leaf 0's q the plain drift of the edge; D2 on a sub-tree end
+   with divergent and turned chains, takes and a log_sum_w of -inf, every
+   buffer bit-equal but the done flags, which may differ only where a row
+   dot of the combined U-turn check is within rounding of 0, the readout's
+   leaves 2k of the pair counter; a chain's bits at C = 1, 3 and 32 as in
+   the 128-chain launch; each timed per launch from a CUDA graph of 200
+   launches beside its plain version and bytes bound;
+5e. tree: [slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER
    iterations, each run twice through ``solve_magi``: on the graphed tree
    and on the eager tree (the CPU path, chosen by patching
    ``nuts_batched.tree_graphed``); draws, log-densities, every statistic,
    the step sizes, metric and the generator's final state bit for bit, the
    graphed run's host reads at most its doublings + 1 per transition, each
-   run's L1 launches its doublings, L2's its batched leaves and the
+   run's D1 and D2 launches its doublings, L2's its batched leaves and the
    product's one per leaf and two per transition on [slice] and
    [envelope], plus two per value-and-grad for the whitening GEMMs, and
    the preparation's two for W and W^T and one per transition (the eager
@@ -208,8 +220,8 @@ value-and-grad took (the result's ``vg_route``, checked on every path:
 1 pair, 1 pair_t and no centered_vg) times the run's value-and-grad
 evaluations, and each K1 launch ran the tile of its chain count (the row
 tile at one chain: [default], [profile], [grid] at C = 1 and the MAP warm
-start of [pt]; the chain tile at 32 chains and more). The leaf kernels' are exactly one L1 per
-doubling and one L2 per batched leaf on every NUTS path ([families], [mesh]
+start of [pt]; the chain tile at 32 chains and more). The doubling's kernels' are exactly one D1
+and one D2 per doubling and one L2 per batched leaf on every NUTS path ([families], [mesh]
 on every rank and [grid]'s eager tree included), 0 on [chees]; the
 product kernel's one per batched leaf and two per transition on the paths
 under a dense metric ([slice], [envelope], [mesh] on every rank), and two
@@ -359,7 +371,7 @@ WHILE_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/g
 WHILE_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:222"
 GRAPH_WHILE_LIMITS = (GRAPH_WHILE_ITERS + 1, 1, 2, 77)
 HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
-# The NUTS leaf's kernels (csrc/nuts_leaf.cu, L1 and L2): the JAX package's
+# The NUTS leaf's kernel (csrc/nuts_leaf.cu, L2): the JAX package's
 # fused leaf body they take the place of; checked over one depth-LEAF_DEPTH
 # sub-tree at (chains, dim, metric) of [slice], [default], a shared
 # diagonal and [pt] (LEAF_RUNGS rungs), with LEAF_ROWS checkpoint rows (a
@@ -367,7 +379,23 @@ HBM_BYTES_PER_MS = 3.35e9  # the H100's 3.35 TB/s
 # launch; timed over LEAF_REPS launches
 LEAF_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/nuts_leaf.cu"
 LEAF_REPLACES = "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:225"
-LEAF_KERNELS = {"nuts_leaf_drift": "drift", "nuts_leaf_commit": "commit"}
+# the doubling's kernels of csrc/nuts_leaf.cu: D1 the opening, L2 the leaf's
+# commit, D2 the merge; the JAX package's bodies D1 and D2 replace (the
+# sub-tree's init and the outer loop's merge; L2: LEAF_REPLACES)
+LEAF_KERNELS = {"nuts_doubling_open": "open", "nuts_leaf_commit": "commit",
+                "nuts_doubling_merge": "merge"}
+DOUBLING_REPLACES = {
+    "open": "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:304",
+    "merge": "manifold_constrained_gaussian_process_inference_tpu/inference/nuts_batched.py:423"}
+# L1 (nuts_leaf_drift), the drift at a doubling's leaf 0 from PR 9 to PR 14,
+# which D1's opening replaced (its times: PERF.md)
+L1_REPLACED = dict(name="nuts_leaf_drift", by="nuts_doubling_open", prs="PR 9-14")
+# [doubling]: D1 and D2 against their plain versions at LEAF_SHAPES over
+# DOUBLING_DEPTHS, track on and off, with every DOUBLING_DONE-th chain done
+# before the doubling, and for D2 a sub-tree state in which every
+# DOUBLING_DIV-th chain diverged and every DOUBLING_TURN-th turned
+DOUBLING_DEPTHS = (0, 3)
+DOUBLING_DONE, DOUBLING_DIV, DOUBLING_TURN = 5, 9, 11
 LEAF_SHAPES = {"slice": (128, 799, "dense"), "default": (1, 799, "diag"),
                "shared": (32, 799, "shared"), "pt": (40, 105, "rung")}
 # checked, not timed: L2's other ways of keeping a chain's rows, in shared
@@ -947,8 +975,8 @@ class _Launches:
 
 def _leaf_launches(launches, leaves, doublings, what, dense_transitions=None,
                    whitened=None, eager=False) -> None:
-    """A path's leaf-kernel launches: exactly one L1 per doubling its trees
-    ran (the doubling's leaf 0; ``doublings``) and one L2 per batched leaf
+    """A path's doubling-kernel launches: exactly one D1 and one D2 per
+    doubling its trees ran (``doublings``) and one L2 per batched leaf
     (``leaves``); 0 where no NUTS tree runs. The product kernel: under a
     dense metric (a path given ``dense_transitions``, its NUTS transitions
     under a ``DenseMetric``) one launch per batched leaf and two per
@@ -965,11 +993,13 @@ def _leaf_launches(launches, leaves, doublings, what, dense_transitions=None,
 
     gemm = whitened is not None and centered_vg.gemm_takes_kernel(*whitened)
     got = {name: launches[name] for name in (*LEAF_KERNELS, PRODUCT_KERNEL)}
-    want = {"nuts_leaf_drift": doublings, "nuts_leaf_commit": leaves,
+    want = {"nuts_doubling_open": doublings, "nuts_leaf_commit": leaves,
+            "nuts_doubling_merge": doublings,
             PRODUCT_KERNEL: (0 if dense_transitions is None else leaves + 2 * dense_transitions)
             + (2 * launches[VG_KERNEL] if gemm else 0)}
-    check(got == want, f"{what}: leaf-kernel and product launches {got}, want {want} (one L1 "
-          f"per doubling, one L2 per batched leaf; a dense metric's product one per leaf and "
+    check(got == want, f"{what}: doubling-kernel and product launches {got}, want {want} (one "
+          f"D1 and one D2 per doubling, one L2 per batched leaf; a dense metric's product one "
+          f"per leaf and "
           f"two per transition; the whitening GEMMs' two per value-and-grad: {gemm})")
     preps = 2 if whitened is not None else 0
     high = preps + (dense_transitions or 0)
@@ -1116,7 +1146,7 @@ def _leaf_case(name, dtype):
     cur = torch.stack([q, p, metric.velocity(p), g, metric.velocity(g)], dim=1).contiguous()
     f = dict(dtype=dtype, device=DEVICE)
     st = SimpleNamespace(
-        cur=cur, first=cur.clone(), s_prop=cur.clone(), s_rho=torch.zeros(c, dim, **f),
+        cur=cur, s_prop=cur.clone(), s_rho=torch.zeros(c, dim, **f),
         s_logp_prop=torch.zeros(c, **f), s_sum_accept=torch.zeros(c, **f),
         s_n_leaves=torch.zeros(c, **f), s_lsw=torch.full((c,), -torch.inf, **f),
         s_div=torch.zeros(c, dtype=torch.bool, device=DEVICE),
@@ -1133,14 +1163,17 @@ def _leaf_case(name, dtype):
     return st, metric, eps, u_leaf, vg
 
 
+_PER_LAUNCH = ("counters", "readout")
+
+
 def _clone_state(st, idx=None):
     """A copy of a leaf state, of chains ``idx`` only where given (the pair
-    counter is the launch's, not a chain's: copied whole; the q buffers
-    hold the chains on their second axis)."""
+    counter and the readout are the launch's, not a chain's: copied whole; the q buffers hold the chains on
+    their second axis)."""
     from types import SimpleNamespace
 
     def part(k, t):
-        if idx is None or k == "counters":
+        if idx is None or k in _PER_LAUNCH:
             return t
         return t[:, idx] if k == "q" else t[idx]
 
@@ -1181,18 +1214,20 @@ def _leaf_margins(plain_before, q_n, lp, mg, g, half, u, j, rows, tol):
 
 
 def _leaf_check(name, dtype, tol):
-    """L1 and L2 against their plain versions from the same inputs at every
-    leaf of a depth-LEAF_DEPTH sub-tree (the kernels' state restarts from
-    the plain one at each leaf), both with the pair counter (L2 takes the
-    leaf index from it). L2 runs from a CUDA graph; on an odd leaf with a
-    WHILE node on the handle it sets, whose body (ops/graph_if.probe, limit
-    0) runs once if the condition holds, so the body's count reads the
-    condition L2 set. The next leaf's q that L2 writes must be L1's output
-    on the state L2 committed, bit for bit, for every chain. Returns (max
-    abs errors of L1 and L2's leaf state, flags that differ, of them outside
-    the margin, the decisions seen, the odd leaves whose condition was read,
-    the chains whose q_next differs from L1's, the not-alive chain-leaves
-    whose q_next was checked)."""
+    """L2 against its plain version from the same inputs at every leaf of a
+    depth-LEAF_DEPTH sub-tree (the kernel's state restarts from the plain one
+    at each leaf; each leaf's q the plain drift of the state, as D1 and L2
+    write it), both with the pair counter (L2 takes the leaf index from it).
+    L2 runs from a CUDA graph; on an odd leaf with a WHILE node on the
+    handle it sets, whose body (ops/graph_if.probe, limit 0) runs once if
+    the condition holds, so the body's count reads the condition L2 set.
+    The next leaf's q that L2 writes must be the plain drift
+    (``leaf_drift_torch``, on the card) of the state L2 committed, bit for
+    bit, for every chain. Returns (max abs errors of the next q and of L2's
+    leaf state, flags that differ, of them outside the margin, the decisions
+    seen, the odd leaves whose condition was read, the chains whose q_next
+    differs from the drift's, the not-alive chain-leaves whose q_next was
+    checked)."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         MAX_DELTA_ENERGY, _leaf_idx_to_ckpt_idxs,
     )
@@ -1215,8 +1250,6 @@ def _leaf_check(name, dtype, tol):
         before = _clone_state(plain)
         kern = _clone_state(plain)
         q_n = leaf.leaf_drift_torch(plain.cur, half, step)
-        q_k = leaf.leaf_drift_cuda(kern.cur, half, step)
-        errs[0] = max(errs[0], float((q_k - q_n).abs().max()))
         lp, g = vg(q_n)
         mg = metric.velocity(g)
         leaf.leaf_commit_torch(plain, metric, half, step, q_n, plain.q[1], lp, g, u_leaf, j, rows,
@@ -1228,13 +1261,15 @@ def _leaf_check(name, dtype, tol):
             handle = loops.handle() if j % 2 else None
             leaf.leaf_commit_cuda(kern, half, step, q_n, kern.q[1], lp, g,
                                   None if inv_mass is not None else mg, inv_mass, u_leaf, j % 2,
-                                  j == 0, MAX_DELTA_ENERGY, True, handle)
+                                  MAX_DELTA_ENERGY, True, handle)
             if handle is not None:
                 loops.loop(handle, lambda: gi.probe(handle, ran, never))
         graph.replay()
-        # L2's next q against L1 on the state L2 committed, every chain
-        l1 = leaf.leaf_drift_cuda(kern.cur, half, step)
+        # L2's next q against the plain drift of the state L2 committed,
+        # every chain
+        l1 = leaf.leaf_drift_torch(kern.cur, half, step)
         torch.cuda.synchronize()
+        errs[0] = max(errs[0], _max_err(kern.q[1], l1))
         same = (kern.q[1] == l1) | (kern.q[1].isnan() & l1.isnan())
         next_differ += int((~same.all(-1)).sum())
         frozen += int((~before.alive).sum())
@@ -1266,7 +1301,7 @@ def _leaf_check(name, dtype, tol):
             conditions += 1
         # the state of the chains whose decisions agree: rows relative to
         # their largest magnitude, the energy sums to the energy scale
-        for key in ("cur", "s_prop", "first", "s_rho", "ckpts", "s_div_edge", "s_div_leaf",
+        for key in ("cur", "s_prop", "s_rho", "ckpts", "s_div_edge", "s_div_leaf",
                     "s_lsw", "s_sum_accept", "s_logp_prop", "s_n_leaves", "q"):
             a, b = getattr(kern, key), getattr(plain, key)
             a, b = (a[1][agree], b[1][agree]) if key == "q" else (a[agree], b[agree])
@@ -1285,16 +1320,17 @@ def _leaf_check(name, dtype, tol):
                   else err <= tol * ref,
                   f"leaf {name} {dtype} leaf {j}: {key} max abs err {err:.3e} (scale {ref:.3e})")
     made = {k: leaf.LAUNCHES[k] - launches[k] for k in launches}
-    check(made == {leaf.DRIFT: 2 << LEAF_DEPTH, leaf.COMMIT: 1 << LEAF_DEPTH},
-          f"leaf {name}: {made} launches for {1 << LEAF_DEPTH} leaves (two L1 a leaf)")
+    check(made == {leaf.OPEN: 0, leaf.COMMIT: 1 << LEAF_DEPTH, leaf.MERGE: 0},
+          f"leaf {name}: {made} launches for {1 << LEAF_DEPTH} leaves")
     return errs, dict(differ), dict(outside), dict(seen), conditions, next_differ, frozen
 
 
 def _leaf_sub_batches(dtype):
     """Each chain's bits at LEAF_SUBSETS' chain counts against its rows of a
-    LEAF_SHAPES["slice"] launch, L1 (leaf 0) and L2 (every leaf, writing the
-    next leaf's q, which the next leaf reads), at every leaf of the sub-tree
-    (each launch with its own pair counter, which must advance alike)."""
+    LEAF_SHAPES["slice"] launch, L2 at every leaf of the sub-tree (writing
+    the next leaf's q, which the next leaf reads; leaf 0's the plain drift,
+    as D1 writes it), each launch with its own pair counter, which must
+    advance alike."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import (
         MAX_DELTA_ENERGY,
     )
@@ -1308,19 +1344,19 @@ def _leaf_sub_batches(dtype):
     for j in range(1 << LEAF_DEPTH):
         q_n, q_next = full.q[j % 2], full.q[1 - j % 2]
         if j == 0:
-            leaf.leaf_drift_cuda(full.cur, half, step, out=q_n)
+            leaf.leaf_drift_torch(full.cur, half, step, out=q_n)
             for idx, sub in subs.values():
-                leaf.leaf_drift_cuda(sub.cur, half[idx], step[idx], out=sub.q[0])
+                leaf.leaf_drift_torch(sub.cur, half[idx], step[idx], out=sub.q[0])
         lp, g = vg(q_n)
         mg = metric.velocity(g)
         for idx, sub in subs.values():
             same &= torch.equal(sub.q[j % 2], q_n[idx])
             leaf.leaf_commit_cuda(sub, half[idx], step[idx], sub.q[j % 2], sub.q[1 - j % 2],
                                   lp[idx].contiguous(), g[idx].contiguous(), mg[idx].contiguous(),
-                                  None, u_leaf[:, idx].contiguous(), j % 2, j == 0,
+                                  None, u_leaf[:, idx].contiguous(), j % 2,
                                   MAX_DELTA_ENERGY, True)
         leaf.leaf_commit_cuda(full, half, step, q_n, q_next, lp, g, mg, None, u_leaf, j % 2,
-                              j == 0, MAX_DELTA_ENERGY, True)
+                              MAX_DELTA_ENERGY, True)
         for idx, sub in subs.values():
             same &= bool(sub.counters[0] == full.counters[0])  # the pair counter
             for k in vars(full):
@@ -1335,7 +1371,7 @@ def _leaf_sub_batches(dtype):
 
 
 def _leaf_kernel_times(name):
-    """Device ms per launch of L1 and L2 and of their plain versions at
+    """Device ms per launch of L2 and of its plain version at
     LEAF_SHAPES[name] in float32, each from a replayed CUDA graph of
     LEAF_REPS launches over the sub-tree's leaves in turn (every chain alive
     and taking: alive set before each launch and L2's pair counter zeroed
@@ -1385,7 +1421,7 @@ def _leaf_kernel_times(name):
         prepare(j)
         leaf.leaf_commit_cuda(st, half, step, q_n, q_next, lp, g,
                               None if inv_mass is not None else mg, inv_mass, u_zero, j % 2,
-                              j == 0, MAX_DELTA_ENERGY, False)
+                              MAX_DELTA_ENERGY, False)
 
     def commit_plain(j=0):
         prepare(j)
@@ -1393,12 +1429,7 @@ def _leaf_kernel_times(name):
                                _leaf_idx_to_ckpt_idxs(j), MAX_DELTA_ENERGY, False)
 
     fill = timed(prepare)
-    out = {
-        "drift": dict(ms=timed(lambda j=0: leaf.leaf_drift_cuda(st.cur, half, step)),
-                      plain_ms=timed(lambda j=0: leaf.leaf_drift_torch(st.cur, half, step)),
-                      bound_ms=leaf.drift_bytes(c, dim, 4) / HBM_BYTES_PER_MS),
-        "commit": dict(ms=timed(commit_kernel) - fill, plain_ms=timed(commit_plain) - fill),
-    }
+    out = {"commit": dict(ms=timed(commit_kernel) - fill, plain_ms=timed(commit_plain) - fill)}
     metric_kind = "shared" if kind == "shared" else ("diag" if kind == "diag" else "dense")
     out["commit"]["bound_ms"] = float(np.mean([leaf.commit_bytes(
         c, dim, 4, j, _leaf_idx_to_ckpt_idxs(j), c, c, 0, metric_kind, False) for j in js])
@@ -1556,14 +1587,14 @@ def phase_leaf():
             errs[name, dtype] = e
             conditions += n_cond
             parts.append(f"{name} {({**LEAF_SHAPES, **LEAF_STASH_SHAPES})[name]} "
-                         f"{str(dtype)[6:]}: max abs err L1 {e[0]:.2e}, L2 state {e[1]:.2e}; "
+                         f"{str(dtype)[6:]}: max abs err next q {e[0]:.2e}, L2 state {e[1]:.2e}; "
                          f"flags differing {differ} (outside the margin {outside}); decisions "
-                         f"seen {seen}; L2's next q bit-equal to L1's on its committed state "
-                         f"{not next_differ} ({frozen} chain-leaves not alive)")
+                         f"seen {seen}; L2's next q bit-equal to the plain drift of its "
+                         f"committed state {not next_differ} ({frozen} chain-leaves not alive)")
             check(not any(outside.values()),
                   f"leaf {name} {dtype}: decisions differ outside their margin {outside}")
             check(next_differ == 0 and (c == 1 or frozen > 0),
-                  f"leaf {name} {dtype}: L2's next q differs from L1's on {next_differ} "
+                  f"leaf {name} {dtype}: L2's next q differs from the drift's on {next_differ} "
                   f"chain-leaves ({frozen} not alive)")
             if c > 2:
                 check(seen.get("take", 0) and seen.get("bad", 0) and seen.get("turned", 0),
@@ -1572,31 +1603,301 @@ def phase_leaf():
     times = {name: _leaf_kernel_times(name) for name in LEAF_SHAPES}
     product_line, product_err, product_times, prep_err, prep_time = _product_check()
     t = times["slice"]
-    print("[leaf] L1 nuts_leaf_drift and L2 nuts_leaf_commit (csrc/nuts_leaf.cu) vs their plain "
-          f"versions over a depth-{LEAF_DEPTH} sub-tree, track_div_leaf on, L2 with the pair "
-          "counter: " + "; ".join(parts)
+    print("[leaf] L2 nuts_leaf_commit (csrc/nuts_leaf.cu) vs its plain version over a "
+          f"depth-{LEAF_DEPTH} sub-tree, track_div_leaf on, L2 with the pair counter: "
+          + "; ".join(parts)
           + f"; the pair counter equal at every leaf, the condition L2 set (read through a WHILE "
           f"node on its handle) equal to the plain version's at {conditions} odd leaves; a "
           f"chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of a "
           f"{LEAF_SHAPES['slice'][0]}-chain launch: {same}; ms per launch (float32, graph of "
           f"{LEAF_REPS}) kernel / plain / bytes bound, L2 beside its time without the drift: "
-          + ", ".join(f"{n} L1 {v['drift']['ms']:.5f} / {v['drift']['plain_ms']:.5f} / "
-                      f"{v['drift']['bound_ms']:.5f}, L2 {v['commit']['ms']:.5f} / "
+          + ", ".join(f"{n} L2 {v['commit']['ms']:.5f} / "
                       f"{v['commit']['plain_ms']:.5f} / {v['commit']['bound_ms']:.5f} (without "
                       f"{LEAF_PREVIOUS_COMMIT_MS[n]:.5f})"
                       for n, v in times.items())
           + f"; L2 at slice within the target {LEAF_COMMIT_TARGET_MS} ms: "
           f"{t['commit']['ms'] <= LEAF_COMMIT_TARGET_MS}; " + product_line, flush=True)
     check(all(same.values()), f"leaf: a chain's bits depend on the launch's chain count {same}")
-    max_err = {"drift": max(e[0] for e in errs.values()),
-               "commit": errs["slice", torch.float32][1], "product": product_err,
+    max_err = {"commit": errs["slice", torch.float32][1], "product": product_err,
                "prepare": prep_err}
-    timing = {k: {**t[k], **{n: v[k] for n, v in times.items() if n != "slice"}}
-              for k in ("drift", "commit")}
+    timing = {"commit": {**t["commit"], **{n: v["commit"] for n, v in times.items()
+                                           if n != "slice"}}}
     timing["product"] = {**product_times["slice"],
                          **{n: v for n, v in product_times.items() if n != "slice"}}
     timing["prepare"] = prep_time
     return max_err, timing
+
+
+def _doubling_case(name, dtype, track, depth):
+    """[doubling]'s inputs at one of LEAF_SHAPES: [leaf]'s sub-tree state
+    with the trajectory's buffers around it (both edges, the proposal and
+    rho drawn at random, log_sum_w and the sums spread, one chain's
+    log_sum_w -inf, every DOUBLING_DONE-th chain done), the step sizes, the
+    doubling's uniforms u (2, C) and its depth; with ``track`` the tracked
+    divergent step's buffers."""
+    st, metric, eps, _, _ = _leaf_case(name, dtype)
+    c, dim = st.cur.shape[0], st.cur.shape[2]
+    rng = np.random.default_rng(1000 + LEAF_SEEDS[name] + 10 * depth + 100 * track)
+    put = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)  # noqa: E731
+    f = dict(dtype=dtype, device=DEVICE)
+    st.left, st.right, st.prop = (put(rng.normal(size=(c, 5, dim))) for _ in range(3))
+    st.rho = put(rng.normal(size=(c, dim)))
+    st.logp_prop = put(rng.normal(size=c))
+    lsw = rng.normal(size=c)
+    lsw[c // 2] = -np.inf
+    st.log_sum_w = put(lsw)
+    st.sum_accept, st.num_leaves = put(rng.uniform(0, 5, size=c)), put(rng.integers(0, 9, c))
+    st.diverging = torch.zeros(c, dtype=torch.bool, device=DEVICE)
+    st.done = torch.as_tensor(np.arange(c) % DOUBLING_DONE == DOUBLING_DONE - 1, device=DEVICE)
+    st.depth = torch.zeros(c, dtype=torch.int32, device=DEVICE)
+    st.eps = eps.abs()
+    st.half, st.step = torch.zeros(c, **f), torch.zeros(c, **f)
+    st.readout = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    st.div_edge, st.div_leaf = torch.zeros(c, dim, **f), torch.zeros(c, dim, **f)
+    if not track:
+        del st.s_div_edge, st.s_div_leaf, st.div_edge, st.div_leaf
+    return st, put(rng.random((2, c))), rng
+
+
+def _subtree_end(st, rng, k):
+    """A sub-tree's end written over an opened state (the plain and the
+    kernel's alike): the last leaf, the proposal, rho, the sums and weights
+    drawn at random, every DOUBLING_DIV-th chain divergent and every
+    DOUBLING_TURN-th turned (not where done), one chain's weights -inf, the
+    pair counter at k."""
+    c, _, dim = st.cur.shape
+    put = lambda a: torch.as_tensor(a, dtype=st.cur.dtype, device=DEVICE)  # noqa: E731
+    st.cur.copy_(put(rng.normal(size=(c, 5, dim))))
+    st.s_prop.copy_(put(rng.normal(size=(c, 5, dim))))
+    st.s_rho.copy_(put(rng.normal(size=(c, dim))))
+    lsw = rng.normal(size=c) + 0.5
+    lsw[c // 3] = -np.inf
+    st.s_lsw.copy_(put(lsw))
+    st.s_logp_prop.copy_(put(rng.normal(size=c)))
+    st.s_sum_accept.copy_(put(rng.uniform(0, 4, size=c)))
+    st.s_n_leaves.copy_(put(rng.integers(1, 8, size=c)))
+    idx = np.arange(c)
+    st.s_div.copy_(torch.as_tensor(idx % DOUBLING_DIV == 1, device=DEVICE) & ~st.done)
+    st.s_turn.copy_(torch.as_tensor(idx % DOUBLING_TURN == 2, device=DEVICE) & ~st.done)
+    if hasattr(st, "s_div_edge"):
+        st.s_div_edge.copy_(put(rng.normal(size=(c, dim))))
+        st.s_div_leaf.copy_(put(rng.normal(size=(c, dim))))
+    st.counters.zero_()
+    st.counters[0] = k
+
+
+def _turn_margin(st, u, tol):
+    """Per chain, whether either row dot of the merged trajectory's U-turn
+    check lies within ``tol`` of 0 (relative to the sum of its terms' sizes),
+    in float64 from the merge's inputs: there a flipped done is rounding."""
+    d = lambda t: t.double()  # noqa: E731
+    right = (u[0] < 0.5)[:, None]
+    p_l = torch.where(right, d(st.left[:, 1]), d(st.cur[:, 1]))
+    v_l = torch.where(right, d(st.left[:, 2]), d(st.cur[:, 2]))
+    p_r = torch.where(right, d(st.cur[:, 1]), d(st.right[:, 1]))
+    v_r = torch.where(right, d(st.cur[:, 2]), d(st.right[:, 2]))
+    rc = d(st.rho) + d(st.s_rho) - 0.5 * (p_l + p_r)
+    near = torch.zeros(st.done.shape, dtype=torch.bool, device=DEVICE)
+    for a in (v_l, v_r):
+        near |= (a * rc).sum(-1).abs() <= tol * (a * rc).abs().sum(-1)
+    return near
+
+
+def _same(a, b) -> bool:
+    """Bit-equal, NaN where NaN."""
+    if a.dtype in (torch.bool, torch.int32, torch.int64):
+        return torch.equal(a, b)
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+
+def _max_err(a, b) -> float:
+    """Largest |a - b| over the entries finite in both (0 for flags)."""
+    if a.dtype in (torch.bool, torch.int32, torch.int64) or not a.numel():
+        return 0.0
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+
+
+def _doubling_check(name, dtype, track, depth, tol):
+    """D1 and D2 against their plain versions from the same state: D1's
+    every buffer bit-equal to the plain opening's (its steps to the plain
+    version's returned ones; leaf 0's q to leaf_drift_torch of the edge);
+    D2's every buffer bit-equal but the done flags, which may differ only
+    within their margin (``_turn_margin``), the readout's leaves 2k (1 at
+    depth 0) and the arrivals reset. Returns a dict: done flips, of them
+    outside the margin, the chains updated, valid and taken, D1's and D2's
+    max abs errors and whether each was bit-equal."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    st, u, rng = _doubling_case(name, dtype, track, depth)
+    n_leaves = 1 << depth
+    plain, kern = _clone_state(st), _clone_state(st)
+    own = ("half", "step")  # D1's steps, which the plain opening returns
+    half, step = leaf.doubling_open_torch(plain, u, n_leaves, track)
+    k_half, k_step = leaf.doubling_open_cuda(kern, u, n_leaves, track)
+    torch.cuda.synchronize()
+    pairs = [(k_half, half), (k_step, step),
+             (kern.q[0], leaf.leaf_drift_torch(plain.cur, half, step))] + [
+        (getattr(kern, key), getattr(plain, key)) for key in vars(plain) if key not in own]
+    out = dict(open_same=all(_same(a, b) for a, b in pairs),
+               open_err=max(_max_err(a, b) for a, b in pairs))
+    check(out["open_same"], f"doubling {name} {dtype} depth {depth} track {track}: D1 differs "
+          "from the plain opening in " + str([key for key in vars(plain) if key not in own
+                                              and not _same(getattr(kern, key),
+                                                            getattr(plain, key))]))
+    k = 0 if depth == 0 else int(rng.integers(1, n_leaves // 2 + 1))
+    _subtree_end(plain, rng, k)
+    for key in vars(plain):
+        getattr(kern, key).copy_(getattr(plain, key))
+    near = _turn_margin(plain, u, tol)
+    upd = ~plain.done
+    valid = upd & ~(plain.s_div | plain.s_turn)
+    taken = valid & (u[1] < torch.exp(torch.clamp(plain.s_lsw - plain.log_sum_w, max=0.0)))
+    leaf.doubling_merge_torch(plain, u, n_leaves, depth + 1, track)
+    leaf.doubling_merge_cuda(kern, u, n_leaves, depth + 1, track)
+    torch.cuda.synchronize()
+    flips = kern.done != plain.done
+    pairs = [(getattr(kern, key), getattr(plain, key)) for key in vars(plain)
+             if key not in ("readout", "counters", "done") + own]
+    pairs.append((kern.done[~flips], plain.done[~flips]))
+    out.update(merge_same=all(_same(a, b) for a, b in pairs),
+               merge_err=max(_max_err(a, b) for a, b in pairs),
+               flips=int(flips.sum()), outside=int((flips & ~near).sum()), updated=int(upd.sum()),
+               valid=int(valid.sum()), taken=int(taken.sum()))
+    want_leaves = 1 if depth == 0 else 2 * k
+    read = kern.readout.tolist()
+    check(read[1] == want_leaves and kern.counters[1].item() == 0 and (
+        bool(flips.any()) or read == plain.readout.tolist()),
+        f"doubling {name} {dtype} depth {depth}: readout {read}, plain "
+        f"{plain.readout.tolist()}, leaves run {want_leaves}, arrivals {kern.counters[1].item()}")
+    return out
+
+
+def _doubling_sub_batches(dtype):
+    """Each chain's bits at LEAF_SUBSETS' chain counts against its rows of a
+    LEAF_SHAPES["slice"] launch, D1 and then D2 (track on, depth 3), every
+    buffer but the per-launch ones."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    full, u, rng = _doubling_case("slice", dtype, True, 3)
+    subs = {n: (list(idx), _clone_state(full, list(idx))) for n, idx in LEAF_SUBSETS.items()}
+
+    def rows(key, t, idx):
+        return t[:, idx] if key == "q" else t[idx]
+
+    leaf.doubling_open_cuda(full, u, 8, True)
+    for idx, sub in subs.values():
+        leaf.doubling_open_cuda(sub, u[:, idx].contiguous(), 8, True)
+    same = all(_same(getattr(sub, key), rows(key, t, idx)) for idx, sub in subs.values()
+               for key, t in vars(full).items() if key not in _PER_LAUNCH)
+    _subtree_end(full, rng, 3)
+    for idx, sub in subs.values():
+        for key, t in vars(full).items():
+            getattr(sub, key).copy_(t if key in _PER_LAUNCH else rows(key, t, idx))
+    leaf.doubling_merge_cuda(full, u, 8, 4, True)
+    for idx, sub in subs.values():
+        leaf.doubling_merge_cuda(sub, u[:, idx].contiguous(), 8, 4, True)
+    return same and all(_same(getattr(sub, key), rows(key, t, idx))
+                        for idx, sub in subs.values() for key, t in vars(full).items()
+                        if key not in _PER_LAUNCH)
+
+
+def _doubling_times(name):
+    """Device ms per launch of D1 and D2 and of their plain versions at
+    LEAF_SHAPES[name] in float32 (track off, depth 3), each from a replayed
+    CUDA graph of LEAF_REPS launches; D2's and the plain merge's with the
+    done flags reset before each launch, whose own time is taken out; the
+    bound of each from the bytes its data needs at 3.35 TB/s."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    st, u, rng = _doubling_case(name, torch.float32, False, 3)
+    c, _, dim = st.cur.shape
+    leaf.doubling_open_torch(st, u, 8, False)
+    _subtree_end(st, rng, 4)
+    done0 = st.done.clone()
+    upd = ~done0
+    valid = upd & ~(st.s_div | st.s_turn)
+    taken = valid & (u[1] < torch.exp(torch.clamp(st.s_lsw - st.log_sum_w, max=0.0)))
+
+    def reset():
+        st.done.copy_(done0)
+
+    def merge_kernel():
+        reset()
+        leaf.doubling_merge_cuda(st, u, 8, 4, False)
+
+    def merge_plain():
+        reset()
+        leaf.doubling_merge_torch(st, u, 8, 4, False)
+
+    fill = _graph_ms(reset)
+    out = {  # the merges first: an opening resets the sub-tree's state
+        "merge": dict(ms=_graph_ms(merge_kernel) - fill, plain_ms=_graph_ms(merge_plain) - fill,
+                      bound_ms=leaf.merge_bytes(c, dim, 4, int(upd.sum()), int(valid.sum()),
+                                                int(taken.sum()), int((upd & st.s_div).sum()),
+                                                False) / HBM_BYTES_PER_MS),
+        "open": dict(ms=_graph_ms(lambda: leaf.doubling_open_cuda(st, u, 8, False)),
+                     plain_ms=_graph_ms(lambda: leaf.doubling_open_torch(st, u, 8, False)),
+                     bound_ms=leaf.open_bytes(c, dim, 4, False) / HBM_BYTES_PER_MS),
+    }
+    for k in out.values():
+        k.update(bound_by="bytes", library_ms=None, shape=[c, dim])
+    return out
+
+
+def phase_doubling():
+    """[doubling]: the doubling's opening D1 and merge D2 (csrc/nuts_leaf.cu)
+    against their plain versions on the card at LEAF_SHAPES and
+    LEAF_STASH_SHAPES' dims, float64 and float32, track on and off, at
+    DOUBLING_DEPTHS; a chain's bits at LEAF_SUBSETS' chain counts; device
+    times at LEAF_SHAPES beside the plain versions and the bytes bound."""
+    from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+
+    launches = dict(leaf.LAUNCHES)
+    parts, seen, errs = [], Counter(), {}
+    for name in {**LEAF_SHAPES, **LEAF_STASH_SHAPES}:
+        row = Counter()
+        for dtype, tol in ((torch.float64, TOL_F64), (torch.float32, TOL_F32)):
+            for track in (False, True):
+                for depth in DOUBLING_DEPTHS:
+                    r = _doubling_check(name, dtype, track, depth, tol)
+                    check(r["merge_same"], f"doubling {name} {dtype} depth {depth} track {track}: "
+                          f"D2's state differs from the plain merge's (max abs err "
+                          f"{r['merge_err']:.3e})")
+                    row.update({key: r[key] for key in ("flips", "outside", "updated", "valid",
+                                                        "taken")})
+                    for key in ("open", "merge"):
+                        errs[key] = max(errs.get(key, 0.0), r[f"{key}_err"])
+        seen.update(row)
+        parts.append(f"{name} {({**LEAF_SHAPES, **LEAF_STASH_SHAPES})[name]}: {dict(row)}")
+    check(seen["outside"] == 0, f"doubling: {seen['outside']} done flags differ outside their "
+          "margin")
+    check(seen["taken"] > 0 and seen["valid"] > seen["taken"] and seen["updated"] > seen["valid"],
+          f"doubling: decisions not all seen {dict(seen)}")
+    same = {str(dtype)[6:]: _doubling_sub_batches(dtype) for dtype in (torch.float64, torch.float32)}
+    check(all(same.values()), f"doubling: a chain's bits depend on the launch's chain count {same}")
+    for key in launches:  # checking launches are not a path's
+        leaf.LAUNCHES[key] = launches[key]
+    times = {name: _doubling_times(name) for name in LEAF_SHAPES}
+    for key in launches:  # nor timing ones
+        leaf.LAUNCHES[key] = launches[key]
+    print("[doubling] D1 nuts_doubling_open and D2 nuts_doubling_merge (csrc/nuts_leaf.cu) vs "
+          f"their plain versions, float64 and float32, track off and on, depths "
+          f"{list(DOUBLING_DEPTHS)}: D1 bit-equal (leaf 0's q = leaf_drift_torch of the edge), "
+          f"D2 bit-equal but done, whose flips are all within their margin; max abs err D1 "
+          f"{errs['open']:.2e}, D2 {errs['merge']:.2e}; per shape (done flips, of them outside "
+          "the margin, chains updated, valid, taken): " + "; ".join(parts)
+          + f"; a chain's bits at C = {list(LEAF_SUBSETS)} equal its rows of the "
+          f"{LEAF_SHAPES['slice'][0]}-chain launch: {same}; ms per launch (float32, graph of "
+          f"{LEAF_REPS}) kernel / plain / bytes bound: " + ", ".join(
+              f"{n} D1 {v['open']['ms']:.5f} / {v['open']['plain_ms']:.5f} / "
+              f"{v['open']['bound_ms']:.5f}, "
+              f"D2 {v['merge']['ms']:.5f} / {v['merge']['plain_ms']:.5f} / "
+              f"{v['merge']['bound_ms']:.5f}" for n, v in times.items()), flush=True)
+    timing = {k: {**times["slice"][k], **{n: v[k] for n, v in times.items() if n != "slice"}}
+              for k in ("open", "merge")}
+    return errs, timing
+
 
 
 @contextlib.contextmanager
@@ -1636,7 +1937,7 @@ def _differing(a: dict, b: dict) -> list:
 def phase_tree(mt, y, t):
     """[slice]'s recipe, [default], [pt] and [envelope] at TREE_NITER, each
     through solve_magi on the graphed tree and on the eager one, each run's
-    leaf-kernel launches held to one L1 per doubling and one L2 per batched
+    doubling-kernel launches held to one D1 and one D2 per doubling and one L2 per batched
     leaf."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.models import (
         HES1LOG_FIXF_SYSTEM,
@@ -3007,6 +3308,7 @@ def main() -> int:
         "vg": lambda: phase_vg(out["likelihood-3169"]["cov64"]),
         "graph-if": phase_graph_if,
         "leaf": phase_leaf,
+        "doubling": phase_doubling,
         "tree": lambda: phase_tree(mt, y, t),
         "diag-gauss": phase_diag_gauss,
         "default": lambda: paths.__setitem__("default", phase_default(mt, cb)),
@@ -3031,6 +3333,8 @@ def main() -> int:
     tiles_by_path = {path: {tile: p[0][tile] for tile in cb.TILES} for path, p in paths.items()}
     _, while_timing = out["graph-if"]
     leaf_err, leaf_timing = out["leaf"]
+    doubling_err, doubling_timing = out["doubling"]
+    leaf_err, leaf_timing = {**leaf_err, **doubling_err}, {**leaf_timing, **doubling_timing}
     for path in ("default", "families", "slice", "pt", "envelope", "profile", "mesh", "grid"):
         check(all(paths[path][0][name] > 0 for name in LEAF_KERNELS),
               f"{path}: a leaf kernel was not launched")
@@ -3056,12 +3360,15 @@ def main() -> int:
         "grid": {"shape": bt.SHAPES[grid_label(op)], **timing[(grid_label(op), op)]},
         "grid_c1": timing[(grid_label(op) + "_c1", op)],
     } for name, op in KERNELS.items()] + [{
-        "name": name, "route": "cuda", "source": LEAF_SOURCE, "replaces": LEAF_REPLACES,
+        "name": name, "route": "cuda", "source": LEAF_SOURCE,
+        "replaces": DOUBLING_REPLACES.get(key, LEAF_REPLACES),
         "launches": sum(p[0][name] for p in paths.values()),
         "launches_by_path": {path: p[0][name] for path, p in paths.items()},
         "max_abs_err": leaf_err[key], **leaf_timing[key],
         **({"while_condition": dict(while_timing, source=WHILE_SOURCE,
                                     replaces=WHILE_REPLACES)} if key == "commit" else {}),
+        **({"replaced": dict(L1_REPLACED, note="L1's drift of leaf 0 is D1's; its kernel is "
+                             "gone")} if key == "open" else {}),
     } for name, key in LEAF_KERNELS.items()] + [{
         "name": PRODUCT_KERNEL, "route": "cuda", "source": PRODUCT_SOURCE,
         "replaces": PRODUCT_REPLACES,

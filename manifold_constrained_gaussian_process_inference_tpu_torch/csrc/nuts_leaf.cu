@@ -1,46 +1,72 @@
-// The NUTS leaf of the batched tree (sm_90a): two kernels that take the place
-// of the JAX package's fused leaf body, the body of _build_subtree_b's
-// lax.while_loop in inference/nuts_batched.py (:225-302), which XLA compiles
-// into a few fused loops over the (C, dim) state. The port's plain versions
-// are ops/leaf.py's leaf_drift_torch and leaf_commit_torch (about 60 small
-// kernels a leaf on the card); the tree is inference/nuts_batched.py's
-// LockstepTree.
+// The NUTS doubling of the batched tree (sm_90a): three kernels that take the
+// place of the JAX package's fused bodies in inference/nuts_batched.py, the
+// outer lax.while_loop's body (:399-494) around _build_subtree_b's sub-tree
+// init (:304-322) and its leaf loop's body (:225-302), which XLA compiles into
+// a few fused loops over the (C, dim) state. The port's plain versions are
+// ops/leaf.py's doubling_open_torch, leaf_commit_torch and doubling_merge_torch
+// (about 20, 60 and 25 small kernels on the card); the tree is
+// inference/nuts_batched.py's LockstepTree. A doubling on the card is D1, then
+// per leaf the value-and-grad (and a dense metric's product) and L2, then D2.
 //
-//   L1 nuts_leaf_drift   q_n = q + step * (v + half * mg), from the packed leaf
-//                        state cur (C, 5, dim) = [q, p, v, grad, M^-1 grad]
-//                        and the (C,) signed step and half step;
-//   L2 nuts_leaf_commit  after the value-and-grad at q_n (and, for a dense
-//                        metric, its product M^-1 g_n): p_n and v_n, the
-//                        energy error, divergence (NaN counts as divergent),
-//                        the multinomial weight, its log-sum-exp and the
-//                        take against the leaf's uniform, the masked commits
-//                        of the proposal, rho, the first leaf, the checkpoint
-//                        row (even leaves) or the U-turn sweep over the
-//                        checkpoint rows lo..hi (odd leaves), the divergent
-//                        step when tracked, the leaf state, the sub-tree's
-//                        sums and flags, and alive &= ~stop. For a diagonal
-//                        metric it also computes mg_n = inv_mass * g_n, with
-//                        inv_mass shared (chain stride 0) or per chain. On an
-//                        odd leaf it also advances the doubling's pair counter
-//                        and sets the leaf loop's condition (below). Last, it
-//                        writes the next leaf's q_next = L1 of the committed
-//                        leaf state, for every chain (below).
+//   D1 nuts_doubling_open   the doubling's opening, from the direction's
+//                           uniform u[0] the graph has drawn: the signed step
+//                           and half step, the edge in that direction copied
+//                           into the leaf state cur (C, 5, dim) = [q, p, v,
+//                           grad, M^-1 grad] and the sub-tree's proposal, the
+//                           sub-tree's sums and flags reset, alive = !done,
+//                           the pair counter zeroed (the tracked divergent
+//                           step zeroed too), and leaf 0's position
+//                           q0 = q + step * (v + half * mg) (drift_of);
+//   L2 nuts_leaf_commit     after the value-and-grad at q_n (and, for a dense
+//                           metric, its product M^-1 g_n): p_n and v_n, the
+//                           energy error, divergence (NaN counts as divergent),
+//                           the multinomial weight, its log-sum-exp and the
+//                           take against the leaf's uniform, the masked commits
+//                           of the proposal, rho, the
+//                           checkpoint row (even leaves) or the U-turn sweep
+//                           over the checkpoint rows lo..hi (odd leaves), the
+//                           divergent step when tracked, the leaf state, the
+//                           sub-tree's sums and flags, and alive &= ~stop. For
+//                           a diagonal metric it also computes mg_n = inv_mass
+//                           * g_n, with inv_mass shared (chain stride 0) or per
+//                           chain. On an odd leaf it also advances the
+//                           doubling's pair counter and sets the leaf loop's
+//                           condition (below). Last, it writes the next leaf's
+//                           q_next, drifted from the committed leaf state, for
+//                           every chain (below);
+//   D2 nuts_doubling_merge  the sub-tree merged into the trajectory: valid and
+//                           the take against u[1], the proposal's commit, the
+//                           new edge on the side that moved, rho, the combined
+//                           U-turn check, log_sum_w, the sums, the tracked
+//                           divergent step, diverging, done, depth, and the
+//                           readout the host reads after a doubling (all
+//                           chains done, the leaves run).
 //
-// L1's fold into L2. The step is a constant of the doubling, so the drift of
-// leaf j + 1 needs nothing that leaf j's commit does not hold: L2 writes
-// q_next from the leaf state it commits (q_n, v_n, mg_n of a chain alive;
-// cur's q, v, mg of a chain that is not, whose state stays) with L1's rounded
-// operations in L1's order (drift_of), so q_next is L1's output bit for bit
-// and the value-and-grad of the next leaf reads what it read after L1. Only
-// leaf 0 of a doubling runs L1 (the direction is drawn before it). The tree
-// alternates two q buffers by the leaf's parity, so L2 never writes the q_n
-// it reads (the wrapper and the kernel refuse q_next == q_n).
+// The drift. The step is a constant of the doubling, so the drift of leaf
+// j + 1 needs nothing that leaf j's commit does not hold: L2 writes q_next
+// from the leaf state it commits (q_n, v_n, mg_n of a chain alive; cur's q, v,
+// mg of a chain that is not, whose state stays) with the drift's rounded
+// operations in the plain drift's order (drift_of), and D1 writes leaf 0's
+// from the edge alike, so every leaf's value-and-grad reads the bits of
+// ops/leaf.py's leaf_drift_torch. The tree alternates two q buffers by the
+// leaf's parity, so L2 never writes the q_n it reads (the wrapper and the
+// kernel refuse q_next == q_n).
+//
+// What D1 does not write, because no kernel reads it before writing it in the
+// same doubling: the checkpoint rows (an odd leaf of an alive chain reads
+// only rows that the even leaves before it wrote; the plain version zeroed
+// rows 0..i-1, 3i rows a chain, ~11 MB a depth-9 doubling at 128 chains of
+// dim 799 in float32). tests/test_torch_doubling.py fills them with NaN
+// before every doubling and gets the same bits. The sub-tree's first leaf,
+// which the JAX package keeps and its merge drops, has no buffer. The proposal's copy
+// stays: a sub-tree whose leaf 0 has weight +inf takes no leaf and is still
+// valid, and then the merge takes the copy (the JAX package's q_prop = q0).
 //
 // The leaf index lives on the device, as the JAX package's leaf counter is a
 // scalar of its while_loop (inference/nuts_batched.py:222-223): counters =
-// [k, blocks arrived, condition] (int32), k reset by the doubling's setup. The
-// leaf's parity and j == 0 are kernel arguments, fixed when a CUDA graph
-// captures the launch; L2 derives j = 2k + parity, the checkpoint row hi an
+// [k, blocks arrived, condition] (int32), zeroed by D1. The
+// leaf's parity is a kernel argument, fixed when a CUDA graph captures the
+// launch; L2 derives j = 2k + parity, the checkpoint row hi an
 // even leaf writes and the rows lo..hi an odd leaf checks (popcount, trailing
 // ones: inference/nuts.py _leaf_idx_to_ckpt_idxs), and the leaf's uniform
 // u_leaf[j, c]. On an odd leaf the block that arrives last (one atomic per
@@ -74,23 +100,47 @@
 // exceed a block's shared memory, in place in cur and rho, which the commit
 // writes anyway. The kinetic energy and the first kSweepRows rows' U-turn sums
 // take one block reduction. The commits write from the kept values: those
-// that do not wait for the chain's decisions (rho, the leaf state, the first
-// leaf, an even leaf's checkpoint row) while the reduction runs, in the
+// that do not wait for the chain's decisions (rho, the leaf state, an even
+// leaf's checkpoint row) while the reduction runs, in the
 // register path, and the proposal and the divergent step after it.
 //
 // Bound: bytes. Per alive chain L2 reads about seven (C, dim) rows (four of
 // cur, q_n, g_n, mg_n, rho) and writes seven (cur, rho, q_next), plus the
-// proposal's five rows where it takes, the first leaf's five at j = 0, one
-// checkpoint row's three on even leaves or 3 (hi - lo + 1) rows read on odd
+// proposal's five rows where it takes, one checkpoint row's three on even leaves or 3 (hi - lo + 1) rows read on odd
 // ones; per chain not alive three rows of cur read and q_next written: at
 // (C, dim) = (128, 799) float32 about 6-10 MB, 2-3 us at 3.35 TB/s
 // (ops/leaf.py commit_bytes counts it per launch). Rows of 799 floats start
 // at no common alignment, so the loads stay 4 or 8 bytes, all in flight.
 //
+// D1 and D2. Both are bound by bytes and by their launch (a few microseconds
+// of rows at most). D1 runs one thread per element of each chain's row (a
+// grid of (dim / 256, C) blocks): its work is copies and the drift, at any
+// order. D2 runs one block per chain, like L2, for the combined U-turn
+// check's two row dots, summed in L2's fixed order (block_sum), so a chain's
+// decision does not depend on C. Its time is latency: the flags, then the
+// rows, then the sums, then the arrival; each thread loads all its elements
+// of a chunk (four, a whole row of dim <= 1024) before it stores any, and
+// thread 0's scalars fly with them. It reads and writes only what its
+// chain's flags select: the moved side's five rows, rho, and where it takes,
+// the proposal's five rows (a tracked divergent sub-tree: its step's two
+// rows); a chain that is not updated (done before the doubling) touches only
+// its scalars. The readout's all-done needs every
+// chain: each block's thread 0 arrives on counters[1] (as L2's odd leaves do:
+// the arrivals in the low bits, the chains not done from bit kAliveShift), and
+// the last to arrive writes the readout, the leaves run from the pair counter
+// (1 at depth 0, else 2k), and resets the arrivals. The elementwise and
+// scalar arithmetic is the plain versions', operation for operation, with no
+// FMA contraction; exp, log1p and logaddexp follow the formulas torch's CUDA
+// kernels use. So the state is the plain versions' bits, and only a row dot
+// within rounding of 0 can flip the combined U-turn decision.
+//
 // C interface (ctypes), each in _f32 and _f64, returning a cudaError_t:
-//   nuts_leaf_drift_<t>(cur, half, step, q_n, n_chains, dim, stream)
 //   nuts_leaf_commit_<t>(ptrs, ints, max_delta_energy, stream)
-// with ptrs[kNumPointers] and ints[kNumInts] in the order of CommitArgs.
+//   nuts_doubling_open_<t>(ptrs, ints, stream)
+//   nuts_doubling_merge_<t>(ptrs, ints, stream)
+// with ptrs and ints in the order of CommitArgs, OpenArgs and MergeArgs, the
+// last two ints the counts of each (kNumPointers and kNumInts for L2,
+// kOpenPointers and kOpenInts for D1, kMergePointers and kMergeInts for D2).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,14 +150,13 @@ namespace {
 
 constexpr int kThreads = 256;          // L2: one block of this many per chain
 constexpr int kWarps = kThreads / 32;
-constexpr int kDriftThreads = 256;     // L1: one element a thread
 constexpr int kSweepRows = 4;          // L2: checkpoint rows per block reduction
 constexpr int kMaxSums = 1 + 2 * kSweepRows;
 constexpr int kRegisterElements = 4;   // L2: elements a thread keeps in registers
 constexpr int kStashBytes = 232448 - 1024;  // a block's shared memory, less the static
 constexpr int kAliveShift = 15;        // L2: chains a launch, at most 2^15 - 1
-constexpr int kNumPointers = 25;
-constexpr int kNumInts = 11;
+constexpr int kNumPointers = 24;
+constexpr int kNumInts = 10;
 
 // Rounded arithmetic with no contraction, and the math the plain version
 // calls, for each type.
@@ -179,26 +228,12 @@ __device__ __forceinline__ void block_sum(T (&x)[kMaxSums], int first, int last,
 }
 
 // The leapfrog step's drift of one element, q + step * (v + half * mg), in
-// L1's rounded operations; L2 writes the next leaf's q with it.
+// the plain drift's rounded operations; D1 writes leaf 0's q with it, L2 the
+// next leaf's.
 template <typename T>
 __device__ __forceinline__ T drift_of(T h, T step, T q, T v, T mg) {
   using O = Op<T>;
   return O::add(q, O::mul(step, O::add(v, O::mul(h, mg))));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kDriftThreads)
-    nuts_leaf_drift_kernel(const T* __restrict__ cur, const T* __restrict__ half,
-                           const T* __restrict__ step, T* __restrict__ q_n, int n_chains,
-                           int dim) {
-  const int64_t total = int64_t(n_chains) * dim;
-  for (int64_t k = int64_t(blockIdx.x) * kDriftThreads + threadIdx.x; k < total;
-       k += int64_t(gridDim.x) * kDriftThreads) {
-    const int64_t c = k / dim;
-    const int64_t i = k - c * dim;
-    const T* s = cur + c * 5 * dim;
-    q_n[k] = drift_of(half[c], step[c], s[i], s[2 * dim + i], s[4 * dim + i]);
-  }
 }
 
 template <typename T>
@@ -218,7 +253,6 @@ struct CommitArgs {
   T* s_prop;            // (C, 5, dim)
   T* s_logp_prop;       // (C,)
   T* s_rho;             // (C, dim)
-  T* first;             // (C, 5, dim)
   T* ckpts;             // (C, R, 3, dim) = [p, v, rho] per row
   T* s_lsw;             // (C,)
   T* s_sum_accept;      // (C,)
@@ -233,7 +267,7 @@ struct CommitArgs {
   int n_chains, dim, n_rows;
   int inv_mass_stride;  // 0 (shared) or dim (per chain)
   int n_leaves;         // the doubling's, 2^i
-  int parity, is_first;  // the leaf's: j = 2k + parity, and j == 0
+  int parity;           // the leaf's: j = 2k + parity
   int has_handle;
   cudaGraphConditionalHandle handle;  // the WHILE node's, where has_handle
   T max_delta_energy;
@@ -246,7 +280,7 @@ struct Chain {
   int64_t c, dim;
   int j, lo, hi;  // the leaf, and its checkpoint rows (hi the row an even leaf writes)
   T h, step;
-  T *cq, *cp, *cv, *cg, *cmg, *rho, *prop, *first, *ck, *edge, *leaf, *qnext;
+  T *cq, *cp, *cv, *cg, *cmg, *rho, *prop, *ck, *edge, *leaf, *qnext;
   const T *qn, *gn, *mgn, *im;
 };
 
@@ -260,7 +294,7 @@ __device__ __forceinline__ Chain<T> chain_of(const CommitArgs<T>& a, int k) {
   // popcount(k), lo = hi - (trailing ones of j) + 1
   ch.hi = __popc(k);
   ch.lo = ch.hi - (__ffs(~ch.j) - 1) + 1;
-  if (ch.j >= a.n_leaves || ch.hi >= a.n_rows || (ch.j == 0) != (a.is_first != 0)) __trap();
+  if (ch.j >= a.n_leaves || ch.hi >= a.n_rows) __trap();
   const int64_t dim = ch.dim, row = ch.c * dim;
   ch.h = a.half[ch.c];
   ch.step = a.step[ch.c];
@@ -271,7 +305,6 @@ __device__ __forceinline__ Chain<T> chain_of(const CommitArgs<T>& a, int k) {
   ch.cmg = ch.cg + dim;
   ch.rho = a.s_rho + row;
   ch.prop = a.s_prop + ch.c * 5 * dim;
-  ch.first = a.first + ch.c * 5 * dim;
   ch.ck = a.ckpts + (ch.c * a.n_rows + ch.hi) * 3 * dim;
   ch.edge = a.s_div_edge ? a.s_div_edge + row : nullptr;
   ch.leaf = a.s_div_leaf ? a.s_div_leaf + row : nullptr;
@@ -340,21 +373,14 @@ __device__ __forceinline__ void turn_terms(T rk, T vk, T rhok, T p, T v, T r, T&
 
 // The commits of one element that do not wait for the chain's decisions
 // (every one of an alive chain's, but the proposal's and the divergent
-// step's): rho, the leaf state, the first leaf, an even leaf's checkpoint
-// row; and the next leaf's q, drifted from the leaf state committed.
+// step's): rho, the leaf state, an even leaf's checkpoint row; and the next
+// leaf's q, drifted from the leaf state committed.
 template <typename T>
 __device__ __forceinline__ void commit_state(const CommitArgs<T>& a, const Chain<T>& ch,
                                              int64_t i, T q, T p, T v, T g, T mg, T r) {
   const int64_t dim = ch.dim;
   ch.qnext[i] = drift_of(ch.h, ch.step, q, v, mg);
   ch.rho[i] = r;
-  if (a.is_first) {
-    ch.first[i] = q;
-    ch.first[dim + i] = p;
-    ch.first[2 * dim + i] = v;
-    ch.first[3 * dim + i] = g;
-    ch.first[4 * dim + i] = mg;
-  }
   if (!a.parity) {
     ch.ck[i] = p;
     ch.ck[dim + i] = v;
@@ -443,7 +469,7 @@ __device__ __forceinline__ void load_rows(const CommitArgs<T>& a, const Chain<T>
 }
 
 // A chain that is not alive keeps its leaf state: the next leaf's q is
-// drifted from it, as L1 would drift it.
+// drifted from it.
 template <typename T>
 __device__ __forceinline__ void drift_frozen(const CommitArgs<T>& a) {
   const int64_t c = blockIdx.x, dim = a.dim;
@@ -606,19 +632,6 @@ __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_stash_kernel(Commit
 }
 
 template <typename T>
-int drift(const void* cur, const void* half, const void* step, void* q_n, int n_chains, int dim,
-          void* stream) {
-  const int64_t total = int64_t(n_chains) * dim;
-  if (total == 0) return 0;
-  const int64_t blocks = (total + kDriftThreads - 1) / kDriftThreads;
-  nuts_leaf_drift_kernel<T><<<unsigned(blocks < 65535 ? blocks : 65535), kDriftThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(cur), static_cast<const T*>(half), static_cast<const T*>(step),
-      static_cast<T*>(q_n), n_chains, dim);
-  return cudaGetLastError();
-}
-
-template <typename T>
 int commit(void* const* p, const long long* n, double max_delta_energy, void* stream) {
   CommitArgs<T> a;
   a.cur = static_cast<T*>(p[0]);
@@ -635,36 +648,34 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
   a.s_prop = static_cast<T*>(p[11]);
   a.s_logp_prop = static_cast<T*>(p[12]);
   a.s_rho = static_cast<T*>(p[13]);
-  a.first = static_cast<T*>(p[14]);
-  a.ckpts = static_cast<T*>(p[15]);
-  a.s_lsw = static_cast<T*>(p[16]);
-  a.s_sum_accept = static_cast<T*>(p[17]);
-  a.s_n_leaves = static_cast<T*>(p[18]);
-  a.s_div = static_cast<bool*>(p[19]);
-  a.s_turn = static_cast<bool*>(p[20]);
-  a.alive = static_cast<bool*>(p[21]);
-  a.s_div_edge = static_cast<T*>(p[22]);
-  a.s_div_leaf = static_cast<T*>(p[23]);
-  a.counters = static_cast<int*>(p[24]);
+  a.ckpts = static_cast<T*>(p[14]);
+  a.s_lsw = static_cast<T*>(p[15]);
+  a.s_sum_accept = static_cast<T*>(p[16]);
+  a.s_n_leaves = static_cast<T*>(p[17]);
+  a.s_div = static_cast<bool*>(p[18]);
+  a.s_turn = static_cast<bool*>(p[19]);
+  a.alive = static_cast<bool*>(p[20]);
+  a.s_div_edge = static_cast<T*>(p[21]);
+  a.s_div_leaf = static_cast<T*>(p[22]);
+  a.counters = static_cast<int*>(p[23]);
   a.n_chains = int(n[0]);
   a.dim = int(n[1]);
   a.n_rows = int(n[2]);
   a.inv_mass_stride = int(n[3]);
   a.n_leaves = int(n[4]);
   a.parity = int(n[5]);
-  a.is_first = int(n[6]);
-  a.has_handle = int(n[7]);
-  a.handle = static_cast<cudaGraphConditionalHandle>(n[8]);
+  a.has_handle = int(n[6]);
+  a.handle = static_cast<cudaGraphConditionalHandle>(n[7]);
   a.max_delta_energy = T(max_delta_energy);
   // exactly one of mg_n and inv_mass; the next leaf's q apart from q_n; the
   // leaf's constants; the interface's counts
   const bool diag = a.inv_mass != nullptr;
   if (diag == (a.mg_n != nullptr) || a.counters == nullptr || a.step == nullptr ||
       a.q_next == nullptr || a.q_next == a.q_n || a.n_rows < 1 ||
-      a.n_leaves < 1 || (a.parity != 0 && a.parity != 1) || (a.is_first && a.parity) ||
+      a.n_leaves < 1 || (a.parity != 0 && a.parity != 1) ||
       (a.has_handle != 0 && a.has_handle != 1) || a.n_chains >= (1 << kAliveShift) ||
-      int(n[9]) != kNumPointers ||
-      int(n[10]) != kNumInts) {
+      int(n[8]) != kNumPointers ||
+      int(n[9]) != kNumInts) {
     return cudaErrorInvalidValue;
   }
   if (a.n_chains == 0) return 0;
@@ -685,19 +696,322 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
   return cudaGetLastError();
 }
 
+// -- D1 and D2: the doubling's opening and its merge ----------------------------
+
+constexpr int kOpenThreads = 256;  // D1: one element of a chain's rows a thread
+constexpr int kOpenPointers = 21;
+constexpr int kOpenInts = 5;
+constexpr int kMergePointers = 27;
+constexpr int kMergeElements = 4;  // D2: a thread's elements a chunk, loaded before any store
+constexpr int kMergeInts = 7;
+
+template <typename T>
+struct OpenArgs {
+  // the pointers, in this order
+  const T* u;           // (2, C) at row stride u_stride: u[0] the direction's uniforms
+  const T* eps;         // (C,) the step sizes
+  const T* left;        // (C, 5, dim) the trajectory's edges
+  const T* right;       // (C, 5, dim)
+  const bool* done;     // (C,)
+  T* cur;               // (C, 5, dim) out: the edge in the doubling's direction
+  T* s_prop;            // (C, 5, dim) out: the same
+  T* q0;                // (C, dim) out: leaf 0's position
+  T* half;              // (C,) out: half the signed step
+  T* step;              // (C,) out: the signed step
+  T* s_rho;             // (C, dim) out: 0
+  T* s_logp_prop;       // (C,) out: 0
+  T* s_lsw;             // (C,) out: -inf
+  T* s_sum_accept;      // (C,) out: 0
+  T* s_n_leaves;        // (C,) out: 0
+  bool* s_div;          // (C,) out: false
+  bool* s_turn;         // (C,) out: false
+  bool* alive;          // (C,) out: !done
+  T* s_div_edge;        // (C, dim) out: 0, or null (not tracking)
+  T* s_div_leaf;        // (C, dim) out: 0, or null
+  int* counters;        // (3,) out: 0
+  // the integers, in this order
+  int n_chains, dim, u_stride;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kOpenThreads) nuts_doubling_open_kernel(OpenArgs<T> o) {
+  using O = Op<T>;
+  const int64_t c = blockIdx.y, dim = o.dim;
+  // torch.where(u[0] < 0.5, 1.0, -1.0) * eps, and 0.5 times it
+  const bool go_right = o.u[c] < T(0.5);
+  const T step = O::mul(go_right ? T(1) : T(-1), o.eps[c]);
+  const T h = O::mul(T(0.5), step);
+  const int64_t i = int64_t(blockIdx.x) * kOpenThreads + threadIdx.x;
+  if (i < dim) {
+    const T* edge = (go_right ? o.right : o.left) + c * 5 * dim + i;
+    T* cur = o.cur + c * 5 * dim + i;
+    T* prop = o.s_prop + c * 5 * dim + i;
+    T x[5];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) x[r] = edge[r * dim];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      cur[r * dim] = x[r];
+      prop[r * dim] = x[r];
+    }
+    o.q0[c * dim + i] = drift_of(h, step, x[0], x[2], x[4]);
+    o.s_rho[c * dim + i] = T(0);
+    if (o.s_div_edge) {
+      o.s_div_edge[c * dim + i] = T(0);
+      o.s_div_leaf[c * dim + i] = T(0);
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    o.half[c] = h;
+    o.step[c] = step;
+    o.s_logp_prop[c] = T(0);
+    o.s_lsw[c] = T(-INFINITY);
+    o.s_sum_accept[c] = T(0);
+    o.s_n_leaves[c] = T(0);
+    o.s_div[c] = false;
+    o.s_turn[c] = false;
+    o.alive[c] = !o.done[c];
+    if (c == 0) o.counters[0] = o.counters[1] = o.counters[2] = 0;
+  }
+}
+
+template <typename T>
+struct MergeArgs {
+  // the pointers, in this order
+  const T* u;             // (2, C) at row stride u_stride: the direction's and the merge's
+  const T* cur;           // (C, 5, dim) the sub-tree's last leaf, the new edge
+  const T* s_prop;        // (C, 5, dim) the sub-tree's proposal
+  const T* s_rho;         // (C, dim)
+  const T* s_lsw;         // (C,)
+  const T* s_logp_prop;   // (C,)
+  const T* s_sum_accept;  // (C,)
+  const T* s_n_leaves;    // (C,)
+  const bool* s_div;      // (C,)
+  const bool* s_turn;     // (C,)
+  const T* s_div_edge;    // (C, dim) or null (not tracking)
+  const T* s_div_leaf;    // (C, dim) or null
+  T* left;                // (C, 5, dim) the trajectory's edges, in and out
+  T* right;               // (C, 5, dim)
+  T* prop;                // (C, 5, dim) the proposal
+  T* rho;                 // (C, dim)
+  T* logp_prop;           // (C,)
+  T* log_sum_w;           // (C,)
+  T* sum_accept;          // (C,)
+  T* num_leaves;          // (C,)
+  bool* diverging;        // (C,)
+  bool* done;             // (C,)
+  int* depth;             // (C,) int32
+  T* div_edge;            // (C, dim) or null
+  T* div_leaf;            // (C, dim) or null
+  int* counters;          // (3,) the pair counter k, the blocks arrived, the loop's condition
+  int64_t* readout;       // (2,) out: all chains done, the leaves run
+  // the integers, in this order
+  int n_chains, dim, u_stride;
+  int n_leaves;           // the doubling's, 2^i
+  int new_depth;          // i + 1
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) nuts_doubling_merge_kernel(MergeArgs<T> m) {
+  using O = Op<T>;
+  __shared__ T smem[kMaxSums][kWarps];
+  const int tid = threadIdx.x;
+  const int64_t c = blockIdx.x, dim = m.dim, row = c * dim, rows = c * 5 * dim;
+  // the chain's flags and scalars, the same in every thread (read before the
+  // barrier below, after which thread 0 writes them)
+  const bool upd = !m.done[c];
+  const bool s_div = m.s_div[c], s_turn = m.s_turn[c];
+  const bool valid = upd && !(s_div || s_turn);
+  const T lsw = m.log_sum_w[c], s_lsw = m.s_lsw[c];
+  const T ratio = O::sub(s_lsw, lsw);
+  // torch.clamp(max=0) keeps a NaN
+  const bool take = valid && m.u[m.u_stride + c] < O::exp(ratio > T(0) ? T(0) : ratio);
+  const bool go_right = m.u[c] < T(0.5);
+  // thread 0's scalars, in flight with the rows
+  T sum_accept = T(0), num_leaves = T(0), s_sum_accept = T(0), s_n_leaves = T(0);
+  T s_logp_prop = T(0);
+  if (tid == 0) {
+    sum_accept = m.sum_accept[c];
+    num_leaves = m.num_leaves[c];
+    s_sum_accept = m.s_sum_accept[c];
+    s_n_leaves = m.s_n_leaves[c];
+    s_logp_prop = m.s_logp_prop[c];
+  }
+  T sums[kMaxSums];
+#pragma unroll
+  for (int s = 0; s < kMaxSums; ++s) sums[s] = T(0);
+  if (valid) {
+    // the new edge is cur on the side that moved; the other side stays.
+    // A thread's kMergeElements elements a chunk, every load of the chunk
+    // before its first store
+    T* moved = (go_right ? m.right : m.left) + rows;
+    const T* kept = (go_right ? m.left : m.right) + rows;
+    const T* cur = m.cur + rows;
+    for (int64_t base = 0; base < dim; base += kMergeElements * kThreads) {
+      T x[kMergeElements][5], prop[kMergeElements][5], kp[kMergeElements], kv[kMergeElements];
+      T rho[kMergeElements], s_rho[kMergeElements];
+#pragma unroll
+      for (int e = 0; e < kMergeElements; ++e) {
+        const int64_t i = base + tid + e * kThreads;
+        const bool in = i < dim;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          x[e][k] = in ? cur[k * dim + i] : T(0);
+          prop[e][k] = in && take ? m.s_prop[rows + k * dim + i] : T(0);
+        }
+        kp[e] = in ? kept[dim + i] : T(0);
+        kv[e] = in ? kept[2 * dim + i] : T(0);
+        rho[e] = in ? m.rho[row + i] : T(0);
+        s_rho[e] = in ? m.s_rho[row + i] : T(0);
+      }
+#pragma unroll
+      for (int e = 0; e < kMergeElements; ++e) {
+        const int64_t i = base + tid + e * kThreads;
+        if (i >= dim) continue;
+        const T cp = x[e][1], cv = x[e][2];
+        const T p_left = go_right ? kp[e] : cp, v_left = go_right ? kv[e] : cv;
+        const T p_right = go_right ? cp : kp[e], v_right = go_right ? cv : kv[e];
+        const T r = O::add(rho[e], s_rho[e]);
+        const T rc = O::sub(r, O::mul(T(0.5), O::add(p_left, p_right)));
+        sums[0] = O::add(sums[0], O::mul(v_left, rc));
+        sums[1] = O::add(sums[1], O::mul(v_right, rc));
+        m.rho[row + i] = r;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          moved[k * dim + i] = x[e][k];
+          if (take) m.prop[rows + k * dim + i] = prop[e][k];
+        }
+      }
+    }
+  } else if (upd && s_div && m.div_edge) {
+    // one divergent sub-tree at most a transition: done is set below
+    for (int64_t i = tid; i < dim; i += kThreads) {
+      m.div_edge[row + i] = m.s_div_edge[row + i];
+      m.div_leaf[row + i] = m.s_div_leaf[row + i];
+    }
+  }
+  bool turning = false;
+  if (valid) {  // the same in every thread of the block
+    block_sum(sums, 0, 2, smem);
+    turning = sums[0] <= T(0) || sums[1] <= T(0);
+  }
+  __syncthreads();  // every thread has read the chain's flags and scalars
+  if (tid != 0) return;
+  if (take) m.logp_prop[c] = s_logp_prop;
+  if (valid) m.log_sum_w[c] = log_add_exp(lsw, s_lsw);
+  m.sum_accept[c] = O::add(sum_accept, upd ? s_sum_accept : T(0));
+  m.num_leaves[c] = O::add(num_leaves, upd ? s_n_leaves : T(0));
+  if (upd && s_div) m.diverging[c] = true;
+  const bool done = !upd || s_div || s_turn || turning;
+  m.done[c] = done;
+  if (upd) m.depth[c] = m.new_depth;
+  // the readout, by the block that arrives last
+  const int old = atomicAdd(m.counters + 1, 1 + (done ? 0 : 1 << kAliveShift));
+  if ((old & ((1 << kAliveShift) - 1)) != m.n_chains - 1) return;
+  m.readout[0] = done && (old >> kAliveShift) == 0;
+  m.readout[1] = m.n_leaves == 1 ? 1 : 2 * int64_t(m.counters[0]);
+  m.counters[1] = 0;
+}
+
+template <typename T>
+int open_doubling(void* const* p, const long long* n, void* stream) {
+  OpenArgs<T> o;
+  o.u = static_cast<const T*>(p[0]);
+  o.eps = static_cast<const T*>(p[1]);
+  o.left = static_cast<const T*>(p[2]);
+  o.right = static_cast<const T*>(p[3]);
+  o.done = static_cast<const bool*>(p[4]);
+  o.cur = static_cast<T*>(p[5]);
+  o.s_prop = static_cast<T*>(p[6]);
+  o.q0 = static_cast<T*>(p[7]);
+  o.half = static_cast<T*>(p[8]);
+  o.step = static_cast<T*>(p[9]);
+  o.s_rho = static_cast<T*>(p[10]);
+  o.s_logp_prop = static_cast<T*>(p[11]);
+  o.s_lsw = static_cast<T*>(p[12]);
+  o.s_sum_accept = static_cast<T*>(p[13]);
+  o.s_n_leaves = static_cast<T*>(p[14]);
+  o.s_div = static_cast<bool*>(p[15]);
+  o.s_turn = static_cast<bool*>(p[16]);
+  o.alive = static_cast<bool*>(p[17]);
+  o.s_div_edge = static_cast<T*>(p[18]);
+  o.s_div_leaf = static_cast<T*>(p[19]);
+  o.counters = static_cast<int*>(p[20]);
+  o.n_chains = int(n[0]);
+  o.dim = int(n[1]);
+  o.u_stride = int(n[2]);
+  // every buffer but the tracked pair, which comes both or neither; the
+  // interface's counts
+  for (int k = 0; k < kOpenPointers; ++k) {
+    if (p[k] == nullptr && k != 18 && k != 19) return cudaErrorInvalidValue;
+  }
+  if ((o.s_div_edge == nullptr) != (o.s_div_leaf == nullptr) || o.dim < 1 ||
+      o.n_chains > 65535 || int(n[3]) != kOpenPointers || int(n[4]) != kOpenInts) {
+    return cudaErrorInvalidValue;
+  }
+  if (o.n_chains == 0) return 0;
+  const dim3 grid(unsigned((o.dim + kOpenThreads - 1) / kOpenThreads), unsigned(o.n_chains));
+  nuts_doubling_open_kernel<T><<<grid, kOpenThreads, 0, static_cast<cudaStream_t>(stream)>>>(o);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int merge_doubling(void* const* p, const long long* n, void* stream) {
+  MergeArgs<T> m;
+  m.u = static_cast<const T*>(p[0]);
+  m.cur = static_cast<const T*>(p[1]);
+  m.s_prop = static_cast<const T*>(p[2]);
+  m.s_rho = static_cast<const T*>(p[3]);
+  m.s_lsw = static_cast<const T*>(p[4]);
+  m.s_logp_prop = static_cast<const T*>(p[5]);
+  m.s_sum_accept = static_cast<const T*>(p[6]);
+  m.s_n_leaves = static_cast<const T*>(p[7]);
+  m.s_div = static_cast<const bool*>(p[8]);
+  m.s_turn = static_cast<const bool*>(p[9]);
+  m.s_div_edge = static_cast<const T*>(p[10]);
+  m.s_div_leaf = static_cast<const T*>(p[11]);
+  m.left = static_cast<T*>(p[12]);
+  m.right = static_cast<T*>(p[13]);
+  m.prop = static_cast<T*>(p[14]);
+  m.rho = static_cast<T*>(p[15]);
+  m.logp_prop = static_cast<T*>(p[16]);
+  m.log_sum_w = static_cast<T*>(p[17]);
+  m.sum_accept = static_cast<T*>(p[18]);
+  m.num_leaves = static_cast<T*>(p[19]);
+  m.diverging = static_cast<bool*>(p[20]);
+  m.done = static_cast<bool*>(p[21]);
+  m.depth = static_cast<int*>(p[22]);
+  m.div_edge = static_cast<T*>(p[23]);
+  m.div_leaf = static_cast<T*>(p[24]);
+  m.counters = static_cast<int*>(p[25]);
+  m.readout = static_cast<int64_t*>(p[26]);
+  m.n_chains = int(n[0]);
+  m.dim = int(n[1]);
+  m.u_stride = int(n[2]);
+  m.n_leaves = int(n[3]);
+  m.new_depth = int(n[4]);
+  // every buffer but the four tracked ones, which come all or none; the
+  // interface's counts
+  const bool tracked = m.s_div_edge != nullptr;
+  for (int k = 0; k < kMergePointers; ++k) {
+    const bool track_buffer = k == 10 || k == 11 || k == 23 || k == 24;
+    if (track_buffer ? (p[k] != nullptr) != tracked : p[k] == nullptr) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (m.dim < 1 || m.n_leaves < 1 || m.n_chains >= (1 << kAliveShift) ||
+      int(n[5]) != kMergePointers || int(n[6]) != kMergeInts) {
+    return cudaErrorInvalidValue;
+  }
+  if (m.n_chains == 0) return 0;
+  nuts_doubling_merge_kernel<T>
+      <<<unsigned(m.n_chains), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(m);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
-
-int nuts_leaf_drift_f32(const void* cur, const void* half, const void* step, void* q_n,
-                        int n_chains, int dim, void* stream) {
-  return drift<float>(cur, half, step, q_n, n_chains, dim, stream);
-}
-
-int nuts_leaf_drift_f64(const void* cur, const void* half, const void* step, void* q_n,
-                        int n_chains, int dim, void* stream) {
-  return drift<double>(cur, half, step, q_n, n_chains, dim, stream);
-}
 
 int nuts_leaf_commit_f32(void* const* ptrs, const long long* ints, double max_delta_energy,
                          void* stream) {
@@ -707,6 +1021,22 @@ int nuts_leaf_commit_f32(void* const* ptrs, const long long* ints, double max_de
 int nuts_leaf_commit_f64(void* const* ptrs, const long long* ints, double max_delta_energy,
                          void* stream) {
   return commit<double>(ptrs, ints, max_delta_energy, stream);
+}
+
+int nuts_doubling_open_f32(void* const* ptrs, const long long* ints, void* stream) {
+  return open_doubling<float>(ptrs, ints, stream);
+}
+
+int nuts_doubling_open_f64(void* const* ptrs, const long long* ints, void* stream) {
+  return open_doubling<double>(ptrs, ints, stream);
+}
+
+int nuts_doubling_merge_f32(void* const* ptrs, const long long* ints, void* stream) {
+  return merge_doubling<float>(ptrs, ints, stream);
+}
+
+int nuts_doubling_merge_f64(void* const* ptrs, const long long* ints, void* stream) {
+  return merge_doubling<double>(ptrs, ints, stream);
 }
 
 }  // extern "C"

@@ -41,12 +41,13 @@ Both make the same draws and the same arithmetic, so they give the same
 bits. ``NutsStats.host_syncs`` counts the reads.
 
 Leaf state is packed as one (C, 5, dim) tensor [q, p, v, grad, M^-1 grad]
-so that each masked commit is one ``torch.where``. A leaf is
-``ops/leaf.py``'s: on the card two hand-written kernels around the
-value-and-grad (the drift L1, and the commit L2, which does in one launch
-what the JAX package's fused leaf body does after the value-and-grad, and
-then the next leaf's drift, so that L1 runs at a doubling's leaf 0 only),
-on the CPU their plain versions. Random numbers come from
+so that each masked commit is one ``torch.where``. A doubling's bookkeeping
+is ``ops/leaf.py``'s: on the card three hand-written kernels, the opening D1
+(the direction, the edge, the sub-tree's reset and leaf 0's position), per
+leaf the commit L2 after the value-and-grad (what the JAX package's fused
+leaf body does after the value-and-grad, and then the next leaf's
+position), and the merge D2 (the sub-tree into the trajectory, and the
+readout); on the CPU their plain versions. Random numbers come from
 one ``torch.Generator`` on the chains' device: per transition the momenta
 (drawn eagerly), per doubling a direction and a subtree-merge uniform
 (2, C) and one uniform per leaf (2^i, C), drawn inside the doubling's
@@ -91,13 +92,6 @@ from .nuts import (
 Q, P, V, G, MG = range(5)
 
 
-def _is_turning_b(p_left, v_left, p_right, v_right, rho):
-    """(C,) generalized U-turn check with the boundary-momentum correction;
-    v_* are the carried M^-1 p_*."""
-    rho_c = rho - 0.5 * (p_left + p_right)
-    return (leaf_ops.rowdot(v_left, rho_c) <= 0.0) | (leaf_ops.rowdot(v_right, rho_c) <= 0.0)
-
-
 def tree_graphed(device, vg_b) -> bool:
     """Whether a tree on ``device`` for ``vg_b`` runs as CUDA graphs: on a
     CUDA device, unless the value-and-grad ends in a collective (a
@@ -133,21 +127,22 @@ def _when(pred: torch.Tensor, body: Callable[[], None]) -> bool:
 class _TreeState:
     """The transition's buffers, (C, ...) on the chains' device, updated in
     place: the trajectory (``left``, ``right``, ``rho``, ``prop`` ...), the
-    sub-tree a doubling builds (``cur``, ``first``, ``s_*``, ``alive``,
+    sub-tree a doubling builds (``cur``, ``s_*``, ``alive``,
     ``ckpts`` = [p, v, rho] per checkpoint row, ``q`` the two positions a
     leaf's value-and-grad reads, by the leaf's parity: the commit of leaf j
     writes leaf j + 1's into the other), ``readout`` = (all chains done,
     leaves run by the last doubling) and, with ``counters``, the leaf
     kernel's (3,) int32 [pair counter, blocks arrived, the leaf loop's
-    condition] (``ops/leaf.py``)."""
+    condition] (``ops/leaf.py``). ``half`` and ``step`` are the signed steps
+    D1 writes on the card."""
 
     def __init__(self, c, dim, dtype, device, max_depth, track, counters):
         self.key = (c, dim, dtype, device)
         f = dict(dtype=dtype, device=device)
         b = dict(dtype=torch.bool, device=device)
-        self.eps, self.h0 = torch.zeros(c, **f), torch.zeros(c, **f)
-        self.left, self.right, self.prop, self.cur, self.first, self.s_prop = (
-            torch.zeros((c, 5, dim), **f) for _ in range(6))
+        self.eps, self.h0, self.half, self.step = (torch.zeros(c, **f) for _ in range(4))
+        self.left, self.right, self.prop, self.cur, self.s_prop = (
+            torch.zeros((c, 5, dim), **f) for _ in range(5))
         self.rho, self.s_rho = torch.zeros((c, dim), **f), torch.zeros((c, dim), **f)
         self.q = torch.zeros((2, c, dim), **f)
         (self.logp_prop, self.log_sum_w, self.sum_accept, self.num_leaves, self.s_logp_prop,
@@ -156,7 +151,6 @@ class _TreeState:
             torch.zeros(c, **b) for _ in range(5))
         self.depth = torch.zeros(c, dtype=torch.int32, device=device)
         self.ckpts = torch.zeros((c, max(max_depth - 1, 1), 3, dim), **f)
-        self.n_run = torch.zeros((), dtype=torch.int64, device=device)
         self.readout = torch.zeros(2, dtype=torch.int64, device=device)
         self.counters = torch.zeros(3, dtype=torch.int32, device=device) if counters else None
         if track:
@@ -182,9 +176,9 @@ class LockstepTree:
     in place. The launches that come once per leaf (the value-and-grad's
     kernels, ``ops/cuda_band``; the dense metric's product,
     ``ops/minv_mv``) are counted at the first capture, per leaf, and each
-    replay adds them times the leaves it ran; the leaf kernels' likewise
-    (``ops/leaf``: one L1 per replay, one L2 per leaf). A capture or a
-    replay that fails raises."""
+    replay adds them times the leaves it ran; the doubling's kernels
+    likewise (``ops/leaf``: one D1 and one D2 per replay, one L2 per leaf).
+    A capture or a replay that fails raises."""
 
     def __init__(self, vg_b, generator: torch.Generator, max_depth: int = 10,
                  max_delta_energy: float = MAX_DELTA_ENERGY, mesh=None,
@@ -242,15 +236,14 @@ class LockstepTree:
 
     def _leaf(self, metric, half, step, u_leaf, j: int, handle=None) -> None:
         """Leapfrog step j of the sub-tree from ``cur``, committed for the
-        chains alive (``ops/leaf.py``: on the card the kernel L1 at leaf 0,
-        the value-and-grad at ``st.q[j % 2]``, and L2, which takes the leaf
-        index from the pair counter, sets ``handle``'s condition and writes
-        the next leaf's position into ``st.q[1 - j % 2]``; on the CPU their
-        plain versions)."""
+        chains alive (``ops/leaf.py``: the value-and-grad at ``st.q[j % 2]``,
+        which the doubling's opening wrote for leaf 0 and the commit of leaf
+        j - 1 for the others, and the commit, on the card L2, which takes
+        the leaf index from the pair counter, sets ``handle``'s condition and
+        writes the next leaf's position into ``st.q[1 - j % 2]``; on the CPU
+        its plain version)."""
         st = self.st
         q_n, q_next = st.q[j % 2], st.q[1 - j % 2]
-        if j == 0:
-            leaf_ops.leaf_drift(st.cur, half, step, out=q_n)
         logp_n, g_n = self.leaf_vg(q_n)
         leaf_ops.leaf_commit(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j,
                              _leaf_idx_to_ckpt_idxs(j), self.max_delta_energy, self.track,
@@ -258,49 +251,28 @@ class LockstepTree:
 
     def _doubling(self, metric, i: int, loops=None):
         """Doubling i: a sub-tree of 2^i leaves in a random direction from
-        the trajectory's edge, merged into the trajectory. ``loops`` (under
-        capture, ``ops/graph_if.WhileNodes``): the pairs after the first run
-        under one WHILE node whose condition the odd leaves' commits set.
-        Returns the leaves run and the host reads made (both meaningful when
-        eager)."""
+        the trajectory's edge, merged into the trajectory: its draws, its
+        opening, its leaves and its merge (``ops/leaf.py``: on the card D1,
+        L2 per leaf and D2). ``loops`` (under capture,
+        ``ops/graph_if.WhileNodes``): the pairs after the first run under one
+        WHILE node whose condition the odd leaves' commits set. Returns the
+        leaves run and the host reads made (both meaningful when eager)."""
         st = self.st
         c = st.done.shape[0]
         dtype, device = st.eps.dtype, st.eps.device
         n_leaves = 1 << i
-        upd = ~st.done
         u = local_draw(torch.rand, self.generator, (2, c), 1, self.mesh, dtype, device)
-        go_right = u[0] < 0.5
-        gr3 = go_right[:, None, None]
-        eps_signed = torch.where(go_right, 1.0, -1.0).to(dtype) * st.eps
-
-        edge = torch.where(gr3, st.right, st.left)
-        for buf in (st.cur, st.first, st.s_prop):
-            buf.copy_(edge)
-        for buf in (st.s_rho, st.s_logp_prop, st.s_sum_accept, st.s_n_leaves, st.s_div,
-                    st.s_turn):
-            buf.zero_()
-        st.s_lsw.fill_(-torch.inf)
-        st.alive.copy_(upd)
-        st.ckpts[:, : max(i, 1)].zero_()
-        if st.counters is not None:
-            st.counters.zero_()
-        if self.track:
-            st.s_div_edge.zero_()
-            st.s_div_leaf.zero_()
         # contiguous: a mesh's block of columns is copied out of the full draw
         u_leaf = local_draw(torch.rand, self.generator, (n_leaves, c), 1, self.mesh, dtype,
                             device).contiguous()
-        half = (0.5 * eps_signed)[:, None]
-        step = eps_signed[:, None]
+        half, step = leaf_ops.doubling_open(st, u, n_leaves, self.track)
         handle = loops.handle() if loops is not None and n_leaves >= 4 else None
 
         def pair(k):
             self._leaf(metric, half, step, u_leaf, 2 * k, handle)
             self._leaf(metric, half, step, u_leaf, 2 * k + 1, handle)
-            st.n_run.add_(2)
 
         leaves = min(n_leaves, 2)
-        st.n_run.fill_(leaves)
         for j in range(leaves):
             self._leaf(metric, half, step, u_leaf, j, handle)
         reads = 0
@@ -313,37 +285,7 @@ class LockstepTree:
                 if not _when(st.alive.any(), lambda k=k: pair(k)):
                     break
                 leaves += 2
-
-        # the sub-tree's last leaf is the new outer edge in its direction
-        valid = upd & ~(st.s_div | st.s_turn)
-        take_new = valid & (
-            u[1] < torch.exp(torch.clamp(st.s_lsw - st.log_sum_w, max=0.0))
-        )
-        torch.where(take_new[:, None, None], st.s_prop, st.prop, out=st.prop)
-        torch.where(take_new, st.s_logp_prop, st.logp_prop, out=st.logp_prop)
-        new_left = torch.where(gr3, st.left, st.cur)
-        new_right = torch.where(gr3, st.cur, st.right)
-        new_rho = st.rho + st.s_rho
-        turning_combined = _is_turning_b(
-            new_left[:, P], new_left[:, V], new_right[:, P], new_right[:, V], new_rho
-        )
-        valid3 = valid[:, None, None]
-        torch.where(valid3, new_left, st.left, out=st.left)
-        torch.where(valid3, new_right, st.right, out=st.right)
-        torch.where(valid[:, None], new_rho, st.rho, out=st.rho)
-        torch.where(valid, torch.logaddexp(st.log_sum_w, st.s_lsw), st.log_sum_w,
-                    out=st.log_sum_w)
-        st.sum_accept += torch.where(upd, st.s_sum_accept, 0.0)
-        st.num_leaves += torch.where(upd, st.s_n_leaves, 0.0)
-        if self.track:
-            # one divergent sub-tree at most per transition: done is set
-            hit = (upd & st.s_div)[:, None]
-            torch.where(hit, st.s_div_edge, st.div_edge, out=st.div_edge)
-            torch.where(hit, st.s_div_leaf, st.div_leaf, out=st.div_leaf)
-        st.diverging |= upd & st.s_div
-        st.done |= upd & (st.s_div | st.s_turn | turning_combined)
-        st.depth.masked_fill_(upd, i + 1)
-        torch.stack([st.done.all().to(torch.int64), st.n_run], out=st.readout)
+        leaf_ops.doubling_merge(st, u, n_leaves, i + 1, self.track)
         return leaves, reads
 
     # -- the CUDA graphs -------------------------------------------------------
@@ -354,8 +296,9 @@ class LockstepTree:
         so min(2^i, 4) leaves. Its per-leaf launches (``kernel_launch_counts``:
         the value-and-grad's kernels and the dense metric's product) are
         taken back out of their counts and must be ``per_leaf`` times the
-        captured leaves, and its leaf kernels' out of ``ops/leaf``'s:
-        exactly one L1 (leaf 0) and one L2 per captured leaf."""
+        captured leaves, and its doubling kernels' out of ``ops/leaf``'s:
+        exactly one D1, one D2 and one L2 per captured leaf (recorded in
+        ``graph_info`` as ``leaf_launches``)."""
         from ..ops import graph_if
 
         device = self.st.eps.device
@@ -384,9 +327,9 @@ class LockstepTree:
         leaf_launches = {name: k - leaf_before[name] for name, k in leaf_ops.LAUNCHES.items()}
         leaf_ops.LAUNCHES.update(leaf_before)
         captured = min(1 << i, 4)
-        if leaf_launches != {leaf_ops.DRIFT: 1, leaf_ops.COMMIT: captured}:
-            raise RuntimeError(f"doubling {i}'s graph captured {leaf_launches} leaf-kernel "
-                               f"launches, not one L1 and one L2 per captured leaf "
+        if leaf_launches != {leaf_ops.OPEN: 1, leaf_ops.COMMIT: captured, leaf_ops.MERGE: 1}:
+            raise RuntimeError(f"doubling {i}'s graph captured {leaf_launches} doubling-kernel "
+                               f"launches, not one D1, one D2 and one L2 per captured leaf "
                                f"({captured})")
         if self.per_leaf is None:
             self.per_leaf = {name: k // captured for name, k in launches.items()}
@@ -398,7 +341,8 @@ class LockstepTree:
                          if tuple(seg.get("segment_pool_id", ())) in pools)
         self.graph_info[i] = dict(nodes=nodes, body_nodes=self.loops.body_nodes - body_before,
                                   while_nodes=int(captured == 4), captured_leaves=captured,
-                                  capture_s=seconds, pool_bytes=pool_bytes)
+                                  leaf_launches=leaf_launches, capture_s=seconds,
+                                  pool_bytes=pool_bytes)
         return graph
 
     def _replay(self, metric, i: int):
@@ -410,8 +354,9 @@ class LockstepTree:
         graph.replay()
         all_done, leaves = self.st.readout.tolist()
         add_kernel_launches({name: k * leaves for name, k in self.per_leaf.items()})
-        leaf_ops.LAUNCHES[leaf_ops.DRIFT] += 1
+        leaf_ops.LAUNCHES[leaf_ops.OPEN] += 1
         leaf_ops.LAUNCHES[leaf_ops.COMMIT] += leaves
+        leaf_ops.LAUNCHES[leaf_ops.MERGE] += 1
         return bool(all_done), leaves
 
     # -- the transition ----------------------------------------------------------

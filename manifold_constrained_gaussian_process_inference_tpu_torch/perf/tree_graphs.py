@@ -36,11 +36,37 @@ product by torch.matmul); ``replay_share``: the replays' device time over the ho
 wall of the transitions that captured nothing. Idle share: one minus the
 summed kernel durations of a ``torch.profiler`` trace over the host wall
 of ``PROFILE_TRANSITIONS`` transitions, for each tree; from the same trace
-the leaf kernels' (ops/leaf.py, L1 and L2) and the product's device ms
-per leaf run and their kernel events per leaf (where the trace sees every
-kernel the graphs replay: one L2 and one product a leaf, one L1 a
-doubling). Launch counts: the band kernels', the leaf kernels' and the
-product's. Runs on a CUDA card only.
+the doubling's kernels' (ops/leaf.py: D1, L2, D2) and the product's
+device ms per leaf run and their kernel events per leaf (where the trace
+sees every kernel the graphs replay: one L2 and one product a leaf, one D1
+and one D2 a doubling). Launch counts: the band kernels', the doubling's
+kernels' and the product's. Runs on a CUDA card only.
+
+``--parts`` (with ``--trees A,B``: each checkout's package in a fresh
+process started in its root, in turns A B B A, as ``perf/slice_ab.py``
+runs them) breaks the doubling's bookkeeping down, float32, from CUDA
+graphs of ``PART_REPS`` repetitions, at [slice]'s, [default]'s and [pt]'s
+(chains, dim, metric) (``PART_SHAPES``), on a tree state left by one eager
+transition of a Gaussian target, every 7th chain done:
+
+- ``draws_ms``: the doubling's two draws (and the reset of the done flags
+  that every graph below repeats);
+- ``open_ms``: the doubling up to its first leaf (a leaf that raises ends
+  the captured call) less the draws: D1, or an older checkout's setup in
+  torch operations (whose leaf 0 also ran a drift kernel, not counted here);
+- ``merge_ms``: a doubling of two leaves whose leaves do nothing, less the
+  above: D2, or an older checkout's merge; ``outside_leaves_ms`` the two
+  together; ``nodes``: the top-level nodes of one such doubling's graph
+  (draws and the reset included);
+- at [slice] with its value-and-grad (``leaf``): ``leaf_ms`` a leaf's device
+  time (pairs of leaves 0 and 1 from a graph, the pair counter and alive
+  reset before each pair, the reset's own time taken out), ``kernels_ms``
+  its kernels' summed durations in a ``torch.profiler`` trace of that graph
+  and ``gaps_ms`` the rest (the card idle between a leaf's kernels), with
+  the kernel events seen per leaf; ``while_iteration_ms``: one leaf pair
+  under a WHILE node for ``WHILE_ITERS`` iterations (L2 setting the
+  condition, tiny steps so that no chain stops) against the same pairs
+  unrolled, over the iterations.
 """
 from __future__ import annotations
 
@@ -57,6 +83,11 @@ import torch
 VG_REPS = 50
 PROFILE_TRANSITIONS = 2
 STEP_RANGE = (0.0005, 0.05)
+# --parts: (chains, dim, metric) of [slice], [default] and [pt] (PT_RUNGS rungs)
+PART_SHAPES = {"slice": (128, 799, "dense"), "default": (1, 799, "diag"),
+               "pt": (40, 105, "rung")}
+PT_RUNGS, PART_REPS, WHILE_ITERS = 10, 100, 16
+PKG = "manifold_constrained_gaussian_process_inference_tpu_torch"
 
 
 def _card() -> str:
@@ -163,21 +194,240 @@ def capture_all_depths(vg, q0, eps, metric, max_depth: int, generator) -> dict:
     return out
 
 
+class _Stop(Exception):
+    """Raised by a leaf to end a captured doubling at its opening."""
+
+
+def _graph_of(body, reps: int, generator=None, warm: bool = True):
+    """(device ms of one ``body()`` from a replayed CUDA graph of ``reps``
+    calls, the graph's top-level nodes at one call, the graph); ``warm``:
+    one eager call first (not for a body that holds a WHILE node)."""
+    from importlib import import_module
+
+    graph_if = import_module(f"{PKG}.ops.graph_if")
+    if warm:
+        body()
+    torch.cuda.synchronize()
+    one, graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    for g, n in ((one, 1), (graph, reps)):
+        if generator is not None:
+            g.register_generator_state(generator)
+        with torch.cuda.graph(g, stream=stream):
+            for _ in range(n):
+                body()
+            if n == 1:
+                nodes = graph_if.capture_nodes(stream)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, nodes, graph
+
+
+def _metric(kind: str, c: int, dim: int, f: dict):
+    from importlib import import_module
+
+    nuts = import_module(f"{PKG}.inference.nuts")
+    eye = torch.eye(dim, **f)
+    if kind == "dense":
+        return nuts.DenseMetric(eye, eye, eye)
+    if kind == "rung":
+        k = eye.expand(PT_RUNGS, dim, dim).contiguous()
+        return nuts.RungDenseMetric(k, k, k)
+    return nuts.DiagMetric(torch.ones(c, dim, **f))
+
+
+def doubling_parts(c: int, dim: int, kind: str, reps: int = PART_REPS,
+                   device: str = "cuda") -> dict:
+    """A depth-1 doubling's draws, opening and merge alone at (c, dim, kind)
+    on ``device`` (see the module docstring)."""
+    from importlib import import_module
+
+    nb = import_module(f"{PKG}.inference.nuts_batched")
+    f = dict(dtype=torch.float32, device=device)
+    rng = np.random.default_rng(c + dim)
+    scale = torch.as_tensor(rng.uniform(0.5, 2.0, dim), **f)
+
+    def vg(q):
+        return -0.5 * (scale * q * q).sum(-1), -scale * q
+
+    metric = _metric(kind, c, dim, f)
+    q = torch.as_tensor(rng.normal(size=(c, dim)), **f)
+    eps = torch.as_tensor(np.geomspace(0.05, 0.5, c), **f)
+    gen = torch.Generator(device=device).manual_seed(1)
+    tree = nb.LockstepTree(vg, gen, 10, graphed=False)
+    tree(q, *vg(q), eps, metric)  # the edges, rho and sums of real leaves
+    st = tree.st
+    done0 = torch.as_tensor(np.arange(c) % 7 == 6, device=device)
+
+    def draws():
+        st.done.copy_(done0)
+        torch.rand((2, c), generator=gen, **f)
+        torch.rand((2, c), generator=gen, **f).contiguous()
+
+    def stop(*args, **kwargs):
+        raise _Stop
+
+    def opening():
+        st.done.copy_(done0)
+        try:
+            tree._doubling(metric, 1)
+        except _Stop:
+            pass
+
+    def no_leaves():
+        st.done.copy_(done0)
+        tree._doubling(metric, 1)
+
+    out = dict(chains=c, dim=dim, metric=kind)
+    out["draws_ms"], out["draws_nodes"], _ = _graph_of(draws, reps, gen)
+    tree._leaf = stop
+    open_ms, out["open_nodes"], _ = _graph_of(opening, reps, gen)
+    tree._leaf = lambda *args, **kwargs: None
+    whole_ms, out["nodes"], _ = _graph_of(no_leaves, reps, gen)
+    out["open_ms"] = open_ms - out["draws_ms"]
+    out["merge_ms"] = whole_ms - open_ms
+    out["outside_leaves_ms"] = whole_ms - out["draws_ms"]
+    return out
+
+
+def leaf_parts(reps: int = PART_REPS) -> dict:
+    """A [slice] leaf's device time, its kernels' and the gaps between them,
+    and a WHILE iteration over a leaf pair (see the module docstring)."""
+    from importlib import import_module
+
+    nb = import_module(f"{PKG}.inference.nuts_batched")
+    graph_if = import_module(f"{PKG}.ops.graph_if")
+    chains = import_module(f"{PKG}.parallel.chains")
+    workload = import_module(f"{PKG}.perf.workload")
+    y, t = workload.fn_bench_workload()
+    lik = workload.slice_likelihood(y, t, 20)
+    c, dim, kind = PART_SHAPES["slice"]
+    f = dict(dtype=torch.float32, device="cuda")
+    q = torch.as_tensor(0.5 * np.random.default_rng(0).normal(size=(c, dim)), **f)
+    vg = chains.GraphedValueAndGrad(lik.vg("band"), q)
+    metric = _metric(kind, c, dim, f)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tree = nb.LockstepTree(vg, gen, 10, graphed=False)
+    tree.leaf_vg = vg.eager  # as a graphed tree's leaves call it
+    eps = torch.as_tensor(np.geomspace(*STEP_RANGE, c), **f)
+    tree(q, *vg(q), eps, metric)
+    st = tree.st
+    alive = torch.ones(c, dtype=torch.bool, device="cuda")
+    tiny = torch.full((c, 1), 1e-6, **f)
+    half = 0.5 * tiny
+    u_leaf = torch.zeros((2 * WHILE_ITERS + 2, c), **f)
+
+    def reset():
+        st.counters.zero_()
+        st.alive.copy_(alive)
+
+    def pair(handle=None, k=0):
+        tree._leaf(metric, half, tiny, u_leaf, 2 * k, handle)
+        tree._leaf(metric, half, tiny, u_leaf, 2 * k + 1, handle)
+
+    def pairs():
+        reset()
+        pair()
+
+    reset_ms = _graph_of(reset, reps)[0]
+    pairs_ms, _, graph = _graph_of(pairs, reps)
+    leaf_ms = (pairs_ms - reset_ms) / 2
+    traced = _idle_share(graph.replay)
+    out = dict(chains=c, dim=dim, leaf_ms=leaf_ms, reset_ms=reset_ms,
+               kernels_ms=1e3 * traced["kernel_s"] / (2 * reps),
+               kernel_events_per_leaf=traced["kernels"] / (2 * reps))
+    out["gaps_ms"] = pairs_ms / 2 - out["kernels_ms"]
+
+    loops = graph_if.WhileNodes(torch.device("cuda"))
+
+    def looped():
+        reset()
+        handle = loops.handle()
+        pair(handle)
+        loops.loop(handle, lambda: pair(handle, 1))
+
+    def unrolled():
+        reset()
+        for k in range(WHILE_ITERS + 1):
+            pair(None, k)
+
+    ran = {}
+    for name, body in (("while", looped), ("unrolled", unrolled)):
+        out[f"{name}_ms"] = _graph_of(body, 1, warm=False)[0]
+        ran[name] = int(st.counters[0].item())
+    out["while_iterations"] = ran["while"] - 1
+    out["unrolled_pairs"] = ran["unrolled"]
+    out["while_iteration_ms"] = ((out["while_ms"] - out["unrolled_ms"])
+                                 / max(out["while_iterations"], 1))
+    return out
+
+
+def parts() -> dict:
+    """The ``--parts`` readings of the package that is imported."""
+    out = dict(device=_card(), torch=torch.__version__)
+    out["doubling"] = {name: doubling_parts(*shape) for name, shape in PART_SHAPES.items()}
+    out["leaf"] = leaf_parts()
+    return out
+
+
+def _parts_in_trees(trees, rounds: int) -> list:
+    """``parts()`` of each checkout in ``trees``, each in a fresh process
+    started in its root (its package imported), in turns A B ... B A."""
+    import os
+    import sys
+
+    results = []
+    order = []
+    for r in range(rounds):
+        order += list(trees) + list(reversed(trees))
+    for tree in order:
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--parts-here"],
+                              cwd=tree, env=env, stdout=subprocess.PIPE, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        row = dict(tree=tree, rc=proc.returncode, parts=json.loads(lines[-1]) if lines else None)
+        results.append(row)
+        print("[parts] " + json.dumps(row), flush=True)
+    return results
+
+
 def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--chains", type=int, default=128)
+    ap.add_argument("--transitions", type=int, default=6)
+    ap.add_argument("--max-depth", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--parts", action="store_true",
+                    help="break the doubling's bookkeeping down (see the module docstring)")
+    ap.add_argument("--trees", default=None,
+                    help="with --parts: checkouts whose packages are read in turns, A,B")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--parts-here", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tree_graphs: no CUDA device")
+    if args.parts_here:
+        print(json.dumps(parts()), flush=True)
+        return 0
+    if args.parts:
+        rows = (_parts_in_trees(args.trees.split(","), args.rounds) if args.trees
+                else [dict(tree=".", rc=0, parts=parts())])
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(rows, indent=1))
+        return 0 if all(r["rc"] == 0 for r in rows) else 1
+
     from ..inference.nuts import DenseMetric
     from ..inference.nuts_batched import LockstepTree
     from ..ops import cuda_band, leaf, minv_mv
     from ..parallel.chains import GraphedValueAndGrad
     from .workload import fn_bench_workload, slice_likelihood
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--chains", type=int, default=128)
-    ap.add_argument("--transitions", type=int, default=6)
-    ap.add_argument("--max-depth", type=int, default=10)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("tree_graphs: no CUDA device")
     card = _card()
     print(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 

@@ -271,9 +271,11 @@ class _OpLog(TorchDispatchMode):
 
 
 # The aten operations of one transition of _gauss_transition() without
-# tracking, recorded on the tree whose state is updated in place and whose
-# commits drift the next leaf (its tracking code all sits behind the option).
-UNTRACKED_OPS, UNTRACKED_DIGEST = 895, "8f0d1dc9a44b5cbc"
+# tracking, recorded on the tree whose state is updated in place, whose
+# commits drift the next leaf and whose doublings open and merge through the
+# plain versions of their kernels (its tracking code all sits behind the
+# option).
+UNTRACKED_OPS, UNTRACKED_DIGEST = 882, "4fadc76ad4920f17"
 
 
 def _gauss_transition(**kw):

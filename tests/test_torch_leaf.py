@@ -9,8 +9,9 @@ a NaN leaf, ``track_div_leaf`` on and off. The uniform of each leaf is given
 to both (the JAX body draws its own from the chains' keys). On the CPU the
 dispatch runs the plain versions and launches nothing; its card branch
 raises, and does not fall back, when the kernels cannot be built. The drift
-runs at leaf 0 only: each commit writes the next leaf's position, which is
-the drift of the committed state bit for bit, for every chain. With the
+runs once a doubling, in its opening (leaf 0's position): each commit writes
+the next leaf's position, which is the drift of the committed state bit for
+bit, for every chain. With the
 pair counter the plain commit is the card's: the leaf index from the
 counter, which odd leaves advance while setting the leaf loop's condition;
 the kernel's row arithmetic gives the checkpoint rows of every leaf. The
@@ -187,7 +188,7 @@ def _torch_state(start, track):
     cur = torch.stack([q, p, v, g, mg], dim=1)
     f = dict(dtype=torch.float64)
     st = SimpleNamespace(
-        cur=cur.clone(), first=cur.clone(), s_prop=cur.clone(), s_rho=torch.zeros(C, DIM, **f),
+        cur=cur.clone(), s_prop=cur.clone(), s_rho=torch.zeros(C, DIM, **f),
         s_logp_prop=torch.zeros(C, **f), s_sum_accept=torch.zeros(C, **f),
         s_n_leaves=torch.zeros(C, **f), s_lsw=torch.full((C,), -torch.inf, **f),
         s_div=torch.zeros(C, dtype=torch.bool), s_turn=torch.zeros(C, dtype=torch.bool),
@@ -203,15 +204,43 @@ def _steps():
     return (0.5 * eps)[:, None], eps[:, None]
 
 
+def _tree_state(start, track):
+    """``_torch_state`` with the trajectory's buffers around it, as the tree
+    holds them: both edges and the proposal at the sub-tree's start, done
+    where the chain is not alive, the step sizes ``EPS``; a doubling opened
+    on it with u[0] < 0.5 (to the right) gives back ``_torch_state``'s
+    sub-tree and ``_steps()``."""
+    st = _torch_state(start, track)
+    f = dict(dtype=torch.float64)
+    st.left, st.right, st.prop = st.cur.clone(), st.cur.clone(), st.cur.clone()
+    st.rho = torch.as_tensor(start[1]).clone()
+    st.logp_prop, st.log_sum_w, st.sum_accept, st.num_leaves = (torch.zeros(C, **f)
+                                                                for _ in range(4))
+    st.diverging, st.done = torch.zeros(C, dtype=torch.bool), ~st.alive
+    st.depth = torch.zeros(C, dtype=torch.int32)
+    st.eps, st.half, st.step = torch.as_tensor(EPS), torch.zeros(C, **f), torch.zeros(C, **f)
+    st.readout = torch.zeros(2, dtype=torch.int64)
+    if track:
+        st.div_edge, st.div_leaf = torch.zeros(C, DIM, **f), torch.zeros(C, DIM, **f)
+    return st
+
+
+def _to_the_right():
+    """A doubling's uniforms (2, C): every chain to the right, u[1] spread."""
+    return torch.stack([torch.full((C,), 0.25, dtype=torch.float64),
+                        torch.linspace(0.05, 0.95, C, dtype=torch.float64)])
+
+
 def _torch_leaf(st, metric, vg, u_leaf, j, track, host_j=None):
     """One leaf through the port's dispatch, as ``LockstepTree._leaf``: the
-    drift at leaf 0, the value-and-grad at ``st.q[j % 2]``, the commit
-    (given ``host_j``, j by default) writing the next leaf's position into
-    the other buffer."""
+    value-and-grad at ``st.q[j % 2]`` (leaf 0's written by the plain
+    drift, as the doubling's opening writes it), the commit (given
+    ``host_j``, j by default) writing the next leaf's position into the
+    other buffer."""
     half, step = _steps()
     q_n, q_next = st.q[j % 2], st.q[1 - j % 2]
     if j == 0:
-        leaf.leaf_drift(st.cur, half, step, out=q_n)
+        leaf.leaf_drift_torch(st.cur, half, step, out=q_n)
     lp, g = (torch.as_tensor(x) for x in vg(q_n.numpy()))
     j = j if host_j is None else host_j
     leaf.leaf_commit(st, metric, half, step, q_n, q_next, lp, g, u_leaf, j,
@@ -244,8 +273,6 @@ def test_plain_leaf_matches_the_jax_body(kind, track):
         what = f"{kind} track={track} leaf {j}"
         for name, row in (("q", 0), ("p", 1), ("v", 2), ("grad", 3), ("mgrad", 4)):
             _close(st.cur[:, row], w[name], f"{what}: cur {name}")
-        for name, row in (("q_first", 0), ("p_first", 1), ("v_first", 2), ("grad_first", 3)):
-            _close(st.first[:, row], w[name], f"{what}: {name}")
         _close(st.s_prop[:, 0], w["q_prop"], f"{what}: q_prop")
         _close(st.s_prop[:, 3], w["grad_prop"], f"{what}: grad_prop")
         for name, got in (("logp_prop", st.s_logp_prop), ("rho", st.s_rho),
@@ -278,30 +305,38 @@ def _small_leaf_inputs():
 
 def test_dispatch_runs_the_plain_versions_on_the_cpu(monkeypatch):
     """CPU tensors take the plain versions, bit for bit, and never the
-    kernels' wrappers."""
+    kernels' wrappers: a doubling's opening (D1's), four leaves' commits
+    (L2's, each leaf's index from the pair counter) and its merge (D2's,
+    the readout from the pair counter)."""
     def never(*args, **kwargs):
         raise AssertionError("a kernel wrapper ran on CPU tensors")
 
-    monkeypatch.setattr(leaf, "leaf_drift_cuda", never)
-    monkeypatch.setattr(leaf, "leaf_commit_cuda", never)
+    for name in ("doubling_open_cuda", "leaf_commit_cuda", "doubling_merge_cuda"):
+        monkeypatch.setattr(leaf, name, never)
     metric, start, u_leaf = _small_leaf_inputs()
-    a, b = _torch_state(start, True), _torch_state(start, True)
-    half, step = _steps()
+    a, b = _tree_state(start, True), _tree_state(start, True)
+    a.counters, b.counters = torch.zeros(3, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)
+    u = _to_the_right()
     vg = _make_vg(np.ones(DIM))
+    half, step = leaf.doubling_open(a, u, N_LEAVES, True)
+    assert all(torch.equal(x, y) for x, y in zip(leaf.doubling_open_torch(b, u, N_LEAVES, True),
+                                                 (half, step)))
+    assert all(torch.equal(x, y) for x, y in zip((half, step), _steps()))
     for j in range(4):
-        if j == 0:
-            assert leaf.leaf_drift(a.cur, half, step, out=a.q[0]).data_ptr() == a.q.data_ptr()
-            assert torch.equal(leaf.leaf_drift_torch(b.cur, half, step, out=b.q[0]), a.q[0])
-            assert torch.equal(leaf.leaf_drift(a.cur, half, step), a.q[0])
         q_n, q_next = a.q[j % 2], a.q[1 - j % 2]
         lp, g = (torch.as_tensor(x) for x in vg(q_n.numpy()))
         rows = _leaf_idx_to_ckpt_idxs(j)
         leaf.leaf_commit(a, metric, half, step, q_n, q_next, lp, g, u_leaf, j, rows,
                          MAX_DELTA_ENERGY, True)
         leaf.leaf_commit_torch(b, metric, half, step, b.q[j % 2], b.q[1 - j % 2], lp, g, u_leaf,
-                               j, rows, MAX_DELTA_ENERGY, True)
+                               j, rows, MAX_DELTA_ENERGY, True, b.counters)
         for k in vars(a):
             assert torch.equal(getattr(a, k), getattr(b, k)), (j, k)
+    leaf.doubling_merge(a, u, N_LEAVES, DEPTH + 1, True)
+    leaf.doubling_merge_torch(b, u, N_LEAVES, DEPTH + 1, True)
+    for k in vars(a):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert a.readout.tolist() == [int(a.done.all()), 4]
     with pytest.raises(ValueError, match="unsupported device"):
         leaf._on_card(torch.zeros(1, device="meta"))
 
@@ -317,12 +352,15 @@ def test_card_branch_raises_when_the_kernels_cannot_build(monkeypatch):
     monkeypatch.setattr(leaf, "_LIB", None)
     monkeypatch.setattr(cuda_band, "build", failed_build)
     metric, start, u_leaf = _small_leaf_inputs()
-    st = _torch_state(start, False)
+    st = _tree_state(start, False)
     before = {k: t.clone() for k, t in vars(st).items()}
     launches = dict(leaf.LAUNCHES)
     half, step = _steps()
+    u = _to_the_right()
     with pytest.raises(RuntimeError, match="nvcc failed to build nuts_leaf.cu"):
-        leaf.leaf_drift(st.cur, half, step, out=st.q[0])
+        leaf.doubling_open(st, u, N_LEAVES, False)
+    with pytest.raises(RuntimeError, match="nvcc failed to build nuts_leaf.cu"):
+        leaf.doubling_merge(st, u, N_LEAVES, DEPTH + 1, False)
     q_n = leaf.leaf_drift_torch(st.cur, half, step)
     lp, g = (torch.as_tensor(x) for x in _make_vg(np.ones(DIM))(q_n.numpy()))
     for m in (metric, DiagMetric(torch.ones(DIM, dtype=torch.float64))):
@@ -336,9 +374,9 @@ def test_card_branch_raises_when_the_kernels_cannot_build(monkeypatch):
 def test_kernel_source_agrees_with_the_wrapper():
     """The C entry points, L2's pointer and integer arguments in order and
     its counts are the wrapper's; the source builds for sm_90a through
-    cuda_band."""
+    cuda_band. (D1's and D2's: tests/test_torch_doubling.py.)"""
     src = leaf.SOURCE.read_text()
-    for name in (leaf.DRIFT, leaf.COMMIT):
+    for name in (leaf.OPEN, leaf.COMMIT, leaf.MERGE):
         for suffix in ("f32", "f64"):
             assert re.search(rf"int {name}_{suffix}\(", src), (name, suffix)
     (n_ptrs,) = re.findall(r"constexpr int kNumPointers = (\d+);", src)
@@ -355,8 +393,9 @@ def test_kernel_source_agrees_with_the_wrapper():
     assert [name for name, _ in sorted(ints, key=lambda x: int(x[1]))] == list(
         leaf.COMMIT_INTS[:-2])
     assert [int(i) for _, i in ints] == list(range(len(leaf.COMMIT_INTS) - 2))
-    assert re.search(r"int\(n\[9\]\) != kNumPointers", src) and re.search(
-        r"int\(n\[10\]\) != kNumInts", src)
+    n_given = len(leaf.COMMIT_INTS) - 2
+    assert re.search(rf"int\(n\[{n_given}\]\) != kNumPointers", src) and re.search(
+        rf"int\(n\[{n_given + 1}\]\) != kNumInts", src)
     fields = src[src.index("// ints, in this order"):src.index("T max_delta_energy;")]
     declared = re.findall(r"(\w+)(?=[,;])", re.sub(r"//[^\n]*", "", fields))
     assert tuple(declared) == leaf.COMMIT_INTS[:-2]
@@ -405,13 +444,13 @@ def test_plain_commit_with_the_pair_counter():
 
 
 def test_bytes_bound_counts_the_launch():
-    """L1's and L2's bytes from their data: per chain its steps read and
-    its next leaf's q written; per alive chain the rows it reads and writes,
-    and what a take, the first leaf, a checkpoint row or the U-turn sweep,
-    and a tracked divergence add; per chain not alive the three rows of its
-    state that its drift reads."""
+    """D1's and L2's bytes from their data: D1's rows and scalars; L2's per
+    chain its steps read and its next leaf's q written; per alive chain the
+    rows it reads and writes, and what a take, a checkpoint row or the
+    U-turn sweep, and a tracked divergence add; per chain not
+    alive the three rows of its state that its drift reads."""
     c, dim, f32 = 128, 799, 4
-    assert leaf.drift_bytes(c, dim, f32) == f32 * (4 * c * dim + 2 * c)
+    assert leaf.open_bytes(c, dim, f32, False) == f32 * (17 * c * dim + 8 * c) + 4 * c + 12
     base = leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 0, "dense", False)
     counters = 4 * 4  # the pair counter read; an odd leaf's counter, arrivals, condition written
     assert base == f32 * (c * (14 + 3 + 1) * dim + 11 * c) + c + 3 * c + counters
@@ -420,7 +459,7 @@ def test_bytes_bound_counts_the_launch():
         5 * row + f32)
     assert leaf.commit_bytes(c, dim, f32, 3, (0, 1), c, 0, 0, "dense", False) == base + c * 3 * row
     assert leaf.commit_bytes(c, dim, f32, 0, (1, 0), c, 0, 0, "dense", False) == (
-        base + c * 5 * row - 3 * 4)  # an even leaf only reads the counter
+        base - 3 * 4)  # an even leaf writes one checkpoint row and only reads the counter
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 2, "dense", True) == base + 6 * row
     assert leaf.commit_bytes(c, dim, f32, 1, (0, 0), c, 0, 0, "shared", False) == base - (
         c - 1) * row
@@ -440,18 +479,19 @@ def _gauss_vg(q):
 def test_every_batched_leaf_runs_one_drift_and_one_commit(monkeypatch, case):
     """The samplers' batched leaves (their ``lockstep_leaves``) are the
     commit's calls, one each, and their doublings (``doublings``) the
-    drift's, one each (its leaf 0; the commits drift the leaves after it):
-    what the card's launch counts are held to on every NUTS path."""
+    opening's and the merge's, one each (the opening drifts leaf 0, the
+    commits the leaves after it): what the card's launch counts are held to
+    on every NUTS path."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.inference import tempering
     from manifold_constrained_gaussian_process_inference_tpu_torch.parallel import chains
 
-    calls = {"drift": 0, "commit": 0}
-    for name, fn in (("drift", leaf.leaf_drift), ("commit", leaf.leaf_commit)):
-        def counted(*args, _fn=fn, _name=name, **kwargs):
+    calls = {"doubling_open": 0, "leaf_commit": 0, "doubling_merge": 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(leaf, name), _name=name, **kwargs):
             calls[_name] += 1
             return _fn(*args, **kwargs)
 
-        monkeypatch.setattr(leaf, f"leaf_{name}", counted)
+        monkeypatch.setattr(leaf, name, counted)
     gen = torch.Generator().manual_seed(0)
     if case == "pt":
         _, info = tempering.run_parallel_tempering(
@@ -463,7 +503,8 @@ def test_every_batched_leaf_runs_one_drift_and_one_commit(monkeypatch, case):
         _, info = chains.run_chains(_gauss_vg, torch.zeros((4, 3), dtype=torch.float64), gen,
                                     n_samples=12, n_adapts=6, max_depth=4, **kw)
     assert info["lockstep_leaves"] > info["doublings"] > 0
-    assert calls == {"drift": info["doublings"], "commit": info["lockstep_leaves"]}
+    assert calls == {"doubling_open": info["doublings"], "leaf_commit": info["lockstep_leaves"],
+                     "doubling_merge": info["doublings"]}
 
 
 @pytest.mark.parametrize("track", [False, True])
@@ -516,15 +557,16 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", METRICS)
 def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
-    """L1 and L2 on the card against the plain versions from the same
-    inputs at every leaf of the sub-tree, float64, both with the pair
-    counter: the leaf state to 1e-12, the flags and the counters (pair,
-    arrivals, the loop's condition) equal; one launch each per leaf."""
+    """D1 (leaf 0's opening) and L2 on the card against the plain versions
+    from the same inputs at every leaf of the sub-tree, float64, both with
+    the pair counter: the leaf state to 1e-12, the flags and the counters
+    (pair, arrivals, the loop's condition) equal; one D1 at leaf 0 and one
+    L2 per leaf."""
     rng = np.random.default_rng(7)
     metric, inv_mass_j = _case(kind, rng)
     metric = type(metric)(*(t.to(cuda_device) for t in metric))
     start = _start(rng, inv_mass_j, _make_vg(np.ones(DIM)))
-    plain = _torch_state(start, True)
+    plain = _tree_state(start, True)
     plain.counters = torch.zeros(3, dtype=torch.int32)
     for k, t in vars(plain).items():
         setattr(plain, k, t.to(cuda_device))
@@ -536,8 +578,10 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
         kern = SimpleNamespace(**{k: t.clone() for k, t in vars(plain).items()})
         before = dict(leaf.LAUNCHES)
         if j == 0:
-            leaf.leaf_drift(kern.cur, half, step, out=kern.q[0])
-            leaf.leaf_drift_torch(plain.cur, half, step, out=plain.q[0])
+            u = _to_the_right().to(cuda_device)
+            leaf.doubling_open(kern, u, N_LEAVES, True)
+            leaf.doubling_open_torch(plain, u, N_LEAVES, True)
+            assert torch.equal(kern.step, plain.eps) and torch.equal(kern.half, 0.5 * plain.eps)
         q_n = plain.q[j % 2]
         lp, g = (torch.as_tensor(x, device=cuda_device) for x in vg(q_n.cpu().numpy()))
         rows = _leaf_idx_to_ckpt_idxs(j)
@@ -547,9 +591,11 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
                                j, rows, MAX_DELTA_ENERGY, True, plain.counters)
         torch.cuda.synchronize()
         assert {k: leaf.LAUNCHES[k] - before[k] for k in before} == {
-            leaf.DRIFT: int(j == 0), leaf.COMMIT: 1}
-        assert torch.equal(kern.q, plain.q)  # L1's and the commit's next positions, bit for bit
-        for k in vars(plain):
+            leaf.OPEN: int(j == 0), leaf.COMMIT: 1, leaf.MERGE: 0}
+        assert torch.equal(kern.q, plain.q)  # D1's and the commit's next positions, bit for bit
+        # the plain opening returns the steps, which D1 writes into half
+        # and step
+        for k in set(vars(plain)) - {"half", "step"}:
             a, b = getattr(kern, k), getattr(plain, k)
             if a.dtype in (torch.bool, torch.int32):
                 assert torch.equal(a, b), (j, k)

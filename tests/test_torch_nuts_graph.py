@@ -594,8 +594,9 @@ def cuda_device():
 def test_cuda_doubling_graphs_hold_at_most_four_leaves(cuda_device):
     """On the card every doubling's graph captures min(2^i, 4) leaves, from
     depth 2 the pairs under one WHILE node (no per-pair condition), so the
-    graphs of depths 2-9 have the same nodes; a transition on them gives
-    the eager tree's bits."""
+    graphs of depths 2-9 have the same nodes, with one D1 and one D2 each
+    around one L2 a captured leaf; a transition on them gives the eager
+    tree's bits."""
     def vg(q):
         return -0.5 * (q * q).sum(-1), -q
 
@@ -613,6 +614,8 @@ def test_cuda_doubling_graphs_hold_at_most_four_leaves(cuda_device):
     assert [info[i]["captured_leaves"] for i in range(10)] == [1, 2] + [4] * 8
     assert [info[i]["while_nodes"] for i in range(10)] == [0, 0] + [1] * 8
     assert len({info[i]["nodes"] + info[i]["body_nodes"] for i in range(2, 10)}) == 1
+    assert all(info[i]["leaf_launches"] == {leaf.OPEN: 1, leaf.COMMIT: min(1 << i, 4),
+                                            leaf.MERGE: 1} for i in range(10))
     outs = {}
     for graphed in (True, False):
         gen = torch.Generator(device=cuda_device).manual_seed(3)
