@@ -73,8 +73,17 @@
 // caller's stream, allocate nothing and do not synchronise, so CUDA graphs
 // capture them, a WHILE node's body among them.
 //
+// Stage stamps (utils/trace.py): minv_mv_traced_<t> takes the tracer's
+// stamp buffer, the stage its stamp closes and the stage it opens (the
+// value-and-grad's, at its opening GEMM, or the metric's product), and runs
+// the kernel's traced instantiation: the last thread of block (0, 0, 0)
+// stamps on entry (thread 0 fences the mbarriers' initialisation at once,
+// which would wait for the stamp's atomics). A stamp changes nothing the
+// kernel computes; minv_mv_<t> runs the untraced kernel, which holds none.
+//
 // C interface (ctypes), each in _f32 and _f64, returning a cudaError_t:
 //   minv_mv_<t>(prepared, g, mg, n_chains, dim, stream)
+//   minv_mv_traced_<t>(prepared, g, mg, n_chains, dim, trace, prev, stage, stream)
 //   minv_mv_prepare_<t>(minv, prepared, dim, row_stride, col_stride, stream)
 // with prepared of minv_mv_prepared_doubles(dim) doubles.
 //
@@ -98,6 +107,23 @@ constexpr int kStep = 32;          // k a stage: the prepared operand's k step
 constexpr int kStepsPerRange = 7;  // the k range's steps S is chosen for
 constexpr int kMaxSplit = 4;       // S at most: longer ranges, not more of them
 constexpr int kStages = 7;         // the ring's stages
+constexpr int kTraceStages = 6;    // the tracer's stages (utils/trace.py STAGES)
+
+// The tracer's stamp (csrc/nuts_leaf.cu has the same): buf = [the last
+// stamp's ns, the stage it opened, the first stamp's ns, ns by stage,
+// entries by stage]; it closes stage prev and opens stage with atomics that
+// return nothing the thread waits on.
+__device__ __forceinline__ void trace_stamp(int64_t* buf, int prev, int stage) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  unsigned long long* b = reinterpret_cast<unsigned long long*>(buf);
+  atomicAdd(b + 3 + prev, now);
+  atomicAdd(b + 3 + stage, 0ull - now);
+  atomicAdd(b + 3 + kTraceStages + prev, 1ull);
+  b[0] = now;
+  b[1] = static_cast<unsigned long long>(stage);
+}
+
 constexpr int kBlockDoubles = kRows * kStep;  // a prepared (row tile, step) block: 8 KB
 constexpr int kBarBytes = 128;     // the mbarriers' room at the start of shared memory
 
@@ -228,12 +254,16 @@ struct Tile {
 };
 
 // grid (S, row tiles, chain tiles), clusters of (S, 1, 1).
-template <typename T, int TC>
+template <typename T, int TC, bool kTraced>
 __global__ void __launch_bounds__(Tile<TC>::kThreads)
     minv_mv_kernel(const double* __restrict__ prep, const T* __restrict__ g, T* __restrict__ mg,
-                   int n_chains, int dim) {
+                   int n_chains, int dim, int64_t* trace, int prev, int stage) {
   using L = Tile<TC>;
   extern __shared__ __align__(128) unsigned char smem[];
+  if (kTraced && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == L::kThreads - 1) {
+    trace_stamp(trace, prev, stage);
+  }
 #if MINV_MV_PROBE == 4
   return;
 #endif
@@ -414,24 +444,32 @@ cudaLaunchConfig_t config_for(int n_chains, int dim, cudaStream_t stream,
   return config;
 }
 
-template <typename T, int TC>
+template <typename T, int TC, bool kTraced = false>
 cudaError_t shared_attr() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(minv_mv_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           Tile<TC>::max_shared_bytes());
+  static const cudaError_t err = cudaFuncSetAttribute(
+      minv_mv_kernel<T, TC, kTraced>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile<TC>::max_shared_bytes());
   return err;
+}
+
+template <typename T, int TC, bool kTraced>
+int launch_traced(const double* prep, const T* g, T* mg, int n_chains, int dim,
+                  int64_t* trace, int prev, int stage, cudaStream_t stream) {
+  const cudaError_t attr = shared_attr<T, TC, kTraced>();
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchAttribute cluster[1];
+  const cudaLaunchConfig_t config = config_for<T, TC>(n_chains, dim, stream, cluster);
+  const cudaError_t err = cudaLaunchKernelEx(&config, minv_mv_kernel<T, TC, kTraced>, prep, g,
+                                             mg, n_chains, dim, trace, prev, stage);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int TC>
 int launch_tile(const double* prep, const T* g, T* mg, int n_chains, int dim,
-                cudaStream_t stream) {
-  const cudaError_t attr = shared_attr<T, TC>();
-  if (attr != cudaSuccess) return attr;
-  cudaLaunchAttribute cluster[1];
-  const cudaLaunchConfig_t config = config_for<T, TC>(n_chains, dim, stream, cluster);
-  const cudaError_t err =
-      cudaLaunchKernelEx(&config, minv_mv_kernel<T, TC>, prep, g, mg, n_chains, dim);
-  return err != cudaSuccess ? err : cudaGetLastError();
+                int64_t* trace, int prev, int stage, cudaStream_t stream) {
+  return trace ? launch_traced<T, TC, true>(prep, g, mg, n_chains, dim, trace, prev, stage, stream)
+               : launch_traced<T, TC, false>(prep, g, mg, n_chains, dim, trace, prev, stage,
+                                             stream);
 }
 
 // The clusters of a launch at (n_chains, dim) that the card runs at once
@@ -443,7 +481,8 @@ int clusters_of(int n_chains, int dim) {
   cudaLaunchAttribute cluster[1];
   const cudaLaunchConfig_t config = config_for<T, TC>(n_chains, dim, 0, cluster);
   int n = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, minv_mv_kernel<T, TC>, &config);
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&n, minv_mv_kernel<T, TC, false>, &config);
   return err != cudaSuccess ? -int(err) : n;
 }
 
@@ -458,18 +497,23 @@ int chain_tile(int n_chains) {
 }
 
 template <typename T>
-int launch(const void* prep, const void* g, void* mg, int n_chains, int dim, void* stream) {
+int launch(const void* prep, const void* g, void* mg, int n_chains, int dim, void* trace,
+           int prev, int stage, void* stream) {
   if (n_chains < 0 || dim < 0 || n_chains >= (1 << 16) * 16) return cudaErrorInvalidValue;
+  if (trace && (stage < 0 || stage >= kTraceStages || prev < 0 || prev >= kTraceStages)) {
+    return cudaErrorInvalidValue;
+  }
   if (n_chains == 0 || dim == 0) return 0;
   const double* p = static_cast<const double*>(prep);
   const T* x = static_cast<const T*>(g);
   T* y = static_cast<T*>(mg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t* t = static_cast<int64_t*>(trace);
   switch (chain_tile<T>(n_chains)) {
-    case 128: return launch_tile<T, 128>(p, x, y, n_chains, dim, s);
-    case 64: return launch_tile<T, 64>(p, x, y, n_chains, dim, s);
-    case 32: return launch_tile<T, 32>(p, x, y, n_chains, dim, s);
-    default: return launch_tile<T, 16>(p, x, y, n_chains, dim, s);
+    case 128: return launch_tile<T, 128>(p, x, y, n_chains, dim, t, prev, stage, s);
+    case 64: return launch_tile<T, 64>(p, x, y, n_chains, dim, t, prev, stage, s);
+    case 32: return launch_tile<T, 32>(p, x, y, n_chains, dim, t, prev, stage, s);
+    default: return launch_tile<T, 16>(p, x, y, n_chains, dim, t, prev, stage, s);
   }
 }
 
@@ -499,12 +543,22 @@ extern "C" {
 
 int minv_mv_f32(const void* prepared, const void* g, void* mg, int n_chains, int dim,
                 void* stream) {
-  return launch<float>(prepared, g, mg, n_chains, dim, stream);
+  return launch<float>(prepared, g, mg, n_chains, dim, nullptr, 0, 0, stream);
 }
 
 int minv_mv_f64(const void* prepared, const void* g, void* mg, int n_chains, int dim,
                 void* stream) {
-  return launch<double>(prepared, g, mg, n_chains, dim, stream);
+  return launch<double>(prepared, g, mg, n_chains, dim, nullptr, 0, 0, stream);
+}
+
+int minv_mv_traced_f32(const void* prepared, const void* g, void* mg, int n_chains, int dim,
+                       void* trace, int prev, int stage, void* stream) {
+  return launch<float>(prepared, g, mg, n_chains, dim, trace, prev, stage, stream);
+}
+
+int minv_mv_traced_f64(const void* prepared, const void* g, void* mg, int n_chains, int dim,
+                       void* trace, int prev, int stage, void* stream) {
+  return launch<double>(prepared, g, mg, n_chains, dim, trace, prev, stage, stream);
 }
 
 int minv_mv_prepare_f32(const void* minv, void* prepared, int dim, int64_t row_stride,

@@ -134,6 +134,16 @@
 // kernels use. So the state is the plain versions' bits, and only a row dot
 // within rounding of 0 can flip the combined U-turn decision.
 //
+// Stage stamps (utils/trace.py). Each kernel takes the address of the
+// tracer's stamp buffer as its last pointer, null unless the tracer was on
+// when it was launched or captured. Given one, the launch runs the kernel's
+// traced instantiation (kTraced; a null one runs the untraced kernel, which
+// holds no stamp): one thread of block 0 stamps the kernel's stage on entry
+// (D1 open, L2 commit, D2 merge), closing the stage before it (D1:
+// between_graphs; L2: the int trace_prev, fixed at capture; D2: commit), and
+// D2's last block to arrive stamps between_graphs on exit. A stamp changes
+// nothing the kernels compute.
+//
 // C interface (ctypes), each in _f32 and _f64, returning a cudaError_t:
 //   nuts_leaf_commit_<t>(ptrs, ints, max_delta_energy, stream)
 //   nuts_doubling_open_<t>(ptrs, ints, stream)
@@ -155,8 +165,34 @@ constexpr int kMaxSums = 1 + 2 * kSweepRows;
 constexpr int kRegisterElements = 4;   // L2: elements a thread keeps in registers
 constexpr int kStashBytes = 232448 - 1024;  // a block's shared memory, less the static
 constexpr int kAliveShift = 15;        // L2: chains a launch, at most 2^15 - 1
-constexpr int kNumPointers = 24;
-constexpr int kNumInts = 10;
+constexpr int kNumPointers = 25;
+constexpr int kNumInts = 11;
+
+// The tracer's stages (utils/trace.py STAGES) and its stamp: buf = [the
+// last stamp's ns, the stage it opened, the first stamp's ns, ns by stage,
+// entries by stage], a stage's ns the sum of its ends less its starts. A
+// stamp reads %globaltimer, closes stage prev (adds now, counts an entry)
+// and opens stage (subtracts now); with mark it also records itself as the
+// last stamp (a D2 entry's does not: the last block's exit stamp does). Its
+// atomics return nothing the thread waits on, so the stamping thread goes on
+// at once; the kernels of a stream run in turn.
+constexpr int kStages = 6;
+constexpr int kStageOpen = 0, kStageCommit = 3, kStageMerge = 4, kStageBetween = 5;
+
+__device__ __forceinline__ void trace_stamp(int64_t* buf, int prev, int stage, bool mark,
+                                            bool first) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  unsigned long long* b = reinterpret_cast<unsigned long long*>(buf);
+  if (first) atomicCAS(b + 2, 0ull, now);
+  atomicAdd(b + 3 + prev, now);
+  atomicAdd(b + 3 + stage, 0ull - now);
+  atomicAdd(b + 3 + kStages + prev, 1ull);
+  if (mark) {
+    b[0] = now;
+    b[1] = static_cast<unsigned long long>(stage);
+  }
+}
 
 // Rounded arithmetic with no contraction, and the math the plain version
 // calls, for each type.
@@ -263,6 +299,7 @@ struct CommitArgs {
   T* s_div_edge;        // (C, dim) or null (not tracking)
   T* s_div_leaf;        // (C, dim) or null
   int* counters;        // (3,) the pair counter k, the blocks arrived, the loop's condition
+  int64_t* trace;     // the tracer's stamp buffer, or null
   // ints, in this order
   int n_chains, dim, n_rows;
   int inv_mass_stride;  // 0 (shared) or dim (per chain)
@@ -270,6 +307,7 @@ struct CommitArgs {
   int parity;           // the leaf's: j = 2k + parity
   int has_handle;
   cudaGraphConditionalHandle handle;  // the WHILE node's, where has_handle
+  int trace_prev;       // the stage the stamp closes (where trace is given)
   T max_delta_energy;
   int stash_in_smem;    // set at launch: kept rows in shared memory, else in place
 };
@@ -482,10 +520,13 @@ __device__ __forceinline__ void drift_frozen(const CommitArgs<T>& a) {
 }
 
 // L2 for dim <= E * kThreads: a thread's E elements in registers.
-template <typename T, int E>
+template <typename T, int E, bool kTraced>
 __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_kernel(CommitArgs<T> a) {
   __shared__ T smem[kMaxSums][kWarps];
   const int tid = threadIdx.x;
+  if (kTraced && blockIdx.x == 0 && tid == 0) {
+    trace_stamp(a.trace, a.trace_prev, kStageCommit, true, false);
+  }
   const bool alive = a.alive[blockIdx.x];
   const int k = a.counters[0];  // loaded with alive: the rows and u depend on it
   bool alive_after = false;
@@ -566,12 +607,15 @@ __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_kernel(CommitArgs<T
 // L2 for any dim: p_n, v_n and the new rho kept in dynamic shared memory
 // (three rows of dim) where they fit, else in place in cur's p and v rows and
 // rho, which the commit writes anyway.
-template <typename T>
+template <typename T, bool kTraced>
 __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_stash_kernel(CommitArgs<T> a) {
   using O = Op<T>;
   __shared__ T smem[kMaxSums][kWarps];
   extern __shared__ __align__(16) unsigned char stash[];
   const int tid = threadIdx.x;
+  if (kTraced && blockIdx.x == 0 && tid == 0) {
+    trace_stamp(a.trace, a.trace_prev, kStageCommit, true, false);
+  }
   const bool alive = a.alive[blockIdx.x];
   const int k = a.counters[0];
   bool alive_after = false;
@@ -631,6 +675,26 @@ __global__ void __launch_bounds__(kThreads) nuts_leaf_commit_stash_kernel(Commit
   if (a.parity && tid == 0) arrive(a, k, alive_after);
 }
 
+// L2's launch in its traced or untraced instantiation.
+template <typename T, bool kTraced>
+int launch_commit(CommitArgs<T> a, cudaStream_t s) {
+  if (a.dim <= kThreads) {
+    nuts_leaf_commit_kernel<T, 1, kTraced><<<unsigned(a.n_chains), kThreads, 0, s>>>(a);
+  } else if (a.dim <= kRegisterElements * kThreads) {
+    nuts_leaf_commit_kernel<T, kRegisterElements, kTraced>
+        <<<unsigned(a.n_chains), kThreads, 0, s>>>(a);
+  } else {
+    auto kernel = nuts_leaf_commit_stash_kernel<T, kTraced>;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStashBytes);
+    if (attr != cudaSuccess) return attr;
+    const size_t bytes = size_t(3) * a.dim * sizeof(T);
+    a.stash_in_smem = bytes <= size_t(kStashBytes);
+    kernel<<<unsigned(a.n_chains), kThreads, a.stash_in_smem ? bytes : 0, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T>
 int commit(void* const* p, const long long* n, double max_delta_energy, void* stream) {
   CommitArgs<T> a;
@@ -658,6 +722,7 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
   a.s_div_edge = static_cast<T*>(p[21]);
   a.s_div_leaf = static_cast<T*>(p[22]);
   a.counters = static_cast<int*>(p[23]);
+  a.trace = static_cast<int64_t*>(p[24]);
   a.n_chains = int(n[0]);
   a.dim = int(n[1]);
   a.n_rows = int(n[2]);
@@ -666,6 +731,7 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
   a.parity = int(n[5]);
   a.has_handle = int(n[6]);
   a.handle = static_cast<cudaGraphConditionalHandle>(n[7]);
+  a.trace_prev = int(n[8]);
   a.max_delta_energy = T(max_delta_energy);
   // exactly one of mg_n and inv_mass; the next leaf's q apart from q_n; the
   // leaf's constants; the interface's counts
@@ -674,34 +740,21 @@ int commit(void* const* p, const long long* n, double max_delta_energy, void* st
       a.q_next == nullptr || a.q_next == a.q_n || a.n_rows < 1 ||
       a.n_leaves < 1 || (a.parity != 0 && a.parity != 1) ||
       (a.has_handle != 0 && a.has_handle != 1) || a.n_chains >= (1 << kAliveShift) ||
-      int(n[8]) != kNumPointers ||
-      int(n[9]) != kNumInts) {
+      (a.trace && (a.trace_prev < 0 || a.trace_prev >= kStages)) ||
+      int(n[9]) != kNumPointers || int(n[10]) != kNumInts) {
     return cudaErrorInvalidValue;
   }
   if (a.n_chains == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.dim <= kThreads) {
-    nuts_leaf_commit_kernel<T, 1><<<unsigned(a.n_chains), kThreads, 0, s>>>(a);
-  } else if (a.dim <= kRegisterElements * kThreads) {
-    nuts_leaf_commit_kernel<T, kRegisterElements><<<unsigned(a.n_chains), kThreads, 0, s>>>(a);
-  } else {
-    auto kernel = nuts_leaf_commit_stash_kernel<T>;
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStashBytes);
-    if (attr != cudaSuccess) return attr;
-    const size_t bytes = size_t(3) * a.dim * sizeof(T);
-    a.stash_in_smem = bytes <= size_t(kStashBytes);
-    kernel<<<unsigned(a.n_chains), kThreads, a.stash_in_smem ? bytes : 0, s>>>(a);
-  }
-  return cudaGetLastError();
+  return a.trace ? launch_commit<T, true>(a, s) : launch_commit<T, false>(a, s);
 }
 
 // -- D1 and D2: the doubling's opening and its merge ----------------------------
 
 constexpr int kOpenThreads = 256;  // D1: one element of a chain's rows a thread
-constexpr int kOpenPointers = 21;
+constexpr int kOpenPointers = 22;
 constexpr int kOpenInts = 5;
-constexpr int kMergePointers = 27;
+constexpr int kMergePointers = 28;
 constexpr int kMergeElements = 4;  // D2: a thread's elements a chunk, loaded before any store
 constexpr int kMergeInts = 7;
 
@@ -729,14 +782,18 @@ struct OpenArgs {
   T* s_div_edge;        // (C, dim) out: 0, or null (not tracking)
   T* s_div_leaf;        // (C, dim) out: 0, or null
   int* counters;        // (3,) out: 0
+  int64_t* trace;     // the tracer's stamp buffer, or null
   // the integers, in this order
   int n_chains, dim, u_stride;
 };
 
-template <typename T>
+template <typename T, bool kTraced>
 __global__ void __launch_bounds__(kOpenThreads) nuts_doubling_open_kernel(OpenArgs<T> o) {
   using O = Op<T>;
   const int64_t c = blockIdx.y, dim = o.dim;
+  if (kTraced && blockIdx.x == 0 && c == 0 && threadIdx.x == 0) {
+    trace_stamp(o.trace, kStageBetween, kStageOpen, true, true);
+  }
   // torch.where(u[0] < 0.5, 1.0, -1.0) * eps, and 0.5 times it
   const bool go_right = o.u[c] < T(0.5);
   const T step = O::mul(go_right ? T(1) : T(-1), o.eps[c]);
@@ -805,18 +862,22 @@ struct MergeArgs {
   T* div_leaf;            // (C, dim) or null
   int* counters;          // (3,) the pair counter k, the blocks arrived, the loop's condition
   int64_t* readout;       // (2,) out: all chains done, the leaves run
+  int64_t* trace;       // the tracer's stamp buffer, or null
   // the integers, in this order
   int n_chains, dim, u_stride;
   int n_leaves;           // the doubling's, 2^i
   int new_depth;          // i + 1
 };
 
-template <typename T>
+template <typename T, bool kTraced>
 __global__ void __launch_bounds__(kThreads) nuts_doubling_merge_kernel(MergeArgs<T> m) {
   using O = Op<T>;
   __shared__ T smem[kMaxSums][kWarps];
   const int tid = threadIdx.x;
   const int64_t c = blockIdx.x, dim = m.dim, row = c * dim, rows = c * 5 * dim;
+  if (kTraced && c == 0 && tid == 0) {
+    trace_stamp(m.trace, kStageCommit, kStageMerge, false, false);
+  }
   // the chain's flags and scalars, the same in every thread (read before the
   // barrier below, after which thread 0 writes them)
   const bool upd = !m.done[c];
@@ -911,6 +972,7 @@ __global__ void __launch_bounds__(kThreads) nuts_doubling_merge_kernel(MergeArgs
   m.readout[0] = done && (old >> kAliveShift) == 0;
   m.readout[1] = m.n_leaves == 1 ? 1 : 2 * int64_t(m.counters[0]);
   m.counters[1] = 0;
+  if (kTraced) trace_stamp(m.trace, kStageMerge, kStageBetween, true, false);
 }
 
 template <typename T>
@@ -937,13 +999,14 @@ int open_doubling(void* const* p, const long long* n, void* stream) {
   o.s_div_edge = static_cast<T*>(p[18]);
   o.s_div_leaf = static_cast<T*>(p[19]);
   o.counters = static_cast<int*>(p[20]);
+  o.trace = static_cast<int64_t*>(p[21]);
   o.n_chains = int(n[0]);
   o.dim = int(n[1]);
   o.u_stride = int(n[2]);
-  // every buffer but the tracked pair, which comes both or neither; the
-  // interface's counts
+  // every buffer but the tracked pair, which comes both or neither, and the
+  // stamp buffer; the interface's counts
   for (int k = 0; k < kOpenPointers; ++k) {
-    if (p[k] == nullptr && k != 18 && k != 19) return cudaErrorInvalidValue;
+    if (p[k] == nullptr && k != 18 && k != 19 && k != 21) return cudaErrorInvalidValue;
   }
   if ((o.s_div_edge == nullptr) != (o.s_div_leaf == nullptr) || o.dim < 1 ||
       o.n_chains > 65535 || int(n[3]) != kOpenPointers || int(n[4]) != kOpenInts) {
@@ -951,7 +1014,12 @@ int open_doubling(void* const* p, const long long* n, void* stream) {
   }
   if (o.n_chains == 0) return 0;
   const dim3 grid(unsigned((o.dim + kOpenThreads - 1) / kOpenThreads), unsigned(o.n_chains));
-  nuts_doubling_open_kernel<T><<<grid, kOpenThreads, 0, static_cast<cudaStream_t>(stream)>>>(o);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (o.trace) {
+    nuts_doubling_open_kernel<T, true><<<grid, kOpenThreads, 0, s>>>(o);
+  } else {
+    nuts_doubling_open_kernel<T, false><<<grid, kOpenThreads, 0, s>>>(o);
+  }
   return cudaGetLastError();
 }
 
@@ -985,15 +1053,16 @@ int merge_doubling(void* const* p, const long long* n, void* stream) {
   m.div_leaf = static_cast<T*>(p[24]);
   m.counters = static_cast<int*>(p[25]);
   m.readout = static_cast<int64_t*>(p[26]);
+  m.trace = static_cast<int64_t*>(p[27]);
   m.n_chains = int(n[0]);
   m.dim = int(n[1]);
   m.u_stride = int(n[2]);
   m.n_leaves = int(n[3]);
   m.new_depth = int(n[4]);
-  // every buffer but the four tracked ones, which come all or none; the
-  // interface's counts
+  // every buffer but the four tracked ones, which come all or none, and the
+  // stamp buffer; the interface's counts
   const bool tracked = m.s_div_edge != nullptr;
-  for (int k = 0; k < kMergePointers; ++k) {
+  for (int k = 0; k < kMergePointers - 1; ++k) {
     const bool track_buffer = k == 10 || k == 11 || k == 23 || k == 24;
     if (track_buffer ? (p[k] != nullptr) != tracked : p[k] == nullptr) {
       return cudaErrorInvalidValue;
@@ -1004,8 +1073,12 @@ int merge_doubling(void* const* p, const long long* n, void* stream) {
     return cudaErrorInvalidValue;
   }
   if (m.n_chains == 0) return 0;
-  nuts_doubling_merge_kernel<T>
-      <<<unsigned(m.n_chains), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(m);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m.trace) {
+    nuts_doubling_merge_kernel<T, true><<<unsigned(m.n_chains), kThreads, 0, s>>>(m);
+  } else {
+    nuts_doubling_merge_kernel<T, false><<<unsigned(m.n_chains), kThreads, 0, s>>>(m);
+  }
   return cudaGetLastError();
 }
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.minv_mv import minv_mv
+from ..utils import trace
 from .adapt import (
     DualAveragingState,
     WelfordState,
@@ -199,17 +200,21 @@ def make_warmup_step(vg_b, target_accept: float, max_depth: int, generator: torc
 
     def warmup_step(carry: WarmupCarry, in_win: bool, win_end: bool):
         chain = carry.chain
-        q, logp, grad, stats = nuts_transition_batched(
-            vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
-            DiagMetric(carry.inv_mass), generator, max_depth=max_depth, mesh=mesh, tree=tree,
-        )
-        da = da_update(carry.da, stats.accept_prob, target_accept)
+        with trace.span("warmup.transition"):
+            q, logp, grad, stats = nuts_transition_batched(
+                vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
+                DiagMetric(carry.inv_mass), generator, max_depth=max_depth, mesh=mesh,
+                tree=tree,
+            )
+            da = da_update(carry.da, stats.accept_prob, target_accept)
         welford, inv_mass = carry.welford, carry.inv_mass
         if in_win:
-            welford = welford_update(welford, q)
+            with trace.span("warmup.moments"):
+                welford = welford_update(welford, q)
         if win_end:
-            inv_mass = welford_variance_regularized(welford)
-            welford = welford_init(q.shape[1], q.dtype, q.device, batch=(q.shape[0],))
+            with trace.span("warmup.refit"):
+                inv_mass = welford_variance_regularized(welford)
+                welford = welford_init(q.shape[1], q.dtype, q.device, batch=(q.shape[0],))
             da = da_restart(da)
         chain = ChainState(q=q, logp=logp, grad=grad)
         return WarmupCarry(chain=chain, da=da, welford=welford, inv_mass=inv_mass), stats

@@ -59,6 +59,19 @@ taken from (its edge) and the exploded leaf it produced. Off, the
 transition issues exactly the operations it issues without the option; on,
 it adds two masked copies per leaf and draws the same numbers.
 
+While the tracer is on (``utils/trace.py``) a transition records host
+spans: ``transition`` around it, ``transition.prologue`` (the binding, the
+momentum draw and products, the tree's reset), per doubling
+``doubling.launch`` (the graph's replay, or the eager doubling),
+``doubling.readout`` (the host read, counting the leaves run) and, for a
+graph, ``doubling.bookkeeping`` (the launch tables), ``tree.capture`` around a
+capture, and ``transition.stats`` (``NutsStats`` and the outputs' copies);
+on the card the prologue, each replay and the stats also record CUDA
+events, and the graphs captured while it is on carry its stage stamps: a
+leaf's value-and-grad is captured in a ``vg`` stage scope and its metric
+product in a ``metric`` one (``ops/leaf.py``). Off, the tree records and
+launches nothing more.
+
 Under a chain mesh (``parallel/mesh.py``) each rank runs the transition of
 its block of chains in its own lockstep. Every rank draws each random
 tensor for all chains and keeps its block (``mesh.local_draw``), and at the
@@ -69,7 +82,6 @@ would draw unsharded.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional
 
 import torch
@@ -77,6 +89,7 @@ import torch
 from ..ops import cuda_band, minv_mv
 from ..ops import leaf as leaf_ops
 from ..parallel.mesh import local_draw
+from ..utils import trace
 from .adapt import da_init, da_restart, da_update
 from .nuts import (
     MAX_DELTA_ENERGY,
@@ -244,7 +257,8 @@ class LockstepTree:
         its plain version)."""
         st = self.st
         q_n, q_next = st.q[j % 2], st.q[1 - j % 2]
-        logp_n, g_n = self.leaf_vg(q_n)
+        with trace.stage(trace.VG):
+            logp_n, g_n = self.leaf_vg(q_n)
         leaf_ops.leaf_commit(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j,
                              _leaf_idx_to_ckpt_idxs(j), self.max_delta_energy, self.track,
                              handle)
@@ -310,18 +324,19 @@ class LockstepTree:
         graph.register_generator_state(self.generator)
         before, body_before = kernel_launch_counts(), self.loops.body_nodes
         leaf_before = dict(leaf_ops.LAUNCHES)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            self._doubling(metric, i, self.loops)
-            nodes = graph_if.capture_nodes(self.stream)
-        # Before the capture begins, PyTorch writes the registered generator's
-        # graph offset (0) on the capture stream, outside the graph; each
-        # replay writes the generator's current offset on the replaying
-        # stream. Unordered, the capture's write could land after the first
-        # replay's and that replay draw from offset 0: other draws whenever
-        # the card is busy, as with several ranks on it (PERF.md, PR 11).
-        torch.cuda.current_stream(device).wait_stream(self.stream)
-        seconds = time.perf_counter() - t0
+        with trace.timed("tree.capture") as timed:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                self._doubling(metric, i, self.loops)
+                nodes = graph_if.capture_nodes(self.stream)
+            # Before the capture begins, PyTorch writes the registered
+            # generator's graph offset (0) on the capture stream, outside the
+            # graph; each replay writes the generator's current offset on the
+            # replaying stream. Unordered, the capture's write could land
+            # after the first replay's and that replay draw from offset 0:
+            # other draws whenever the card is busy, as with several ranks on
+            # it (PERF.md, Findings).
+            torch.cuda.current_stream(device).wait_stream(self.stream)
+        seconds = timed.seconds
         launches = {name: k - before[name] for name, k in kernel_launch_counts().items()}
         add_kernel_launches({name: -k for name, k in launches.items()})
         leaf_launches = {name: k - leaf_before[name] for name, k in leaf_ops.LAUNCHES.items()}
@@ -351,13 +366,30 @@ class LockstepTree:
         graph = self.graphs.get(i)
         if graph is None:
             graph = self.graphs[i] = self._capture(metric, i)
-        graph.replay()
-        all_done, leaves = self.st.readout.tolist()
-        add_kernel_launches({name: k * leaves for name, k in self.per_leaf.items()})
-        leaf_ops.LAUNCHES[leaf_ops.OPEN] += 1
-        leaf_ops.LAUNCHES[leaf_ops.COMMIT] += leaves
-        leaf_ops.LAUNCHES[leaf_ops.MERGE] += 1
+        with trace.device_span("doubling.launch", "graph"):
+            graph.replay()
+        with trace.span("doubling.readout") as read:
+            all_done, leaves = self.st.readout.tolist()
+            read.count(leaves)
+        with trace.span("doubling.bookkeeping"):
+            add_kernel_launches({name: k * leaves for name, k in self.per_leaf.items()})
+            leaf_ops.LAUNCHES[leaf_ops.OPEN] += 1
+            leaf_ops.LAUNCHES[leaf_ops.COMMIT] += leaves
+            leaf_ops.LAUNCHES[leaf_ops.MERGE] += 1
         return bool(all_done), leaves
+
+    def _eager(self, metric, i: int):
+        """Doubling i run eagerly, then the host read of done (but after the
+        last possible doubling): (all chains done, leaves run, host reads)."""
+        with trace.span("doubling.launch"):
+            leaves, reads = self._doubling(metric, i)
+        with trace.span("doubling.readout") as read:
+            all_done = False
+            if i + 1 < self.max_depth:
+                reads += 1
+                all_done = bool(self.st.done.all())
+            read.count(leaves)
+        return all_done, leaves, reads
 
     # -- the transition ----------------------------------------------------------
 
@@ -365,24 +397,30 @@ class LockstepTree:
         """One transition from (q (C, dim), logp (C,), grad (C, dim)) at
         ``step_size`` (scalar or (C,)) under ``metric``; returns as
         ``nuts_transition_batched``."""
+        with trace.span("transition"):
+            return self._transition(q, logp, grad, step_size, metric)
+
+    def _transition(self, q, logp, grad, step_size, metric):
         c, dim = q.shape
         dtype, device = q.dtype, q.device
-        metric = self._bind(q, step_size, metric)
-        st = self.st
-        z = local_draw(torch.randn, self.generator, (c, dim), 0, self.mesh, dtype, device)
-        p0 = metric.momentum(z)
-        v0 = metric.velocity(p0)
-        st.h0.copy_(-logp + 0.5 * leaf_ops.rowdot(p0, v0))
-        torch.stack([q, p0, v0, grad, metric.velocity(grad)], dim=1, out=st.left)
-        st.right.copy_(st.left)
-        st.prop.copy_(st.left)
-        st.rho.copy_(p0)
-        st.logp_prop.copy_(logp)
-        for buf in (st.log_sum_w, st.sum_accept, st.num_leaves, st.diverging, st.depth, st.done):
-            buf.zero_()
-        if self.track:
-            st.div_edge.zero_()
-            st.div_leaf.zero_()
+        with trace.device_span("transition.prologue"):
+            metric = self._bind(q, step_size, metric)
+            st = self.st
+            z = local_draw(torch.randn, self.generator, (c, dim), 0, self.mesh, dtype, device)
+            p0 = metric.momentum(z)
+            v0 = metric.velocity(p0)
+            st.h0.copy_(-logp + 0.5 * leaf_ops.rowdot(p0, v0))
+            torch.stack([q, p0, v0, grad, metric.velocity(grad)], dim=1, out=st.left)
+            st.right.copy_(st.left)
+            st.prop.copy_(st.left)
+            st.rho.copy_(p0)
+            st.logp_prop.copy_(logp)
+            for buf in (st.log_sum_w, st.sum_accept, st.num_leaves, st.diverging, st.depth,
+                        st.done):
+                buf.zero_()
+            if self.track:
+                st.div_edge.zero_()
+                st.div_leaf.zero_()
 
         host_syncs = lockstep_leaves = doublings = 0
         for i in range(self.max_depth):
@@ -391,12 +429,8 @@ class LockstepTree:
                 all_done, leaves = self._replay(metric, i)
                 host_syncs += 1
             else:
-                leaves, reads = self._doubling(metric, i)
+                all_done, leaves, reads = self._eager(metric, i)
                 host_syncs += reads
-                all_done = False
-                if i + 1 < self.max_depth:
-                    host_syncs += 1
-                    all_done = bool(st.done.all())
             lockstep_leaves += leaves
             if all_done:
                 break
@@ -409,19 +443,20 @@ class LockstepTree:
                 torch.rand((2, full), generator=self.generator, dtype=dtype, device=device)
                 torch.rand((1 << i, full), generator=self.generator, dtype=dtype, device=device)
 
-        stats = NutsStats(
-            accept_prob=st.sum_accept / torch.clamp(st.num_leaves, min=1.0),
-            num_leapfrog=st.num_leaves.clone(),
-            tree_depth=st.depth.clone(),
-            diverging=st.diverging.clone(),
-            energy=st.h0.clone(),
-            step_size=st.eps.clone(),
-            host_syncs=host_syncs,
-            lockstep_leaves=lockstep_leaves,
-        )
-        out = (st.prop[:, Q].clone(), st.logp_prop.clone(), st.prop[:, G].clone(), stats)
-        if self.track:
-            return (*out, (st.div_edge.clone(), st.div_leaf.clone()))
+        with trace.device_span("transition.stats"):
+            stats = NutsStats(
+                accept_prob=st.sum_accept / torch.clamp(st.num_leaves, min=1.0),
+                num_leapfrog=st.num_leaves.clone(),
+                tree_depth=st.depth.clone(),
+                diverging=st.diverging.clone(),
+                energy=st.h0.clone(),
+                step_size=st.eps.clone(),
+                host_syncs=host_syncs,
+                lockstep_leaves=lockstep_leaves,
+            )
+            out = (st.prop[:, Q].clone(), st.logp_prop.clone(), st.prop[:, G].clone(), stats)
+            if self.track:
+                out = (*out, (st.div_edge.clone(), st.div_leaf.clone()))
         return out
 
 
@@ -487,12 +522,13 @@ def make_warmup_step_pooled_batched(
 
     def warmup_step(carry: WarmupCarry, win_end: bool, metric):
         chain = carry.chain
-        q, logp, grad, stats, *div_pair = nuts_transition_batched(
-            vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
-            metric, generator, max_depth=max_depth, mesh=mesh, track_div_leaf=track_div_leaf,
-            tree=tree,
-        )
-        da = da_update(carry.da, stats.accept_prob, target_accept)
+        with trace.span("warmup.transition"):
+            q, logp, grad, stats, *div_pair = nuts_transition_batched(
+                vg_b, chain.q, chain.logp, chain.grad, torch.exp(carry.da.log_eps),
+                metric, generator, max_depth=max_depth, mesh=mesh,
+                track_div_leaf=track_div_leaf, tree=tree,
+            )
+            da = da_update(carry.da, stats.accept_prob, target_accept)
         if win_end:
             da = da_restart(da)
         return (WarmupCarry(chain=ChainState(q=q, logp=logp, grad=grad), da=da), stats,
@@ -511,12 +547,13 @@ def make_sample_step_batched(vg_b, max_depth: int, generator: torch.Generator, m
         tree = LockstepTree(vg_b, generator, max_depth, mesh=mesh)
 
     def sample_step(carry: SampleCarry, eps_mult, metric):
-        chain = carry.chain
-        eps = carry.eps if eps_mult is None else carry.eps * eps_mult
-        q, logp, grad, stats = nuts_transition_batched(
-            vg_b, chain.q, chain.logp, chain.grad, eps, metric, generator,
-            max_depth=max_depth, mesh=mesh, tree=tree,
-        )
-        return carry._replace(chain=ChainState(q=q, logp=logp, grad=grad)), (q, logp, stats)
+        with trace.span("sample_step"):
+            chain = carry.chain
+            eps = carry.eps if eps_mult is None else carry.eps * eps_mult
+            q, logp, grad, stats = nuts_transition_batched(
+                vg_b, chain.q, chain.logp, chain.grad, eps, metric, generator,
+                max_depth=max_depth, mesh=mesh, tree=tree,
+            )
+            return carry._replace(chain=ChainState(q=q, logp=logp, grad=grad)), (q, logp, stats)
 
     return sample_step

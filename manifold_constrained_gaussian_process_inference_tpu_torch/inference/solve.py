@@ -21,7 +21,15 @@ sampling leg runs unsharded on every rank, as in the JAX package.
 ``divergence_envelope`` folds exact float64 Hessian probes at divergent
 warmup steps into the pooled metric (parallel/chains.py
 CurvatureEnvelope); ``profile_dir`` traces the sampling phase with
-torch.profiler.
+torch.profiler and the port's tracer (``utils/trace.py``).
+
+``diagnostics["phase_times_s"]`` times the phases with the tracer's
+``phase`` spans, recorded whether it is on or not: ``nlml_s``,
+``gp_target_s`` (x and theta init, the GP covariances, the target, Psi_0),
+``map_s``, ``gn_map_s``, ``whitener_s``, ``sampler_setup_s`` (the envelope,
+the starts, a resume's checkpoint, and the sampler's time outside its warmup
+and sampling), ``warmup_s``, ``sampling_s`` (the sampler's own) and
+``results_s``; they sum to ``total_time_s`` but for the argument checks.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from ..ops.gp_cov import build_gp_cov
 from ..ops.kernels import parse_kernel_type
 from ..parallel.chains import CurvatureEnvelope, run_chains
 from ..parallel.mesh import broadcast_tensors
+from ..utils import trace
 from .nlml import default_initial_guesses, optimize_gp_hyperparameters
 from .target import MagiTarget, check_band_impl
 from .transforms import constrain_np, make_theta_transform, unconstrain
@@ -219,24 +228,40 @@ def envelope_probes(target_h: MagiTarget, whitener: PsiWhitener):
     return hess_z, logp_z
 
 
+@contextlib.contextmanager
 def _trace_sampling(profile_dir, device, mesh):
     """The JAX package's ``jax.profiler.trace(profile_dir)`` around the
     sampling phase, as ``torch.profiler``: CPU activity, and the card's
     under CUDA, written when the scope ends as one trace file per rank
     (``magi_rank<r>.<timestamp>.pt.trace.json``, Chrome trace format,
-    readable by Perfetto or TensorBoard) into ``profile_dir``."""
+    readable by Perfetto or TensorBoard) into ``profile_dir``. Beside it the
+    port's tracer over the same scope (started here unless it is on), whose
+    spans go to ``magi_spans_rank<r>.json`` (Chrome trace format: the host
+    spans and the device's graph replays and eager spans on one timeline,
+    the stage sums inside the doubling graphs, which the profiler does not
+    see inside a WHILE node's body, in ``otherData``)."""
     if not profile_dir:
-        return contextlib.nullcontext()
+        yield
+        return
     os.makedirs(profile_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     rank = 0 if mesh is None else mesh.rank
-    return torch.profiler.profile(
-        activities=activities,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(
-            profile_dir, worker_name=f"magi_rank{rank}"),
-    )
+    started = not trace.enabled()
+    if started:
+        trace.start(device)
+    try:
+        with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                profile_dir, worker_name=f"magi_rank{rank}"),
+        ):
+            yield
+    finally:
+        if started:
+            trace.stop()
+    trace.write_chrome(os.path.join(profile_dir, f"magi_spans_rank{rank}.json"), rank)
 
 
 def _from_root(mesh, compute, *like):
@@ -478,122 +503,120 @@ def solve_magi(
         logger.warning("sigma provided without phi: sigma treated as unknown and re-initialized.")
 
     # --- phi / sigma initialization ---
-    t_phase = time.perf_counter()
-    if phi_exo.size and sigma_is_fixed:
-        phi_all, sigma_init = phi_exo, sigma_exo
-    else:
-        def nlml():
-            guesses = default_initial_guesses(y_obs, t_obs)
-            if phi_exo.size:
-                guesses[:, 0] = np.log(np.maximum(phi_exo[0], 1e-10))
-                guesses[:, 1] = np.log(np.maximum(phi_exo[1], 1e-10))
-            optimized = optimize_gp_hyperparameters(
-                y_obs, t_obs, config.kernel, initial_log_params=guesses,
-                jitter=config.jitter, max_iters=config.gp_optim_iterations,
-                ftol=config.gp_optim_ftol, gtol=config.gp_optim_gtol,
-                show_trace=config.gp_optim_show_trace,
-            )
-            return (phi_exo if phi_exo.size else optimized[:, :2].T,
-                    np.maximum(optimized[:, 2], 1e-8))
+    with trace.phase(phase_times, "nlml_s"):
+        if phi_exo.size and sigma_is_fixed:
+            phi_all, sigma_init = phi_exo, sigma_exo
+        else:
+            def nlml():
+                guesses = default_initial_guesses(y_obs, t_obs)
+                if phi_exo.size:
+                    guesses[:, 0] = np.log(np.maximum(phi_exo[0], 1e-10))
+                    guesses[:, 1] = np.log(np.maximum(phi_exo[1], 1e-10))
+                optimized = optimize_gp_hyperparameters(
+                    y_obs, t_obs, config.kernel, initial_log_params=guesses,
+                    jitter=config.jitter, max_iters=config.gp_optim_iterations,
+                    ftol=config.gp_optim_ftol, gtol=config.gp_optim_gtol,
+                    show_trace=config.gp_optim_show_trace,
+                )
+                return (phi_exo if phi_exo.size else optimized[:, :2].T,
+                        np.maximum(optimized[:, 2], 1e-8))
 
-        phi_all, sigma_init = _from_root(mesh, nlml, np.zeros((2, n_dims)), np.zeros(n_dims))
-    phase_times["nlml_s"] = time.perf_counter() - t_phase
+            phi_all, sigma_init = _from_root(mesh, nlml, np.zeros((2, n_dims)), np.zeros(n_dims))
     logger.info("phi:\n%s\ninitial sigma: %s%s", np.round(phi_all, 4),
                 np.round(sigma_init, 4), " (fixed)" if sigma_is_fixed else "")
     if not (np.isfinite(phi_all).all() and (phi_all > 0).all()):
         raise MagiError(f"Invalid GP hyperparameters: {phi_all}")
 
-    # --- x / theta init ---
-    if config.x_init is not None and np.asarray(config.x_init).size:
-        x_init = np.asarray(config.x_init, dtype=np.float64)
-        if x_init.shape != (n_times, n_dims):
-            raise MagiError(f":xInit must be ({n_times}, {n_dims}); got {x_init.shape}")
-    else:
-        x_init = _init_x_interpolation(y_obs, t_obs)
-    lo, hi = ode_system.theta_lower_bound, ode_system.theta_upper_bound
-    if config.theta_init is not None and len(np.atleast_1d(config.theta_init)):
-        theta_init = np.asarray(config.theta_init, dtype=np.float64)
-        if theta_init.shape != (k,):
-            raise MagiError(f":thetaInit must have length {k}")
-        if (theta_init < lo).any() or (theta_init > hi).any():
-            logger.warning("thetaInit outside bounds; clamping.")
-            theta_init = np.clip(theta_init, lo, hi)
-    else:
-        theta_init = _init_theta_from_bounds(ode_system)
+    # --- x / theta init, GP covariances, the target, Psi_0 ---
+    with trace.phase(phase_times, "gp_target_s"):
+        if config.x_init is not None and np.asarray(config.x_init).size:
+            x_init = np.asarray(config.x_init, dtype=np.float64)
+            if x_init.shape != (n_times, n_dims):
+                raise MagiError(f":xInit must be ({n_times}, {n_dims}); got {x_init.shape}")
+        else:
+            x_init = _init_x_interpolation(y_obs, t_obs)
+        lo, hi = ode_system.theta_lower_bound, ode_system.theta_upper_bound
+        if config.theta_init is not None and len(np.atleast_1d(config.theta_init)):
+            theta_init = np.asarray(config.theta_init, dtype=np.float64)
+            if theta_init.shape != (k,):
+                raise MagiError(f":thetaInit must have length {k}")
+            if (theta_init < lo).any() or (theta_init > hi).any():
+                logger.warning("thetaInit outside bounds; clamping.")
+                theta_init = np.clip(theta_init, lo, hi)
+        else:
+            theta_init = _init_theta_from_bounds(ode_system)
 
-    # --- GP covariances: float64 on the host; the sampling copy is cast.
-    # Under a mesh rank 0's bundle goes to every rank: the host float64
-    # factorizations need not round alike on every rank's host ---
-    gp_cov64 = None
-    if mesh is None or mesh.rank == 0:
-        gp_cov64 = build_gp_cov(
-            config.kernel, phi_all, t_obs, bandsize=config.band_size, complexity=2,
-            jitter=config.jitter, auto_escalate_bandsize=config.band_auto_escalate,
-        )
-    if mesh is not None:
-        gp_cov64 = mesh.broadcast_object(gp_cov64)
-    gp_cov = gp_cov64.to(dtype=dtype, device=device)
-
-    prior_temps = np.asarray(config.prior_temperature, dtype=np.float64)
-    if prior_temps.shape != (3,):
-        logger.warning("priorTemperature should be [beta_deriv, beta_level, beta_obs]; "
-                       "broadcasting scalar.")
-        prior_temps = np.full(3, float(np.atleast_1d(prior_temps)[0]))
-    band_impl = resolve_band_impl(config, n_times, n_dims, gp_cov.bandsize, device)
-    logger.info("band_impl: %s (bandsize %d)", band_impl, gp_cov.bandsize)
-
-    theta_transform = None
-    if config.theta_constrained:
-        theta_transform = make_theta_transform(lo, hi)
-
-    gp_mean = resolve_gp_mean(config.gp_mean, y_obs)
-
-    def build_target(cov, temps, impl):
-        return MagiTarget.build(
-            y_obs, cov, ode_system, sigma_init, temps, sigma_is_fixed,
-            band_impl=impl, theta_transform=theta_transform, gp_mean=gp_mean,
-        )
-
-    target = build_target(gp_cov, prior_temps, band_impl)
-
-    # --- Psi_0 ---
-    if initial_params is not None:
-        psi0 = np.asarray(initial_params, dtype=np.float64).copy()
-        if psi0.shape != (target.dimension,):
-            raise MagiError(
-                f"initial_params must have length {target.dimension} "
-                f"(sigma {'fixed' if sigma_is_fixed else 'sampled'}); got {psi0.shape}"
+        # --- GP covariances: float64 on the host; the sampling copy is cast.
+        # Under a mesh rank 0's bundle goes to every rank: the host float64
+        # factorizations need not round alike on every rank's host ---
+        gp_cov64 = None
+        if mesh is None or mesh.rank == 0:
+            gp_cov64 = build_gp_cov(
+                config.kernel, phi_all, t_obs, bandsize=config.band_size, complexity=2,
+                jitter=config.jitter, auto_escalate_bandsize=config.band_auto_escalate,
             )
-        th = psi0[nd : nd + k]
-        if (th < lo).any() or (th > hi).any():
-            logger.warning("theta part of initial_params outside bounds; clamping.")
-            psi0[nd : nd + k] = np.clip(th, lo, hi)
-    else:
-        parts = [x_init.T.reshape(-1), theta_init]
-        if not sigma_is_fixed:
-            parts.append(np.log(np.maximum(sigma_init, 1e-8)))
-        psi0 = np.concatenate(parts)
-    if theta_transform is not None:
-        psi0[nd : nd + k] = unconstrain(theta_transform, psi0[nd : nd + k])
-    logger.info("Sampling dimension: %d", psi0.shape[0])
+        if mesh is not None:
+            gp_cov64 = mesh.broadcast_object(gp_cov64)
+        gp_cov = gp_cov64.to(dtype=dtype, device=device)
+
+        prior_temps = np.asarray(config.prior_temperature, dtype=np.float64)
+        if prior_temps.shape != (3,):
+            logger.warning("priorTemperature should be [beta_deriv, beta_level, beta_obs]; "
+                           "broadcasting scalar.")
+            prior_temps = np.full(3, float(np.atleast_1d(prior_temps)[0]))
+        band_impl = resolve_band_impl(config, n_times, n_dims, gp_cov.bandsize, device)
+        logger.info("band_impl: %s (bandsize %d)", band_impl, gp_cov.bandsize)
+
+        theta_transform = None
+        if config.theta_constrained:
+            theta_transform = make_theta_transform(lo, hi)
+
+        gp_mean = resolve_gp_mean(config.gp_mean, y_obs)
+
+        def build_target(cov, temps, impl):
+            return MagiTarget.build(
+                y_obs, cov, ode_system, sigma_init, temps, sigma_is_fixed,
+                band_impl=impl, theta_transform=theta_transform, gp_mean=gp_mean,
+            )
+
+        target = build_target(gp_cov, prior_temps, band_impl)
+
+        # --- Psi_0 ---
+        if initial_params is not None:
+            psi0 = np.asarray(initial_params, dtype=np.float64).copy()
+            if psi0.shape != (target.dimension,):
+                raise MagiError(
+                    f"initial_params must have length {target.dimension} "
+                    f"(sigma {'fixed' if sigma_is_fixed else 'sampled'}); got {psi0.shape}"
+                )
+            th = psi0[nd : nd + k]
+            if (th < lo).any() or (th > hi).any():
+                logger.warning("theta part of initial_params outside bounds; clamping.")
+                psi0[nd : nd + k] = np.clip(th, lo, hi)
+        else:
+            parts = [x_init.T.reshape(-1), theta_init]
+            if not sigma_is_fixed:
+                parts.append(np.log(np.maximum(sigma_init, 1e-8)))
+            psi0 = np.concatenate(parts)
+        if theta_transform is not None:
+            psi0[nd : nd + k] = unconstrain(theta_transform, psi0[nd : nd + k])
+        logger.info("Sampling dimension: %d", psi0.shape[0])
 
     # --- optional Adam MAP warm start, in the working dtype on the device ---
     if config.map_init_iterations > 0:
-        t_phase = time.perf_counter()
         if theta_transform is None:
             map_lb, map_ub = lo, hi
         else:  # the theta slot holds unconstrained values
             map_lb, map_ub = np.full(k, -np.inf), np.full(k, np.inf)
-        (psi0,) = _from_root(mesh, lambda: (map_warm_start(
-            target.value_and_grad_fn(), psi0, config.map_init_iterations, config.map_init_lr,
-            slice(nd, nd + k), map_lb, map_ub, dtype, device,
-        ),), psi0)
-        phase_times["map_s"] = time.perf_counter() - t_phase
+        with trace.phase(phase_times, "map_s"):
+            (psi0,) = _from_root(mesh, lambda: (map_warm_start(
+                target.value_and_grad_fn(), psi0, config.map_init_iterations, config.map_init_lr,
+                slice(nd, nd + k), map_lb, map_ub, dtype, device,
+            ),), psi0)
 
     whitener = target_h = None
     if config.x_whitened:
         # --- staged Gauss-Newton MAP on a float64 dense CPU replica ---
-        t_phase = time.perf_counter()
         freeze = None if sigma_is_fixed else slice(nd + k, target.dimension)
         theta_freeze = np.ones(target.dimension, dtype=bool)
         theta_freeze[nd : nd + k] = False
@@ -602,29 +625,29 @@ def solve_magi(
             t_s = build_target(gp_cov64, stage_temps, "dense")
             return t_s.value_and_grad_fn(), t_s
 
-        (psi0,) = _from_root(mesh, lambda: (_gn_stages(
-            make_target_vg, gp_cov64, y_obs, psi0, prior_temps, theta_freeze, freeze, nd),), psi0)
-        phase_times["gn_map_s"] = time.perf_counter() - t_phase
+        with trace.phase(phase_times, "gn_map_s"):
+            (psi0,) = _from_root(mesh, lambda: (_gn_stages(
+                make_target_vg, gp_cov64, y_obs, psi0, prior_temps, theta_freeze, freeze, nd),),
+                psi0)
 
         # --- exact-Hessian whitener at the mode (GN precision as fallback) ---
-        t_phase = time.perf_counter()
-        if mesh is None or mesh.rank == 0:
-            target_h = build_target(gp_cov64, prior_temps, "dense")
-            try:
-                whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
-            except (np.linalg.LinAlgError, RuntimeError):
-                logger.warning("exact-Hessian whitener failed; using the GN precision.")
-                whitener = build_psi_whitener(
-                    gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
-                )
-        else:
-            dim = target.dimension
-            empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)  # noqa: E731
-            whitener = PsiWhitener(W=empty(dim, dim), L_T=empty(dim, dim), center=empty(dim))
-        whitener = broadcast_tensors(mesh, whitener)
-        vg = make_centered_whitened_vg(target, whitener)
-        start = np.zeros(target.dimension)  # zeta = 0 is the mode
-        phase_times["whitener_s"] = time.perf_counter() - t_phase
+        with trace.phase(phase_times, "whitener_s"):
+            if mesh is None or mesh.rank == 0:
+                target_h = build_target(gp_cov64, prior_temps, "dense")
+                try:
+                    whitener = build_psi_whitener_exact(target_h, psi0, dtype, device=device)
+                except (np.linalg.LinAlgError, RuntimeError):
+                    logger.warning("exact-Hessian whitener failed; using the GN precision.")
+                    whitener = build_psi_whitener(
+                        gp_cov64, y_obs, target_h, psi0, prior_temps, dtype, device=device
+                    )
+            else:
+                dim = target.dimension
+                empty = lambda *shape: torch.empty(shape, dtype=dtype, device=device)  # noqa: E731
+                whitener = PsiWhitener(W=empty(dim, dim), L_T=empty(dim, dim), center=empty(dim))
+            whitener = broadcast_tensors(mesh, whitener)
+            vg = make_centered_whitened_vg(target, whitener)
+            start = np.zeros(target.dimension)  # zeta = 0 is the mode
     else:
         # raw Psi: the target's own value-and-grad, no mode-centering
         vg = target.value_and_grad_fn()
@@ -632,38 +655,40 @@ def solve_magi(
 
     # --- the divergence-informed curvature envelope: exact float64 Hessian
     # probes at divergent warmup steps, on the host replica target_h (rank
-    # 0's; the other ranks never probe) ---
-    envelope = None
-    if config.divergence_envelope and config.sampler == "nuts":
-        if config.mass_matrix != "dense-pooled" or whitener is None:
-            logger.warning(
-                "divergence_envelope requires sampler='nuts' with "
-                "mass_matrix='dense-pooled' and x_whitened=True; disabled."
-            )
-        else:
-            probes = envelope_probes(target_h, whitener) if target_h is not None else (None,)
-            envelope = CurvatureEnvelope(*probes, max_points=config.envelope_max_points)
-
-    # --- the sampler on the sampling device ---
-    n_chains = int(config.n_chains)
-    n_adapts = int(np.floor(config.niter_hmc * config.burnin_ratio))
-    starts = np.tile(start, (n_chains, 1))
-    if config.chain_init_jitter > 0 and n_chains > 1:
-        rng_init = np.random.default_rng(config.seed + INIT_JITTER_SEED_OFFSET)
-        starts[1:] += config.chain_init_jitter * rng_init.standard_normal(starts[1:].shape)
-    generator = torch.Generator(device=device).manual_seed(int(config.seed))
-    put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
-    warmup_resume = None
-    if resume is not None:
-        resume = _load_resume(resume, config, target.dimension, mesh)
-        if getattr(resume, "phase", "sampling") == "warmup":
-            if config.sampler != "nuts" or config.mass_matrix != "dense-pooled":
-                raise MagiError(
-                    "warmup-phase checkpoints resume only for sampler='nuts' with "
-                    "mass_matrix='dense-pooled'; other samplers restart warmup."
+    # 0's; the other ranks never probe); the sampler's starts ---
+    with trace.phase(phase_times, "sampler_setup_s"):
+        envelope = None
+        if config.divergence_envelope and config.sampler == "nuts":
+            if config.mass_matrix != "dense-pooled" or whitener is None:
+                logger.warning(
+                    "divergence_envelope requires sampler='nuts' with "
+                    "mass_matrix='dense-pooled' and x_whitened=True; disabled."
                 )
-            warmup_resume, resume = resume, None
-    with _trace_sampling(config.profile_dir, device, mesh):
+            else:
+                probes = envelope_probes(target_h, whitener) if target_h is not None else (None,)
+                envelope = CurvatureEnvelope(*probes, max_points=config.envelope_max_points)
+
+        n_chains = int(config.n_chains)
+        n_adapts = int(np.floor(config.niter_hmc * config.burnin_ratio))
+        starts = np.tile(start, (n_chains, 1))
+        if config.chain_init_jitter > 0 and n_chains > 1:
+            rng_init = np.random.default_rng(config.seed + INIT_JITTER_SEED_OFFSET)
+            starts[1:] += config.chain_init_jitter * rng_init.standard_normal(starts[1:].shape)
+        generator = torch.Generator(device=device).manual_seed(int(config.seed))
+        put = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+        warmup_resume = None
+        if resume is not None:
+            resume = _load_resume(resume, config, target.dimension, mesh)
+            if getattr(resume, "phase", "sampling") == "warmup":
+                if config.sampler != "nuts" or config.mass_matrix != "dense-pooled":
+                    raise MagiError(
+                        "warmup-phase checkpoints resume only for sampler='nuts' with "
+                        "mass_matrix='dense-pooled'; other samplers restart warmup."
+                    )
+                warmup_resume, resume = resume, None
+    # --- the sampler on the sampling device ---
+    with trace.timed("phase.sampler") as sampler, _trace_sampling(config.profile_dir, device,
+                                                                    mesh):
         if resume is not None:
             samples, info, n_chains = _run_resumed(vg, resume, config, dtype, device, mesh)
             if mesh is not None:  # rank 0's checkpoint file is complete
@@ -717,28 +742,32 @@ def solve_magi(
             )
     phase_times["warmup_s"] = info["warmup_time_s"]
     phase_times["sampling_s"] = info["sampling_time_s"]
+    # the sampler's own set-up (its graph captures outside warmup, its results)
+    phase_times["sampler_setup_s"] += max(
+        sampler.seconds - info["warmup_time_s"] - info["sampling_time_s"], 0.0)
 
     # --- results ---
-    n_keep = samples.shape[1]
-    if whitener is not None and n_keep:
-        # one (C, dim) product per draw: a BLAS product's rounding of a row
-        # can depend on how many rows it is given, and a resumed leg holds
-        # fewer draws than the uninterrupted run it must equal bit for bit
-        samples = np.stack(
-            [zeta_to_psi_np(whitener, samples[:, s]) for s in range(n_keep)], axis=1
-        )
-    flat = samples.reshape(n_chains * n_keep, -1)
-    x_samples = flat[:, :nd].reshape(-1, n_dims, n_times).transpose(0, 2, 1)
-    theta_samples = flat[:, nd : nd + k]
-    if theta_transform is not None:
-        theta_samples = constrain_np(theta_transform, theta_samples)
-    if sigma_is_fixed:
-        sigma_samples = np.tile(sigma_init, (flat.shape[0], 1))
-    else:
-        sigma_samples = np.exp(flat[:, nd + k :])
-    n_div = int(np.sum(info["diverging"]))
-    if n_div:
-        logger.warning("%d divergent transitions after warmup.", n_div)
+    with trace.phase(phase_times, "results_s"):
+        n_keep = samples.shape[1]
+        if whitener is not None and n_keep:
+            # one (C, dim) product per draw: a BLAS product's rounding of a row
+            # can depend on how many rows it is given, and a resumed leg holds
+            # fewer draws than the uninterrupted run it must equal bit for bit
+            samples = np.stack(
+                [zeta_to_psi_np(whitener, samples[:, s]) for s in range(n_keep)], axis=1
+            )
+        flat = samples.reshape(n_chains * n_keep, -1)
+        x_samples = flat[:, :nd].reshape(-1, n_dims, n_times).transpose(0, 2, 1)
+        theta_samples = flat[:, nd : nd + k]
+        if theta_transform is not None:
+            theta_samples = constrain_np(theta_transform, theta_samples)
+        if sigma_is_fixed:
+            sigma_samples = np.tile(sigma_init, (flat.shape[0], 1))
+        else:
+            sigma_samples = np.exp(flat[:, nd + k :])
+        n_div = int(np.sum(info["diverging"]))
+        if n_div:
+            logger.warning("%d divergent transitions after warmup.", n_div)
 
     diagnostics = {
         "accept_prob": info["accept_prob"],

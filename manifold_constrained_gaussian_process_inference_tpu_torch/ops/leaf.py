@@ -68,6 +68,13 @@ plain versions, ``doubling_open_torch``, ``leaf_commit_torch`` and
 in their order, and which the card's kernels are held against
 (``chip_smoke.py``'s [leaf]).
 
+While the tracer (``utils/trace.py``) is on, each kernel is launched (and
+captured) with the address of its stamp buffer, its last pointer argument:
+D1 stamps the stage ``open``, L2 ``commit`` (closing the stage its
+``trace_prev`` names), D2 ``merge`` on entry and ``between_graphs`` on
+exit; off, the address is null. The stamps change no bit the kernels
+write.
+
 ``LAUNCHES`` counts each kernel's launches: a wrapper adds one per launch,
 and the tree moves the launches its CUDA graphs captured to each replay
 (``LockstepTree._capture``, ``_replay``): one D1 and one D2 per doubling, one
@@ -83,6 +90,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
 from . import cuda_band
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nuts_leaf.cu"
@@ -91,23 +99,24 @@ OPEN, COMMIT, MERGE = "nuts_doubling_open", "nuts_leaf_commit", "nuts_doubling_m
 COMMIT_POINTERS = ("cur", "q_n", "q_next", "logp_n", "g_n", "mg_n", "inv_mass", "half", "step",
                    "h0", "u_leaf", "s_prop", "s_logp_prop", "s_rho", "ckpts", "s_lsw",
                    "s_sum_accept", "s_n_leaves", "s_div", "s_turn", "alive", "s_div_edge",
-                   "s_div_leaf", "counters")
+                   "s_div_leaf", "counters", "trace")
 # L2's integer arguments, in the order of the kernel's CommitArgs, then the
 # two counts the kernel checks against its own
 COMMIT_INTS = ("n_chains", "dim", "n_rows", "inv_mass_stride", "n_leaves", "parity",
-               "has_handle", "handle", "n_pointers", "n_ints")
+               "has_handle", "handle", "trace_prev", "n_pointers", "n_ints")
 N_COMMIT_INTS = len(COMMIT_INTS)
 # D1's and D2's pointer arguments, in the order of the kernel's OpenArgs and
 # MergeArgs, and their integer arguments, then the two counts each kernel
 # checks against its own
 OPEN_POINTERS = ("u", "eps", "left", "right", "done", "cur", "s_prop", "q0", "half", "step",
                  "s_rho", "s_logp_prop", "s_lsw", "s_sum_accept", "s_n_leaves", "s_div", "s_turn",
-                 "alive", "s_div_edge", "s_div_leaf", "counters")
+                 "alive", "s_div_edge", "s_div_leaf", "counters", "trace")
 OPEN_INTS = ("n_chains", "dim", "u_stride", "n_pointers", "n_ints")
 MERGE_POINTERS = ("u", "cur", "s_prop", "s_rho", "s_lsw", "s_logp_prop", "s_sum_accept",
                   "s_n_leaves", "s_div", "s_turn", "s_div_edge", "s_div_leaf", "left", "right",
                   "prop", "rho", "logp_prop", "log_sum_w", "sum_accept", "num_leaves",
-                  "diverging", "done", "depth", "div_edge", "div_leaf", "counters", "readout")
+                  "diverging", "done", "depth", "div_edge", "div_leaf", "counters", "readout",
+                  "trace")
 MERGE_INTS = ("n_chains", "dim", "u_stride", "n_leaves", "new_depth", "n_pointers", "n_ints")
 # st.counters: the pair counter, the blocks arrived, the leaf loop's condition
 K, ARRIVED, CONDITION = range(3)
@@ -356,24 +365,38 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _address(t):
+    """A pointer argument: a tensor's data, an address as it is, or null."""
+    return t if t is None or isinstance(t, int) else t.data_ptr()
+
+
+def _stamp(stamp, device, stage):
+    """(the stamp buffer's address, the stage its stamp closes) a launch
+    takes: ``stamp`` where given (an address, 0 for none; it closes
+    ``metric``), else the tracer's (null while it is off)."""
+    if stamp is None:
+        return trace.stamp(device, stage)
+    return stamp or None, trace.METRIC
+
+
 def _launch(name, lib, ptr_names, tensors, ints, dtype, stream, *extra) -> None:
     """One launch of kernel ``name`` of ``lib`` on ``stream``: the tensors of
-    ``ptr_names`` (None as a null pointer), the integers ``ints`` and the two
-    counts the kernel checks, then ``extra`` arguments; counted in LAUNCHES."""
-    ptrs = (ctypes.c_void_p * len(ptr_names))(
-        *(None if tensors[k] is None else tensors[k].data_ptr() for k in ptr_names))
+    ``ptr_names`` (None as a null pointer; the stamp buffer an address), the
+    integers ``ints`` and the two counts the kernel checks, then ``extra``
+    arguments; counted in LAUNCHES."""
+    ptrs = (ctypes.c_void_p * len(ptr_names))(*(_address(tensors[k]) for k in ptr_names))
     ints = (ctypes.c_longlong * (len(ints) + 2))(*ints, len(ptr_names), len(ints) + 2)
     suffix = "f32" if dtype == torch.float32 else "f64"
     _raise_on(getattr(lib, f"{name}_{suffix}")(ptrs, ints, *extra, stream), name)
     LAUNCHES[name] += 1
 
 
-def doubling_open_cuda(st, u, n_leaves: int, track: bool):
+def doubling_open_cuda(st, u, n_leaves: int, track: bool, stamp=None):
     """D1 on the current stream: the opening of a doubling of ``n_leaves``
     leaves from its uniforms ``u`` (2, C) into the buffers of ``st`` (see
     the module docstring), leaf 0's position into ``st.q[0]``, the signed
-    step and half step into ``st.step`` and ``st.half``. Returns (half,
-    step), views (C, 1) of those."""
+    step and half step into ``st.step`` and ``st.half``; ``stamp`` as
+    ``_stamp`` takes it. Returns (half, step), views (C, 1) of those."""
     lib = _library()
     c, rows, dim = st.cur.shape
     dtype, device = st.cur.dtype, st.cur.device
@@ -389,6 +412,7 @@ def doubling_open_cuda(st, u, n_leaves: int, track: bool):
         s_div_leaf=st.s_div_leaf if track else None, counters=st.counters)
     given = {k: t for k, t in tensors.items() if t is not None and k != "u"}
     _check("doubling_open_cuda", given, dtype, device)
+    tensors["trace"], _ = _stamp(stamp, device, trace.OPEN)
     row, scalar = (c, dim), (c,)
     _shapes("doubling_open_cuda", given, dict(
         eps=scalar, left=(c, 5, dim), right=(c, 5, dim), done=scalar, s_prop=(c, 5, dim), q0=row,
@@ -400,12 +424,13 @@ def doubling_open_cuda(st, u, n_leaves: int, track: bool):
     return st.half.view(c, 1), st.step.view(c, 1)
 
 
-def doubling_merge_cuda(st, u, n_leaves: int, depth: int, track: bool) -> None:
+def doubling_merge_cuda(st, u, n_leaves: int, depth: int, track: bool, stamp=None) -> None:
     """D2 on the current stream: the sub-tree of the doubling of
     ``n_leaves`` leaves opened by ``u`` (2, C) merged into the trajectory's
     buffers of ``st``, ``depth`` (i + 1) written where the chain was not done,
     then ``st.readout`` = (all chains done, the leaves run: 2 k of the pair
-    counter ``st.counters``, 1 at n_leaves = 1)."""
+    counter ``st.counters``, 1 at n_leaves = 1); ``stamp`` as ``_stamp``
+    takes it."""
     lib = _library()
     c, rows, dim = st.cur.shape
     dtype, device = st.cur.dtype, st.cur.device
@@ -432,6 +457,7 @@ def doubling_merge_cuda(st, u, n_leaves: int, depth: int, track: bool) -> None:
         left=state, right=state, prop=state, rho=row, logp_prop=scalar, log_sum_w=scalar,
         sum_accept=scalar, num_leaves=scalar, diverging=scalar, done=scalar, depth=scalar,
         div_edge=row, div_leaf=row, counters=(3,), readout=(2,)))
+    tensors["trace"], _ = _stamp(stamp, device, trace.MERGE)
     _launch(MERGE, lib, MERGE_POINTERS, tensors, (c, dim, u_stride, n_leaves, depth), dtype,
             torch.cuda.current_stream(device).cuda_stream)
 
@@ -452,7 +478,7 @@ def _diagonal(inv_mass, c, dim):
 
 def leaf_commit_cuda(st, half, step, q_n, q_next, logp_n, g_n, mg_n, inv_mass, u_leaf,
                      parity: int, max_delta_energy: float, track: bool,
-                     handle=None) -> None:
+                     handle=None, stamp=None) -> None:
     """L2 on the current stream: the commit of leaf j = 2k + ``parity`` (k
     the pair counter ``st.counters[0]`` on the card) into the buffers of ``st`` (see the module docstring) from q_n, logp_n,
     g_n and either mg_n (a dense metric's M^-1 g_n) or ``inv_mass`` (a
@@ -461,7 +487,8 @@ def leaf_commit_cuda(st, half, step, q_n, q_next, logp_n, g_n, mg_n, inv_mass, u
     signed ``step`` into ``q_next`` (C, dim), another buffer than q_n. On an
     odd leaf L2 advances k and sets the leaf loop's condition, in
     ``st.counters[2]`` and in ``handle`` (a WHILE node's,
-    ``ops/graph_if.WhileNodes.handle``) where given."""
+    ``ops/graph_if.WhileNodes.handle``) where given; ``stamp`` as ``_stamp``
+    takes it."""
     lib = _library()
     c, _, dim = st.cur.shape
     n_rows = st.ckpts.shape[1]
@@ -489,9 +516,10 @@ def leaf_commit_cuda(st, half, step, q_n, q_next, logp_n, g_n, mg_n, inv_mass, u
     _shapes("leaf_commit_cuda", given, {
         "q_n": (c, dim), "q_next": (c, dim), "g_n": (c, dim), "mg_n": (c, dim), "logp_n": (c,),
         "u_leaf": (n_leaves, c), "s_rho": (c, dim), "s_prop": (c, 5, dim), "counters": (3,)})
+    tensors["trace"], prev = _stamp(stamp, st.cur.device, trace.COMMIT)
     _launch(COMMIT, lib, COMMIT_POINTERS, tensors, (
         c, dim, n_rows, stride, n_leaves, parity, handle is not None,
-        ctypes.c_longlong(handle or 0).value), st.cur.dtype,
+        ctypes.c_longlong(handle or 0).value, prev), st.cur.dtype,
         torch.cuda.current_stream(st.cur.device).cuda_stream, float(max_delta_energy))
 
 
@@ -523,7 +551,10 @@ def leaf_commit(st, metric, half, step, q_n, q_next, logp_n, g_n, u_leaf, j: int
     (with ``st.counters`` where the state has them)."""
     if _on_card(q_n):
         inv_mass = metric.diagonal()
-        mg_n = metric.velocity(g_n) if inv_mass is None else None
+        mg_n = None
+        if inv_mass is None:
+            with trace.stage(trace.METRIC):
+                mg_n = metric.velocity(g_n)
         leaf_commit_cuda(st, half, step, q_n, q_next, logp_n, g_n, mg_n, inv_mass, u_leaf,
                          j % 2, max_delta_energy, track, handle)
         return

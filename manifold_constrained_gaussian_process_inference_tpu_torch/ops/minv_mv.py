@@ -27,6 +27,11 @@ of whole ``STEP``-wide steps, each range in ascending k, the ranges in
 order), so a chain's bits do not depend on how many chains share its
 launch.
 
+While the tracer (``utils/trace.py``) is on, the first product launched in
+a ``trace.stage`` scope stamps that stage (the NUTS tree's value-and-grad
+and metric product, ``inference/nuts_batched.py``): it runs the traced entry
+point with the tracer's stamp buffer, which computes the same bits.
+
 ``LAUNCHES`` counts the kernels' launches: the product's (``MINV_MV``) and
 the preparation's (``PREPARE``); the wrapper adds one per launch, and the
 NUTS tree moves the product launches its CUDA graphs captured to each
@@ -43,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from . import cuda_band
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "minv_mv.cu"
@@ -115,6 +121,10 @@ def _library():
             fn = getattr(lib, f"{MINV_MV}_{suffix}")
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            fn = getattr(lib, f"{MINV_MV}_traced_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
             fn = getattr(lib, f"{PREPARE}_{suffix}")
             fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_int64] * 2 + [
                 ctypes.c_void_p]
@@ -177,10 +187,12 @@ def prepared(minv: torch.Tensor) -> torch.Tensor:
     return prep
 
 
-def product(prep: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def product(prep: torch.Tensor, g: torch.Tensor, stamp=None) -> torch.Tensor:
     """The kernel on the current stream: a prepared operand (``prepare``)
     of a (dim, dim) minv and g (..., dim), float32 or float64, on one CUDA
-    device; returns M^-1 g, g's shape and dtype."""
+    device; returns M^-1 g, g's shape and dtype. ``stamp`` (address, the
+    stage it closes, the stage it opens) runs the traced entry point; by
+    default the tracer's open ``trace.stage`` scope, if any, gives it."""
     lib = _library()
     dim = g.shape[-1]
     suffix = _suffix(g.dtype)
@@ -192,8 +204,14 @@ def product(prep: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     rows = g.reshape(-1, dim).contiguous()
     out = torch.empty_like(rows)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = getattr(lib, f"{MINV_MV}_{suffix}")(prep.data_ptr(), rows.data_ptr(), out.data_ptr(),
-                                               rows.shape[0], dim, stream)
+    address, prev, stage = trace.take_stage(g.device) if stamp is None else stamp
+    if address is None:
+        err = getattr(lib, f"{MINV_MV}_{suffix}")(prep.data_ptr(), rows.data_ptr(),
+                                                   out.data_ptr(), rows.shape[0], dim, stream)
+    else:
+        err = getattr(lib, f"{MINV_MV}_traced_{suffix}")(
+            prep.data_ptr(), rows.data_ptr(), out.data_ptr(), rows.shape[0], dim, address,
+            prev, stage, stream)
     if err != 0:
         raise RuntimeError(f"{MINV_MV} kernel launch failed: CUDA error {err}")
     LAUNCHES[MINV_MV] += 1

@@ -59,6 +59,7 @@ from ..inference.nuts_batched import (
     make_warmup_step_pooled_batched,
 )
 from ..ops import cuda_band
+from ..utils import trace
 from .mesh import CHAIN_AXIS, Mesh, broadcast_tensors, gather_rows
 
 logger = logging.getLogger(__name__)
@@ -659,33 +660,39 @@ def _warmup_pooled(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
             if track:
                 edges[:, t], leaves[:, t] = div_pair[0]
             if in_window[pos + t]:
-                keep = (~stats.diverging).to(torch.float64)
-                q64 = carry.chain.q.to(torch.float64)
-                qm = q64 * keep[:, None]
-                cnt += keep.sum()
-                s1 += qm.sum(dim=0)
-                s2 += qm.T @ q64
-                n_win += n_chains
-                n_div += stats.diverging.sum()
-        div_chunks.append(div.cpu().numpy())
-        moments = (cnt, s1, s2, n_win, n_div)
-        if mesh is not None:
-            moments = _psum_moments(mesh, moments)
-        window_moments.append(tuple(m.cpu().numpy() for m in moments))
-        counts.host_syncs += 1
+                with trace.span("warmup.moments"):
+                    keep = (~stats.diverging).to(torch.float64)
+                    q64 = carry.chain.q.to(torch.float64)
+                    qm = q64 * keep[:, None]
+                    cnt += keep.sum()
+                    s1 += qm.sum(dim=0)
+                    s2 += qm.T @ q64
+                    n_win += n_chains
+                    n_div += stats.diverging.sum()
+        with trace.span("warmup.readout"):
+            div_chunks.append(div.cpu().numpy())
+            moments = (cnt, s1, s2, n_win, n_div)
+            if mesh is not None:
+                moments = _psum_moments(mesh, moments)
+            window_moments.append(tuple(m.cpu().numpy() for m in moments))
+            counts.host_syncs += 1
         if track:
             _collect_probe(envelope, edges, leaves, div, n_boundaries, mesh)
         pos += length
         if window_end[pos - 1]:
-            metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric, folding)
-            # every rank samples under rank 0's metric, whatever its host's
-            # linear algebra rounds differently
-            metric = broadcast_tensors(mesh, metric)
+            with trace.span("warmup.refit"):
+                metric = pooled_dense_metric_from_moments(window_moments, dim, dtype, metric,
+                                                          folding)
+                # every rank samples under rank 0's metric, whatever its
+                # host's linear algebra rounds differently
+                metric = broadcast_tensors(mesh, metric)
             window_moments = []
             n_boundaries += 1
         if checkpoint_path:
-            write_checkpoint(mesh, checkpoint_path, _warmup_checkpoint(
-                carry, metric, window_moments, div_chunks, pos, generator, meta, mesh, folding))
+            with trace.span("warmup.checkpoint"):
+                write_checkpoint(mesh, checkpoint_path, _warmup_checkpoint(
+                    carry, metric, window_moments, div_chunks, pos, generator, meta, mesh,
+                    folding))
         if progress:
             logger.info("warmup %d/%d (%.1fs, pooled dense metric)",
                         pos, n_adapts, time.perf_counter() - t0)
@@ -711,8 +718,9 @@ def _warmup_diag(vg, psi0, generator, n_adapts, chunk_size, initial_step_size,
             carry, stats = warmup_step(carry, bool(in_window[pos + t]), bool(window_end[pos + t]))
             counts.add(stats)
             div[:, t] = stats.diverging
-        div_chunks.append(div.cpu().numpy())
-        counts.host_syncs += 1
+        with trace.span("warmup.readout"):
+            div_chunks.append(div.cpu().numpy())
+            counts.host_syncs += 1
         pos += length
         if progress:
             logger.info("warmup %d/%d (%.1fs, diag metric)", pos, n_adapts,
@@ -896,37 +904,38 @@ def run_chains(
     device = psi0.device
     counts = Counts()
 
-    t0 = time.perf_counter()
-    if device.type == "cuda":
-        vg = GraphedValueAndGrad(vg, psi0)
-    tree = LockstepTree(vg, generator, max_depth, mesh=mesh)
-    warm_args = (vg, psi0, generator, n_adapts, chunk_size, initial_step_size, target_accept,
-                 max_depth, progress, counts, t0, mesh, tree)
-    if mass_matrix == "diag":
-        carry, warmup_div_chunks = _warmup_diag(*warm_args)
-        metric = DiagMetric(carry.inv_mass)
-    else:
-        meta = {"metric": "dense-pooled", "step_jitter": float(step_jitter),
-                "step_jitter_low": float(step_jitter_low), "n_adapts": int(n_adapts),
-                "chunk_size": int(chunk_size)}
-        carry, metric, warmup_div_chunks = _warmup_pooled(
-            *warm_args, resume_ckpt=resume_ckpt, checkpoint_path=checkpoint_path, meta=meta,
-            envelope=envelope)
-    eps_final = torch.exp(carry.da.log_eps_avg)
-    _sync(device)
-    warmup_time = time.perf_counter() - t0
+    with trace.timed("warmup") as warmup:
+        t0 = time.perf_counter()
+        if device.type == "cuda":
+            vg = GraphedValueAndGrad(vg, psi0)
+        tree = LockstepTree(vg, generator, max_depth, mesh=mesh)
+        warm_args = (vg, psi0, generator, n_adapts, chunk_size, initial_step_size, target_accept,
+                     max_depth, progress, counts, t0, mesh, tree)
+        if mass_matrix == "diag":
+            carry, warmup_div_chunks = _warmup_diag(*warm_args)
+            metric = DiagMetric(carry.inv_mass)
+        else:
+            meta = {"metric": "dense-pooled", "step_jitter": float(step_jitter),
+                    "step_jitter_low": float(step_jitter_low), "n_adapts": int(n_adapts),
+                    "chunk_size": int(chunk_size)}
+            carry, metric, warmup_div_chunks = _warmup_pooled(
+                *warm_args, resume_ckpt=resume_ckpt, checkpoint_path=checkpoint_path, meta=meta,
+                envelope=envelope)
+        eps_final = torch.exp(carry.da.log_eps_avg)
+        _sync(device)
 
-    t1 = time.perf_counter()
-    scarry = SampleCarry(chain=carry.chain, eps=eps_final)
-    scarry, samples, stats, _ = _sample(
-        vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng, step_jitter,
-        step_jitter_low, counts, progress, t0, checkpoint_path, mesh=mesh, tree=tree)
-    _sync(device)
+    with trace.timed("sampling") as sampling:
+        scarry = SampleCarry(chain=carry.chain, eps=eps_final)
+        scarry, samples, stats, _ = _sample(
+            vg, scarry, metric, generator, n_keep, max_depth, chunk_size, jitter_rng,
+            step_jitter, step_jitter_low, counts, progress, t0, checkpoint_path, mesh=mesh,
+            tree=tree)
+        _sync(device)
     counts.capture_s += tree.capture_seconds
     warmup_div = (np.concatenate(warmup_div_chunks, axis=1) if warmup_div_chunks
                   else np.zeros((psi0.shape[0], 0)))
     info = _run_info(stats, metric, mass_matrix, step_jitter, step_jitter_low, eps_final, scarry,
-                     generator, counts, warmup_div, warmup_time, time.perf_counter() - t1, mesh)
+                     generator, counts, warmup_div, warmup.seconds, sampling.seconds, mesh)
     if envelope is not None:
         # rank 0 probed and folded: its readings are the run's
         env_info = envelope.info()

@@ -6,8 +6,9 @@ world a fresh spawn on the card.
         [--variants kernel:4,autograd:2] [--concurrent 1] [--stress 8] \\
         [--out mesh_repro.json]
 
-The cell is ``perf/slice_ab.py``'s mesh cell (the [slice] recipe, 32
-chains a rank, 100 iterations). On every rank the run records, in order:
+The cell (``_problem``) is the [slice] recipe, ``bench.py``'s production
+recipe (FN, n = 397, 128 whitened chains, pooled dense metric), sharded
+over MESH_RANKS ranks, 32 chains a rank, 100 iterations. On every rank the run records, in order:
 the whitener as the rank received it (its host copy read once before and
 once after a device synchronize), the kernel route's constants, the
 value-and-grad at a fixed zeta (three eager calls), each NUTS doubling
@@ -49,9 +50,15 @@ import torch
 from ..ops import centered_vg
 from ..parallel import chains
 from ..inference import solve
-from . import slice_ab
 
-MESH_RANKS = slice_ab.MESH_RANKS
+MESH_RANKS = 4
+MESH_NITER = 100
+RECIPE = dict(
+    burnin_ratio=0.5, step_size_factor=0.06, prior_temperature=(1.0, 1.0, 1.0),
+    sampler="nuts", n_chains=128, mass_matrix="dense-pooled", chain_init_jitter=0.05,
+    x_whitened=True, theta_constrained=True, target_accept_ratio=0.95, step_jitter=0.125,
+    seed=42, chunk_size=250, band_impl="band", device="cuda",
+)
 TREE_REPLAYS = 40
 VARIANTS = ("kernel", "autograd", "plain_on_card", "eager_tree", "kernel_smem_zeroed",
             "kernel_no_ldg", "kernel_clone_outputs", "kernel_discarded", "plain_discarded",
@@ -270,7 +277,7 @@ def _rank(rank: int, variant: str) -> list:
 
     log = []
     _instrument(log, variant)
-    system, y, t, config = slice_ab._problem("mesh")
+    system, y, t, config = _problem()
     mesh = make_chain_mesh(device="cuda")
     dist.barrier()
     res = mt.solve_magi(y, t, system, config, mesh=mesh)
@@ -279,8 +286,18 @@ def _rank(rank: int, variant: str) -> list:
         n = min(int(pos.item()), TRACE_ROWS)
         log.append(("vg_trace", rows[:n].cpu().numpy().view(np.int64).tolist()))
     log.append(("route", res.diagnostics["vg_route"]))
-    log.append(("draws", slice_ab._draws_digest(res)))
+    log.append(("draws", _digest(res.theta, res.x_sampled, res.sigma, res.lp)))
     return log
+
+
+def _problem():
+    """(system, y, t, MagiConfig) of the cell."""
+    import manifold_constrained_gaussian_process_inference_tpu_torch as mt
+
+    from . import workload
+
+    y, t = workload.fn_bench_workload()
+    return mt.FN_SYSTEM, y, t, mt.MagiConfig(niter_hmc=MESH_NITER, **RECIPE)
 
 
 def _first_parting(worlds: list) -> list:

@@ -43,9 +43,9 @@ and one D2 a doubling). Launch counts: the band kernels', the doubling's
 kernels' and the product's. Runs on a CUDA card only.
 
 ``--parts`` (with ``--trees A,B``: each checkout's package in a fresh
-process started in its root, in turns A B B A, as ``perf/slice_ab.py``
-runs them) breaks the doubling's bookkeeping down, float32, from CUDA
-graphs of ``PART_REPS`` repetitions, at [slice]'s, [default]'s and [pt]'s
+process started in its root, in turns A B B A) breaks the doubling's
+bookkeeping down, float32, from CUDA graphs of ``PART_REPS`` repetitions,
+at [slice]'s, [default]'s and [pt]'s
 (chains, dim, metric) (``PART_SHAPES``), on a tree state left by one eager
 transition of a Gaussian target, every 7th chain done:
 

@@ -3,7 +3,7 @@ export imports from the same path in the port, ``wrap_value_and_grad``
 and ``band_storage_matvec`` match the JAX package's (rtol 1e-12), the
 non-finite guards of utils/debugging.py pass values through and report a
 NaN, and ``profile_dir`` leaves a torch.profiler trace of the sampling
-phase in its directory."""
+phase and the port's tracer's spans (a Chrome trace) in its directory."""
 import importlib
 import json
 import os
@@ -173,12 +173,20 @@ def test_profile_dir_leaves_a_trace_of_the_sampling_phase(tmp_path):
                 x_whitened=True, device="cpu", n_chains=2, mass_matrix="dense-pooled")
     prof = str(tmp_path / "prof")
     res = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**base, profile_dir=prof))
-    files = os.listdir(prof)
-    assert len(files) == 1 and files[0].startswith("magi_rank0.")
+    files = sorted(os.listdir(prof))
+    assert len(files) == 2 and files[0].startswith("magi_rank0.")
     assert files[0].endswith(".pt.trace.json")
     with open(os.path.join(prof, files[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    # beside it the port's tracer's spans, one Chrome trace
+    assert files[1] == "magi_spans_rank0.json"
+    with open(os.path.join(prof, files[1])) as f:
+        spans = json.load(f)
+    names = {e["name"] for e in spans["traceEvents"] if e["ph"] == "X"}
+    assert {"warmup", "sampling", "transition", "transition.prologue", "doubling.launch",
+            "doubling.readout", "sample_step"} <= names
+    assert spans["otherData"]["sections"]["all"]["transitions"] == 20
     # tracing changes no draw
     plain = mt.solve_magi(y, t, mt.FN_SYSTEM, mt.MagiConfig(**base))
     np.testing.assert_array_equal(res.theta, plain.theta)

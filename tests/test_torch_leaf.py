@@ -36,6 +36,7 @@ from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts im
 )
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf
+from manifold_constrained_gaussian_process_inference_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -561,7 +562,9 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
     from the same inputs at every leaf of the sub-tree, float64, both with
     the pair counter: the leaf state to 1e-12, the flags and the counters
     (pair, arrivals, the loop's condition) equal; one D1 at leaf 0 and one
-    L2 per leaf."""
+    L2 per leaf. Launched with a stamp buffer (the tracer's, utils/trace.py)
+    the kernels write the bits they write with a null one, and stamp their
+    stages."""
     rng = np.random.default_rng(7)
     metric, inv_mass_j = _case(kind, rng)
     metric = type(metric)(*(t.to(cuda_device) for t in metric))
@@ -574,12 +577,15 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
     eps = torch.as_tensor(EPS, device=cuda_device)
     half, step = (0.5 * eps)[:, None], eps[:, None]
     vg = _make_vg(np.ones(DIM))
+    stamps = torch.zeros(trace.STAMP_WORDS, dtype=torch.int64, device=cuda_device)
     for j in range(N_LEAVES):
         kern = SimpleNamespace(**{k: t.clone() for k, t in vars(plain).items()})
+        stamped = SimpleNamespace(**{k: t.clone() for k, t in vars(plain).items()})
         before = dict(leaf.LAUNCHES)
         if j == 0:
             u = _to_the_right().to(cuda_device)
             leaf.doubling_open(kern, u, N_LEAVES, True)
+            leaf.doubling_open_cuda(stamped, u, N_LEAVES, True, stamp=stamps.data_ptr())
             leaf.doubling_open_torch(plain, u, N_LEAVES, True)
             assert torch.equal(kern.step, plain.eps) and torch.equal(kern.half, 0.5 * plain.eps)
         q_n = plain.q[j % 2]
@@ -587,11 +593,22 @@ def test_cuda_leaf_kernels_match_the_plain_versions(cuda_device, kind):
         rows = _leaf_idx_to_ckpt_idxs(j)
         leaf.leaf_commit(kern, metric, half, step, kern.q[j % 2], kern.q[1 - j % 2], lp, g,
                          u_leaf, j, rows, MAX_DELTA_ENERGY, True)
+        inv_mass = metric.diagonal()
+        leaf.leaf_commit_cuda(stamped, half, step, stamped.q[j % 2], stamped.q[1 - j % 2], lp, g,
+                              None if inv_mass is not None else metric.velocity(g), inv_mass,
+                              u_leaf, j % 2, MAX_DELTA_ENERGY, True, stamp=stamps.data_ptr())
         leaf.leaf_commit_torch(plain, metric, half, step, q_n, plain.q[1 - j % 2], lp, g, u_leaf,
                                j, rows, MAX_DELTA_ENERGY, True, plain.counters)
         torch.cuda.synchronize()
         assert {k: leaf.LAUNCHES[k] - before[k] for k in before} == {
-            leaf.OPEN: int(j == 0), leaf.COMMIT: 1, leaf.MERGE: 0}
+            leaf.OPEN: 2 * int(j == 0), leaf.COMMIT: 2, leaf.MERGE: 0}
+        for k in vars(kern):
+            assert torch.equal(getattr(stamped, k), getattr(kern, k)), (j, k)
+        # D1 and the L2s stamped in turn: each closes a stage (D1's
+        # between_graphs; an L2 given an address closes metric) and opens its own
+        hits = stamps[trace.SUMS + len(trace.STAGES):].tolist()
+        assert hits[trace.BETWEEN] == 1 and hits[trace.METRIC] == j + 1
+        assert int(stamps[trace.CURRENT]) == trace.COMMIT and int(stamps[trace.FIRST]) > 0
         assert torch.equal(kern.q, plain.q)  # D1's and the commit's next positions, bit for bit
         # the plain opening returns the steps, which D1 writes into half
         # and step

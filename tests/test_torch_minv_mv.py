@@ -24,6 +24,7 @@ from manifold_constrained_gaussian_process_inference_tpu_torch.inference import 
 )
 from manifold_constrained_gaussian_process_inference_tpu_torch.inference.nuts import DenseMetric
 from manifold_constrained_gaussian_process_inference_tpu_torch.ops import cuda_band, minv_mv
+from manifold_constrained_gaussian_process_inference_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -84,6 +85,7 @@ def test_kernel_source_agrees_with_the_wrapper():
     src = minv_mv.SOURCE.read_text()
     for suffix in ("f32", "f64"):
         assert re.search(rf"int {minv_mv.MINV_MV}_{suffix}\(const void\* prepared", src)
+        assert re.search(rf"int {minv_mv.MINV_MV}_traced_{suffix}\(const void\* prepared", src)
         assert re.search(rf"int {minv_mv.PREPARE}_{suffix}\(const void\* minv, void\* prepared",
                          src)
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
@@ -254,7 +256,8 @@ def cuda_device():
                                     (128, 1591)])
 def test_cuda_product_matches_the_plain_version(cuda_device, c, dim):
     """float64 to 1e-14 of the largest output; float32 no further from the
-    float64 product than torch.matmul's float32 product; one launch."""
+    float64 product than torch.matmul's float32 product; one launch; the
+    traced launch's bits are the same, and it stamps its stage."""
     minv, g = _inputs(c, dim, seed=dim)
     want = torch.as_tensor(g) @ torch.as_tensor(minv).T
     for dtype in (torch.float64, torch.float32):
@@ -262,6 +265,15 @@ def test_cuda_product_matches_the_plain_version(cuda_device, c, dim):
         before = minv_mv.LAUNCHES[minv_mv.MINV_MV]
         got = minv_mv.minv_mv(m, x).cpu().double()
         assert minv_mv.LAUNCHES[minv_mv.MINV_MV] == before + 1
+        # the traced entry point (a stamp buffer, utils/trace.py) writes the same bits
+        stamps = torch.zeros(trace.STAMP_WORDS, dtype=torch.int64, device=cuda_device)
+        for prev, stage in ((trace.BETWEEN, trace.VG), (trace.VG, trace.METRIC)):
+            stamped = minv_mv.product(minv_mv.prepared(m), x,
+                                      stamp=(stamps.data_ptr(), prev, stage))
+            assert torch.equal(stamped.cpu().double(), got)
+        hits = stamps[trace.SUMS + len(trace.STAGES):].tolist()
+        assert hits[trace.BETWEEN] == hits[trace.VG] == 1
+        assert stamps[trace.CURRENT] == trace.METRIC
         err = float((got - want).abs().max())
         if dtype == torch.float64:
             assert err <= 1e-14 * float(want.abs().max())

@@ -135,8 +135,8 @@ def test_solve_magi_band_result_contract(solved):
     assert d["band_impl"] == "band" and d["n_chains"] == 4 and d["device"] == "cpu"
     assert d["theta_per_chain"].shape == (4, 60, k)
     assert d["lp_per_chain"].shape == (4, 60)
-    assert set(d["phase_times_s"]) == {"nlml_s", "gn_map_s", "whitener_s", "warmup_s",
-                                       "sampling_s"}
+    assert set(d["phase_times_s"]) == {"nlml_s", "gp_target_s", "gn_map_s", "whitener_s",
+                                       "sampler_setup_s", "warmup_s", "sampling_s", "results_s"}
     assert d["host_syncs"] > 0 and d["lockstep_leaves"] >= d["transitions"] == 120
     assert (res.theta > 0).all()  # theta_constrained keeps the rates positive
 
