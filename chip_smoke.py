@@ -62,12 +62,14 @@ Phases:
    unbounded), config 4's (128 chains, n = 793, b = 80) and
    [likelihood-3169]'s (128 chains, n = 3169, b = 160):
    float64 within 1e-12 relative, float32 within twice the plain version's
-   own error against float64; a chain's bits the same at C = 1, 3 and 32
-   as in the whole launch; the x block of g_psi bit-equal to the one-block kernel's
-   kernel (perf/baselines/centered_vg_pr11.cu, built beside it); ms per
-   launch (a replayed graph of 200) in both dtypes beside the one-block kernel,
-   the bound and the plain version, with the tiling (cluster size S,
-   chains a cluster Cg), and the whole value-and-grad per replayed call on
+   own error against float64; the same bars against the scalar cluster kernel
+   (perf/baselines/centered_vg_pr12.cu, built beside it with the one-block
+   kernel, perf/baselines/centered_vg_pr11.cu); a chain's bits the same at
+   C = 1, 3 and 32 as in the whole launch; ms per launch (a replayed graph
+   of 200) in both dtypes beside both earlier kernels, the bound and the
+   plain version, with the tiling (cluster size S, slab L, chains a
+   cluster Cg) and the prepared tiles' bytes read from L2, and the whole
+   value-and-grad per replayed call on
    both routes, the kernel route also with its GEMMs on torch.matmul, and
    the float32 value-and-grad with its GEMMs on the product kernel no
    further from float64 (the autograd route's, which runs neither the
@@ -299,7 +301,7 @@ OPS_AT = {"grid_pair": ("pair", "pair_t"), "grid_pair_c1": ("pair", "pair_t"),
 VG_SOURCE = "manifold_constrained_gaussian_process_inference_tpu_torch/csrc/centered_vg.cu"
 VG_REPLACES = ("manifold_constrained_gaussian_process_inference_tpu/ops/likelihood.py:386 and "
                "manifold_constrained_gaussian_process_inference_tpu/inference/whiten.py:527")
-VG_KERNEL = "centered_vg"
+VG_KERNEL, VG_PREPARE_KERNEL = "centered_vg", "centered_vg_prepare"
 LIKELIHOOD_KERNELS = (*KERNELS, VG_KERNEL)
 # A banded value-and-grad's launches by its route (the route attribute of
 # make_centered_whitened_vg's function; "raw" the unwhitened target's):
@@ -309,7 +311,7 @@ LIKELIHOOD_KERNELS = (*KERNELS, VG_KERNEL)
 K1_PER_VG = {"band_matvec": 2, "band_matvec_pair": 1, "band_matvec_pair_t": 1, VG_KERNEL: 0}
 LAUNCHES_PER_VG = {"kernel": {**dict.fromkeys(KERNELS, 0), VG_KERNEL: 1},
                    "autograd": K1_PER_VG, "raw": K1_PER_VG}
-# [vg]: the kernel against its plain version and the one-block kernel at the
+# [vg]: the kernel against its plain version and its earlier designs at the
 # shapes of the paths it runs on (perf/vg_timing.CASES), config 4's grid
 # and [likelihood-3169]'s last
 VG_CASES = ("slice", "c1", "chees", "mesh", "resume", "n793", "long")
@@ -573,10 +575,11 @@ def phase_build(cb):
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing
 
     t0 = time.perf_counter()
-    # the kernels, the one-block centered_vg kernel that [vg] holds the new one
+    # the kernels, the earlier centered_vg kernels that [vg] holds the new one
     # to and the product's first design that [leaf] times beside the kernel
     sources = (cb.SOURCE, graph_if.SOURCE, leaf.SOURCE, minv_mv.SOURCE, centered_vg.SOURCE,
-               vg_timing.BASELINE, Path(__file__).resolve().parent / PRODUCT_BASELINE)
+               vg_timing.BASELINE, vg_timing.BASELINE_PR12,
+               Path(__file__).resolve().parent / PRODUCT_BASELINE)
     with ThreadPoolExecutor(len(sources)) as pool:
         sos = list(pool.map(cb.build, sources))
     check(set(LEAF_KERNELS) == set(leaf.LAUNCHES), f"leaf kernels {sorted(leaf.LAUNCHES)}")
@@ -898,13 +901,16 @@ def phase_kernel(cb):
 def phase_vg(long_cov64):
     """The whitened FN value-and-grad's kernel (csrc/centered_vg.cu)
     against its plain version at VG_CASES' shapes (``perf/vg_timing``:
-    float64 within 1e-12 relative, float32 within twice the plain
-    version's own error against float64, a chain's bits the same at C = 1,
-    3 and 32 as in the whole launch, the x block of g_psi bit-equal to PR
-    11's kernel), timed per launch (a replayed graph of 200) in both dtypes
-    beside the one-block kernel, its bound and its plain version, with the tiling
-    it ran, and the whole value-and-grad per replayed call on both routes
-    (float32). ``long_cov64``: [likelihood-3169]'s covariances."""
+    float64 within 1e-12 relative of the plain version and of the scalar
+    cluster kernel, float32 within twice the plain version's and that
+    kernel's own error against float64, a chain's bits the same at C = 1,
+    3 and 32 as in the whole launch; the prepared tiles of its preparation
+    bit-equal to ``prepare_tiles_torch``; a launch of at most TARGET_BLOCKS
+    blocks within the clusters the card runs at once), timed per launch (a replayed graph of
+    200) in both dtypes beside the scalar cluster kernel and the one-block
+    kernel, its bound and its plain version, with the tiling it ran and the tile bytes it read, and
+    the whole value-and-grad per replayed call on both routes (float32).
+    ``long_cov64``: [likelihood-3169]'s covariances."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.perf import vg_timing as vt
 
     rows, parts = {}, []
@@ -920,15 +926,21 @@ def phase_vg(long_cov64):
         tile = t32["tiling"]
         parts.append(
             f"{name} (C={case['chains']}, n={case['n']}, b={case['bandwidth']}; S={tile['cluster']} "
-            f"Cg={tile['chains']} G={tile['per_thread']} threads={tile['threads']}): float64 rel lp "
-            f"{err['lp_float64']:.2e} g {err['g_float64']:.2e}; float32 vs float64 lp "
-            f"{err['lp_float32']:.2e} (plain {err['lp_float32_plain']:.2e}) g "
-            f"{err['g_float32']:.2e} (plain {err['g_float32_plain']:.2e}); bits equal at "
-            f"C = 1, 3, 32; x block bit-equal to the one-block kernel's in both dtypes (lp and tail rel "
-            f"{err['tail_rel_pr11_float32']:.1e} / {err['tail_rel_pr11_float64']:.1e}); ms per "
-            f"launch float32 {t32['ms']:.5f} (one-block {t32['pr11_ms']:.5f}) / bound "
-            f"{t32['bound_ms']:.5f} {t32['bound_by']} / plain {t32['plain_ms']:.4f}, float64 "
-            f"{t64['ms']:.5f} (one-block {t64['pr11_ms']:.5f}) / bound {t64['bound_ms']:.5f} / plain "
+            f"L={tile['slab']} Cg={tile['chains']} threads={tile['threads']}; "
+            f"{err['clusters']} clusters, {err['active_clusters']} at once on the card; tiles "
+            f"{t32['tile_bytes'] / 2**20:.2f} MiB from L2; prepared tiles bit-equal to "
+            f"prepare_tiles_torch in both dtypes, preparation ms float32 {t32['prepare_ms']:.5f} "
+            f"/ bound {t32['prepare_bound_ms']:.5f} bytes / plain (eager) "
+            f"{t32['prepare_plain_ms']:.4f}): float64 rel lp "
+            f"{err['lp_float64']:.2e} g {err['g_float64']:.2e} (to the scalar cluster kernel "
+            f"{err['lp_rel_pr12_float64']:.1e} / {err['g_rel_pr12_float64']:.1e}); float32 vs "
+            f"float64 lp {err['lp_float32']:.2e} (plain {err['lp_float32_plain']:.2e}, scalar "
+            f"{err['lp_float32_pr12']:.2e}) g {err['g_float32']:.2e} (plain "
+            f"{err['g_float32_plain']:.2e}, scalar {err['g_float32_pr12']:.2e}); bits equal at "
+            f"C = 1, 3, 32; ms per launch float32 {t32['ms']:.5f} (scalar {t32['pr12_ms']:.5f}, "
+            f"one-block {t32['pr11_ms']:.5f}) / bound {t32['bound_ms']:.5f} {t32['bound_by']} / "
+            f"plain {t32['plain_ms']:.4f}, float64 {t64['ms']:.5f} (scalar {t64['pr12_ms']:.5f}, "
+            f"one-block {t64['pr11_ms']:.5f}) / bound {t64['bound_ms']:.5f} / plain "
             f"{t64['plain_ms']:.4f}; GEMMs torch.matmul {_rounded(t32['gemm_ms'])}, product "
             f"kernel {_rounded(t32['gemm_kernel_ms'])} (taken: {t32['gemm_route']}); "
             f"value-and-grad per replayed call kernel route {t32['vg_ms']['kernel']:.4f} (its "
@@ -942,8 +954,8 @@ def phase_vg(long_cov64):
             got, ref = (t32["vg_rel"][k][what] for k in ("kernel_gemms", "matmul_gemms"))
             check(got <= F32_VG_GEMM_FACTOR * ref, f"vg {name}: float32 {what} rel {got:.3e} with "
                   f"the GEMMs on the kernel, over {F32_VG_GEMM_FACTOR} x torch.matmul's {ref:.3e}")
-    print("[vg] the whitened FN value-and-grad's kernel against its plain version and the one-block "
-          "kernel on the card: " + "; ".join(parts), flush=True)
+    print("[vg] the whitened FN value-and-grad's kernel against its plain version and its earlier "
+          "designs on the card: " + "; ".join(parts), flush=True)
     return rows
 
 
@@ -952,14 +964,17 @@ def _rounded(values, digits=5):
 
 
 class _Launches:
-    """ops/cuda_band's launch counts with the leaf kernels' (ops/leaf) and
-    the dense metric's product's (ops/minv_mv) beside them; everything else
-    is cuda_band's."""
+    """ops/cuda_band's launch counts with the leaf kernels' (ops/leaf), the
+    dense metric's product's (ops/minv_mv) and the whitened FN kernel's
+    tile preparation's (ops/centered_vg) beside them; everything else is
+    cuda_band's."""
 
     def __init__(self, cb):
-        from manifold_constrained_gaussian_process_inference_tpu_torch.ops import leaf, minv_mv
+        from manifold_constrained_gaussian_process_inference_tpu_torch.ops import (
+            centered_vg, leaf, minv_mv,
+        )
 
-        self._cb, self._others = cb, (leaf, minv_mv)
+        self._cb, self._others = cb, (leaf, minv_mv, centered_vg)
 
     def __getattr__(self, name):
         return getattr(self._cb, name)
@@ -3243,11 +3258,16 @@ def phase_profile(mt, cb):
         res = mt.solve_magi(y, t, mt.FN_SYSTEM, dataclasses.replace(config, profile_dir=tmp))
         wall = time.perf_counter() - t0
         launches = cb.counts()
-        files = os.listdir(tmp)
-        check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+        # torch.profiler's trace and the port's own spans (utils/trace.py)
+        files = sorted(os.listdir(tmp))
+        traces = [f for f in files if f.endswith(".pt.trace.json")]
+        check(len(traces) == 1 and files == sorted(traces + ["magi_spans_rank0.json"]),
               f"profile: trace files {files}")
-        size_mb = os.path.getsize(os.path.join(tmp, files[0])) / 2**20
-        with open(os.path.join(tmp, files[0])) as f:
+        size_mb = os.path.getsize(os.path.join(tmp, traces[0])) / 2**20
+        with open(os.path.join(tmp, "magi_spans_rank0.json")) as f:
+            spans = json.load(f)["traceEvents"]
+        check(len(spans) > 0, "profile: no span in magi_spans_rank0.json")
+        with open(os.path.join(tmp, traces[0])) as f:
             events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     # the card's idle share over the traced sampling phase: one minus the
@@ -3269,7 +3289,8 @@ def phase_profile(mt, cb):
     same = all(np.array_equal(getattr(res, name), getattr(plain, name))
                for name in ("theta", "x_sampled", "sigma", "lp"))
     print(f"[profile] [default]'s config at niter_hmc={PROFILE_NITER} with profile_dir: trace "
-          f"{files[0]} {size_mb:.1f} MB, {len(events)} events, {len(kernels)} device kernel "
+          f"{traces[0]} {size_mb:.1f} MB, {len(events)} events ({len(spans)} spans beside it), "
+          f"{len(kernels)} device kernel "
           f"events, {k1_any} band kernel events over {len(k1)} template instances "
           f"{sorted(k1.values())}, {graph_launches} CUDA graph launches; device idle share "
           f"{idle:.3f} over the trace's {1e-6 * span:.2f} s; "
@@ -3345,6 +3366,9 @@ def main() -> int:
     for path in ("slice", "chees", "envelope", "mesh"):
         check(paths[path][0][VG_KERNEL] > 0 and all(paths[path][0][name] == 0 for name in KERNELS),
               f"{path}: the whitened FN kernel was not launched, or K1 was")
+    for path in ("slice", "chees", "envelope"):
+        check(paths[path][0].get(VG_PREPARE_KERNEL, 0) > 0,
+              f"{path}: the whitened FN kernel's tiles were not prepared on the card")
     print(json.dumps({"launches_per_vg": sum(paths["slice"][1][name]
                                              for name in LIKELIHOOD_KERNELS),
                       "tile_launches_by_path": tiles_by_path, "kernels": [{
@@ -3381,6 +3405,14 @@ def main() -> int:
         "launches": sum(p[0][PREPARE_KERNEL] for p in paths.values()),
         "launches_by_path": {path: p[0][PREPARE_KERNEL] for path, p in paths.items()},
         "max_abs_err": leaf_err["prepare"], **leaf_timing["prepare"],
+    }] + [{
+        "name": VG_PREPARE_KERNEL, "route": "cuda", "source": VG_SOURCE,
+        "replaces": "nothing: the kernel's operand layout, made once per target",
+        "launches": sum(p[0].get(VG_PREPARE_KERNEL, 0) for p in paths.values()),
+        "launches_by_path": {path: p[0].get(VG_PREPARE_KERNEL, 0) for path, p in paths.items()},
+        "bit_equal_to_plain": all(r["check"]["prepare_equal"] for r in vg_rows.values()),
+        **{k: vg_rows["slice"]["float32"][k] for k in ("prepare_ms", "prepare_bound_ms",
+                                                      "prepare_plain_ms")},
     }] + [{
         "name": VG_KERNEL, "route": "cuda", "source": VG_SOURCE, "replaces": VG_REPLACES,
         "launches": sum(p[0][VG_KERNEL] for p in paths.values()),

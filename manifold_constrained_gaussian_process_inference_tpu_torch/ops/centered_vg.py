@@ -1,7 +1,8 @@
 """The whitened, mode-centered FitzHugh-Nagumo value-and-grad between its
 two whitening GEMMs: one hand-written CUDA kernel (csrc/centered_vg.cu: a
 thread-block cluster per group of chains, its blocks splitting the grid's
-rows), its tiling, its plain version and the dispatch between them.
+rows, the banded products on the FP64 tensor cores), its tiling, its
+prepared band tiles, its plain version and the dispatch between them.
 
 Counterpart of the JAX package's ``log_posterior_centered``
 (ops/likelihood.py:386) under ``jax.value_and_grad`` as its
@@ -46,13 +47,15 @@ products of ``ops/band.py`` and no autograd. The plain version computes in
 its tensors' dtype; the kernel computes in float64 whatever it stores
 (float32 or float64), so in float32 it is the more accurate of the two.
 
-The kernel reads the storages through its own row-indexed copy
-(``band_diags``) and is launched on the tiling of ``tiling``: S blocks a
-cluster, each a slab of rows, Cg chains a cluster, G a thread. On the card
-the wrapper asks ``cudaOccupancyMaxActiveClusters`` once per tiling
-whether the clusters can run at all and raises if not. The kernel is built
-at first use through ``ops/cuda_band.build`` into ``<package>/build/`` and
-bound with ctypes. Its launches are counted in
+The kernel reads the operators through a copy prepared once per target
+(``prepare_tiles``: 16-row tiles over each row tile's window of columns,
+in the storages' type, in the order of the DMMA's A fragments; plain
+version ``prepare_tiles_torch``) and is launched on the tiling of
+``tiling``: S blocks a cluster, each a slab of whole row tiles, Cg chains
+a cluster in N tiles of 8. On the card the wrapper asks
+``cudaOccupancyMaxActiveClusters`` once per tiling whether the clusters can
+run at all and raises if not. The kernel is built at first use through
+``ops/cuda_band.build`` into ``<package>/build/`` and bound with ctypes. Its launches are counted in
 ``cuda_band.KERNEL_LAUNCHES[NAME]``, beside the band kernels', so that the
 CUDA graphs that capture a value-and-grad move them to their replays as
 they move K1's.
@@ -86,31 +89,48 @@ BETA, NOBS, SIGMA, LB, TAIL = 0, 3, 5, 7, 10
 N_SCALARS = TAIL + N_THETA + N_DIMS
 # The kernel's tiling (``tiling``; csrc/centered_vg.cu mirrors it): a
 # thread-block cluster of S blocks serves Cg chains, block ``rank`` owning
-# the grid rows [rank L, min(n, (rank + 1) L)) of both states; a thread's
-# unit is ROWS consecutive rows of one state for G chains. A chain's
-# sums (N_SUMS; sum_i r^2 per state, |g|^2, |h|^2, the three theta
-# gradients, one spare) go through PART_LANES partial lanes per unit; its
+# the grid rows [rank L, min(n, (rank + 1) L)) of both states, L a whole
+# number of TILE_ROWS-row tiles (a DMMA's m). A tile's window of columns
+# runs from its first row less b in STEP-wide k steps (a DMMA's k;
+# ``ksteps``); a cluster's chains are N tiles of CHAIN_TILE (a DMMA's n), at
+# most MAX_NTILES, or one N tile padded with chains that are not there
+# below CHAIN_TILE. A chain's sums (N_SUMS; sum_i r^2 per state, |g|^2,
+# |h|^2, the three theta gradients, one spare) go through PART_LANES
+# partial lanes of L / 2 entries, and rank 0 gathers every block's; its
 # parameters take N_PARAMS slots; its VECTORS staged vectors (X then H, E,
-# GS) are float64 in both dtypes. S is the largest power of two up to
-# MAX_CLUSTER leaving slabs of at least max(b, MIN_SLAB) rows; Cg the chains
-# that fill TARGET_BLOCKS blocks (the H100's 132 SMs, one block each), as
-# shared memory allows. MAX_SHARED_BYTES is a block's opt-in maximum.
-ROWS, MAX_THREADS, MAX_CLUSTER, MIN_SLAB, TARGET_BLOCKS = 2, 256, 16, 32, 128
-# G at most (the kernel's instances take G = 1, 2, 4, 8), and the units a
-# block should keep: on the H100 blocks of ~100 units ran fastest, fewer
-# leaving too few warps, more loading and converting each coefficient again
-# for each further chain subgroup (perf/vg_timing.py --variants, PERF.md)
-MAX_PER_THREAD, MIN_UNITS = 8, 96
-N_SUMS, N_PARAMS, PART_LANES, VECTORS = 8, 8, 4, 3
+# GS) are float64 in both dtypes. S is 1 where one block has a warp for
+# every (tile, state) item (2 tiles <= MAX_WARPS: more blocks would only add
+# cluster barriers and halo exchanges to the same warps' work), else the
+# least number of slabs of whole tiles, at most WAVE_CLUSTER: at one block
+# an SM the H100 runs only 15 clusters of 7 or 8 at once
+# (cudaOccupancyMaxActiveClusters; 7 of 13), so the 16th of C = 128 in
+# chain groups of 8 waits for a whole launch's time. WAVE_CLUSTER is also
+# the kernel's largest cluster (its rank 0 gathers that many blocks' sums).
+# Cg is 1 where a block a chain keeps the launch within TARGET_BLOCKS
+# blocks (the H100 SXM's 132 SMs, one block each): a block's time grows with
+# its chains (the fill, the epilogues, the sums) and its DMMAs' do not, so
+# at [resume]'s C = 8 one chain a block ran 0.0147 ms and eight 0.0164
+# (perf/vg_timing.py --variants k1, PERF.md). Elsewhere Cg is the least
+# multiple of CHAIN_TILE that keeps the launch within TARGET_BLOCKS, as
+# shared memory allows. A block has a warp per
+# (tile, state) item of a stage, at most MAX_WARPS; each warp streams its
+# prepared tiles (k steps of FRAG_ELEMS values) through a ring of
+# MIN_SLOTS to RING_SLOTS slots of SLOT_BYTES, each under an mbarrier of 8
+# bytes, the block's rings at most RING_BYTES and leaving the chains their
+# room. MAX_SHARED_BYTES is a block's opt-in maximum.
+TILE_ROWS, STEP, CHAIN_TILE, MAX_NTILES = 16, 8, 8, 4
+MAX_WARPS, WAVE_CLUSTER, TARGET_BLOCKS = 12, 5, 132
+RING_SLOTS, MIN_SLOTS, RING_BYTES, SLOT_BYTES, FRAG_ELEMS = 6, 2, 98304, 2048, 128
+N_SUMS, N_PARAMS, PART_LANES, VECTORS = 8, 12, 4, 3
 MAX_SHARED_BYTES = 232448
 
 # The longest grid the route takes, as n (2b+1), one operator's terms. On
 # the H100, ms per replayed value-and-grad, kernel route against autograd
 # route (perf/vg_timing.py, PERF.md): config 4's grid (n = 793, b = 80)
-# 0.170 against 0.393 at 128 chains, 0.062 against 0.223 at one; n = 3169,
-# b = 160, 1.193 against 1.008 at 128 chains (the kernel 0.72 ms of it),
-# 0.258 against 0.386 at one. At 128 chains the routes cross between the
-# two grids, so the route stops at config 4's.
+# 0.112-0.117 against 0.392 at 128 chains, 0.071 against 0.226 at one;
+# n = 3169, b = 160, 0.98-0.99 against 1.01 at 128 chains (the kernel 0.52
+# ms of it), 0.50-0.51 against 0.38-0.39 at one. Past config 4's grid the
+# autograd route is as fast or faster, so the route stops there.
 MAX_TERMS = 793 * 161
 
 # The two whitening GEMMs around the kernel (dpsi = zeta W^T, g_zeta =
@@ -126,13 +146,24 @@ GEMM_MIN_SIZE, GEMM_MAX_WORK = 2048, 2 ** 28
 
 _LIB = None
 
+# Launches of the tiles' preparation (``prepare_tiles`` on the card, once
+# per target) since the last reset; the kernel's own are
+# ``cuda_band.KERNEL_LAUNCHES[NAME]``
+PREPARE = "centered_vg_prepare"
+LAUNCHES = {PREPARE: 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
 
 class CenteredFN(NamedTuple):
     """A whitened FN target's constants as the plain version and the
     kernel read them."""
 
     bands: torch.Tensor    # (6, D, 2b+1, n): the storages of BANDS
-    band_diags: torch.Tensor  # (6, D, *diag_shape(n, b)): the same, indexed by row
+    tiles: torch.Tensor    # (6, D, row tiles, ksteps, FRAG_ELEMS): ``prepare_tiles``
     fields: torch.Tensor   # (5, D, n): FIELDS, transposed to (D, n)
     scalars: torch.Tensor  # (N_SCALARS,)
     n: int
@@ -145,103 +176,170 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def diag_shape(n: int, bandwidth: int) -> tuple:
-    """(terms, columns) of one operator in the kernel's diagonal copy: the
-    2b+1 terms padded with zero terms to whole chunks of 8, and the n rows
-    padded with zero rows to an even count of at least n + ROWS."""
-    return 8 * _cdiv(2 * bandwidth + 1, 8), 2 * _cdiv(n + ROWS, 2)
+def ksteps(bandwidth: int) -> int:
+    """k steps of STEP columns in a row tile's window: its TILE_ROWS rows
+    and b columns each side."""
+    return _cdiv(TILE_ROWS + 2 * bandwidth, STEP)
 
 
-def band_diags(bands: torch.Tensor, bandwidth: int) -> torch.Tensor:
-    """The kernel's copy of diagonal band storages (..., 2b+1, n) (ops/band.py
-    layout, indexed by column): out[..., b + k, i] = A[i, i + k], indexed by
-    row, zero where i + k lies outside [0, n) and in the padding of
-    ``diag_shape``. A unit's rows of one term are then one aligned vector,
-    neighbouring units' neighbouring ones, and no edge of the grid needs a
-    test in the kernel."""
+def tiles_shape(n: int, bandwidth: int) -> tuple:
+    """The prepared copy's shape: (operators, states, row tiles, k steps,
+    FRAG_ELEMS)."""
+    return len(BANDS), N_DIMS, _cdiv(n, TILE_ROWS), ksteps(bandwidth), FRAG_ELEMS
+
+
+def _tile_index(n: int, bandwidth: int):
+    """(i, j) of every entry of one operator's prepared copy, shaped
+    (row tiles, k steps, 32, 2, 2) as [rt][ks][lane][h][e]: the DMMA's A
+    fragment of rows 16 rt.. and columns 16 rt - b + 8 ks..; lane = 4 g + t
+    holds rows g and g + 8 (e) of columns t and t + 4 (h), its a[2 h + e]."""
+    rt = torch.arange(_cdiv(n, TILE_ROWS)).view(-1, 1, 1, 1, 1)
+    ks = torch.arange(ksteps(bandwidth)).view(1, -1, 1, 1, 1)
+    lane = torch.arange(32).view(1, 1, 32, 1, 1)
+    h = torch.arange(2).view(1, 1, 1, 2, 1)
+    e = torch.arange(2).view(1, 1, 1, 1, 2)
+    i = TILE_ROWS * rt + lane // 4 + 8 * e
+    j = TILE_ROWS * rt - bandwidth + STEP * ks + lane % 4 + 4 * h
+    return torch.broadcast_tensors(i, j)
+
+
+def prepare_tiles_torch(bands: torch.Tensor, bandwidth: int) -> torch.Tensor:
+    """The kernel's copy of band storages (..., 2b+1, n) (ops/band.py layout,
+    A[i, j] at [b + j - i, j]): in the storages' type, shaped (..., row
+    tiles, k steps, FRAG_ELEMS), entry [rt, ks, 4 lane + 2 h + e] =
+    A[16 rt + lane // 4 + 8 e, 16 rt - b + 8 ks + lane % 4 + 4 h], zero
+    outside the band, outside the grid and in the last tile's rows past n.
+    A row tile's window is then contiguous, k step after k step, each in
+    the order of a warp's A fragments: a bulk copy stages a run of k steps
+    and each lane reads its four values as one vector (16 bytes in float32,
+    converted exactly to float64 as it reads them, 32 in float64)."""
     b = bandwidth
     *lead, w, n = bands.shape
-    flat = bands.reshape(-1, w, n)
-    width = n + 2 * b
-    padded = torch.nn.functional.pad(flat, (b, b)).contiguous()
-    by_row = padded.as_strided((flat.shape[0], w, n), (w * width, width + 1, 1))  # A[i, i+k]
-    terms, cols = diag_shape(n, b)
-    out = torch.zeros((flat.shape[0], terms, cols), dtype=bands.dtype, device=bands.device)
-    out[:, :w, :n] = by_row
-    return out.reshape(*lead, terms, cols)
+    i, j = (t.to(bands.device) for t in _tile_index(n, b))
+    inside = (i < n) & (j >= 0) & (j < n) & ((j - i).abs() <= b)
+    flat = bands.reshape(-1, w * n)
+    at = torch.where(inside, (b + j - i) * n + j, 0).reshape(-1)
+    out = torch.where(inside.reshape(-1), flat[:, at], 0.0)
+    return out.reshape(*lead, *i.shape[:2], FRAG_ELEMS)
+
+
+def prepare_tiles(bands: torch.Tensor, bandwidth: int) -> torch.Tensor:
+    """``prepare_tiles_torch``'s copy: on a CUDA tensor one launch of the
+    kernel library's preparation (bit-equal: every entry is a storage's
+    value or zero), on a CPU one the plain version. ``bands`` (6, D, 2b+1,
+    n) as ``CenteredFN.bands``."""
+    if bands.device.type != "cuda":
+        return prepare_tiles_torch(bands, bandwidth)
+    n = bands.shape[-1]
+    if tuple(bands.shape) != (len(BANDS), N_DIMS, 2 * bandwidth + 1, n) or not bands.is_contiguous():
+        raise ValueError(f"prepare_tiles: contiguous storages {(len(BANDS), N_DIMS)} + (2b+1, n); "
+                         f"got {tuple(bands.shape)}")
+    out = torch.empty(tiles_shape(n, bandwidth), dtype=bands.dtype, device=bands.device)
+    lib = _library()
+    fn = lib.centered_vg_prepare_f64 if bands.dtype == torch.float64 else lib.centered_vg_prepare_f32
+    err = fn(ctypes.c_void_p(bands.data_ptr()), ctypes.c_void_p(out.data_ptr()), n, bandwidth,
+             ctypes.c_void_p(torch.cuda.current_stream(bands.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{NAME}: the tiles' preparation failed: CUDA error {err}")
+    LAUNCHES[PREPARE] += 1
+    return out
 
 
 class Tiling(NamedTuple):
     """One launch's tiling (``tiling``)."""
 
     cluster: int       # S: blocks a cluster, each a slab of rows
-    slab: int          # L: rows a slab (the last may be shorter)
+    slab: int          # L: rows a slab, whole tiles (the last slab may be shorter)
     chains: int        # Cg: chains a cluster
-    per_thread: int    # G: chains a thread's unit
-    split: bool        # G = 1: stages 1 and 4 put a unit's operators on two threads
+    ntiles: int        # N tiles of CHAIN_TILE chains a cluster (one padded one below it)
+    reach: int         # the slabs each side a block's halo of b rows takes rows from
     clusters: int      # clusters of the launch, ceil(C / Cg)
-    threads: int       # threads a block
+    threads: int       # threads a block: a warp per item of a stage, at most MAX_WARPS
     shared_bytes: int  # dynamic shared memory a block
     slabs: tuple       # (lo, hi) of each rank's slab
 
 
 def cluster_size(n: int, bandwidth: int) -> int:
-    """S: the largest power of two up to MAX_CLUSTER whose slabs keep at
-    least max(b, MIN_SLAB) rows (so a halo comes from the adjacent blocks)
-    and, rounded to even counts, leave the last slab rows; 1 for a grid
-    shorter than two such slabs."""
-    s = 1
-    while (2 * s <= MAX_CLUSTER and n // (2 * s) >= max(bandwidth, MIN_SLAB)
-           and (2 * s - 1) * 2 * _cdiv(n, 4 * s) < n):
-        s *= 2
-    return s
+    """S: 1 where one block's MAX_WARPS warps take every (tile, state)
+    item of the grid at once, else the least number of slabs of whole row
+    tiles, each the same number of tiles (the last may have fewer rows),
+    that keeps S at most WAVE_CLUSTER. Depends on n alone (the band enters
+    through the halos)."""
+    tiles = _cdiv(n, TILE_ROWS)
+    if 2 * tiles <= MAX_WARPS:
+        return 1
+    return _cdiv(tiles, _cdiv(tiles, WAVE_CLUSTER))
+
+
+def _stride(width: int) -> int:
+    """A staged vector's stride in doubles, at least ``width`` and 4 modulo
+    16: the 8 x 4 doubles of a B fragment then fall in distinct banks."""
+    return width + (4 - width) % 16
 
 
 def chain_bytes(slab: int, bandwidth: int) -> int:
     """Shared memory one chain takes in a block with a slab of ``slab``
-    rows: its parameters and sums, PART_LANES partials per unit, and
-    VECTORS vectors of both states over the units' rows and a halo of b
-    each side, all float64."""
-    groups = _cdiv(slab, ROWS)
-    return 8 * (N_PARAMS + N_SUMS + PART_LANES * groups
-                + VECTORS * 2 * (groups * ROWS + 2 * bandwidth))
+    rows: its parameters and sums, the cluster's blocks' sums (gathered
+    in rank 0), PART_LANES partial lanes of slab / 2 entries, and VECTORS
+    vectors of both states over every row tile's window (the slab less one
+    tile plus a window's k steps), all float64."""
+    width = slab - TILE_ROWS + STEP * ksteps(bandwidth)
+    return 8 * (N_PARAMS + N_SUMS + WAVE_CLUSTER * (N_SUMS - 1) + PART_LANES * (slab // 2)
+                + VECTORS * N_DIMS * _stride(width))
+
+
+def warps(slab: int) -> int:
+    """A block's warps: one per (tile, state) item of a stage, at most
+    MAX_WARPS."""
+    return min(2 * (slab // TILE_ROWS), MAX_WARPS)
+
+
+def ring_slots(slab: int, bandwidth: int, chains: int) -> int:
+    """Slots of a warp's ring: RING_SLOTS, fewer where the block's rings
+    would pass RING_BYTES or leave too little of MAX_SHARED_BYTES for
+    ``chains`` chains."""
+    w = warps(slab)
+    left = MAX_SHARED_BYTES - chains * chain_bytes(slab, bandwidth)
+    return min(RING_SLOTS, RING_BYTES // (w * SLOT_BYTES), left // (w * (SLOT_BYTES + 8)))
+
+
+def ring_bytes(slab: int, bandwidth: int, chains: int) -> int:
+    """Shared memory of a block's rings: its warps' slots and their
+    mbarriers."""
+    return warps(slab) * ring_slots(slab, bandwidth, chains) * (SLOT_BYTES + 8)
 
 
 def tiling(n: int, bandwidth: int, n_chains: int) -> Tiling:
     """The launch for C = ``n_chains`` chains on a grid of n rows, band b.
-    S and the slabs depend on (n, b) alone; Cg = ceil(C S / TARGET_BLOCKS)
-    as shared memory allows, rounded down to a multiple of MAX_PER_THREAD
-    above it; G the largest of 8, 4, 2 up to MAX_PER_THREAD dividing Cg that
-    leaves the block MIN_UNITS units (ROWS rows of one state for G chains),
-    else 1; ``split`` for one chain a cluster when twice its units fit
-    one pass; threads enough for the units (two a unit when split), each
-    state's padded to whole warps, in as few passes of at most MAX_THREADS
-    as can be. Raises ValueError when
-    one chain's state is beyond a block's shared memory."""
+    S and the slabs depend on (n, b) alone; Cg is 1 where C S blocks fit
+    TARGET_BLOCKS, else the least multiple of CHAIN_TILE (at most
+    MAX_NTILES of them and no more than C needs) whose clusters keep the
+    launch within TARGET_BLOCKS blocks, as shared memory allows; where
+    shared memory holds fewer than CHAIN_TILE, one padded N tile of as
+    many as fit. Threads: ``warps``. Raises ValueError when one chain's
+    state is beyond a block's shared memory beside its rings."""
     s = cluster_size(n, bandwidth)
-    slab = _cdiv(n, s) if s == 1 else 2 * _cdiv(n, 2 * s)  # even: aligned vectors
+    slab = TILE_ROWS * _cdiv(_cdiv(n, TILE_ROWS), s)
     per_chain = chain_bytes(slab, bandwidth)
-    fits = MAX_SHARED_BYTES // per_chain
+    room = MAX_SHARED_BYTES - warps(slab) * MIN_SLOTS * (SLOT_BYTES + 8)
+    fits = room // per_chain
     if fits < 1:
         raise ValueError(f"centered_vg: a chain at n = {n}, b = {bandwidth} needs {per_chain} "
-                         f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
-    c = max(1, min(_cdiv(n_chains * s, TARGET_BLOCKS), fits, n_chains))
-    if c > MAX_PER_THREAD:
-        c -= c % MAX_PER_THREAD
-    groups = _cdiv(slab, ROWS)
-    g = next((g for g in (8, 4, 2) if g <= MAX_PER_THREAD and c % g == 0
-              and 2 * groups * (c // g) >= MIN_UNITS), 1)
-    # each state's row groups padded to whole warps, as the kernel runs them;
-    # one chain a cluster splits stages 1 and 4 over twice the threads when
-    # they fit one pass (on the H100 faster there, slower at 2 chains or in
-    # two passes: perf/vg_timing.py, PERF.md)
-    units = 2 * 32 * _cdiv(groups, 32) * (c // g)
-    split = c == 1 and 2 * units <= MAX_THREADS
-    units *= 2 if split else 1
-    threads = 32 * _cdiv(_cdiv(units, _cdiv(units, MAX_THREADS)), 32)
+                         f"bytes of shared memory, more than {room}")
+    if n_chains * s <= TARGET_BLOCKS:
+        c = 1
+    elif fits < CHAIN_TILE:
+        c = fits
+    else:
+        most = min(MAX_NTILES, fits // CHAIN_TILE, _cdiv(n_chains, CHAIN_TILE))
+        m = next((m for m in range(1, most + 1)
+                  if s * _cdiv(n_chains, CHAIN_TILE * m) <= TARGET_BLOCKS), most)
+        c = CHAIN_TILE * m
     slabs = tuple((r * slab, min(n, (r + 1) * slab)) for r in range(s))
-    return Tiling(cluster=s, slab=slab, chains=c, per_thread=g, split=split,
-                  clusters=_cdiv(n_chains, c), threads=threads, shared_bytes=c * per_chain,
+    return Tiling(cluster=s, slab=slab, chains=c, ntiles=max(1, c // CHAIN_TILE),
+                  reach=_cdiv(bandwidth, slab) if s > 1 else 0, clusters=_cdiv(n_chains, c),
+                  threads=32 * warps(slab),
+                  shared_bytes=ring_bytes(slab, bandwidth, c) + c * per_chain,
                   slabs=slabs)
 
 
@@ -301,7 +399,7 @@ def make_params(target, center) -> CenteredFN:
     fields = (cent.x_ref, cent.r_ref, cent.c_e, cent.c_gc, data.mask)
     bands = torch.stack(storages).contiguous()
     return CenteredFN(
-        bands=bands, band_diags=band_diags(bands, int(target.bandwidth)),
+        bands=bands, tiles=prepare_tiles(bands, int(target.bandwidth)),
         fields=torch.stack([f.transpose(0, 1) for f in fields]).contiguous(),
         scalars=torch.as_tensor(scalars, dtype=like.dtype, device=like.device),
         n=n, bandwidth=int(target.bandwidth), sigma_sampled=not target.sigma_is_fixed,
@@ -392,6 +490,10 @@ def load(source: Path = SOURCE):
         fn = getattr(lib, f"{NAME}_{suffix}")
         fn.argtypes, fn.restype = [p, p, p], ctypes.c_int
     lib.centered_vg_init.argtypes, lib.centered_vg_init.restype = [], ctypes.c_int
+    if hasattr(lib, "centered_vg_prepare_f32"):  # not in the baselines
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"centered_vg_prepare_{suffix}")
+            fn.argtypes, fn.restype = [p, p, ctypes.c_int, ctypes.c_int, p], ctypes.c_int
     if hasattr(lib, "centered_vg_max_clusters"):  # not in the one-block baseline
         lib.centered_vg_max_clusters.argtypes = [p, ctypes.c_int, p]
         lib.centered_vg_max_clusters.restype = ctypes.c_int
@@ -410,9 +512,9 @@ def _library():
 
 # the kernel's pointer and integer arguments, in the order of its VgArgs
 # and its Launch
-POINTERS = ("dpsi", "band_diags", "fields", "scalars", "g_psi", "lp")
+POINTERS = ("dpsi", "tiles", "fields", "scalars", "g_psi", "lp")
 INTS = ("n_chains", "n", "bandwidth", "dim", "sigma_sampled", "theta_kind", "cluster", "slab",
-        "chains", "per_thread", "split", "threads", "shared_bytes", "n_pointers", "n_ints")
+        "chains", "threads", "shared_bytes", "n_pointers", "n_ints")
 # (library, tiling, float64) -> clusters the card runs at once
 _MAX_CLUSTERS = {}
 
@@ -426,8 +528,7 @@ def centered_fn_vg_cuda(dpsi: torch.Tensor, p: CenteredFN):
 def _ints(c: int, dim: int, p: CenteredFN, tile: Tiling):
     return (ctypes.c_longlong * len(INTS))(
         c, p.n, p.bandwidth, dim, int(p.sigma_sampled), p.theta_kind, tile.cluster, tile.slab,
-        tile.chains, tile.per_thread, int(tile.split), tile.threads, tile.shared_bytes,
-        len(POINTERS), len(INTS))
+        tile.chains, tile.threads, tile.shared_bytes, len(POINTERS), len(INTS))
 
 
 def max_clusters(lib, ints, f64: bool) -> int:
@@ -448,7 +549,7 @@ def launch(lib, dpsi: torch.Tensor, p: CenteredFN):
     c, dim = dpsi.shape
     n, d = p.n, N_DIMS
     want_dim = n * d + N_THETA + (d if p.sigma_sampled else 0)
-    tensors = dict(dpsi=dpsi, band_diags=p.band_diags, fields=p.fields, scalars=p.scalars)
+    tensors = dict(dpsi=dpsi, fields=p.fields, scalars=p.scalars)
     for what, t in tensors.items():
         if t.device != dpsi.device or t.dtype != dpsi.dtype or not t.is_contiguous():
             raise ValueError(f"centered_fn_vg_cuda: {what} must be a contiguous {dpsi.dtype} "
@@ -456,13 +557,14 @@ def launch(lib, dpsi: torch.Tensor, p: CenteredFN):
     if dpsi.device.type != "cuda" or dpsi.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"centered_fn_vg_cuda: float32 or float64 on a CUDA device; got "
                          f"{dpsi.dtype} on {dpsi.device}")
-    diags = (len(BANDS), d, *diag_shape(n, p.bandwidth))
-    if (dim != want_dim or tuple(p.band_diags.shape) != diags
+    want_tiles = tiles_shape(n, p.bandwidth)
+    if (dim != want_dim or tuple(p.tiles.shape) != want_tiles or p.tiles.dtype != dpsi.dtype
+            or p.tiles.device != dpsi.device or not p.tiles.is_contiguous()
             or tuple(p.fields.shape) != (len(FIELDS), d, n)
             or tuple(p.scalars.shape) != (N_SCALARS,) or p.theta_kind not in (0, 1)):
         raise ValueError(f"centered_fn_vg_cuda: dpsi {tuple(dpsi.shape)} (dim {want_dim}), "
-                         f"band copy {tuple(p.band_diags.shape)} (want {diags}), fields "
-                         f"{tuple(p.fields.shape)}, "
+                         f"tiles {tuple(p.tiles.shape)} {p.tiles.dtype} on {p.tiles.device} "
+                         f"(want {want_tiles} {dpsi.dtype}), fields {tuple(p.fields.shape)}, "
                          f"theta kind {p.theta_kind}")
     tile = tiling(n, p.bandwidth, max(c, 1))
     lib = _library() if lib is None else lib
@@ -479,7 +581,7 @@ def launch(lib, dpsi: torch.Tensor, p: CenteredFN):
         raise RuntimeError(f"{NAME}: the card cannot run a cluster of {tile.cluster} blocks of "
                            f"{tile.threads} threads and {tile.shared_bytes} bytes of shared "
                            f"memory ({tile})")
-    out = dict(tensors, g_psi=g_psi, lp=lp)
+    out = dict(tensors, tiles=p.tiles, g_psi=g_psi, lp=lp)
     ptrs = (ctypes.c_void_p * len(POINTERS))(*(out[k].data_ptr() for k in POINTERS))
     fn = getattr(lib, f"{NAME}_{'f64' if f64 else 'f32'}")
     err = fn(ptrs, ints, torch.cuda.current_stream(dpsi.device).cuda_stream)

@@ -1,7 +1,6 @@
 // The whitened FN value-and-grad's kernel in its first design (one block
 // per chain). Not built by the package: perf/vg_timing.py builds it
-// beside csrc/centered_vg.cu as the yardstick, times both in the same run
-// and holds the new kernel's x block of g_psi to it bit for bit.
+// beside csrc/centered_vg.cu as a yardstick and times both in the same run.
 //
 // The whitened, mode-centered FitzHugh-Nagumo value-and-grad between its
 // two whitening GEMMs, forward and analytic backward in one launch.

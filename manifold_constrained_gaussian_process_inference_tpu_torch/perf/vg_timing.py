@@ -1,12 +1,13 @@
 """The whitened FN value-and-grad's kernel (csrc/centered_vg.cu) on the
-card: held to its plain version and to its first design (one block per
-chain, ``perf/baselines/centered_vg_pr11.cu``, built beside it), timed
-per launch against its bound, the plain version and that baseline, and the
-whole value-and-grad on both routes.
+card: held to its plain version and to its earlier designs (one block per
+chain, ``perf/baselines/centered_vg_pr11.cu``; the cluster with scalar
+multiply-adds, ``perf/baselines/centered_vg_pr12.cu``; both built beside it),
+timed per launch against its bound, the plain version and those baselines,
+and the whole value-and-grad on both routes.
 
     python3 -m manifold_constrained_gaussian_process_inference_tpu_torch.perf.vg_timing \\
         [--cases slice,c1,chees,mesh,resume,long,long_c1,n793,n793_c1] [--repeat] \\
-        [--probe] [--phases slice,resume] [--variants base,g4,u4 --variant-cases slice,c1] \\
+        [--probe] [--phases slice,resume] [--variants base,s3,n1 --variant-cases slice,c1] \\
         [--out chiprun_out/vg_timing.json]
 
 Cases (chains, workload): [slice]'s (128 chains, FN n = 397, b = 40, sigma
@@ -19,20 +20,27 @@ start (``perf/workload.slice_likelihood``; for n = 3169, whose whitener is
 not built here, 0.05 N(0, I) draws of dpsi).
 
 Checks (``check_case``): the float64 kernel against the float64 plain
-version, max |difference| over max |plain| of lp and of g_psi, within
-``TOL_F64``; the float32 kernel's error against the float64 plain version
-at most ``F32_FACTOR`` times the float32 plain version's own; and a
-chain's bits the same whatever shares its launch: the launches of
-SUBSETS' chains against the rows of the whole launch, in both dtypes; and
-the x block of g_psi bit-equal to the one-block baseline's, in both dtypes
-(every per-row vector keeps that kernel's arithmetic and order; only the
-chain's sums, lp and the gradient's tail, are taken in another order).
+version and against the scalar cluster kernel, max |difference| over max |other| of
+lp and of g_psi, within ``TOL_F64``; the float32 kernel's error against
+the float64 plain version at most ``F32_FACTOR`` times the float32 plain
+version's own and times the scalar cluster kernel's own; and a chain's bits the same
+whatever shares its launch: the launches of SUBSETS' chains against the
+rows of the whole launch, in both dtypes. (The DMMAs sum a row's terms in
+another order than the earlier designs, so the x block's float32 bits are
+not theirs.) Besides: the prepared tiles of the card's preparation
+(``centered_vg.prepare_tiles``) bit-equal to its plain version
+``prepare_tiles_torch`` in both dtypes, and, where the tiling keeps the
+launch within TARGET_BLOCKS blocks (one wave meant), the card's
+cudaOccupancyMaxActiveClusters at least the launch's clusters.
 
 Times (``time_case``): device ms per launch from CUDA events around one
 replay of a CUDA graph of ``COUNT`` launches, median of ``REPS`` replays,
-beside the tiling it ran (``centered_vg.tiling``); the one-block baseline
+beside the tiling it ran (``centered_vg.tiling``) and the bytes of
+prepared tiles its blocks read from L2 (``tile_bytes``); both baselines
 likewise; the plain version likewise (a graph of
-``PLAIN_COUNT`` calls); the bound, the larger of the bytes at 3.35 TB/s and
+``PLAIN_COUNT`` calls); the tiles' preparation (``prepare_ms``) beside its
+plain version (eager: it copies its index from the host) and its bytes bound (the storages read and the tiles written
+at 3.35 TB/s); the bound, the larger of the bytes at 3.35 TB/s and
 the multiply-adds at the H100's 67 TFLOP/s float32 peak (34 in float64),
 each from ``centered_vg.bound_work``; the two whitening GEMMs alone, by
 torch.matmul and by the product kernel (``ops/minv_mv``, on W and W^T
@@ -46,15 +54,19 @@ neither kernel (``vg_rel``).
 ``--phases CASES`` builds a copy of the kernel that stamps the device
 clock at each of its phases (``phase_source``) and prints, per phase, the
 median and largest microseconds over the launch's blocks. ``--variants``
-times copies of the kernel with source edits (``SOURCE_VARIANTS``) or G
-capped ("g<chains>"), each held to the plain version and the one-block kernel's x block.
+times the kernel on other tilings: "s<k>" S's limit (k up to WAVE_CLUSTER, the kernel's
+largest cluster), "n<k>" the N tiles a cluster (MAX_NTILES), "t<k>" the blocks a launch
+(TARGET_BLOCKS), "k<k>" the chain groups' unit (Cg a multiple of k), "r<k>" a block's
+rings in KiB (RING_BYTES, in a build with that kRingBytes), each held to the plain
+version.
 ``--repeat`` digests both routes' value-and-grad over 300 calls of a
 [mesh] rank's batch in two spawned worlds of four ranks on the card and in
 two lone processes (``repeat_digest``): whether a route gives the same bits
 run to run and whatever shares the card. ``--probe`` times, at [slice]'s
-case, a copy of the kernel whose band coefficients are a constant instead
-of loads from L2 (``probe_source``; its outputs are wrong by design): what
-the loads of the six storages cost a launch. Runs on a CUDA card only.
+case, a copy of the kernel whose tiles are never copied (each slot's
+mbarrier is only arrived at; ``probe_source``; its outputs are wrong by
+design): what the tiles' traffic from L2 costs a launch. Runs on a CUDA
+card only.
 """
 from __future__ import annotations
 
@@ -90,7 +102,9 @@ CASES = {
 # chains launched alone, held against their rows of the whole launch
 SUBSETS = {1: (5,), 3: (7, 8, 9), 32: tuple(range(32, 64))}
 BASELINE = Path(__file__).resolve().parent / "baselines" / "centered_vg_pr11.cu"
+BASELINE_PR12 = Path(__file__).resolve().parent / "baselines" / "centered_vg_pr12.cu"
 _BASELINE_LIB = None
+_PR12 = {}  # the library; per storages tensor, the tensor and its row-indexed copy
 
 
 def baseline_lib():
@@ -122,6 +136,82 @@ def launch_pr11(dpsi, p):
     if err != 0:
         raise RuntimeError(f"one-block baseline launch failed: CUDA error {err}")
     return lp, g_psi
+
+
+# the scalar cluster kernel reads the storages through a row-indexed diagonal copy and
+# runs on its own tiling: frozen copies of ops/centered_vg.py's as it was
+def pr12_band_diags(bands: torch.Tensor, bandwidth: int) -> torch.Tensor:
+    """out[..., b + k, i] = A[i, i + k], terms padded to whole chunks of 8 and
+    rows to an even count of at least n + 2, zero outside the grid."""
+    b = bandwidth
+    *lead, w, n = bands.shape
+    flat = bands.reshape(-1, w, n)
+    width = n + 2 * b
+    padded = torch.nn.functional.pad(flat, (b, b)).contiguous()
+    by_row = padded.as_strided((flat.shape[0], w, n), (w * width, width + 1, 1))
+    terms, cols = 8 * (-(-(2 * b + 1) // 8)), 2 * (-(-(n + 2) // 2))
+    out = torch.zeros((flat.shape[0], terms, cols), dtype=bands.dtype, device=bands.device)
+    out[:, :w, :n] = by_row
+    return out.reshape(*lead, terms, cols)
+
+
+def pr12_tiling(n: int, b: int, c: int) -> tuple:
+    """(S, L, Cg, G, split, threads, shared bytes) of the scalar cluster kernel's launch."""
+    cdiv = lambda a, d: -(-a // d)  # noqa: E731
+    s = 1
+    while 2 * s <= 16 and n // (2 * s) >= max(b, 32) and (2 * s - 1) * 2 * cdiv(n, 4 * s) < n:
+        s *= 2
+    slab = cdiv(n, s) if s == 1 else 2 * cdiv(n, 2 * s)
+    groups = cdiv(slab, 2)
+    per_chain = 8 * (8 + 8 + 4 * groups + 3 * 2 * (groups * 2 + 2 * b))
+    cg = max(1, min(cdiv(c * s, 128), 232448 // per_chain, c))
+    if cg > 8:
+        cg -= cg % 8
+    g = next((g for g in (8, 4, 2) if cg % g == 0 and 2 * groups * (cg // g) >= 96), 1)
+    units = 2 * 32 * cdiv(groups, 32) * (cg // g)
+    split = cg == 1 and 2 * units <= 256
+    units *= 2 if split else 1
+    threads = 32 * cdiv(cdiv(units, cdiv(units, 256)), 32)
+    return s, slab, cg, g, split, threads, cg * per_chain
+
+
+def launch_pr12(dpsi, p):
+    """(lp, g_psi) of the scalar cluster kernel on the current stream."""
+    import ctypes
+
+    from ..ops import centered_vg as cv
+
+    if "lib" not in _PR12:
+        _PR12["lib"] = cv.load(BASELINE_PR12)
+    # keyed by address, the storages kept alive beside their copy: a freed
+    # tensor's address may come back holding another case's storages
+    key = (p.bands.data_ptr(), p.bands.dtype)
+    if key not in _PR12 or _PR12[key][0] is not p.bands:
+        _PR12[key] = (p.bands, pr12_band_diags(p.bands, p.bandwidth))
+    c, dim = dpsi.shape
+    g_psi, lp = torch.empty_like(dpsi), torch.empty(c, dtype=dpsi.dtype, device=dpsi.device)
+    tensors = (dpsi, _PR12[key][1], p.fields, p.scalars, g_psi, lp)  # its VgArgs' order
+    ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in tensors))
+    s, slab, cg, g, split, threads, shared = pr12_tiling(p.n, p.bandwidth, c)
+    ints = (ctypes.c_longlong * 15)(c, p.n, p.bandwidth, dim, int(p.sigma_sampled), p.theta_kind,
+                                    s, slab, cg, g, int(split), threads, shared, 6, 15)
+    fn = getattr(_PR12["lib"], f"{cv.NAME}_{'f64' if dpsi.dtype == torch.float64 else 'f32'}")
+    err = fn(ptrs, ints, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the scalar cluster kernel: launch failed: CUDA error {err}")
+    return lp, g_psi
+
+
+def tile_bytes(n: int, b: int, c: int, itemsize: int) -> int:
+    """Bytes of prepared tiles one launch's blocks copy from L2: every block
+    its slab's row tiles, both states, six operators, each a window's k
+    steps of FRAG_ELEMS values of ``itemsize`` bytes, in every cluster."""
+    from ..ops import centered_vg as cv
+
+    t = cv.tiling(n, b, c)
+    tiles = sum(-(-(hi - lo) // cv.TILE_ROWS) for lo, hi in t.slabs)
+    return (t.clusters * tiles * len(cv.BANDS) * cv.N_DIMS * cv.ksteps(b) * cv.FRAG_ELEMS
+            * itemsize)
 
 
 def make_case(name: str, cov64=None) -> dict:
@@ -182,6 +272,20 @@ def check_case(case: dict) -> dict:
     dpsi = {f32: dpsi32, f64: dpsi32.double()}  # one input, representable in both
     ref = cv.centered_fn_vg_torch(dpsi[f64], params[f64])
     out = {}
+    for dt in (f64, f32):  # the card's preparation against its plain version
+        got = params[dt].tiles
+        assert got.is_cuda and torch.equal(got, cv.prepare_tiles_torch(params[dt].bands,
+                                                                       params[dt].bandwidth)), \
+            f"{case['name']} {dt}: the prepared tiles differ from prepare_tiles_torch's"
+    out["prepare_equal"] = True
+    tile = cv.tiling(case["n"], case["bandwidth"], case["chains"])
+    out["clusters"] = tile.clusters
+    out["active_clusters"] = cv.max_clusters(cv._library(), cv._ints(
+        case["chains"], case["dim"], params[f32], tile), False)
+    if tile.cluster * tile.clusters <= cv.TARGET_BLOCKS:
+        assert out["active_clusters"] >= tile.clusters, (
+            f"{case['name']}: the card runs {out['active_clusters']} clusters of {tile} at once, "
+            f"fewer than the launch's {tile.clusters}")
     for dt in (f64, f32):
         kern = cv.centered_fn_vg_cuda(dpsi[dt], params[dt])
         plain = cv.centered_fn_vg_torch(dpsi[dt], params[dt])
@@ -199,17 +303,21 @@ def check_case(case: dict) -> dict:
         out[f"max_abs_err_{str(dt)[6:]}"] = max(float((k.double() - p.double()).abs().max())
                                                 for k, p in zip(kern, plain))
         out[f"max_abs_plain_{str(dt)[6:]}"] = max(float(p.double().abs().max()) for p in plain)
-        # the x block against the one-block kernel's, bit for bit
-        nd = 2 * case["n"]
-        base = launch_pr11(dpsi[dt], params[dt])
+        # against the scalar cluster kernel: float64 to rounding, float32 as accurate
+        base = launch_pr12(dpsi[dt], params[dt])
         torch.cuda.synchronize()
-        assert torch.equal(kern[1][:, :nd], base[1][:, :nd]), (
-            f"{case['name']} {dt}: the x block of g_psi differs from the one-block kernel's (max "
-            f"{float((kern[1][:, :nd] - base[1][:, :nd]).abs().max()):.3e})")
-        out[f"x_block_bits_pr11_{str(dt)[6:]}"] = True
-        out[f"tail_rel_pr11_{str(dt)[6:]}"] = max(
-            _rel(kern[0].double(), base[0].double()),
-            _rel(kern[1][:, nd:].double(), base[1][:, nd:].double()))
+        for what, k, b, r in zip(("lp", "g"), kern, base, ref):
+            if dt == f64:
+                e12 = _rel(k, b)
+                out[f"{what}_rel_pr12_float64"] = e12
+                assert e12 <= TOL_F64, (f"{case['name']} float64 {what}: rel {e12:.3e} to the scalar "
+                                        f"kernel > {TOL_F64}")
+            else:
+                ek, e12 = _rel(k.double(), r), _rel(b.double(), r)
+                out[f"{what}_float32_pr12"] = e12
+                assert ek <= F32_FACTOR * e12, (
+                    f"{case['name']} float32 {what}: kernel rel {ek:.3e} > {F32_FACTOR} x PR "
+                    f"12's kernel's {e12:.3e}")
         # a chain's bits: chains launched alone
         for c, rows in SUBSETS.items():
             if max(rows) >= case["chains"]:
@@ -240,6 +348,23 @@ def graph_ms(fn, count: int, reps: int = REPS) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return float(np.median(times))
+
+
+def eager_ms(fn, count: int, reps: int = REPS) -> float:
+    """ms per call of ``count`` eager calls between CUDA events, median of
+    ``reps`` (for a function that copies from the host, which a graph
+    cannot capture)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(count):
+            fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / count)
@@ -291,11 +416,21 @@ def time_case(case: dict, dtype=torch.float32, whole: bool = True) -> dict:
     out = {"chains": case["chains"], "n": case["n"], "bandwidth": case["bandwidth"],
            "dtype": str(dtype)[6:], "tiling": {k: v for k, v in tile._asdict().items()
                                                  if k != "slabs"}}
+    out["tiling"]["ring_slots"] = cv.ring_slots(tile.slab, case["bandwidth"], tile.chains)
+    out["tile_bytes"] = tile_bytes(case["n"], case["bandwidth"], case["chains"], dtype.itemsize)
     out["ms"] = graph_ms(lambda: cv.centered_fn_vg_cuda(dpsi, params), COUNT)
+    launch_pr12(dpsi, params)  # its row-indexed copy, made outside the graph
+    out["pr12_ms"] = graph_ms(lambda: launch_pr12(dpsi, params), COUNT)
     out["pr11_ms"] = graph_ms(lambda: launch_pr11(dpsi, params), COUNT)
     out["active_clusters"] = cv.max_clusters(cv._library(), cv._ints(
         case["chains"], case["dim"], params, tile), dtype == torch.float64)
     out["plain_ms"] = graph_ms(lambda: cv.centered_fn_vg_torch(dpsi, params), PLAIN_COUNT)
+    out["prepare_ms"] = graph_ms(lambda: cv.prepare_tiles(params.bands, params.bandwidth),
+                                 PLAIN_COUNT)
+    out["prepare_plain_ms"] = eager_ms(
+        lambda: cv.prepare_tiles_torch(params.bands, params.bandwidth), PLAIN_COUNT)
+    moved = dtype.itemsize * (params.bands.numel() + params.tiles.numel())
+    out["prepare_bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
     out["bound_ms"], out["bound_by"] = bound_ms(case, dtype)
     out["library_ms"] = None
     if whole:
@@ -350,26 +485,30 @@ def matmul_gemms():
 
 
 def probe_source() -> Path:
-    """A copy of the kernel's source, under build/, whose band coefficient
-    loads read zeros: a timing probe, not a kernel."""
+    """A copy of the kernel's source, under build/, whose prepared tiles
+    are never copied (each slot's mbarrier is arrived at without a
+    transaction): a timing probe, not a kernel."""
     from ..ops import centered_vg as cv, cuda_band
 
     text = cv.SOURCE.read_text()
-    load = "__ldg(reinterpret_cast<const V*>(diags[j] + static_cast<ptrdiff_t>(t0 + u) * cols))"
-    if load not in text:
-        raise SystemExit(f"{cv.SOURCE}: no '{load}' to replace")
-    path = cuda_band.BUILD_DIR / "probes" / "centered_vg_no_band_loads.cu"
+    start = text.index("__device__ __forceinline__ void stage_copy(")
+    body = text.index("{", start)
+    end = text.index("\n}\n", body)
+    probe = ('{\n  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(bar) : "memory");\n'
+             "  (void)dst, (void)src, (void)bytes;")
+    path = cuda_band.BUILD_DIR / "probes" / "centered_vg_no_tile_copies.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text.replace(load, "V{}"))
+    path.write_text(text[:body] + probe + text[end:])
     return path
 
 
 # Where ``phase_source`` stamps the time: before each anchor (all of a
 # block's threads at it first), in order; each phase ends at its stamp
-PHASES = (("fill", "  {\n    double* eg = staged(kE, 0, 0);"),
+PHASES = (("ring", "  const T* s = a.scalars;"),
+          ("fill", "  {\n    double* eg = staged(kE, 0, 0);"),
           ("zero", "  for (int o = tid; o < chains * 5; o += nthreads) {"),
           ("params", "  // Barriers: a cluster of one block"),
-          ("barrier0", "  // a unit: kRows rows of one state for G chains"),
+          ("barrier0", "  // A lane's outputs of an item"),
           ("stage1", "  arrive();\n  {\n    const int first[3] = {0, 1, 2}"),
           ("reduce1", "  // stage 2:"),
           ("stage2", "  arrive();\n  {\n    const int first[1]"),
@@ -377,7 +516,7 @@ PHASES = (("fill", "  {\n    double* eg = staged(kE, 0, 0);"),
           ("stage3", "  sync_all();  // ebar complete"),
           ("barrier3", "  // stage 4:"),
           ("stage4", "  {\n    const int first[3] = {0, 2, 3}"),
-          ("reduce4", "  if (rank == 0) {\n    for (int o = tid"),
+          ("reduce4", "  // every block's sums into rank 0's gathered sums"),
           ("partials", "  if (rank != 0) return;"))
 
 
@@ -427,84 +566,92 @@ def time_probe(case: dict) -> dict:
         dpsi = torch.as_tensor(case["dpsi"], dtype=dtype, device=DEVICE)
         out[str(dtype)[6:]] = dict(
             kernel=graph_ms(lambda: cv.centered_fn_vg_cuda(dpsi, params), COUNT),
-            no_band_loads=graph_ms(lambda: cv.launch(lib, dpsi, params), COUNT))
+            no_tile_copies=graph_ms(lambda: cv.launch(lib, dpsi, params), COUNT))
     return out
 
 
-# Variants of the kernel (``--variants``): a name and the edits of its
-# source, each (text, replacement); "g<chains>" caps G (MAX_PER_THREAD)
-SOURCE_VARIANTS = {
-    # float32 chunks of 4 terms, not 8
-    "u4": (("  using type = float2;\n  static constexpr int U = 8;",
-            "  using type = float2;\n  static constexpr int U = 4;"),),
-}
+# Variants of the kernel (``--variants``): its tiling with a constant of
+# ops/centered_vg.py capped, "n<k>" MAX_NTILES, "t<k>" TARGET_BLOCKS, "k<k>"
+# the chain groups' unit (CHAIN_TILE in ``tiling`` alone: Cg a multiple of
+# k, the kernel's N tile still 8), or
+# "s<k>" S's limit (``cluster_size`` with k for WAVE_CLUSTER, k at most
+# WAVE_CLUSTER: the kernel's shared memory holds that many blocks' sums),
+# or "r<k>" a block's rings at most k KiB (RING_BYTES, in a build of the
+# source with its kRingBytes so: ``ring_source``), joined by "+"; "base" the
+# tiling as it is
+VARIANT_CAPS = {"n": "MAX_NTILES", "t": "TARGET_BLOCKS", "k": "CHAIN_TILE"}
 
 
-def variant_source(name: str) -> Path:
-    """A copy of the kernel's source, under build/, with the edits of the
-    variant ``name`` (its parts joined by "+": SOURCE_VARIANTS' keys)."""
+def ring_source(ring_bytes: int) -> Path:
+    """A copy of the kernel's source, under build/, whose blocks' rings
+    hold at most ``ring_bytes`` (kRingBytes)."""
     from ..ops import centered_vg as cv, cuda_band
 
     text = cv.SOURCE.read_text()
-    for part in filter(None, name.split("+")):
-        if part == "base" or part.startswith("g"):
-            continue
-        for old, new in SOURCE_VARIANTS[part]:
-            if old not in text:
-                raise SystemExit(f"{cv.SOURCE}: variant {part}: no '{old}'")
-            text = text.replace(old, new)
-    path = cuda_band.BUILD_DIR / "probes" / f"centered_vg_{name.replace('+', '_') or 'base'}.cu"
+    old = f"constexpr int kRingBytes = {cv.RING_BYTES};"
+    if old not in text:
+        raise SystemExit(f"{cv.SOURCE}: no '{old}'")
+    path = cuda_band.BUILD_DIR / "probes" / f"centered_vg_ring{ring_bytes}.cu"
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text)
+    path.write_text(text.replace(old, f"constexpr int kRingBytes = {ring_bytes};"))
     return path
 
 
 def time_variants(cases: list, names: list) -> dict:
     """Each variant at each case: held to the plain version (float64 rel)
-    and to the one-block kernel's x block (bits), and timed per launch in both dtypes."""
-    import contextlib
-    import re
+    and timed per launch in both dtypes, beside its tiling."""
+    from ..ops import centered_vg as cv
 
-    from ..ops import centered_vg as cv, cuda_band
+    real_size = cv.cluster_size
 
-    parsed = {}
-    for name in names:
-        g = re.search(r"(?:^|\+)g(\d+)", name)
-        parsed[name] = int(g.group(1)) if g else cv.MAX_PER_THREAD
-    sources = {name: variant_source(name) for name in names}
-    with ThreadPoolExecutor() as pool:
-        list(pool.map(cuda_band.build, sources.values()))
+    def capped_size(k):
+        if not 1 <= k <= cv.WAVE_CLUSTER:
+            raise SystemExit(f"--variants s{k}: S's limit runs from 1 to {cv.WAVE_CLUSTER}")
+
+        def size(n, bandwidth):
+            tiles = -(-n // cv.TILE_ROWS)
+            return real_size(n, bandwidth) if 2 * tiles <= cv.MAX_WARPS else -(-tiles // -(-tiles // k))
+        return size
 
     @contextlib.contextmanager
-    def constants(per_thread):
-        old = cv.MAX_PER_THREAD
-        cv.MAX_PER_THREAD = per_thread
+    def constants(name):
+        parts = [part for part in name.split("+") if part != "base"]
+        caps = {VARIANT_CAPS[part[0]]: int(part[1:]) for part in parts if part[0] in VARIANT_CAPS}
+        caps.update({"RING_BYTES": 1024 * int(part[1:]) for part in parts if part[0] == "r"})
+        caps.update({"cluster_size": capped_size(int(part[1:])) for part in parts
+                     if part[0] == "s"})
+        old = {k: getattr(cv, k) for k in caps}
+        for k, v in caps.items():
+            setattr(cv, k, v)
         try:
             yield
         finally:
-            cv.MAX_PER_THREAD = old
+            for k, v in old.items():
+                setattr(cv, k, v)
 
     out = {}
-    for name, per_thread in parsed.items():
-        lib = cv.load(sources[name])
+    for name in names:
+        rings = [1024 * int(part[1:]) for part in name.split("+") if part[0] == "r"]
+        lib = cv.load(ring_source(rings[0])) if rings else cv._library()
         for case in cases:
             row = {}
             for dtype in (torch.float32, torch.float64):
-                with constants(per_thread):
+                with constants(name):
                     params = cv.make_params(case["targets"][dtype], case["center"])
                     dpsi = torch.as_tensor(case["dpsi"], dtype=dtype, device=DEVICE)
                     got = cv.launch(lib, dpsi, params)
-                    base = launch_pr11(dpsi, params)
                     plain = cv.centered_fn_vg_torch(dpsi.double(), params._replace(
                         bands=params.bands.double(), fields=params.fields.double(),
                         scalars=params.scalars.double()))
                     torch.cuda.synchronize()
-                    nd = 2 * case["n"]
+                    tile = cv.tiling(case["n"], case["bandwidth"], case["chains"])
                     row[str(dtype)[6:]] = dict(
                         ms=graph_ms(lambda: cv.launch(lib, dpsi, params), COUNT),
-                        x_bits_pr11=bool(torch.equal(got[1][:, :nd], base[1][:, :nd])),
                         rel_g=_rel(got[1].double(), plain[1]),
-                        tiling=tuple(cv.tiling(case["n"], case["bandwidth"], case["chains"])[:6]))
+                        tiling=[tile.cluster, tile.slab, tile.chains, tile.clusters, tile.threads,
+                                cv.ring_slots(tile.slab, case["bandwidth"], tile.chains)],
+                        tile_bytes=tile_bytes(case["n"], case["bandwidth"], case["chains"],
+                                              dtype.itemsize))
             out[f"{name}:{case['name']}"] = row
             print(f"[variant] {name} {case['name']}: {json.dumps(row)}", flush=True)
     return out
@@ -628,10 +775,12 @@ def main(argv=None) -> int:
     ap.add_argument("--repeat", action="store_true",
                     help="digests of both routes in two worlds of 4 ranks and two lone processes")
     ap.add_argument("--probe", action="store_true",
-                    help="time the kernel without its band loads at [slice]'s case")
+                    help="time the kernel without its tile copies at [slice]'s case")
     ap.add_argument("--variants", default="",
-                    help="source variants (SOURCE_VARIANTS' keys joined by '+', "
-                         "g<chains> caps G) to time at --variant-cases")
+                    help="tilings to time at --variant-cases: 's<k>' S's limit (k up to "
+                         "WAVE_CLUSTER), 'n<k>' the N tiles a cluster, 't<k>' the blocks, 'k<k>' "
+                         "the chain groups' unit, 'r<k>' a block's rings in KiB, joined by '+'; "
+                         "'base' as it is")
     ap.add_argument("--variant-cases", default="slice,c1")
     ap.add_argument("--phases", default="",
                     help="cases whose per-phase device times to take (phase_source)")
@@ -649,7 +798,7 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     with ThreadPoolExecutor() as pool:  # one nvcc each, at once
-        so, _ = pool.map(cuda_band.build, (cv.SOURCE, BASELINE))
+        so, _, _ = pool.map(cuda_band.build, (cv.SOURCE, BASELINE, BASELINE_PR12))
     print(f"[ptxas] {ptxas_summary(so.with_suffix('.log').read_text())}; local memory "
           f"{local_memory(so)}", flush=True)
     result = dict(device=smi, cases={})

@@ -8,9 +8,10 @@ fixed, theta bounded and not, two prior temperatures, a mask with
 unobserved points and C = 1 and 4; the clamp's gradient beyond
 |log sigma| = 15; non-finite values where f overflows; the dispatch rule;
 solve_magi on the route; and the kernel's launch arithmetic in Python:
-its tiling (slabs, halos, chain groups, threads, shared memory) and its
-row-indexed band copy. On a card (tests marked ``cuda``) the kernel
-equals its plain version."""
+its tiling (slabs of whole row tiles, halos, chain groups of whole N
+tiles, threads, shared memory) and its prepared band tiles, whose tile
+products, slab by slab, are the banded products. On a card (tests marked
+``cuda``) the kernel equals its plain version."""
 import dataclasses
 
 import jax
@@ -180,9 +181,9 @@ def test_dispatch_rule(change, want):
     elif change == "hes1":
         target = dataclasses.replace(target, system=HES1_SYSTEM)
     elif change == "oversize":
-        n = target.n_times
+        slab = cv.tiling(target.n_times, 0, 1).slab  # the slabs depend on n alone
         b_max = max(b for b in range(0, 5000)
-                    if cv.chain_bytes(-(-n // cv.cluster_size(n, b)), b) <= cv.MAX_SHARED_BYTES)
+                    if cv.chain_bytes(slab, b) <= cv.MAX_SHARED_BYTES - cv.warps(slab) * cv.MIN_SLOTS * (cv.SLOT_BYTES + 8))
         assert cv.takes(dataclasses.replace(target, bandwidth=b_max))
         target = dataclasses.replace(target, bandwidth=b_max + 1)
     elif change == "long-grid":
@@ -198,16 +199,24 @@ def test_dispatch_rule(change, want):
 
 
 def test_kernel_source_agrees_with_the_wrapper():
-    """The kernel's constants (rows a unit, threads, cluster, sums,
-    parameters, partial lanes, staged vectors, tail offset, argument
-    counts) and its shared-memory formula are the wrapper's."""
+    """The kernel's constants (tile rows, k step, N tile, N tiles, warps,
+    cluster, ring, sums, parameters, partial lanes, staged vectors, tail
+    offset, argument counts) and its shared-memory formula are the
+    wrapper's."""
     import re
 
     src = cv.SOURCE.read_text()
     const = lambda name: int(re.search(rf"{name} = (\d+)", src).group(1))  # noqa: E731
-    assert const("kRows") == cv.ROWS
-    assert const("kMaxThreads") == cv.MAX_THREADS
-    assert const("kMaxCluster") == cv.MAX_CLUSTER
+    assert const("kTileRows") == cv.TILE_ROWS
+    assert const("kStep") == cv.STEP
+    assert const("kChainTile") == cv.CHAIN_TILE
+    assert const("kMaxNTiles") == cv.MAX_NTILES
+    assert const("kMaxWarps") == cv.MAX_WARPS
+    assert const("kMaxCluster") == cv.WAVE_CLUSTER
+    assert const("kSlots") == cv.RING_SLOTS
+    assert const("kRingBytes") == cv.RING_BYTES
+    assert const("kSlotBytes") == cv.SLOT_BYTES
+    assert const("kFragElems") == cv.FRAG_ELEMS
     assert const("kSums") == cv.N_SUMS
     assert const("kParams") == cv.N_PARAMS
     assert const("kLanes") == cv.PART_LANES
@@ -215,25 +224,56 @@ def test_kernel_source_agrees_with_the_wrapper():
     assert const("kTail") == cv.TAIL
     assert const("kNPointers") == len(cv.POINTERS)
     assert const("kNInts") == len(cv.INTS)
-    assert "return kParams + kSums + static_cast<size_t>(kLanes) * groups_of(slab) +" in src
-    # the diagonal copy's padding (diag_shape)
-    assert "int terms_of(int b) { return (2 * b + 1 + 7) / 8 * 8; }" in src
-    assert "int cols_of(int n) { return (n + kRows + 1) / 2 * 2; }" in src
-    assert cv.diag_shape(397, 40) == (88, 400) and cv.diag_shape(41, 20) == (48, 44)
-    assert "static_cast<size_t>(kVectors) * 2 * width_of(slab, b);" in src
-    assert "return groups_of(slab) * kRows + 2 * b;" in src
-    # [slice]'s tiling at 128 chains: slabs of 50 rows, 25 units a state
-    assert cv.chain_bytes(50, 40) == 8 * (8 + 8 + 4 * 25 + 3 * 2 * (25 * 2 + 80))
-    assert cv.tiling(397, 40, 128).shared_bytes == 8 * cv.chain_bytes(50, 40)
+    assert ("return kParams + kSums + kMaxCluster * (kSums - 1) + "
+            "static_cast<size_t>(kLanes) * groups_of(slab) +") in src
+    assert "static_cast<size_t>(kVectors) * 2 * stride_of(slab, b);" in src
+    assert "int groups_of(int slab) { return slab / 2; }" in src
+    assert "return (kTileRows + 2 * b + kStep - 1) / kStep;" in src
+    assert "return slab - kTileRows + kStep * ksteps_of(b);" in src
+    assert "return w + ((4 - w) % 16 + 16) % 16;" in src
+    assert ("return static_cast<size_t>(warps_of(slab)) * ring_slots_of(slab, b, chains) * "
+            "(kSlotBytes + 8);") in src
+    assert ("const long long most = kRingBytes / (warps * kSlotBytes), "
+            "room = left / (warps * (kSlotBytes + 8));") in src
+    assert const("kMaxShared") == cv.MAX_SHARED_BYTES
+    assert "return items < kMaxWarps ? items : kMaxWarps;" in src
+    assert cv.ksteps(40) == 12 and cv.ksteps(20) == 7 and cv.ksteps(80) == 22
+    # [slice]'s tiling at 128 chains: 5 slabs of five tiles, 8 chains, the
+    # windows 160 positions at a stride of 164, 10 warps' rings of 4 slots
+    assert cv.chain_bytes(80, 40) == 8 * (12 + 8 + 5 * 7 + 4 * 40 + 3 * 2 * 164)
+    assert cv.ring_slots(80, 40, 8) == 4 and cv.ring_bytes(80, 40, 8) == 10 * 4 * (2048 + 8)
+    assert cv.ring_slots(64, 40, 8) == 6
+    t = cv.tiling(397, 40, 128)
+    assert (t.cluster, t.slab, t.chains, t.clusters, t.threads) == (5, 80, 8, 16, 320)
+    assert t.shared_bytes == cv.ring_bytes(80, 40, 8) + 8 * cv.chain_bytes(80, 40)
+
+
+def _operator(bands, b, n):
+    """The dense (..., n, n) operators of band storages (..., 2b+1, n):
+    A[i, j] = bands[b + j - i, j] for |i - j| <= b."""
+    i = torch.arange(n)[:, None]
+    j = torch.arange(n)[None, :]
+    inside = (j - i).abs() <= b
+    k = (b + j - i).clamp(0, 2 * b)
+    dense = bands[..., k, j.expand(n, n)]
+    return torch.where(inside, dense, 0.0)
+
+
+def _tile_matrices(tiles):
+    """The prepared copy (..., k steps, 128) as 16 x 8 matrices: entry
+    [4 lane + 2 h + e] is row lane // 4 + 8 e, column lane % 4 + 4 h."""
+    f = tiles.reshape(*tiles.shape[:-1], 8, 4, 2, 2)  # [g][t][h][e]
+    return f.permute(*range(f.dim() - 4), -1, -4, -2, -3).reshape(*tiles.shape[:-1], 16, 8)
 
 
 @pytest.mark.parametrize("n,b", [(41, 20), (21, 20), (30, 3), (9, 0)])
 def test_kernel_band_copy_holds_the_operator(n, b):
-    """The kernel's diagonal copy (``band_diags``) of band storages: term k
-    of row i at [b + k, i] is A[i, i + k], the product summed from it over
-    k = -b..b equals ``ops/band.band_storage_matvec_torch`` (float64, 1e-13
-    of the largest term), and every padded entry (terms past b, rows past
-    n, i + k outside the grid) is zero."""
+    """The kernel's prepared copy (``prepare_tiles_torch``) of band
+    storages: row tile rt's k step ks holds the operator's rows 16 rt..
+    and columns 16 rt - b + 8 ks.. in the A fragments' order, the tiles'
+    products over each window equal ``ops/band.band_storage_matvec_torch``
+    (float64, 1e-13 of the largest term), and every entry outside the
+    band, the grid and the last tile's rows is zero."""
     from manifold_constrained_gaussian_process_inference_tpu_torch.ops.band import (
         band_storage_matvec_torch,
     )
@@ -241,18 +281,112 @@ def test_kernel_band_copy_holds_the_operator(n, b):
     rng = np.random.default_rng(n + b)
     bands = torch.as_tensor(rng.normal(size=(2, 3, 2 * b + 1, n)))
     x = torch.as_tensor(rng.normal(size=(2, 3, n)))
-    diags = cv.band_diags(bands, b)
-    assert tuple(diags.shape) == (2, 3, *cv.diag_shape(n, b))
-    k = torch.arange(-b, b + 1)[:, None]
-    i = torch.arange(n)[None, :]
-    inside = (i + k >= 0) & (i + k < n)
-    x_at = torch.where(inside, x[..., (i + k).clamp(0, n - 1)], 0.0)  # x[i + k]
-    got = torch.sum(diags[..., : 2 * b + 1, :n] * x_at, dim=-2)
+    tiles = cv.prepare_tiles_torch(bands, b)
+    n_tiles, k = -(-n // 16), cv.ksteps(b)
+    assert tuple(tiles.shape) == (2, 3, n_tiles, k, 128) and tiles.dtype == bands.dtype
+    mats = _tile_matrices(tiles)  # (2, 3, tiles, k, 16, 8)
+    xp = torch.nn.functional.pad(x, (b, 16 * n_tiles + 8 * k - n - b))  # x[j] at j + b
+    got = torch.zeros(2, 3, 16 * n_tiles, dtype=torch.float64)
+    for rt in range(n_tiles):
+        for ks in range(k):
+            window = xp[..., 16 * rt + 8 * ks: 16 * rt + 8 * ks + 8]  # columns 16 rt - b + 8 ks..
+            got[..., 16 * rt: 16 * rt + 16] += torch.einsum("abij,abj->abi", mats[:, :, rt, ks],
+                                                            window)
     want = band_storage_matvec_torch(bands.reshape(6, 2 * b + 1, n), x.reshape(6, n), b)
-    torch.testing.assert_close(got.reshape(6, n), want, rtol=0, atol=1e-13 * float(
+    torch.testing.assert_close(got[..., :n].reshape(6, n), want, rtol=0, atol=1e-13 * float(
         (bands.abs().max() * x.abs().max())))
-    assert not diags[..., 2 * b + 1:, :].any() and not diags[..., n:].any()
-    assert not torch.where(inside, 0.0, diags[..., : 2 * b + 1, :n]).any()
+    assert not got[..., n:].any()
+
+
+# the paths' shapes (chains, n, b): [slice], [chees], a [mesh] rank,
+# [envelope], [resume], config 4, one chain
+SHAPES = {"slice": (128, 397, 40), "chees": (64, 397, 40), "mesh": (32, 397, 40),
+          "envelope": (128, 397, 40), "resume": (8, 41, 20), "n793": (128, 793, 80),
+          "c1": (1, 397, 40)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_prepared_tiles_hold_the_dense_operators(name, dtype):
+    """At each path's grid and in both storage types, every entry of the
+    prepared copy is the dense operator's at its (row, column), converted
+    in the storages' type, or zero where that lies outside the band,
+    outside the grid or in the last tile's rows past n."""
+    _, n, b = SHAPES[name]
+    rng = np.random.default_rng(n)
+    bands = torch.as_tensor(rng.normal(size=(6, 2, 2 * b + 1, n)), dtype=dtype)
+    tiles = cv.prepare_tiles_torch(bands, b)
+    n_tiles, k = -(-n // 16), cv.ksteps(b)
+    assert tuple(tiles.shape) == cv.tiles_shape(n, b) == (6, 2, n_tiles, k, 128)
+    assert tiles.dtype == dtype
+    dense = _operator(bands.double(), b, n)  # (6, 2, n, n)
+    # the dense operator padded so that every tile's window is in range
+    pad = torch.nn.functional.pad(dense, (b, 16 * n_tiles + 8 * k - n - b, 0, 16 * n_tiles - n))
+    mats = _tile_matrices(tiles)
+    for rt in range(n_tiles):
+        rows = pad[:, :, 16 * rt: 16 * rt + 16]
+        for ks in range(k):
+            want = rows[..., 16 * rt + 8 * ks: 16 * rt + 8 * ks + 8]  # columns 16 rt - b + 8 ks..
+            assert torch.equal(mats[:, :, rt, ks].double(), want), (rt, ks)
+    assert torch.count_nonzero(tiles) == torch.count_nonzero(dense)
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_tiling_at_the_paths_shapes(name):
+    """At each path's shape: slabs of whole row tiles covering the grid
+    (the last may be shorter), S at most WAVE_CLUSTER and the same at any C,
+    the halo's reach enough for b rows each side, one chain a cluster
+    where a block a chain fits TARGET_BLOCKS (one padded N tile), else Cg
+    a multiple of 8 at most MAX_NTILES N tiles, the clusters covering C,
+    and the block's shared memory within the card's."""
+    c, n, b = SHAPES[name]
+    t = cv.tiling(n, b, c)
+    assert t.slab % cv.TILE_ROWS == 0 and 1 <= t.cluster <= cv.WAVE_CLUSTER
+    assert t.slab * t.cluster >= n > t.slab * (t.cluster - 1)
+    assert t.slabs[0][0] == 0 and t.slabs[-1][1] == n
+    assert all(hi - lo == t.slab for lo, hi in t.slabs[:-1])
+    assert (t.cluster, t.slab) == cv.tiling(n, b, 1)[:2]
+    assert t.cluster == 1 or t.reach * t.slab >= b > (t.reach - 1) * t.slab
+    if c * t.cluster <= cv.TARGET_BLOCKS:
+        assert t.chains == 1 and t.ntiles == 1
+    else:
+        assert t.chains % cv.CHAIN_TILE == 0 and t.ntiles == t.chains // cv.CHAIN_TILE
+        assert 1 <= t.ntiles <= cv.MAX_NTILES
+    assert t.clusters == -(-c // t.chains)
+    assert t.shared_bytes == cv.ring_bytes(t.slab, b, t.chains) + t.chains * cv.chain_bytes(t.slab, b)
+    assert cv.MIN_SLOTS <= cv.ring_slots(t.slab, b, t.chains) <= cv.RING_SLOTS
+    assert t.shared_bytes <= cv.MAX_SHARED_BYTES
+    assert t.threads == 32 * min(2 * t.slab // cv.TILE_ROWS, cv.MAX_WARPS)
+    assert cv.ring_bytes(t.slab, b, t.chains) <= cv.RING_BYTES + 8 * cv.RING_SLOTS * cv.MAX_WARPS
+
+
+@pytest.mark.parametrize("n,s", [(9, 1), (41, 1), (96, 1), (97, 4), (160, 5), (397, 5),
+                                 (793, 5), (3169, 5)])
+def test_cluster_size_by_grid(n, s):
+    """S is 1 where one block has a warp for every (tile, state) item
+    (n <= 96 at 12 warps: [resume]'s n = 41 runs one block a cluster, with
+    no cluster barrier or halo exchange), else the least number of slabs
+    of whole tiles up to WAVE_CLUSTER; the slabs then hold at most
+    MAX_WARPS / 2 tiles only where S is 1."""
+    t = cv.tiling(n, 20, 8)
+    assert t.cluster == s
+    tiles = -(-n // cv.TILE_ROWS)
+    assert (t.cluster == 1) == (2 * tiles <= cv.MAX_WARPS)
+    if t.cluster == 1:
+        assert t.slab == cv.TILE_ROWS * tiles and t.reach == 0
+        assert t.threads == 32 * 2 * tiles
+
+
+def test_tiling_raises_where_a_chain_cannot_fit():
+    """A band whose chain state exceeds a block's shared memory beside the
+    ring is refused with a ValueError, and so the route is not taken."""
+    n = 397
+    slab = cv.tiling(n, 0, 1).slab
+    b_max = max(b for b in range(0, 3000)
+                if cv.chain_bytes(slab, b) <= cv.MAX_SHARED_BYTES - cv.warps(slab) * cv.MIN_SLOTS * (cv.SLOT_BYTES + 8))
+    assert cv.tiling(n, b_max, 1).chains == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        cv.tiling(n, b_max + 1, 1)
 
 
 # the grids of the kernel's paths: [resume]'s, [slice]'s, config 4's, the
@@ -263,88 +397,78 @@ GRIDS = [(41, 20), (397, 40), (793, 80), (3169, 160)]
 @pytest.mark.parametrize("n,b", GRIDS)
 def test_tiling_covers_every_output_once_and_its_halos(n, b):
     """The slabs of a cluster's blocks cover the grid's rows once, none
-    empty; a block's staged vectors hold its slab and b rows each side,
-    each halo row read from the block that owns it (an adjacent one,
-    since a slab keeps at least b rows), at a position inside the owner's
-    slab; and a unit's windows stay inside the staged vector. A banded
-    product computed slab by slab from those staged vectors (positions
-    outside the grid zero) is the whole product's, bit for bit."""
+    empty, in whole row tiles; a block's staged vectors hold its tiles'
+    windows, each halo row within b of its slab read from the block that
+    owns it (within the tiling's reach), at a position inside the owner's
+    slab; and a banded product computed slab by slab as the kernel does,
+    from the prepared tiles and those staged vectors (positions outside
+    the grid zero, the rest never put left at zero), is the whole
+    product's, bit for bit (integer data, so every order of summation is
+    exact)."""
     tile = cv.tiling(n, b, 128)
-    slab, s = tile.slab, tile.cluster
+    slab, s, k = tile.slab, tile.cluster, cv.ksteps(b)
     rows = np.concatenate([np.arange(lo, hi) for lo, hi in tile.slabs])
     assert np.array_equal(rows, np.arange(n)) and all(hi > lo for lo, hi in tile.slabs)
-    assert 1 <= s <= cv.MAX_CLUSTER and (s == 1 or (slab >= b and slab % 2 == 0))
-    groups = -(-slab // cv.ROWS)
-    width = groups * cv.ROWS + 2 * b
+    width = slab - cv.TILE_ROWS + cv.STEP * k
+    assert width >= slab + 2 * b
     rng = np.random.default_rng(n)
-    band = rng.normal(size=(2 * b + 1, n))
-    x = rng.normal(size=n)
-    whole = np.zeros(n)
-    for i in range(n):
-        for k in range(max(-b, -i), min(b, n - 1 - i) + 1):
-            whole[i] += band[b + k, i + k] * x[i + k]
-    by_slab = np.zeros(n)
+    band = torch.as_tensor(rng.integers(-4, 5, size=(1, 2 * b + 1, n)).astype(np.float64))
+    x = rng.integers(-4, 5, size=(3, n)).astype(np.float64)
+    mats = _tile_matrices(cv.prepare_tiles_torch(band, b))[0].numpy()  # (tiles, k, 16, 8)
+    whole = x @ _operator(band[0], b, n).numpy().T
+    by_slab = np.zeros((3, n))
     for rank, (lo, hi) in enumerate(tile.slabs):
         base = lo - b
-        staged = np.zeros(width)
+        staged = np.zeros((3, width))
         for j in range(max(0, base), min(n, base + width)):
+            if j < lo - b or j >= hi + b:
+                continue  # never put: multiplied by zero coefficients only
             owner = j // slab
-            if lo <= j < hi:
-                assert owner == rank
-            elif j < lo - b or j >= hi + b:
-                continue  # never read by a row of the slab
-            else:
-                assert abs(owner - rank) == 1
-                lo_q, hi_q = tile.slabs[owner]
-                assert lo_q <= j < hi_q and b <= j - (owner * slab - b) < b + slab
-            staged[j - base] = x[j]
-        for g in range(groups):
-            i0 = lo + g * cv.ROWS
-            kmin, kmax = max(-b, -(i0 + cv.ROWS - 1)), min(b, n - 1 - i0)
-            for r in range(cv.ROWS):
-                i = i0 + r
-                assert 0 <= i0 - base + kmin + r and i0 - base + kmax + r < width
-                if i >= hi:
-                    continue
-                acc = 0.0
-                for k in range(kmin, kmax + 1):
-                    inside = 0 <= i + k < n
-                    coef = band[b + k, i + k] if inside else 0.0
-                    acc += coef * staged[i0 - base + k + r]
-                by_slab[i] = acc
+            assert abs(owner - rank) <= tile.reach
+            lo_q, hi_q = tile.slabs[owner]
+            assert lo_q <= j < hi_q and lo_q - b <= j < hi_q + b
+            staged[:, j - base] = x[:, j]
+        for q in range(-(-(hi - lo) // cv.TILE_ROWS)):
+            acc = np.zeros((16, 3))
+            for ks in range(k):
+                p0 = cv.TILE_ROWS * q + cv.STEP * ks
+                assert p0 + cv.STEP <= width
+                acc += mats[lo // cv.TILE_ROWS + q, ks] @ staged[:, p0:p0 + cv.STEP].T
+            for r in range(16):
+                if lo + 16 * q + r < hi:
+                    by_slab[:, lo + 16 * q + r] = acc[r]
     assert np.array_equal(by_slab, whole)
 
 
 @pytest.mark.parametrize("n,b", GRIDS)
 def test_tiling_depends_on_the_chains_only_through_the_groups(n, b):
     """S and the slabs are the same at C = 1, 3, 32 and 128 (a chain's
-    bits depend on them alone); the chain groups fill the card's blocks as
-    shared memory allows, each a whole number of thread units, and G
-    leaves a block MIN_UNITS units unless it is 1; a block's threads cover
-    its units in passes of at most MAX_THREADS; its
-    shared memory is within the H100's 232,448 bytes."""
+    bits depend on them alone); one chain a cluster where a block a chain
+    fits TARGET_BLOCKS blocks, else whole N tiles of 8 as shared memory
+    allows, or one N tile of as many as fit; a warp per
+    stage item up to MAX_WARPS; a block's shared memory is within the
+    H100's 232,448 bytes."""
     tiles = {c: cv.tiling(n, b, c) for c in (1, 3, 32, 128)}
-    assert len({(t.cluster, t.slab, t.slabs) for t in tiles.values()}) == 1
-    assert tiles[1].chains == 1
+    assert len({(t.cluster, t.slab, t.slabs, t.reach) for t in tiles.values()}) == 1
+    assert tiles[1].chains == 1 and tiles[3].chains == 1
+    fits = (cv.MAX_SHARED_BYTES - cv.warps(tiles[1].slab) * cv.MIN_SLOTS * (cv.SLOT_BYTES + 8)) // cv.chain_bytes(tiles[1].slab, b)
     for c, t in tiles.items():
         assert t.shared_bytes <= 232448 == cv.MAX_SHARED_BYTES
-        assert 1 <= t.chains <= c and t.chains % t.per_thread == 0 and t.per_thread in (1, 2, 4, 8)
+        assert 1 <= t.chains <= max(c, cv.CHAIN_TILE)
+        if c * t.cluster <= cv.TARGET_BLOCKS:
+            assert t.chains == 1
+        elif fits >= cv.CHAIN_TILE:
+            assert t.chains % cv.CHAIN_TILE == 0
+        else:
+            assert t.chains == fits
         assert t.clusters == -(-c // t.chains)
-        groups = -(-t.slab // cv.ROWS)
-        units = 2 * groups * (t.chains // t.per_thread)
-        padded = 2 * 32 * (-(-groups // 32)) * (t.chains // t.per_thread)  # whole warps a state
-        assert t.split == (t.chains == 1 and 2 * padded <= cv.MAX_THREADS)
-        padded *= 2 if t.split else 1  # a unit's operators on two threads
-        passes = -(-padded // t.threads)
-        assert t.threads % 32 == 0 and t.threads <= cv.MAX_THREADS
-        assert passes == -(-padded // cv.MAX_THREADS)
-        assert t.per_thread == 1 or units >= cv.MIN_UNITS
+        assert t.threads == 32 * min(2 * t.slab // cv.TILE_ROWS, cv.MAX_WARPS)
     # at 128 chains one wave of at most TARGET_BLOCKS blocks, unless a
-    # cluster's shared memory holds no more chains
+    # cluster's shared memory holds no more chains or MAX_NTILES caps them
     t = tiles[128]
-    assert (t.cluster * t.clusters <= cv.TARGET_BLOCKS
-            or (t.chains + cv.MAX_PER_THREAD) * cv.chain_bytes(t.slab, b)
-            > cv.MAX_SHARED_BYTES)
+    assert (t.cluster * t.clusters <= cv.TARGET_BLOCKS or t.ntiles == cv.MAX_NTILES
+            or (t.chains + cv.CHAIN_TILE) * cv.chain_bytes(t.slab, b)
+            > cv.MAX_SHARED_BYTES - cv.warps(t.slab) * cv.MIN_SLOTS * (cv.SLOT_BYTES + 8))
 
 
 def test_card_entry_refuses_a_cpu_tensor():
